@@ -9,28 +9,45 @@ and no result line):
   1. device  — card name and count, `nvidia-smi` name and power limit; TF32
                off for cuDNN convolutions and matmuls (the f32 path is full f32);
   2. build   — every kernel under `medical_image_editing_tpu_torch/csrc` built
-               with nvcc for sm_90a; the `-Xptxas -v` report;
-  3. kernel  — each kernel against its plain PyTorch version at the shapes of
-               the JAX package's operating points and a ragged N, then timed
-               with CUDA events beside the plain version and its bound;
-  4. serve   — the editing service at the lung model's full widths (from
+               with nvcc for sm_90a (one nvcc per source, all at once); the
+               `-Xptxas -v` report;
+  3. kernel  — the fused VQ kernel against its plain PyTorch version at the
+               JAX package's operating points and a ragged N, then timed with
+               CUDA events beside the plain version and its bound;
+  4. conv    — the 3×3 conv kernel, forward and input gradient, against its
+               plain version (and dx against autograd through `F.conv2d`) at
+               every (Cin, Cout, H) the training step gives it, batch 8, f32
+               and bf16, plus a ragged shape; timed beside the plain version,
+               cuDNN's `F.conv2d` and its bound;
+  5. serve   — the editing service at the lung model's full widths (from
                `configs/lung_first_stage.json`), seeded weights, f32, 512²:
                encode synthetic slices through `make_eval_forward` (the fused
                VQ kernel), write and paint the label maps, decode them through
                `edit_study`, single-slice `make_edit_fn` requests and a uint8
                batch, and hold the card's encode+decode to the port's CPU path
-               on a small input.
-               Launch counts are zeroed just before and read just after;
-  5. profile — device time by kernel of a warm eval forward and a warm
+               on a small input;
+  6. profile — device time by kernel of a warm eval forward and a warm
                painted-map decode;
-  6. kernels — one line listing every hand-written kernel of the path.
+  7. train   — the first-stage training step at the same widths, with the
+               config's augmentation, losses, optimizers and bf16 compute
+               dtype, `MEDIMG_CONV_IMPL=packed`, 256², batch 8: codebook
+               k-means on the first batch (`init_codebook_step`), then 5 steps
+               (`make_first_stage_step`); the launch counts of both kernels
+               held to the counts derived from the model; one warm step under
+               the profiler; one step on the card held to the port's CPU path
+               on a small input;
+  8. kernels — one line listing every hand-written kernel of the paths.
+The serve and train phases are the main paths: each zeroes the launch
+counts just before it and reads them just after.
 The last line is `{"ok": true, "device": {...}}`. There is no CPU fallback:
 without a CUDA device the script fails at once.
 """
 
 import argparse
+import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -44,9 +61,10 @@ ROOT = Path(__file__).resolve().parent
 MODEL_CONFIG = ROOT / "configs" / "lung_first_stage.json"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
-# tensor cores
+# tensor cores, bf16 on the dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 # (N, C, K): the serve encode (8 slices at 512², C=16, K=10) first, then the
 # JAX package's VQ operating points and a ragged N
@@ -59,6 +77,14 @@ VQ_POINTS = [
 ]
 VQ_SOURCE = "medical_image_editing_tpu_torch/csrc/vq_fused.cu"
 VQ_REPLACES = "medical_image_editing_tpu/ops/vq_pallas.py:29"
+
+# (Cin, Cout, H = W) of the packed conv's forward launches in the lung
+# model's training step at 256² (the dx launch of each is Cout → Cin);
+# the first is the decoder's 256² level, the most frequent
+CONV_POINTS = [(32, 32, 256), (32, 32, 128), (32, 64, 128), (32, 64, 64)]
+CONV_RAGGED = (3, 20, 40, 37, 45)  # B, Cin, Cout, H, W
+CONV_SOURCE = "medical_image_editing_tpu_torch/csrc/conv3x3_packed.cu"
+CONV_REPLACES = "medical_image_editing_tpu/ops/conv_pack.py:66"
 
 
 def emit(obj):
@@ -101,9 +127,64 @@ def vq_bound(n, c, k):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def conv_bound(b, h, w, cin, cout, dtype):
+    """Least time (ms) for a 3×3 SAME conv on the card, and what bounds it:
+    x, the weights and y each moved once; 2·B·H·W·9·Cin·Cout operations at
+    the f32 CUDA-core rate, or the dense bf16 tensor-core rate."""
+    import torch
+
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (b * h * w * cin + 9 * cin * cout + b * h * w * cout)
+    ops = 2 * b * h * w * 9 * cin * cout
+    rate = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def device_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+
+
+def profile_window(fn):
+    """One call of fn() under torch.profiler, synchronised: (wall s, CUDA
+    kernel events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
+
+
+def load_config(path=MODEL_CONFIG):
+    from medical_image_editing_tpu_torch.utils.config import load_json
+
+    return load_json(str(path))
+
+
+@contextlib.contextmanager
+def conv_route(impl):
+    """MEDIMG_CONV_IMPL=impl inside the block, restored after."""
+    prev = os.environ.get("MEDIMG_CONV_IMPL")
+    os.environ["MEDIMG_CONV_IMPL"] = impl
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("MEDIMG_CONV_IMPL")
+        else:
+            os.environ["MEDIMG_CONV_IMPL"] = prev
 
 
 def device_phase():
@@ -197,6 +278,77 @@ def kernel_phase(device, points=VQ_POINTS, seed=0, iters=50):
                                f"N={n}, C={c}, K={k}: {checks}")
         records.append(rec)
     return records[0]
+
+
+def conv_kernel_phase(device, points=CONV_POINTS, batch=8, seed=0, iters=50):
+    """The 3×3 conv kernel vs its plain version, forward and dx, at each
+    point in f32 and bf16 and at a ragged shape; returns the records."""
+    import torch
+    import torch.nn.functional as F
+
+    from medical_image_editing_tpu_torch.ops.conv_pack import (
+        conv3x3_packed,
+        conv3x3_packed_nchw,
+        conv3x3_packed_reference_nchw,
+        flip_transpose,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b0, cin0, cout0, h0, w0 = CONV_RAGGED
+    cases = [(batch, cin, cout, h, h, dt) for cin, cout, h in points
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(b0, cin0, cout0, h0, w0, dt) for dt in (torch.bfloat16, torch.float32)]
+    records = []
+    for b, cin, cout, h, w, dt in cases:
+        x = torch.randn(b, cin, h, w, generator=gen, device=device).to(dt)
+        wt = ((torch.rand(cout, cin, 3, 3, generator=gen, device=device) * 2 - 1)
+              / (9 * cin) ** 0.5).to(dt)
+        dy = torch.randn(b, cout, h, w, generator=gen, device=device).to(dt)
+        wdx = flip_transpose(wt).contiguous()
+        got = conv3x3_packed_nchw(x, wt)
+        again = conv3x3_packed_nchw(x, wt)
+        dx = conv3x3_packed_nchw(dy, wdx)
+        nhwc = conv3x3_packed(x.permute(0, 2, 3, 1).contiguous(),
+                              wt.permute(2, 3, 1, 0).contiguous())
+        # f32 references on the same (rounded) values; dx through autograd
+        xr = x.float().requires_grad_()
+        ref = F.conv2d(xr, wt.float(), padding=1)
+        ref.backward(dy.float())
+        torch.cuda.synchronize()
+        # f32: sums in another order; bf16: one rounding of the f32 sum
+        rel = 2.0**-8 if dt == torch.bfloat16 else 0.0
+        fwd_err = float((got.float() - ref.detach()).abs().max())
+        dx_err = float((dx.float() - xr.grad).abs().max())
+        checks = {
+            "forward": bool(((got.float() - ref.detach()).abs()
+                             <= rel * ref.detach().abs() + 1e-4).all()),
+            "dx": bool(((dx.float() - xr.grad).abs() <= rel * xr.grad.abs() + 1e-4).all()),
+            "deterministic": bool(torch.equal(got, again)),
+            "nhwc_entry": bool(torch.equal(nhwc.permute(0, 3, 1, 2), got)),
+        }
+        rec = {"phase": "conv", "name": "conv3x3_packed", "dtype": str(dt).split(".")[-1],
+               "b": b, "cin": cin, "cout": cout, "h": h, "w": w, "checks": checks,
+               "forward_max_abs_err": fwd_err, "dx_max_abs_err": dx_err,
+               "tolerance": f"|err| <= {rel}*|ref| + 1e-4"}
+        if (b, h, w) != (b0, h0, w0):
+            for name, (xx, ww) in (("forward", (x, wt)), ("dx", (dy, wdx))):
+                ci, co = ww.shape[1], ww.shape[0]
+                bound_ms, bound_by = conv_bound(b, h, w, ci, co, dt)
+                ms = cuda_ms(lambda: conv3x3_packed_nchw(xx, ww), iters=iters)
+                rec[name] = {
+                    "cin": ci, "cout": co, "ms": ms,
+                    "plain_ms": cuda_ms(lambda: conv3x3_packed_reference_nchw(xx, ww),
+                                        iters=iters),
+                    "library_ms": cuda_ms(lambda: F.conv2d(xx, ww, padding=1), iters=iters),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "roofline_share": bound_ms / ms,
+                }
+        emit(rec)
+        if not all(checks.values()):
+            raise RuntimeError(f"conv3x3_packed disagrees with its plain version at "
+                               f"{(b, cin, cout, h, w, dt)}: {checks}")
+        records.append(rec)
+    return records
 
 
 def make_slices(rng, n, size):
@@ -378,12 +530,7 @@ def profile_phase(served):
     of the image) and one warm batched painted-map decode (torch.profiler),
     the device's busy share of each window, and the fused VQ kernel's part."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
 
     steps = (("eval_forward", lambda: served.forward(served.images)),
              ("edit_decode", lambda: served.edit(served.vq_state, served.painted)))
@@ -392,22 +539,230 @@ def profile_phase(served):
         torch.cuda.synchronize()
     for name, fn in steps:
         fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+        wall, kernels = profile_window(fn)
+        emit({"phase": "profile", "step": name, **kernel_breakdown(wall, kernels)})
+
+
+def kernel_breakdown(wall, kernels, top=8):
+    """Busy and idle share of a profiled window, the hand-written kernels'
+    device time, and the top kernels by device time."""
+    busy = sum(device_us(e) for e in kernels) / 1e6
+    ordered = sorted(kernels, key=device_us, reverse=True)
+    return {
+        "wall_s": wall, "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+        "vq_fused_device_s": sum(device_us(e) for e in kernels if "vq_" in e.key) / 1e6,
+        "conv3x3_packed_device_s": sum(device_us(e) for e in kernels
+                                       if "conv3x3_kernel" in e.key) / 1e6,
+        "top": [{"kernel": e.key[:90], "count": e.count, "device_s": device_us(e) / 1e6}
+                for e in ordered[:top]],
+    }
+
+
+def routed_convs(module, x):
+    """How many convolutions a forward of `module` on x sends to the packed
+    kernel (`Conv.routes_to_kernel`), counted on the meta device."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models.blocks import Conv
+
+    count = [0]
+
+    def hook(m, args):
+        count[0] += int(m.routes_to_kernel(args[0]))
+
+    meta = copy.deepcopy(module).to("meta")
+    handles = [m.register_forward_pre_hook(hook) for m in meta.modules()
+               if isinstance(m, Conv)]
+    with torch.no_grad():
+        meta(x.to("meta"))
+    for h in handles:
+        h.remove()
+    return count[0]
+
+
+def train_models(model, dtype, device, seed):
+    """Encoder and decoder at `model` widths with compute dtype `dtype`,
+    seeded weights, on `device`."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models import UNetDecoder
+    from medical_image_editing_tpu_torch.models.blocks import seeded_init
+    from medical_image_editing_tpu_torch.models.unet_encoder import EncoderWithVQ
+
+    enc = EncoderWithVQ(int(model.in_channels), tuple(model.enc_filters),
+                        int(model.dict_size), momentum=float(model.momentum),
+                        knn_backend=str(model.knn_backend), dtype=dtype)
+    dec = UNetDecoder(enc.emb_dim, int(model.in_channels), tuple(model.dec_filters),
+                      dropped_skip_layers=tuple(model.dropped_skip_layers or ()),
+                      use_pixel_shuffle=bool(model.use_pixel_shuffle), dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    return seeded_init(enc, gen).to(device), seeded_init(dec, gen).to(device)
+
+
+def train_state(cfg, enc, dec, device, seed):
+    from medical_image_editing_tpu_torch.train import state as tstate
+
+    return tstate.create_train_state(
+        enc, dec, tstate.make_optimizer_from_config(enc.parameters(), cfg.enc_optim),
+        tstate.make_optimizer_from_config(dec.parameters(), cfg.dec_optim),
+        seed=seed, device=device)
+
+
+def train_step_fn(cfg, enc, dec, dtype, device):
+    from medical_image_editing_tpu_torch.train.first_stage import (
+        loss_config_from_json,
+        make_first_stage_step,
+    )
+
+    return make_first_stage_step(enc, dec, loss_cfg=loss_config_from_json(cfg.loss),
+                                 aug_cfg=cfg.augmentation,
+                                 dict_size=int(cfg.model.vqmodel.dict_size),
+                                 compute_dtype=dtype, device=device)
+
+
+def train_phase(device, cfg, *, size=256, batch=8, steps=5, seed=0):
+    """The first-stage step at `cfg`'s model widths and compute dtype with
+    the packed conv route: codebook init, then `steps` steps. Returns the
+    launch counts of the run and (step, state, images, warm step times) for
+    profiling."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+
+    model = cfg.model.vqmodel
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        str(model.compute_dtype or "float32")]
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
             torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(device_us(e) for e in kernels) / 1e6
-        vq = sum(device_us(e) for e in kernels if "vq_" in e.key) / 1e6
-        top = sorted(kernels, key=device_us, reverse=True)[:8]
-        emit({
-            "phase": "profile", "step": name, "wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": 1.0 - busy / wall, "vq_fused_device_s": vq,
-            "top": [{"kernel": e.key[:90], "count": e.count,
-                     "device_s": device_us(e) / 1e6} for e in top],
-        })
+
+    enc, dec = train_models(model, dtype, device, seed)
+    state = train_state(cfg, enc, dec, device, seed)
+    step = train_step_fn(cfg, enc, dec, dtype, device)
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    n_enc = routed_convs(enc, torch.zeros(1, int(model.in_channels), size, size))
+    n_dec = routed_convs(dec, torch.zeros(1, enc.emb_dim, size, size))
+    # each step: both views through encoder and decoder, and the input
+    # gradient of every routed conv (its input is an activation)
+    want = {"conv3x3_packed": n_enc + steps * 4 * (n_enc + n_dec),
+            "vq_fused": 2 * steps if str(model.knn_backend) in ("pallas", "faiss") else 0}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    before = [p.detach().clone() for p in (next(enc.parameters()), next(dec.parameters()))]
+
+    _build.launches.clear()
+    # -- main path: codebook init, then the steps
+    t0 = time.perf_counter()
+    init_codebook_step(enc)(state, images)
+    sync()
+    init_s = time.perf_counter() - t0
+    vq_init = state.vq.embed.clone()
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, images)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(_build.launches)
+
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    moved = [not torch.equal(a, p.detach()) for a, p in
+             zip(before, (next(enc.parameters()), next(dec.parameters())))]
+    vq_moved = not torch.equal(vq_init, state.vq.embed)
+    rec = {
+        "phase": "train", "device": str(device), "size": size, "batch": batch,
+        "steps": steps, "compute_dtype": str(dtype).split(".")[-1],
+        "enc_filters": list(model.enc_filters), "dec_filters": list(model.dec_filters),
+        "dict_size": int(model.dict_size), "routed_convs": {"encoder": n_enc, "decoder": n_dec},
+        "launches": launches, "launches_expected": want if cuda else {},
+        "init_codebook_s": init_s, "step_s": step_s, "losses_first": losses[0],
+        "losses_last": losses[-1],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+        "card": nvidia_smi() if cuda else None,
+    }
+    emit(rec)
+    if not finite or not all(moved) or not vq_moved:
+        raise RuntimeError(f"train step: finite {finite}, params moved {moved}, "
+                           f"codebook moved {vq_moved}")
+    if cuda and {k: launches.get(k, 0) for k in want} != want:
+        raise RuntimeError(f"kernel launches {launches}, derived {want}")
+    if not cuda and launches:
+        raise RuntimeError(f"CPU tensors launched kernels: {launches}")
+    return launches, SimpleNamespace(step=step, state=state, images=images,
+                                     warm_s=step_s[1:])
+
+
+def train_profile_phase(trained):
+    """Device time by kernel of one warm training step. The profiler's own
+    host work stretches the window's wall time, so the idle share is also
+    given against the fastest unprofiled warm step."""
+    wall, kernels = profile_window(lambda: trained.step(trained.state, trained.images))
+    rec = {"phase": "profile", "step": "train_step", **kernel_breakdown(wall, kernels, 12)}
+    rec["conv3x3_packed_share_of_busy"] = (rec["conv3x3_packed_device_s"]
+                                           / rec["device_busy_s"])
+    rec["warm_step_s"] = min(trained.warm_s)
+    rec["device_idle_share_of_warm_step"] = 1.0 - rec["device_busy_s"] / rec["warm_step_s"]
+    emit(rec)
+
+
+def train_reference_phase(cfg, *, size=64, batch=2, seed=1):
+    """One step on the card vs the same step on the port's CPU path, at the
+    model's widths in f32 (TF32 off) on a small input, packed route: the
+    same weights, codebook (k-means on the CPU) and draws on both."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models.unet_encoder import encode_quantize
+    from medical_image_editing_tpu_torch.ops.augment import sample_view_draws
+    from medical_image_editing_tpu_torch.ops.vq import vq_scores
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+
+    model = cfg.model.vqmodel
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    gen = torch.Generator().manual_seed(seed)
+    draws = [sample_view_draws(gen, cfg.augmentation, batch, size, size) for _ in range(2)]
+    enc, dec = train_models(model, torch.float32, "cpu", seed)
+    init_codebook_step(enc)(train_state(cfg, enc, dec, "cpu", seed), images)
+    start = (copy.deepcopy(enc.state_dict()), copy.deepcopy(dec.state_dict()))
+    out = {}
+    for device in ("cpu", "cuda"):
+        enc, dec = train_models(model, torch.float32, device, seed)
+        enc.load_state_dict(start[0])
+        dec.load_state_dict(start[1])
+        state = train_state(cfg, enc, dec, device, seed)
+        with torch.no_grad():
+            x = torch.as_tensor(images, device=device)
+            feats = enc.eval()(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            _, _, ids, _ = encode_quantize(enc, state.vq, x, train=False,
+                                           backend=enc.knn_backend)
+        on = [{part: [None if d is None else {k: None if v is None else v.to(device)
+                                              for k, v in d.items()} for d in ds]
+               for part, ds in view.items()} for view in draws]
+        _, metrics = train_step_fn(cfg, enc, dec, torch.float32, device)(
+            state, images, draws=on)
+        out[device] = (feats.cpu(), ids.cpu(), {k: float(v) for k, v in metrics.items()})
+    feats, ids_cpu, m_cpu = out["cpu"]
+    embed = start[0]["vq.embed"]
+    top2 = vq_scores(embed, feats.reshape(-1, feats.shape[-1])).topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > 1e-4 * top2.abs().max()).reshape(ids_cpu.shape)
+    id_mismatch = int(((out["cuda"][1] != ids_cpu) & clear).sum())
+    loss_err = {k: abs(out["cuda"][2][k] - v) / max(abs(v), 1e-6) for k, v in m_cpu.items()}
+    # an id that flips at a near-tie inside the step moves the cross loss
+    # (and the total) by ~1/(pixels of its code) ≈ 1e-3; the distance loss
+    # takes the square root of a rounding residue on its diagonal
+    rtol = {k: 1e-2 if k in ("cross", "total", "dist") else 1e-3 for k in loss_err}
+    rec = {"phase": "train_reference", "size": size, "batch": batch,
+           "id_mismatches_clear": id_mismatch, "clear_share": float(clear.float().mean()),
+           "loss_rel_err": loss_err, "losses_cpu": m_cpu, "losses_card": out["cuda"][2],
+           "tolerance": "ids equal where the top-2 score gap > 1e-4·max|score|; "
+                        f"losses rtol {rtol}"}
+    emit(rec)
+    if id_mismatch or any(loss_err[k] > rtol[k] for k in loss_err):
+        raise RuntimeError(f"card vs CPU training step: {id_mismatch} clear id mismatches, "
+                           f"loss errors {loss_err}")
 
 
 def main(argv=None):
@@ -425,13 +780,27 @@ def main(argv=None):
     info = device_phase()
     build_phase()
     vq = kernel_phase("cuda", seed=args.seed)
+    conv = conv_kernel_phase("cuda", seed=args.seed)
     model = json.loads(MODEL_CONFIG.read_text())["model"]["vqmodel"]
     with tempfile.TemporaryDirectory() as tmp:
-        launches, served = serve_phase("cuda", model, tmp, seed=args.seed)
+        serve_launches, served = serve_phase("cuda", model, tmp, seed=args.seed)
     profile_phase(served)
+    del served
+    cfg = load_config()
+    with conv_route("packed"):
+        train_launches, trained = train_phase("cuda", cfg, seed=args.seed)
+        train_profile_phase(trained)
+        del trained
+        train_reference_phase(cfg, seed=args.seed + 1)
+
+    main_conv = next(r for r in conv if r["dtype"] == "bfloat16" and "forward" in r
+                     and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
     emit({"kernels": [{
         "name": "vq_fused", "route": "cuda", "source": VQ_SOURCE,
-        "replaces": VQ_REPLACES, "launches": launches.get("vq_fused", 0),
+        "replaces": VQ_REPLACES,
+        "launches": serve_launches.get("vq_fused", 0) + train_launches.get("vq_fused", 0),
+        "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
+                             "train": train_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
         "n": vq["n"], "c": vq["c"], "k": vq["k"],
@@ -439,6 +808,23 @@ def main(argv=None):
         "bound_by": vq["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes assign + lookup + "
                         "per-code counts and sums",
+    }, {
+        "name": "conv3x3_packed", "route": "cuda", "source": CONV_SOURCE,
+        "replaces": CONV_REPLACES,
+        "launches": train_launches.get("conv3x3_packed", 0),
+        "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
+                             "train": train_launches.get("conv3x3_packed", 0)},
+        "max_abs_err": main_conv["forward_max_abs_err"],
+        "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
+                  "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",
+                  "direction": "forward"},
+        **{k: main_conv["forward"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+        "library_note": "F.conv2d (cuDNN) at the same shape and dtype",
+        "points": [{"dtype": r["dtype"], "dir": d, "cin": r[d]["cin"], "cout": r[d]["cout"],
+                    "h": r["h"], **{k: r[d][k] for k in ("ms", "plain_ms", "library_ms",
+                                                        "bound_ms")}}
+                   for r in conv if "forward" in r for d in ("forward", "dx")],
     }]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -8,14 +8,20 @@ under `tests/test_torch_port_*.py`. This package imports `torch` and never
 
 Covered so far: the editing service's inference path — image → encoder →
 VQ label map (through the hand-written CUDA VQ kernel, `csrc/vq_fused.cu`)
-→ painted map → SPADE decoder → image.
+→ painted map → SPADE decoder → image; and the first-stage training step
+(k-means codebook init, two augmented views, VQ EMA, embedding / recon /
+focal-frequency losses, Adam), whose packed 3×3 convolutions run the
+hand-written CUDA kernel `csrc/conv3x3_packed.cu` under
+`MEDIMG_CONV_IMPL=packed`.
 
 Subpackages:
-  ops       windowing, VQ (plain + fused CUDA kernel), the CUDA build
+  ops       windowing, VQ (plain + fused CUDA kernel), the 3×3 conv (plain +
+            CUDA kernel), warps, augmentation, losses, k-means, one-hot, the
+            CUDA build
   models    UNetEncoder / UNetDecoder and their blocks (NCHW nn.Modules)
-  train     the eval forward (encode entry point)
+  train     the eval forward, the first-stage step, the train state
   utils     weight bridge from the JAX package's variable trees, NIfTI I/O,
-            device resolution, .env loading, PNG export
+            device resolution, JSON configs and .env loading, PNG export
   cli       edit_batch / run_recon entry points
 
 Every entry point takes `device=`, defaulting to "cuda": a caller asks for

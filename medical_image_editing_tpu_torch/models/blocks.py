@@ -6,22 +6,44 @@ the reference's torch state-dict keys (`double_conv.0`, `downsample.0`,
 `norm1.param_free_norm`, `stages.c0.conv`, ...), which are also the keys the
 JAX package's `utils/torch_export.py` writes.
 
-* Convolutions are plain `nn.Conv2d` with SAME padding; the JAX package's
-  packed-conv hook (`MEDIMG_CONV_IMPL=packed`) is off its default path.
+* Every convolution is a `Conv`: an `nn.Conv2d` (same parameters and keys)
+  with flax's compute-dtype semantics and the JAX package's packed-conv
+  dispatch. Under `MEDIMG_CONV_IMPL=packed` the convolutions that JAX's
+  `_conv_dispatch` admits (3×3 SAME stride 1, undilated, one group,
+  W % 4 == 0, gcd(H, 64) ≥ 8, Cin == 32, input dtype equal to weight dtype)
+  go through `ops/conv_pack.py`'s kernel with its analytic backward, the
+  bias added afterwards; everything else goes to `F.conv2d`.
+* Compute dtype, as flax's `dtype=`: parameters stay float32; a convolution
+  casts its input, weight and bias to the compute dtype (by default the
+  promotion of input and weight dtypes) and returns that dtype; norm
+  statistics are reduced in float32 and the result is cast back to the
+  input's dtype. `set_compute_dtype` sets it on every `Conv` of a module.
 * InstanceNorm is the two-pass form `F.instance_norm` computes (biased
   variance, eps 1e-5, no affine). The JAX package's five `MEDIMG_IN_IMPL`
   variants are TPU layout forms of this one function.
-* `StyledDenorm`'s parameter-free BatchNorm uses its stored running mean and
-  variance as they are: the port serves, so its modules run in eval mode.
+* `StyledDenorm`'s parameter-free BatchNorm is flax's `nn.BatchNorm(
+  momentum=0.9)`: in train mode it normalises with the batch statistics
+  (fast variance E[x²] − E[x]², clipped at 0) and moves the running stats
+  by 0.1 towards them, with the *biased* variance, where torch's
+  `BatchNorm2d` would store the unbiased one; in eval mode it uses the
+  running stats.
 """
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv_pack import conv3x3_packed_trainable_nchw, packed_eligible
 from ..ops.vq import VQModule
+
+
+def conv_impl() -> str:
+    """The convolution route, read per call as the JAX package reads it:
+    `MEDIMG_CONV_IMPL` ("xla", the default, or "packed")."""
+    return os.environ.get("MEDIMG_CONV_IMPL", "xla")
 
 
 def seeded_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -44,13 +66,90 @@ def seeded_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-def conv3x3(cin: int, cout: int, bias: bool = True) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1, bias=bias)
+class Conv(nn.Conv2d):
+    """`nn.Conv2d` with a compute dtype and the packed-conv dispatch.
+    `packable=False` marks the convolutions the JAX package builds with
+    flax's own `nn.Conv`, which never dispatch."""
+
+    def __init__(self, *args, packable: bool = True, **kw):
+        super().__init__(*args, **kw)
+        self.packable = packable
+        self.compute_dtype = None
+
+    def _cast(self, x):
+        """x, weight and bias in the compute dtype."""
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
+
+    def _eligible(self, x: torch.Tensor, w: torch.Tensor) -> bool:
+        b, c, h, wd = x.shape
+        return (self.packable and conv_impl() == "packed"
+                and self.padding_mode == "zeros" and tuple(self.padding) == (1, 1)
+                and x.dtype == w.dtype
+                and packed_eligible((b, h, wd, c), self.kernel_size, tuple(self.stride),
+                                    "SAME", tuple(self.dilation), self.groups))
+
+    def routes_to_kernel(self, x: torch.Tensor) -> bool:
+        """Whether a call on x (NCHW) goes to the packed kernel, as JAX's
+        `_conv_dispatch` would send it to its Pallas kernel."""
+        return self._eligible(*self._cast(x)[:2])
+
+    def forward(self, x):
+        x, w, b = self._cast(x)
+        if self._eligible(x, w):
+            y = conv3x3_packed_trainable_nchw(x, w)
+            return y if b is None else y + b[:, None, None]
+        return F.conv2d(x, w, b, self.stride, self.padding, self.dilation, self.groups)
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:
+    """Set the compute dtype of every `Conv` in `module` (None: promote)."""
+    for m in module.modules():
+        if isinstance(m, Conv):
+            m.compute_dtype = dtype
+    return module
+
+
+def conv3x3(cin: int, cout: int, bias: bool = True, packable: bool = True) -> Conv:
+    return Conv(cin, cout, 3, padding=1, bias=bias, packable=packable)
 
 
 def instance_norm(x, eps: float = 1e-5):
-    """Per-sample, per-channel normalization over H,W (NCHW); no affine."""
-    return F.instance_norm(x, eps=eps)
+    """Per-sample, per-channel normalization over H,W (NCHW); no affine;
+    statistics in float32, result in x.dtype."""
+    return F.instance_norm(x.float(), eps=eps).to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """`instance_norm` as a module (no parameters, no state-dict keys)."""
+
+    def forward(self, x):
+        return instance_norm(x)
+
+
+class ParamFreeBatchNorm(nn.BatchNorm2d):
+    """flax `nn.BatchNorm(use_scale=False, use_bias=False, momentum=0.9)`
+    under torch's `BatchNorm2d` buffer names (see the module docstring)."""
+
+    FLAX_MOMENTUM = 0.9
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps=eps, affine=False)
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            m = self.FLAX_MOMENTUM
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
+        return y.to(x.dtype)
 
 
 def nearest_upsample(x, factor: int = 2):
@@ -74,10 +173,10 @@ class DoubleConv(nn.Module):
 
     def __init__(self, cin: int, features: int, use_output_act: bool = True):
         super().__init__()
-        layers = [conv3x3(cin, features), nn.InstanceNorm2d(features), nn.ReLU(),
+        layers = [conv3x3(cin, features), InstanceNorm(), nn.ReLU(),
                   conv3x3(features, features)]
         if use_output_act:
-            layers += [nn.InstanceNorm2d(features), nn.ReLU()]
+            layers += [InstanceNorm(), nn.ReLU()]
         self.double_conv = nn.Sequential(*layers)
 
     def forward(self, x):
@@ -89,9 +188,7 @@ class ResBlock(nn.Module):
 
     def __init__(self, cin: int, features: int):
         super().__init__()
-        self.downsample = nn.Sequential(
-            nn.Conv2d(cin, features, 1, bias=False), nn.InstanceNorm2d(features)
-        )
+        self.downsample = nn.Sequential(Conv(cin, features, 1, bias=False), InstanceNorm())
         self.double_conv = DoubleConv(cin, features)
 
     def forward(self, x):
@@ -107,8 +204,8 @@ class UpBlock(nn.Module):
         self.double_conv = DoubleConv(cin, features, use_output_act)
 
     def forward(self, down_input, skip_input):
-        x = torch.cat([nearest_upsample(down_input), skip_input], dim=1)
-        return self.double_conv(x)
+        x = nearest_upsample(down_input)
+        return self.double_conv(torch.cat([x, skip_input.to(x.dtype)], dim=1))
 
 
 class StyledDenorm(nn.Module):
@@ -117,15 +214,14 @@ class StyledDenorm(nn.Module):
 
     def __init__(self, features: int, style_channels: int):
         super().__init__()
-        self.param_free_norm = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1,
-                                              affine=False)
+        self.param_free_norm = ParamFreeBatchNorm(features)
         self.mlp_shared = nn.Sequential(conv3x3(style_channels, features), nn.ReLU())
         self.mlp_gamma = conv3x3(features, features)
         self.mlp_beta = conv3x3(features, features)
 
     def forward(self, x, style):
         normalized = self.param_free_norm(x)
-        actv = self.mlp_shared(style)
+        actv = self.mlp_shared(style.to(x.dtype))
         return normalized * (1.0 + self.mlp_gamma(actv)) + self.mlp_beta(actv)
 
 
@@ -141,8 +237,7 @@ class StyledResUpBlock(nn.Module):
             self.up_sample = nn.Sequential(conv3x3(cin, cin * 4), nn.PixelShuffle(2))
         else:
             self.up_sample = None
-        self.conv = nn.Sequential(conv3x3(cin, features),
-                                  nn.InstanceNorm2d(features), nn.ReLU())
+        self.conv = nn.Sequential(conv3x3(cin, features), InstanceNorm(), nn.ReLU())
         self.conv1 = conv3x3(cin, features)
         self.norm1 = StyledDenorm(features, style_channels)
         self.conv2 = conv3x3(features, features)
@@ -167,10 +262,9 @@ class _ASPPStage(nn.Module):
     def __init__(self, cin: int, features: int, rate: int):
         super().__init__()
         if rate == 0:
-            self.conv = nn.Conv2d(cin, features, 1, bias=False)
+            self.conv = Conv(cin, features, 1, bias=False)
         else:
-            self.conv = nn.Conv2d(cin, features, 3, padding=rate, dilation=rate,
-                                  bias=False)
+            self.conv = Conv(cin, features, 3, padding=rate, dilation=rate, bias=False)
 
     def forward(self, x):
         return F.relu(instance_norm(self.conv(x)))

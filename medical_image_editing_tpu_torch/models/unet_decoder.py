@@ -11,8 +11,10 @@ connections are the SPADE style; `dropped_skip_layers` zeroes selected skips
   * `use_last_pixel_shuffle`: every up-level output PixelShuffled to full
     resolution and concatenated before a 1×1 conv (keys
     `pixel_shuffle2_{level+1}.0`, `conv_last`).
-The final tanh runs in f32. DropBlock acts only in training and is not
-ported yet.
+The final tanh runs in f32. `dtype` is the compute dtype, as the JAX
+module's (see `blocks.py`); the `StyledDenorm` BatchNorms follow the
+module's train/eval mode. DropBlock acts only in training and is not ported
+yet: the port has no `use_dropblock`.
 """
 
 from typing import Sequence
@@ -20,7 +22,15 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .blocks import ASPP, DoubleConv, ResBlock, StyledResUpBlock, conv3x3
+from .blocks import (
+    ASPP,
+    Conv,
+    DoubleConv,
+    ResBlock,
+    StyledResUpBlock,
+    conv3x3,
+    set_compute_dtype,
+)
 
 
 class UNetDecoder(nn.Module):
@@ -30,8 +40,9 @@ class UNetDecoder(nn.Module):
                  filters: Sequence[int] = (64, 128, 256, 512, 1024),
                  dropped_skip_layers: Sequence[int] = (5, 6),
                  use_pixel_shuffle: bool = True,
-                 use_last_pixel_shuffle: bool = False):
+                 use_last_pixel_shuffle: bool = False, dtype=None):
         super().__init__()
+        self.compute_dtype = dtype
         f = list(filters)
         n = len(f) - 1
         self.n_levels = n
@@ -47,15 +58,19 @@ class UNetDecoder(nn.Module):
                 f[level + 1], f[level], f[level],
                 use_pixel_shuffle=bool(use_pixel_shuffle)))
         if self.use_last_pixel_shuffle:
+            # flax's own nn.Conv in the JAX module: never dispatched
             for level in range(1, n):
                 setattr(self, f"pixel_shuffle2_{level + 1}", nn.Sequential(
-                    conv3x3(f[level], (4**level) * f[0]), nn.PixelShuffle(2**level)))
-            self.conv_last = nn.Conv2d(n * f[0], out_channels, 1)
+                    conv3x3(f[level], (4**level) * f[0], packable=False),
+                    nn.PixelShuffle(2**level)))
+            self.conv_last = Conv(n * f[0], out_channels, 1)
         else:
             self.conv_last = nn.Sequential(ASPP(f[0], f[0]), DoubleConv(5 * f[0], f[0]))
-            self.conv1x1 = nn.Conv2d(f[0], out_channels, 1)
+            self.conv1x1 = Conv(f[0], out_channels, 1)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
+        x = x.to(self.compute_dtype or x.dtype)
         n = self.n_levels
         skips = []
         for i in range(n):

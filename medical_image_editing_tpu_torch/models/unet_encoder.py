@@ -4,18 +4,22 @@ Counterpart of `medical_image_editing_tpu/models/unet_encoder.py`
 (reference `src/networks/unet_encoder.py`): 4 ResBlock downs, a bottleneck
 DoubleConv, 4 ups back to full resolution, then vector quantization.
 `encode_quantize` returns ids+1, so that 0 can mean "background" in edited
-label maps. Modules are NCHW; `encode_quantize` takes and returns NHWC like
-the JAX function. `init_codebook_from_batch` (k-means) is training work and
-is not ported yet.
+label maps. Modules are NCHW; `encode_quantize` and
+`init_codebook_from_batch` take and return NHWC like the JAX functions.
+
+`dtype` is the compute dtype, as the JAX module's: parameters stay float32
+and the input is cast to it (see `blocks.py`). The styled variant's
+BatchNorm follows the module's train/eval mode.
 """
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..ops.kmeans import kmeans
 from ..ops.vq import VQModule, VQState, vq_apply, vq_lookup
-from .blocks import DoubleConv, ResBlock, StyledResUpBlock, UpBlock
+from .blocks import DoubleConv, ResBlock, StyledResUpBlock, UpBlock, set_compute_dtype
 
 
 class UNetEncoder(nn.Module):
@@ -24,11 +28,12 @@ class UNetEncoder(nn.Module):
 
     def __init__(self, in_channels: int = 1,
                  filters: Sequence[int] = (64, 128, 256, 512, 1024),
-                 use_styled_up_block: bool = False):
+                 use_styled_up_block: bool = False, dtype=None):
         super().__init__()
         f = tuple(filters)
         self.filters = f
         self.use_styled_up_block = bool(use_styled_up_block)
+        self.compute_dtype = dtype
         cin = in_channels
         for i in range(4):
             setattr(self, f"down_conv1_{i + 1}", ResBlock(cin, f[i]))
@@ -40,8 +45,10 @@ class UNetEncoder(nn.Module):
             else:
                 up = UpBlock(f[i + 1] + f[i], f[i])
             setattr(self, f"up_conv1_{i + 1}", up)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
+        x = x.to(self.compute_dtype or x.dtype)
         skips = []
         for i in range(4):
             x, skip = getattr(self, f"down_conv1_{i + 1}")(x)
@@ -66,12 +73,9 @@ def encode_quantize(
     (quantized (B,H,W,C), commit, ids+1 (B,H,W), vq_state').
 
     `train=True` applies the VQ EMA update to the returned state. The
-    encoder runs in the mode its caller set (the entry points set eval);
-    batch-statistics training of the styled encoder is not ported yet, so
-    `train=True` with it raises."""
-    if train and encoder.use_styled_up_block:
-        raise NotImplementedError(
-            "training the styled encoder's BatchNorm is not ported yet")
+    encoder runs in the mode its caller set: the serving entry points set
+    eval, the training step sets train (the styled encoder's BatchNorm then
+    uses batch statistics and moves its running stats)."""
     feats = encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     quantized, commit, ids, new_vq = vq_apply(
         vq_state, feats, momentum=momentum, eps=eps, train=train, backend=backend,
@@ -85,6 +89,28 @@ def get_embed_from_ids(vq_state: VQState, ids) -> torch.Tensor:
     return vq_lookup(vq_state, ids)
 
 
+def init_codebook_from_batch(
+    feats: torch.Tensor,
+    vq_state: VQState,
+    *,
+    num_iters: int = 50,
+    init_idx: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> VQState:
+    """k-means codebook init from first-batch encoder features (B,H,W,C).
+
+    As the JAX function (reference `unet_encoder.py:66-91`): Lloyd's
+    algorithm from K distinct feature rows (`init_idx`, or drawn from
+    `generator`), then `embed = embed_avg = centers` and `cluster_size = 0`,
+    so the EMA continues from the initialised codebook."""
+    c = feats.shape[-1]
+    k = vq_state.embed.shape[0]
+    _, centers = kmeans(feats.reshape(-1, c), k, num_iters=num_iters,
+                        init_idx=init_idx, generator=generator)
+    return VQState(embed=centers, cluster_size=torch.zeros_like(vq_state.cluster_size),
+                   embed_avg=centers.clone())
+
+
 class EncoderWithVQ(UNetEncoder):
     """UNetEncoder + codebook buffers (`vq.embed`, `vq.cluster_size`,
     `vq.embed_avg`) + VQ hyperparameters: the reference `UNetEncoder`'s
@@ -93,8 +119,9 @@ class EncoderWithVQ(UNetEncoder):
     def __init__(self, in_channels: int = 1,
                  filters: Sequence[int] = (64, 128, 256, 512, 1024),
                  dict_size: int = 512, momentum: float = 0.99, eps: float = 1e-5,
-                 use_styled_up_block: bool = False, knn_backend: str = "xla"):
-        super().__init__(in_channels, filters, use_styled_up_block)
+                 use_styled_up_block: bool = False, knn_backend: str = "xla",
+                 dtype=None):
+        super().__init__(in_channels, filters, use_styled_up_block, dtype)
         self.dict_size = dict_size
         self.emb_dim = self.filters[0]
         self.momentum = momentum

@@ -50,6 +50,13 @@ class VQModule(nn.Module):
     def state(self) -> VQState:
         return VQState(self.embed, self.cluster_size, self.embed_avg.t())
 
+    @torch.no_grad()
+    def set_state(self, state: VQState):
+        """Copy `state` (embed_avg (K,C)) into the buffers."""
+        self.embed.copy_(state.embed)
+        self.cluster_size.copy_(state.cluster_size)
+        self.embed_avg.copy_(state.embed_avg.t())
+
 
 def straight_through(quantized, x):
     """Forward `quantized`, backward identity to `x`."""

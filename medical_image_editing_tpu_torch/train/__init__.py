@@ -1,1 +1,2 @@
-"""Inference-side counterparts of the JAX package's `train/` modules."""
+"""Counterparts of the JAX package's `train/` modules: the eval forward, the
+first-stage step and its train state."""

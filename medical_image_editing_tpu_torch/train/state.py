@@ -1,0 +1,61 @@
+"""Train state and optimizers.
+
+Counterpart of `medical_image_editing_tpu/train/state.py` (reference: the
+Lightning module's state and its Adam optimizers, `src/trainers/base.py:
+164-183`). The JAX package's optax chain (`add_decayed_weights` before
+`scale_by_adam(eps=1e-8)`, then `scale(-lr)`) is `torch.optim.Adam`: weight
+decay added to the gradient before the moments, the same bias-corrected
+update. The JAX `TrainState` pytree becomes `TrainState` holding the
+modules (their parameters, the decoder's BatchNorm running stats and the
+encoder's codebook buffers), the two optimizers, the generator the step
+draws from, and the step count.
+"""
+
+from dataclasses import dataclass
+from typing import Iterable
+
+import torch
+from torch import nn
+
+from ..ops.vq import VQState
+from ..utils.config import getattr_else_none as g
+
+
+def make_optimizer(params: Iterable[torch.Tensor], lr: float, b1: float = 0.9,
+                   b2: float = 0.999, weight_decay: float = 0.0) -> torch.optim.Adam:
+    """Adam with eps 1e-8 and L2 weight decay added to the gradient."""
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=1e-8,
+                            weight_decay=weight_decay)
+
+
+def make_optimizer_from_config(params, optim_cfg) -> torch.optim.Adam:
+    """`make_optimizer` from a config section (`lr`, optional `b1`, `b2`,
+    `weight_decay`)."""
+    return make_optimizer(
+        params,
+        lr=float(optim_cfg.lr),
+        b1=float(g(optim_cfg, "b1", 0.9)),
+        b2=float(g(optim_cfg, "b2", 0.999)),
+        weight_decay=float(g(optim_cfg, "weight_decay", 0.0) or 0.0),
+    )
+
+
+@dataclass
+class TrainState:
+    encoder: nn.Module          # EncoderWithVQ: parameters + codebook buffers
+    decoder: nn.Module          # UNetDecoder: parameters + BatchNorm stats
+    enc_opt: torch.optim.Optimizer
+    dec_opt: torch.optim.Optimizer
+    generator: torch.Generator  # augmentation draws and k-means seeding
+    step: int = 0
+
+    @property
+    def vq(self) -> VQState:
+        return self.encoder.vq.state()
+
+
+def create_train_state(encoder: nn.Module, decoder: nn.Module, enc_opt, dec_opt, *,
+                       seed: int = 0, device="cuda") -> TrainState:
+    """Modules already on `device`; the generator is seeded with `seed` on it."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return TrainState(encoder, decoder, enc_opt, dec_opt, gen)

@@ -125,6 +125,16 @@ def from_jax_decoder(dec_vars: dict) -> StateDict:
     return out
 
 
+def from_jax_train_state(state) -> Dict[str, StateDict]:
+    """A JAX `TrainState` (anything with `enc_vars`, `dec_vars` and `vq`) →
+    {"encoder": `EncoderWithVQ` keys with the codebook, "decoder":
+    `UNetDecoder` keys}: parameters, BatchNorm running stats and the VQ
+    EMA state, for starting a port `TrainState` where a JAX one stands.
+    The optimizers' moments are not carried: both sides start them at 0."""
+    return {"encoder": from_jax_encoder(state.enc_vars, state.vq),
+            "decoder": from_jax_decoder(state.dec_vars)}
+
+
 def load_lightning_state(path: str) -> Dict[str, StateDict]:
     """Read a Lightning-shaped `.ckpt` → {"encoder": {...}, "decoder": {...},
     ...}: the `state_dict` split on its first key component (the encoder's

@@ -1,5 +1,6 @@
 """Tests of the PyTorch port that need a CUDA card: each hand-written kernel
-against its plain PyTorch version, and the encode path through the kernel.
+against its plain PyTorch version, the encode path through the VQ kernel,
+and a training step through both kernels.
 
 They skip on a host without a card. This file imports neither JAX nor the
 JAX package, so it also runs where only PyTorch is installed:
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from medical_image_editing_tpu_torch.ops import _build
+from medical_image_editing_tpu_torch.ops import conv_pack as tcp
 from medical_image_editing_tpu_torch.ops import vq as tvq
 from medical_image_editing_tpu_torch.ops import vq_fused as tvqf
 
@@ -85,6 +87,25 @@ def test_fused_vq_apply_matches_plain_on_card(cuda, train):
 
 
 @pytest.mark.gpu
+def test_fused_vq_gradients_match_plain_on_card(cuda):
+    """The commit loss and the straight-through estimator carry the same
+    gradient on the fused route as on the plain one."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(2, 16, 16, 16)).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.normal(size=(2, 16, 16, 16)).astype(np.float32)).to(cuda)
+    e = torch.from_numpy(rng.normal(size=(10, 16)).astype(np.float32)).to(cuda)
+    state = tvq.VQState(e, torch.zeros(10, device=cuda), e.clone())
+    grads = []
+    for backend in ("pallas", "xla"):
+        xx = x.clone().requires_grad_()
+        q, commit, _, _ = tvq.vq_apply(state, xx, momentum=0.9, train=True, backend=backend)
+        (commit + (q * cot).sum()).backward()
+        grads.append(xx.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-6)
+    assert (grads[0] - cot).abs().max() > 1e-3
+
+
+@pytest.mark.gpu
 def test_encode_goes_through_the_kernel(cuda):
     from medical_image_editing_tpu_torch.cli.run_recon import LungConfig, load_model
     from medical_image_editing_tpu_torch.train.evaluate import make_eval_forward
@@ -101,3 +122,97 @@ def test_encode_goes_through_the_kernel(cuda):
     assert _build.launches[tvqf.KERNEL] == before + 1
     assert recon.shape == (2, 32, 32, 1) and torch.isfinite(recon).all()
     assert ids.dtype == torch.int32 and int(ids.min()) >= 1 and int(ids.max()) <= 6
+
+
+def _conv_inputs(b, cin, cout, h, w, dtype, device, seed=6):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, cin, h, w, generator=g, device=device).to(dtype)
+    wt = ((torch.rand(cout, cin, 3, 3, generator=g, device=device) * 2 - 1)
+          / (9 * cin) ** 0.5).to(dtype)
+    dy = torch.randn(b, cout, h, w, generator=g, device=device).to(dtype)
+    return x, wt, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 64, 64), (2, 32, 64, 32, 32),
+                                   (2, 64, 32, 16, 16), (3, 20, 40, 37, 45),
+                                   (1, 1, 3, 5, 7)])
+def test_conv_kernel_matches_plain(cuda, dtype, shape):
+    """Forward and dx (through the autograd Function) against f32 autograd
+    through `F.conv2d` on the same values: f32 to summation order (1e-4),
+    bf16 to one rounding of the f32 sum (2^-8 relative)."""
+    dt = getattr(torch, dtype)
+    b, cin, cout, h, w = shape
+    x, wt, dy = _conv_inputs(b, cin, cout, h, w, dt, cuda)
+    before = _build.launches[tcp.KERNEL]
+    xk = x.clone().requires_grad_()
+    y = tcp.conv3x3_packed_trainable_nchw(xk, wt)
+    y.backward(dy)
+    again = tcp.conv3x3_packed_nchw(x, wt)
+    torch.cuda.synchronize()
+    assert _build.launches[tcp.KERNEL] == before + 3  # forward, dx, again
+    assert y.dtype == dt and xk.grad.dtype == dt
+    assert torch.equal(y, again)  # no atomics: bit-identical reruns
+    xr = x.float().requires_grad_()
+    ref = torch.nn.functional.conv2d(xr, wt.float(), padding=1)
+    ref.backward(dy.float())
+    rel = 2.0**-8 if dt == torch.bfloat16 else 0.0
+    assert ((y.float() - ref).abs() <= rel * ref.abs() + 1e-4).all()
+    assert ((xk.grad.float() - xr.grad).abs() <= rel * xr.grad.abs() + 1e-4).all()
+    # the JAX layout's entry runs the same kernel on NHWC
+    nhwc = tcp.conv3x3_packed(x.permute(0, 2, 3, 1), wt.permute(2, 3, 1, 0))
+    assert torch.equal(nhwc.permute(0, 3, 1, 2), again)
+
+
+@pytest.mark.gpu
+def test_conv_kernel_refuses_what_it_cannot_take(cuda):
+    x, wt, _ = _conv_inputs(1, 8, 8, 8, 8, torch.float32, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tcp.conv3x3_packed_nchw(x.half(), wt.half())
+    with pytest.raises(TypeError):
+        tcp.conv3x3_packed_nchw(x, wt.bfloat16())
+    with pytest.raises(ValueError, match="channels"):
+        tcp.conv3x3_packed_nchw(x[:, :4], wt)
+    with pytest.raises(ValueError, match="3,3"):
+        tcp.conv3x3_packed_nchw(x, wt[..., :2, :2])
+    with pytest.raises(ValueError, match="no kernel"):
+        tcp.conv3x3_packed_nchw(x, wt.cpu())
+
+
+@pytest.mark.gpu
+def test_train_step_goes_through_both_kernels(cuda, monkeypatch):
+    from medical_image_editing_tpu_torch.models import UNetDecoder
+    from medical_image_editing_tpu_torch.models.blocks import seeded_init
+    from medical_image_editing_tpu_torch.models.unet_encoder import EncoderWithVQ
+    from medical_image_editing_tpu_torch.train import first_stage as tfs
+    from medical_image_editing_tpu_torch.train import state as tstate
+
+    monkeypatch.setenv("MEDIMG_CONV_IMPL", "packed")
+    enc = EncoderWithVQ(1, (4, 32, 8, 16, 16), 6, knn_backend="pallas",
+                        dtype=torch.bfloat16)
+    dec = UNetDecoder(4, 1, (32, 8, 8, 16, 16), dropped_skip_layers=(),
+                      use_pixel_shuffle=False, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    enc, dec = seeded_init(enc, g).to(cuda), seeded_init(dec, g).to(cuda)
+    state = tstate.create_train_state(enc, dec, tstate.make_optimizer(enc.parameters(), 1e-4),
+                                      tstate.make_optimizer(dec.parameters(), 1e-4),
+                                      device=cuda)
+    aug = {"modules": ["RandomHorizontalFlip", "RandomAffine", "RandomGaussianNoise"],
+           "RandomHorizontalFlip": {"p": 0.5},
+           "RandomAffine": {"degrees": 10.0, "translate": [0.05, 0.05], "p": 0.8},
+           "RandomGaussianNoise": {"std": 0.05, "p": 0.5}}
+    step = tfs.make_first_stage_step(enc, dec, loss_cfg=tfs.FirstStageLossConfig(),
+                                     aug_cfg=aug, dict_size=6, compute_dtype=torch.bfloat16,
+                                     device=cuda)
+    x = np.random.default_rng(7).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
+    _build.launches.clear()
+    tfs.init_codebook_step(enc)(state, x)
+    torch.cuda.synchronize()
+    # encoder: 32→32 at 16² twice and 32→8 at 8²; decoder: 10 convs
+    assert dict(_build.launches) == {tcp.KERNEL: 3}
+    state, metrics = step(state, x)
+    torch.cuda.synchronize()
+    assert _build.launches[tvqf.KERNEL] == 2
+    assert _build.launches[tcp.KERNEL] == 3 + 4 * (3 + 10)  # 2 views × (forward + dx)
+    assert all(torch.isfinite(v) for v in metrics.values())

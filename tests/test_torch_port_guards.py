@@ -47,7 +47,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 20
+    assert len(modules) >= 29
 
 
 def test_entry_points_refuse_missing_card():
@@ -78,10 +78,15 @@ def test_chip_smoke_fails_without_card(tmp_path):
     assert '"ok": true' not in out.stdout
 
 
-def test_chip_smoke_serve_phase_on_cpu(tmp_path, capsys):
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_serve_phase_on_cpu(tmp_path, capsys):
+    smoke = _chip_smoke()
     launches, _ = smoke.serve_phase("cpu", TINY_MODEL, tmp_path, size=32, slices=4,
                                  requests=2, seed=0)
     assert launches == {}  # CPU tensors take the plain path: no kernel launch
@@ -89,3 +94,18 @@ def test_chip_smoke_serve_phase_on_cpu(tmp_path, capsys):
     assert rec["phase"] == "serve" and rec["files_written"] == 4
     assert rec["cpu_reference_id_agreement"] == 1.0
     assert len(rec["edit_request_s"]) == 2 and len(rec["encode_batch_s"]) == 2
+
+
+def test_chip_smoke_train_phase_on_cpu(capsys):
+    smoke = _chip_smoke()
+    cfg = smoke.load_config()
+    cfg.model.vqmodel.enc_filters = [4, 8, 8, 16, 16]
+    cfg.model.vqmodel.dec_filters = [32, 8, 8, 16, 16]
+    with smoke.conv_route("packed"):
+        launches, trained = smoke.train_phase("cpu", cfg, size=32, batch=2, steps=2)
+    assert launches == {}  # CPU tensors take the plain versions
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["phase"] == "train" and rec["compute_dtype"] == "bfloat16"
+    assert rec["routed_convs"] == {"encoder": 0, "decoder": 10}
+    assert len(rec["step_s"]) == 2 and trained.state.step == 2
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"

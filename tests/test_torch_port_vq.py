@@ -75,3 +75,29 @@ def test_vq_fused_refuses_unknown_device_and_backend():
     with pytest.raises(ValueError, match="knn_backend"):
         tvq.vq_apply(state, torch.zeros(1, 2, 4, 4), backend="cuda-faiss")
 
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_vq_apply_gradients_match_jax(backend):
+    """The commit loss and the straight-through estimator carry gradient to
+    the features on both routes, as in JAX: d/dx of commit + Σ q·cot is
+    2(x − q)/N + cot."""
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 8, 8, 16)).astype(np.float32)
+    cot = rng.normal(size=x.shape).astype(np.float32)
+    embed = rng.normal(size=(10, 16)).astype(np.float32)
+    state = (embed, np.zeros(10, np.float32), embed)
+
+    def jloss(xx):
+        q, commit, _, _ = jvq.vq_apply(jvq.VQState(*map(jnp.asarray, state)), xx,
+                                       momentum=0.9, train=True, backend=backend)
+        return commit + jnp.sum(q * cot)
+
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    q, commit, _, _ = tvq.vq_apply(tvq.VQState(*map(torch.from_numpy, state)), xt,
+                                   momentum=0.9, train=True, backend=backend)
+    (commit + (q * torch.from_numpy(cot)).sum()).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want, atol=1e-6, rtol=0)
+    assert np.abs(want - cot).max() > 1e-3  # the commit term is in it

@@ -17,8 +17,12 @@ and no result line):
   4. conv    — the 3×3 conv kernel, forward and input gradient, against its
                plain version (and dx against autograd through `F.conv2d`) at
                every (Cin, Cout, H) the training step gives it, batch 8, f32
-               and bf16, plus a ragged shape; timed beside the plain version,
-               cuDNN's `F.conv2d` and its bound;
+               (CUDA-core path) and bf16 (tensor-core path, mma.sync), plus a
+               ragged shape; timed beside the plain version, cuDNN's
+               `F.conv2d` (`vs_library` = kernel / cuDNN) and its bound,
+               with CUDA events around 50 calls (`ms`: what a caller waits,
+               the wrapper's host work included) and with the profiler
+               (`device_ms`: the kernel's own device time);
   5. serve   — the editing service at the lung model's full widths (from
                `configs/lung_first_stage.json`), seeded weights, f32, 512²:
                encode synthetic slices through `make_eval_forward` (the fused
@@ -85,6 +89,9 @@ CONV_POINTS = [(32, 32, 256), (32, 32, 128), (32, 64, 128), (32, 64, 64)]
 CONV_RAGGED = (3, 20, 40, 37, 45)  # B, Cin, Cout, H, W
 CONV_SOURCE = "medical_image_editing_tpu_torch/csrc/conv3x3_packed.cu"
 CONV_REPLACES = "medical_image_editing_tpu/ops/conv_pack.py:66"
+# the source's kernel for each dtype, as the profiler names them
+CONV_PATHS = {"float32": ("conv3x3_kernel", "cuda-core f32"),
+              "bfloat16": ("conv3x3_mma_kernel", "mma.sync bf16")}
 
 
 def emit(obj):
@@ -160,6 +167,21 @@ def profile_window(fn):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return wall, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, match=None, iters=20, tries=3):
+    """Device time (ms) of one call of fn(): the kernels of `iters` calls
+    under torch.profiler (only those whose name holds `match`, if given),
+    over `iters`. Unlike `cuda_ms`, it leaves out the card's idle time while
+    the host prepares the next call. A window in which the profiler reports
+    no such kernel is taken again; None ("not measured") after `tries`."""
+    fn()
+    for _ in range(tries):
+        _, kernels = profile_window(lambda: [fn() for _ in range(iters)])
+        us = [device_us(e) for e in kernels if match is None or match in e.key]
+        if us and sum(us) > 0:
+            return sum(us) / 1e3 / iters
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -326,8 +348,10 @@ def conv_kernel_phase(device, points=CONV_POINTS, batch=8, seed=0, iters=50):
             "deterministic": bool(torch.equal(got, again)),
             "nhwc_entry": bool(torch.equal(nhwc.permute(0, 3, 1, 2), got)),
         }
-        rec = {"phase": "conv", "name": "conv3x3_packed", "dtype": str(dt).split(".")[-1],
-               "b": b, "cin": cin, "cout": cout, "h": h, "w": w, "checks": checks,
+        dtype = str(dt).split(".")[-1]
+        rec = {"phase": "conv", "name": "conv3x3_packed", "dtype": dtype,
+               "path": CONV_PATHS[dtype][1], "b": b, "cin": cin, "cout": cout, "h": h,
+               "w": w, "checks": checks,
                "forward_max_abs_err": fwd_err, "dx_max_abs_err": dx_err,
                "tolerance": f"|err| <= {rel}*|ref| + 1e-4"}
         if (b, h, w) != (b0, h0, w0):
@@ -335,11 +359,15 @@ def conv_kernel_phase(device, points=CONV_POINTS, batch=8, seed=0, iters=50):
                 ci, co = ww.shape[1], ww.shape[0]
                 bound_ms, bound_by = conv_bound(b, h, w, ci, co, dt)
                 ms = cuda_ms(lambda: conv3x3_packed_nchw(xx, ww), iters=iters)
+                library_ms = cuda_ms(lambda: F.conv2d(xx, ww, padding=1), iters=iters)
                 rec[name] = {
                     "cin": ci, "cout": co, "ms": ms,
                     "plain_ms": cuda_ms(lambda: conv3x3_packed_reference_nchw(xx, ww),
                                         iters=iters),
-                    "library_ms": cuda_ms(lambda: F.conv2d(xx, ww, padding=1), iters=iters),
+                    "library_ms": library_ms, "vs_library": ms / library_ms,
+                    "device_ms": device_ms(lambda: conv3x3_packed_nchw(xx, ww),
+                                           CONV_PATHS[dtype][0]),
+                    "library_device_ms": device_ms(lambda: F.conv2d(xx, ww, padding=1)),
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "roofline_share": bound_ms / ms,
                 }
@@ -551,8 +579,9 @@ def kernel_breakdown(wall, kernels, top=8):
     return {
         "wall_s": wall, "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
         "vq_fused_device_s": sum(device_us(e) for e in kernels if "vq_" in e.key) / 1e6,
-        "conv3x3_packed_device_s": sum(device_us(e) for e in kernels
-                                       if "conv3x3_kernel" in e.key) / 1e6,
+        "conv3x3_packed_device_s": sum(
+            device_us(e) for e in kernels
+            if any(sym in e.key for sym, _ in CONV_PATHS.values())) / 1e6,
         "top": [{"kernel": e.key[:90], "count": e.count, "device_s": device_us(e) / 1e6}
                 for e in ordered[:top]],
     }
@@ -821,9 +850,10 @@ def main(argv=None):
         **{k: main_conv["forward"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
         "library_note": "F.conv2d (cuDNN) at the same shape and dtype",
-        "points": [{"dtype": r["dtype"], "dir": d, "cin": r[d]["cin"], "cout": r[d]["cout"],
-                    "h": r["h"], **{k: r[d][k] for k in ("ms", "plain_ms", "library_ms",
-                                                        "bound_ms")}}
+        "points": [{"dtype": r["dtype"], "path": r["path"], "dir": d, "cin": r[d]["cin"],
+                    "cout": r[d]["cout"], "h": r["h"],
+                    **{k: r[d][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "vs_library", "device_ms", "library_device_ms")}}
                    for r in conv if "forward" in r for d in ("forward", "dx")],
     }]})
     print(info["nvidia_smi"], flush=True)

@@ -12,6 +12,11 @@ The function is an f32-accumulated convolution without bias whose output
 is in the input's dtype; the TPU kernel's four-pixel lane packing is a
 layout trick of the TPU and is not part of it.
 
+The source holds one kernel for each dtype behind one launch: bf16 runs on
+the tensor cores (an implicit GEMM of `mma.sync.m16n8k16`, bf16 products
+summed in f32), f32 on the CUDA cores (f32 FMAs, no TF32). Both round the
+f32 sum once to the output dtype.
+
 Two layouts reach the same kernel, which reads activations through their
 strides: the JAX package's public one (`conv3x3_packed`, NHWC activations,
 HWIO weights), and the modules' NCHW/OIHW (`conv3x3_packed_nchw`), which

@@ -137,11 +137,16 @@ def _conv_inputs(b, cin, cout, h, w, dtype, device, seed=6):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 32, 32, 64, 64), (2, 32, 64, 32, 32),
                                    (2, 64, 32, 16, 16), (3, 20, 40, 37, 45),
-                                   (1, 1, 3, 5, 7)])
+                                   (1, 1, 3, 5, 7), (1, 8, 72, 9, 33),
+                                   (2, 48, 3, 12, 40)])
 def test_conv_kernel_matches_plain(cuda, dtype, shape):
     """Forward and dx (through the autograd Function) against f32 autograd
     through `F.conv2d` on the same values: f32 to summation order (1e-4),
-    bf16 to one rounding of the f32 sum (2^-8 relative)."""
+    bf16 to one rounding of the f32 sum (2^-8 relative). The shapes reach
+    every edge of the bf16 kernel's tiles: Cin 1, 8 and 72 (a ragged 16-chunk)
+    and 48 (three chunks); Cout 3 (a ragged n8 tile) and 72 (three channel
+    tiles); W 33 and 45 (a column past a 32-wide tile), H 9 and 37 (a row
+    past an 8-row tile); batch 1."""
     dt = getattr(torch, dtype)
     b, cin, cout, h, w = shape
     x, wt, dy = _conv_inputs(b, cin, cout, h, w, dt, cuda)
@@ -163,6 +168,36 @@ def test_conv_kernel_matches_plain(cuda, dtype, shape):
     # the JAX layout's entry runs the same kernel on NHWC
     nhwc = tcp.conv3x3_packed(x.permute(0, 2, 3, 1), wt.permute(2, 3, 1, 0))
     assert torch.equal(nhwc.permute(0, 3, 1, 2), again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_kernel_reads_strided_input(cuda, dtype):
+    """A channel slice x[:, 1:] (neither NCHW- nor NHWC-contiguous, with a
+    storage offset) goes through the kernel by its strides."""
+    dt = getattr(torch, dtype)
+    x, wt, _ = _conv_inputs(2, 21, 24, 17, 35, dt, cuda, seed=11)
+    xs, ws = x[:, 1:], wt[:, 1:]
+    assert not xs.is_contiguous()
+    y = tcp.conv3x3_packed_nchw(xs, ws)
+    assert torch.equal(y, tcp.conv3x3_packed_nchw(xs.contiguous(), ws))
+    ref = torch.nn.functional.conv2d(xs.float(), ws.float(), padding=1)
+    rel = 2.0**-8 if dt == torch.bfloat16 else 0.0
+    assert ((y.float() - ref).abs() <= rel * ref.abs() + 1e-4).all()
+
+
+@pytest.mark.gpu
+def test_conv_bf16_launch_counts_once(cuda):
+    """A bf16 call launches the tensor-core kernel once and counts one
+    launch; a refused dtype raises as before and counts none."""
+    x, wt, _ = _conv_inputs(1, 16, 16, 8, 8, torch.bfloat16, cuda)
+    before = _build.launches[tcp.KERNEL]
+    tcp.conv3x3_packed_nchw(x, wt)
+    torch.cuda.synchronize()
+    assert _build.launches[tcp.KERNEL] == before + 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tcp.conv3x3_packed_nchw(x.half(), wt.half())
+    assert _build.launches[tcp.KERNEL] == before + 1
 
 
 @pytest.mark.gpu

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`medical_image_editing_tpu_torch`) on
 one CUDA card: the quickest proof that the port starts on the GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--kernel-only]
 
 Phases, each printing one JSON line and raising on failure (exit code != 0,
 and no result line):
@@ -12,8 +12,11 @@ and no result line):
                with nvcc for sm_90a (one nvcc per source, all at once); the
                `-Xptxas -v` report;
   3. kernel  — the fused VQ kernel against its plain PyTorch version at the
-               JAX package's operating points and a ragged N, then timed with
-               CUDA events beside the plain version and its bound;
+               serve encode point, the JAX package's operating points and a
+               ragged N; timed with CUDA events (`ms`) and the profiler
+               (`device_ms`, the cross-block reduce included) beside the
+               plain version and its bound; the instance that ran (`path`)
+               and hashes of its ids and quantized rows;
   4. conv    — the 3×3 conv kernel, forward and input gradient, against its
                plain version (and dx against autograd through `F.conv2d`) at
                every (Cin, Cout, H) the training step gives it, batch 8, f32
@@ -43,6 +46,10 @@ and no result line):
   8. kernels — one line listing every hand-written kernel of the paths.
 The serve and train phases are the main paths: each zeroes the launch
 counts just before it and reads them just after.
+`--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
+result line: run from two checkouts in one call (this script copied into
+the other), it holds two versions of the kernel to each other by time and,
+through the hashes, bit for bit.
 The last line is `{"ok": true, "device": {...}}`. There is no CPU fallback:
 without a CUDA device the script fails at once.
 """
@@ -50,8 +57,10 @@ without a CUDA device the script fails at once.
 import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -169,17 +178,21 @@ def profile_window(fn):
     return wall, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, match=None, iters=20, tries=3):
+def device_ms(fn, match=None, iters=20, tries=3, names=None):
     """Device time (ms) of one call of fn(): the kernels of `iters` calls
     under torch.profiler (only those whose name holds `match`, if given),
     over `iters`. Unlike `cuda_ms`, it leaves out the card's idle time while
     the host prepares the next call. A window in which the profiler reports
-    no such kernel is taken again; None ("not measured") after `tries`."""
+    no such kernel is taken again; None ("not measured") after `tries`.
+    The names of the kernels counted are added to the list `names`."""
     fn()
     for _ in range(tries):
         _, kernels = profile_window(lambda: [fn() for _ in range(iters)])
-        us = [device_us(e) for e in kernels if match is None or match in e.key]
+        found = [e for e in kernels if match is None or match in e.key]
+        us = [device_us(e) for e in found]
         if us and sum(us) > 0:
+            if names is not None:
+                names.extend(e.key for e in found)
             return sum(us) / 1e3 / iters
     return None
 
@@ -230,23 +243,42 @@ def device_phase():
     return info
 
 
-def build_phase():
+def build_phase(stems=None):
     from medical_image_editing_tpu_torch.ops import _build
 
+    stems = _build.sources() if stems is None else stems
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all(stems)
     seconds = time.perf_counter() - t0
     report = {}
-    for stem in _build.sources():
+    for stem in stems:
         lines = [ln.strip() for ln in _build.ptxas_report(stem).splitlines()
                  if "ptxas info" in ln or "spill" in ln]
         report[stem] = lines
     emit({"phase": "build", "seconds": seconds, "ptxas": report})
 
 
+def vq_path(names):
+    """The instance of the VQ kernel template the profiler saw launched:
+    `vq_assign_kernel<16, 10>` is "c16k10", `<0, 0>` (C and K read from the
+    arguments) is "generic"; a kernel that is no such template keeps its name."""
+    found = set()
+    for name in names:
+        m = re.search(r"vq_assign_kernel<(\d+), (\d+)>", name)
+        if m:
+            found.add("generic" if m.groups() == ("0", "0") else f"c{m[1]}k{m[2]}")
+        elif "vq_assign" in name:
+            found.add(re.search(r"vq_assign\w*", name)[0])
+    return "+".join(sorted(found)) or None
+
+
 def kernel_phase(device, points=VQ_POINTS, seed=0, iters=50):
     """The fused VQ kernel vs its plain version at each point; returns the
-    first point's record (the serve encode shape)."""
+    records, the serve encode shape first. `ms` is CUDA events around
+    `iters` wrapper calls (the wrapper's host work included), `device_ms`
+    the profiler's device time of the kernels (`vq_` in the name, the
+    cross-block reduce included); `ids_sha256` and `quant_sha256` let two
+    builds of the kernel be held bit for bit on the same seeded inputs."""
     import torch
 
     from medical_image_editing_tpu_torch.ops.vq import vq_scores
@@ -285,21 +317,29 @@ def kernel_phase(device, points=VQ_POINTS, seed=0, iters=50):
         }
         ms = cuda_ms(lambda: vq_assign_fused(e, x), iters=iters)
         plain_ms = cuda_ms(lambda: vq_assign_fused_reference(e, x), iters=iters)
+        seen = []
+        dev_ms = device_ms(lambda: vq_assign_fused(e, x), "vq_", names=seen)
         bound_ms, bound_by = vq_bound(n, c, k)
         rec = {
             "phase": "kernel", "name": "vq_fused", "n": n, "c": c, "k": k,
+            "path": vq_path(seen),
             "checks": checks, "id_mismatches_clear": clear_mismatch,
             "id_mismatches_near_tie": near_tie_mismatch,
             "sums_max_abs_err": sums_err, "sums_tol": sums_tol,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "roofline_share": bound_ms / ms,
+            "ms": ms, "device_ms": dev_ms, "host_gap_ms": None if dev_ms is None else ms - dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "roofline_share": bound_ms / ms,
+            "roofline_share_device": None if not dev_ms else bound_ms / dev_ms,
+            "ids_sha256": hashlib.sha256(got[0].cpu().numpy().tobytes()).hexdigest()[:16],
+            "quant_sha256": hashlib.sha256(got[1].cpu().numpy().tobytes()).hexdigest()[:16],
         }
         emit(rec)
         if not all(checks.values()):
             raise RuntimeError(f"vq_fused disagrees with its plain version at "
                                f"N={n}, C={c}, K={k}: {checks}")
         records.append(rec)
-    return records[0]
+        del x, e, got, again, plain, top2, segment
+    return records
 
 
 def conv_kernel_phase(device, points=CONV_POINTS, batch=8, seed=0, iters=50):
@@ -797,6 +837,10 @@ def train_reference_phase(cfg, *, size=64, batch=2, seed=1):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--kernel-only", action="store_true",
+                        help="build the VQ kernel and run only the device and kernel "
+                             "phases, with no result line: for holding two checkouts' "
+                             "VQ kernels to each other in one call")
     args = parser.parse_args(argv)
 
     import torch
@@ -807,8 +851,13 @@ def main(argv=None):
         return 1
 
     info = device_phase()
+    if args.kernel_only:
+        build_phase(["vq_fused"])
+        kernel_phase("cuda", seed=args.seed)
+        return 0
     build_phase()
-    vq = kernel_phase("cuda", seed=args.seed)
+    vq_points = kernel_phase("cuda", seed=args.seed)
+    vq = vq_points[0]
     conv = conv_kernel_phase("cuda", seed=args.seed)
     model = json.loads(MODEL_CONFIG.read_text())["model"]["vqmodel"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -832,11 +881,13 @@ def main(argv=None):
                              "train": train_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
-        "n": vq["n"], "c": vq["c"], "k": vq["k"],
-        "ms": vq["ms"], "plain_ms": vq["plain_ms"], "bound_ms": vq["bound_ms"],
-        "bound_by": vq["bound_by"], "library_ms": None,
+        "n": vq["n"], "c": vq["c"], "k": vq["k"], "path": vq["path"],
+        "ms": vq["ms"], "device_ms": vq["device_ms"], "plain_ms": vq["plain_ms"],
+        "bound_ms": vq["bound_ms"], "bound_by": vq["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes assign + lookup + "
                         "per-code counts and sums",
+        "points": [{k: r[k] for k in ("n", "c", "k", "path", "ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by")} for r in vq_points],
     }, {
         "name": "conv3x3_packed", "route": "cuda", "source": CONV_SOURCE,
         "replaces": CONV_REPLACES,

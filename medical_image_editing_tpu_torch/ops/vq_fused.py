@@ -11,7 +11,9 @@ launch failure raises. On a CPU tensor it computes the same function with
 `vq_apply_fused` is the drop-in for `ops.vq.vq_apply` (same returns).
 """
 
+import contextlib
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -32,10 +34,12 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load(KERNEL)
-        lib.vq_fused_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.vq_fused_instance.argtypes = [ctypes.c_int] * 2
+        lib.vq_fused_instance.restype = ctypes.c_int
+        lib.vq_fused_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.vq_fused_smem_bytes.restype = ctypes.c_longlong
-        lib.vq_fused_partials.argtypes = [ctypes.c_int] * 4
-        lib.vq_fused_partials.restype = ctypes.c_longlong
+        lib.vq_fused_grid.argtypes = [ctypes.c_int] * 3
+        lib.vq_fused_grid.restype = ctypes.c_int
         lib.vq_fused_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_void_p]
             + [ctypes.c_int] * 4
@@ -44,6 +48,12 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.vq_fused_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_path(c: int, k: int) -> str:
+    """The instance of the kernel template that takes a (K, C) codebook:
+    "c16k10" (C and K compiled in) or "generic" (read from the arguments)."""
+    return "c16k10" if _kernel_lib().vq_fused_instance(c, k) else "generic"
 
 
 def vq_assign_fused_reference(
@@ -59,10 +69,20 @@ def vq_assign_fused_reference(
     return ids.to(torch.int32), embed[ids], onehot.sum(0), onehot.t() @ flat
 
 
-def _rows_per_block(n: int) -> int:
-    # 256 threads a block, 1-4 rows a thread: fewer, fuller blocks (and fewer
-    # partials to reduce) when N leaves at least two waves on 132 SMs
-    return 256 * max(1, min(4, n // (256 * 2 * 132)))
+@functools.lru_cache(maxsize=64)
+def _grid(n: int, c: int, k: int, device_index: int) -> int:
+    """Blocks of the persistent grid for (N, C, K) on the current device."""
+    lib = _kernel_lib()
+    smem = lib.vq_fused_smem_bytes(c, k)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"codebook K={k}, C={c} needs {smem} B of shared memory "
+            f"(> {MAX_SMEM_BYTES} B a block may use)"
+        )
+    grid = lib.vq_fused_grid(n, c, k)
+    if grid < 1:
+        raise RuntimeError(f"vq_fused: no grid for N={n}, C={c}, K={k} on cuda:{device_index}")
+    return grid
 
 
 def _launch(embed: torch.Tensor, flat: torch.Tensor):
@@ -80,27 +100,25 @@ def _launch(embed: torch.Tensor, flat: torch.Tensor):
         raise ValueError(f"N={n}: the kernel takes 0 < N < 2**24 (exact f32 counts)")
     if k < 1 or c < 1:
         raise ValueError(f"empty codebook {tuple(embed.shape)}")
-    lib = _kernel_lib()
-    rows = _rows_per_block(n)
-    smem = lib.vq_fused_smem_bytes(k, c, rows)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"codebook K={k}, C={c} needs {smem} B of shared memory "
-            f"(> {MAX_SMEM_BYTES} B a block may use)"
-        )
+    if flat.data_ptr() % 16:
+        flat = flat.clone()  # the kernel stages rows with 16-byte copies
     dev = flat.device
-    ids = torch.empty(n, dtype=torch.int32, device=dev)
-    quant = torch.empty(n, c, dtype=torch.float32, device=dev)
-    counts = torch.empty(k, dtype=torch.float32, device=dev)
-    sums = torch.empty(k, c, dtype=torch.float32, device=dev)
-    partials = torch.empty(lib.vq_fused_partials(n, k, c, rows),
-                           dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _kernel_lib()
+    guard = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+             else torch.cuda.device(dev))
+    with guard:
+        grid = _grid(n, c, k, dev.index)
+        ids = torch.empty(n, dtype=torch.int32, device=dev)
+        quant = torch.empty(n, c, dtype=torch.float32, device=dev)
+        counts = torch.empty(k, dtype=torch.float32, device=dev)
+        sums = torch.empty(k, c, dtype=torch.float32, device=dev)
+        partials = torch.empty(grid * (k + k * c), dtype=torch.float32, device=dev)
+        # the raw handle: torch.cuda.current_stream() builds a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
         err = lib.vq_fused_launch(
-            flat.data_ptr(), embed.data_ptr(), n, c, k, rows,
-            ids.data_ptr(), quant.data_ptr(), counts.data_ptr(),
-            sums.data_ptr(), partials.data_ptr(), stream,
+            flat.data_ptr(), embed.data_ptr(), n, c, k, grid, ids.data_ptr(),
+            quant.data_ptr(), counts.data_ptr(), sums.data_ptr(), partials.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"vq_fused launch failed: cudaError {err}")

@@ -36,9 +36,18 @@ def _inputs(n, c, k, seed, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,c,k", [(512, 16, 10), (128, 96, 12), (100, 16, 10),
-                                   (4096, 64, 512), (70000, 16, 10)])
+                                   (4096, 64, 512), (70000, 16, 10),
+                                   # the <16, 10> instance: one row, tile - 1,
+                                   # tile + 1, the training point
+                                   (1, 16, 10), (255, 16, 10), (257, 16, 10),
+                                   (524288, 16, 10),
+                                   # the generic instance: K past 10, K = 1,
+                                   # C not a multiple of 4, VQGAN's codebook
+                                   (1000, 16, 17), (300, 16, 1), (333, 7, 5),
+                                   (8192, 512, 64)])
 def test_vq_kernel_matches_plain(cuda, n, c, k):
     x, e = _inputs(n, c, k, 2, cuda)
+    assert tvqf.kernel_path(c, k) == ("c16k10" if (c, k) == (16, 10) else "generic")
     before = _build.launches[tvqf.KERNEL]
     got = tvqf.vq_assign_fused(e, x)
     again = tvqf.vq_assign_fused(e, x)
@@ -46,8 +55,11 @@ def test_vq_kernel_matches_plain(cuda, n, c, k):
     assert _build.launches[tvqf.KERNEL] == before + 2
     want = tvqf.vq_assign_fused_reference(e, x)
     # ids agree wherever the plain top-2 score gap is clear of f32 rounding
-    top2 = tvq.vq_scores(e, x).topk(2, dim=1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-5 * top2.abs().max()
+    if k > 1:
+        top2 = tvq.vq_scores(e, x).topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-5 * top2.abs().max()
+    else:
+        clear = torch.ones(n, dtype=torch.bool, device=cuda)
     assert torch.equal(got[0][clear], want[0][clear])
     ids = got[0].long()
     assert torch.equal(got[1], e[ids])
@@ -56,6 +68,26 @@ def test_vq_kernel_matches_plain(cuda, n, c, k):
         0, ids, x.double())
     assert (got[3].double() - segment).abs().max() <= 1e-5 * x.abs().sum()
     for a, b in zip(got, again):  # no atomics: bit-identical reruns
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,k", [(16, 10), (64, 12)])
+def test_vq_kernel_takes_an_unaligned_view(cuda, c, k):
+    """A contiguous view of the features 4 bytes past a 16-byte boundary
+    goes through the kernel (copied first for its 16-byte loads) and gives
+    what the aligned tensor gives."""
+    x, e = _inputs(1001, c, k, 12, cuda)
+    store = torch.empty(x.numel() + 1, device=cuda)
+    view = store[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    before = _build.launches[tvqf.KERNEL]
+    got = tvqf.vq_assign_fused(e, view)
+    want = tvqf.vq_assign_fused(e, x)
+    torch.cuda.synchronize()
+    assert _build.launches[tvqf.KERNEL] == before + 2
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 

@@ -35,6 +35,15 @@ and no result line):
                on a small input;
   6. profile — device time by kernel of a warm eval forward and a warm
                painted-map decode;
+  6b. serve_runtime — the editing service's runtime at the same widths,
+               512²: (a) the painted batch of 8 decoded in f32, in bf16 on
+               cuDNN and in bf16 on the packed conv kernel (times, device
+               time, error against f32, conv launches held to the count
+               derived from the model), single-slice requests per route;
+               (b) the HTTP service (`cli/serve_http.py`, bf16, packed) on a
+               local port: healthz, edits, a padded batch, a PNG and three
+               requests that must get 400; (c) the file-watching loop
+               (`cli/run_recon.py::serve`, inotify) answering three edits;
   7. train   — the first-stage training step at the same widths, with the
                config's augmentation, losses, optimizers and bf16 compute
                dtype, `MEDIMG_CONV_IMPL=packed`, 256², batch 8: codebook
@@ -44,8 +53,9 @@ and no result line):
                the profiler; one step on the card held to the port's CPU path
                on a small input;
   8. kernels — one line listing every hand-written kernel of the paths.
-The serve and train phases are the main paths: each zeroes the launch
-counts just before it and reads them just after.
+The serve, serve_runtime (its packed route) and train phases are the main
+paths: each zeroes the launch counts just before it and reads them just
+after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
@@ -80,13 +90,15 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
 
 # (N, C, K): the serve encode (8 slices at 512², C=16, K=10) first, then the
-# JAX package's VQ operating points and a ragged N
+# JAX package's VQ operating points, a ragged N, and N past one launch's row
+# limit (2**24, walked in two chunks)
 VQ_POINTS = [
     (8 * 512 * 512, 16, 10),
     (524288, 16, 10),
     (8192, 512, 64),
     (32768, 64, 512),
     (1000003, 16, 10),
+    (2**24 + 3, 16, 10),
 ]
 VQ_SOURCE = "medical_image_editing_tpu_torch/csrc/vq_fused.cu"
 VQ_REPLACES = "medical_image_editing_tpu/ops/vq_pallas.py:29"
@@ -95,6 +107,9 @@ VQ_REPLACES = "medical_image_editing_tpu/ops/vq_pallas.py:29"
 # model's training step at 256² (the dx launch of each is Cout → Cin);
 # the first is the decoder's 256² level, the most frequent
 CONV_POINTS = [(32, 32, 256), (32, 32, 128), (32, 64, 128), (32, 64, 64)]
+# (B, Cin, Cout, H = W) of the bf16 decode's packed convs when serving at
+# 512²: a single request and a batch of 8 (bf16 only)
+CONV_SERVE_POINTS = [(1, 32, 32, 512), (8, 32, 32, 512)]
 CONV_RAGGED = (3, 20, 40, 37, 45)  # B, Cin, Cout, H, W
 CONV_SOURCE = "medical_image_editing_tpu_torch/csrc/conv3x3_packed.cu"
 CONV_REPLACES = "medical_image_editing_tpu/ops/conv_pack.py:66"
@@ -359,6 +374,7 @@ def conv_kernel_phase(device, points=CONV_POINTS, batch=8, seed=0, iters=50):
     b0, cin0, cout0, h0, w0 = CONV_RAGGED
     cases = [(batch, cin, cout, h, h, dt) for cin, cout, h in points
              for dt in (torch.bfloat16, torch.float32)]
+    cases += [(b, cin, cout, h, h, torch.bfloat16) for b, cin, cout, h in CONV_SERVE_POINTS]
     cases += [(b0, cin0, cout0, h0, w0, dt) for dt in (torch.bfloat16, torch.float32)]
     records = []
     for b, cin, cout, h, w, dt in cases:
@@ -609,6 +625,284 @@ def profile_phase(served):
         fn()
         wall, kernels = profile_window(fn)
         emit({"phase": "profile", "step": name, **kernel_breakdown(wall, kernels)})
+
+
+def decode_gap(out, ref):
+    """Max, mean, 99th and 99.9th percentile abs difference and correlation
+    of two decodes."""
+    diff = np.abs(out.astype(np.float64) - ref)
+    p99, p999 = np.quantile(diff, [0.99, 0.999])
+    return {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+            "p99_abs_err": float(p99), "p999_abs_err": float(p999),
+            "corr": float(np.corrcoef(out.ravel(), ref.ravel())[0, 1])}
+
+
+def serve_runtime_phase(device, model, painted, workdir, *, requests=3, seed=0):
+    """The editing service's runtime at `model` widths on the painted maps
+    (B, H, W) of the serve phase: (a) bf16 serving on both conv routes
+    against f32, (b) the HTTP service, (c) the file-watching loop. Returns
+    the launch counts of the packed route's decodes in (a)."""
+    launches = serve_bf16_part(device, model, painted, requests=requests, seed=seed)
+    with conv_route("packed"):
+        serve_http_part(device, model, painted, seed=seed)
+        serve_watch_part(device, model, painted, workdir)
+    return launches
+
+
+def serve_bf16_part(device, model, painted, *, requests=3, seed=0):
+    """(a) The painted batch decoded three ways with the same seeded
+    weights: f32, bf16 with the default route (cuDNN), bf16 with
+    `MEDIMG_CONV_IMPL=packed`. Per route: warm decode times (host clock),
+    device busy time of one decode (profiler), the gap from the f32 decode
+    in lung-window units, the packed conv's launches (0 on the cuDNN routes,
+    the derived count per decode on the packed one), `requests` single-slice
+    requests through `make_edit_fn`, peak memory. Raises unless the outputs
+    are finite in [-1, 1], the packed decode correlates with the cuDNN bf16
+    one above 0.99, and its gap from it is no wider than the cuDNN bf16
+    decode's gap from f32 (both accumulate bf16 products in f32)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
+    from medical_image_editing_tpu_torch.cli.run_recon import load_model, make_edit_fn
+    from medical_image_editing_tpu_torch.ops import _build
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    size = painted.shape[-1]
+    models = {}
+    for dtype in (None, "bfloat16"):
+        cfg = lung_config(model)
+        cfg.compute_dtype = dtype
+        models[dtype] = (cfg, *load_model(cfg, device=device, seed=seed)[1:])
+    window = (models[None][0].window_width, models[None][0].window_center,
+              models[None][0].window_scale)
+    with conv_route("packed"):
+        n_dec = routed_convs(models["bfloat16"][1],
+                             torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    outs, launches = {}, {}
+    for name, dtype, impl in (("f32", None, "xla"), ("bf16_cudnn", "bfloat16", "xla"),
+                              ("bf16_packed", "bfloat16", "packed")):
+        cfg, dec, vq_state = models[dtype]
+        with conv_route(impl):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            edit = make_batched_edit_fn(dec, is_lung=True, dataset_window=window,
+                                        device=device)
+            request = make_edit_fn(dec, vq_state, cfg, device=device)
+            _build.launches.clear()
+            # -- main path (packed route): decodes, then single-slice requests
+            outs[name] = edit(vq_state, painted).cpu().numpy()  # cuDNN's choice too
+            decode_s = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                edit(vq_state, painted)
+                sync()
+                decode_s.append(time.perf_counter() - t0)
+            decodes = 4
+            profiled = {}
+            if cuda:
+                wall, kernels = profile_window(lambda: edit(vq_state, painted))
+                decodes += 1
+                profiled = kernel_breakdown(wall, kernels)
+            request_s = []
+            for m in painted[:requests]:
+                t0 = time.perf_counter()
+                request(m[None])
+                request_s.append(time.perf_counter() - t0)
+            launches[name] = dict(_build.launches)
+        out = outs[name]
+        conv_launches = launches[name].get("conv3x3_packed", 0)
+        want = (decodes + len(request_s)) * n_dec if cuda and impl == "packed" else 0
+        rec = {"phase": "serve_runtime", "part": "bf16", "route": name, "size": size,
+               "batch": int(painted.shape[0]), "decode_s": decode_s,
+               "edit_request_s": request_s,
+               "device_busy_s": profiled.get("device_busy_s"),
+               "conv3x3_packed_device_s": profiled.get("conv3x3_packed_device_s"),
+               "top": profiled.get("top"),
+               "vs_f32": decode_gap(out, outs["f32"]),
+               "conv3x3_packed_launches": conv_launches,
+               "conv3x3_packed_launches_expected": want,
+               "routed_convs_per_decode": n_dec,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+               "card": nvidia_smi() if cuda else None}
+        if name == "bf16_packed":
+            rec["vs_bf16_cudnn"] = decode_gap(out, outs["bf16_cudnn"])
+        emit(rec)
+        if not np.isfinite(out).all() or out.min() < -1.0 or out.max() > 1.0:
+            raise RuntimeError(f"{name} decode not finite in [-1, 1]")
+        if conv_launches != want:
+            raise RuntimeError(f"{name}: {conv_launches} conv3x3_packed launches, "
+                               f"derived {want}")
+    packed = decode_gap(outs["bf16_packed"], outs["bf16_cudnn"])
+    cudnn_gap = decode_gap(outs["bf16_cudnn"], outs["f32"])["max_abs_err"]
+    if packed["corr"] <= 0.99 or packed["max_abs_err"] > cudnn_gap:
+        raise RuntimeError(f"packed bf16 decode vs cuDNN bf16: {packed}; cuDNN bf16 vs "
+                           f"f32 max abs {cudnn_gap}")
+    return launches["bf16_packed"]
+
+
+def serve_http_part(device, model, painted, *, seed=0):
+    """(b) `EditService` (bf16) behind `ThreadingHTTPServer` on a local port:
+    /healthz, one slice, a batch of 3 (padded to 4), a PNG, and a malformed
+    body, a label past the codebook and an empty batch, which must get 400.
+    The .npy responses must equal `service.edit` on the same maps (1e-6).
+    Records each request's host time and X-Edit-Ms."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from medical_image_editing_tpu_torch.cli.serve_http import EditService, make_handler
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.utils.imaging import PNG_SIGNATURE
+
+    cuda = torch.device(device).type == "cuda"
+    size = painted.shape[-1]
+    cfg = lung_config(model)
+    cfg.compute_dtype = "bfloat16"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    service = EditService(cfg, device=device)
+    for b in (1, 4):  # warm the two batch sizes served below
+        service.edit(np.zeros((b, size, size), np.int32))
+        service.edit(np.zeros((b, size, size), np.int32), uint8=True)
+
+    def npy(a):
+        buf = io.BytesIO()
+        np.save(buf, a)
+        return buf.getvalue()
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    calls = []
+
+    def call(path, body=None, expect=200):
+        req = urllib.request.Request(url + path, data=body,
+                                     method="GET" if body is None else "POST")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                code, data, edit_ms = r.status, r.read(), r.headers.get("X-Edit-Ms")
+        except urllib.error.HTTPError as e:
+            code, data, edit_ms = e.code, e.read(), None
+        calls.append({"path": path, "status": code,
+                      "host_ms": (time.perf_counter() - t0) * 1e3,
+                      "x_edit_ms": None if edit_ms is None else float(edit_ms)})
+        if code != expect:
+            raise RuntimeError(f"{path}: HTTP {code}, expected {expect}: {data[:200]!r}")
+        return data
+
+    _build.launches.clear()
+    try:
+        info = json.loads(call("/healthz"))
+        one = np.load(io.BytesIO(call("/edit", npy(painted[0]))))
+        three = np.load(io.BytesIO(call("/edit", npy(painted[:3]))))
+        png = call("/edit?format=png", npy(painted[0]))
+        bad = painted[0].copy()
+        bad[0, 0] = cfg.dict_size + 1
+        call("/edit", b"not an npy", expect=400)
+        call("/edit", npy(bad), expect=400)
+        call("/edit", npy(np.zeros((0, size, size), np.int32)), expect=400)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    launches = dict(_build.launches)
+    direct_one, direct_three = service.edit(painted[0])[0], service.edit(painted[:3])[0]
+    service.close()
+    checks = {
+        "healthz": info.get("status") == "ok" and info.get("compute_dtype") == "bfloat16",
+        "one": one.shape == (size, size) and bool(np.abs(one - direct_one).max() <= 1e-6),
+        "three": three.shape == (3, size, size)
+        and bool(np.abs(three - direct_three).max() <= 1e-6),
+        "png": png[:8] == PNG_SIGNATURE,
+    }
+    emit({"phase": "serve_runtime", "part": "http", "device": service.device,
+          "compute_dtype": service.compute_dtype, "requests": calls, "checks": checks,
+          "launches": launches,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if cuda else None})
+    if not all(checks.values()):
+        raise RuntimeError(f"HTTP service: {checks}")
+    if cuda and not launches.get("conv3x3_packed"):
+        raise RuntimeError("the HTTP service's bf16 decode launched no conv3x3_packed")
+
+
+def serve_watch_part(device, model, painted, workdir, *, poll_seconds=60.0):
+    """(c) `run_recon.serve` (bf16, inotify) on a NIfTI map in `workdir`,
+    three passes; an editor thread writes the next map 1.2 s after each
+    recon appears (names carry second-granularity timestamps), and a third
+    write wakes the loop's last wait. Raises unless 3 recon and 3 label PNGs
+    appear within one poll timeout."""
+    import io
+    import threading
+
+    import torch
+
+    from medical_image_editing_tpu_torch.cli.run_recon import serve
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.utils import nifti
+    from medical_image_editing_tpu_torch.utils.fswatch import FileWatcher
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = lung_config(model)
+    cfg.compute_dtype = "bfloat16"
+    workdir = Path(workdir)
+    cfg.edited_file_path = str(workdir / "label_edit.nii.gz")
+    cfg.save_dir_path = str(workdir / "inference")
+
+    def write(m):
+        nifti.save(nifti.to_nifti_array(m), cfg.edited_file_path, dtype=np.int32)
+
+    def count(prefix):
+        out = Path(cfg.save_dir_path)
+        return sum(f.startswith(prefix) for f in os.listdir(out)) if out.is_dir() else 0
+
+    write(painted[0])
+    with FileWatcher(cfg.edited_file_path) as watcher:
+        inotify = watcher.active
+    stop = threading.Event()
+
+    def editor():
+        for k in (1, 2, 3):
+            while count("recon_") < k and not stop.is_set():
+                time.sleep(0.02)
+            if stop.is_set():
+                return
+            time.sleep(1.2)
+            write(painted[k % len(painted)])
+
+    thread = threading.Thread(target=editor, daemon=True)
+    log = io.StringIO()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            serve(cfg, poll_seconds=poll_seconds, max_iters=3, watch="inotify", device=device)
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    elapsed = time.perf_counter() - t0
+    recons, labels = count("recon_"), count("label_")
+    emit({"phase": "serve_runtime", "part": "watch", "inotify_active": inotify,
+          "elapsed_s": elapsed, "poll_seconds": poll_seconds, "recon_pngs": recons,
+          "label_pngs": labels, "processed": log.getvalue().count("Processing..."),
+          "launches": dict(_build.launches),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if cuda else None})
+    if recons < 3 or labels < 3 or elapsed >= poll_seconds:
+        raise RuntimeError(f"file-watching loop: {recons} recon and {labels} label PNGs "
+                           f"in {elapsed:.1f} s; its log:\n{log.getvalue()}")
 
 
 def kernel_breakdown(wall, kernels, top=8):
@@ -863,7 +1157,10 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, served = serve_phase("cuda", model, tmp, seed=args.seed)
     profile_phase(served)
+    painted = served.painted
     del served
+    with tempfile.TemporaryDirectory() as tmp:
+        runtime_launches = serve_runtime_phase("cuda", model, painted, tmp, seed=args.seed)
     cfg = load_config()
     with conv_route("packed"):
         train_launches, trained = train_phase("cuda", cfg, seed=args.seed)
@@ -891,8 +1188,10 @@ def main(argv=None):
     }, {
         "name": "conv3x3_packed", "route": "cuda", "source": CONV_SOURCE,
         "replaces": CONV_REPLACES,
-        "launches": train_launches.get("conv3x3_packed", 0),
+        "launches": (train_launches.get("conv3x3_packed", 0)
+                     + runtime_launches.get("conv3x3_packed", 0)),
         "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
+                             "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
                              "train": train_launches.get("conv3x3_packed", 0)},
         "max_abs_err": main_conv["forward_max_abs_err"],
         "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
@@ -901,8 +1200,8 @@ def main(argv=None):
         **{k: main_conv["forward"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
         "library_note": "F.conv2d (cuDNN) at the same shape and dtype",
-        "points": [{"dtype": r["dtype"], "path": r["path"], "dir": d, "cin": r[d]["cin"],
-                    "cout": r[d]["cout"], "h": r["h"],
+        "points": [{"dtype": r["dtype"], "path": r["path"], "dir": d, "b": r["b"],
+                    "cin": r[d]["cin"], "cout": r[d]["cout"], "h": r["h"],
                     **{k: r[d][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                             "vs_library", "device_ms", "library_device_ms")}}
                    for r in conv if "forward" in r for d in ("forward", "dx")],

@@ -4,8 +4,16 @@ Counterpart of `medical_image_editing_tpu/cli/edit_batch.py`: the
 label-0 mask, ids−1, codebook lookup, per-slice mean rescale and decode of
 the reference's editing loop (`run_recon.py:182-197`), over a batch of
 slices, with the lung re-window, a uint8 output and microbatching. The JAX
-version's `mesh`/`partition` (multi-chip) and `quantize="int8"` are not
-ported yet, so this signature has no such arguments.
+version's `mesh`/`partition` (multi-chip, ROADMAP item 15) and
+`quantize="int8"` (item 22) are not ported yet, so this signature has no
+such arguments and `main` no `--partition` and no `--dtype int8`.
+
+Painted labels are checked before the codebook lookup (`check_labels`): a
+label past the codebook raises `ValueError`, where the JAX package's
+`jnp.take` fills NaN rows and decodes a NaN image, and where an unchecked
+torch index would trip a device assert that leaves the CUDA context
+unusable. Negative labels down to 1 − K wrap to the same codebook row on
+both sides (both index from the end), so they are accepted.
 """
 
 import argparse
@@ -20,13 +28,56 @@ from ..ops.windowing import LUNG_WINDOW, denormalize, normalize
 from ..utils.device import resolve_device
 
 
+def check_labels(id_maps, dict_size: int) -> None:
+    """Raise `ValueError` unless every painted label lies in
+    [1 − dict_size, dict_size]: 0 is background, 1..K are codebook rows, and
+    −K+1..−1 wrap to rows from the end as they do in the JAX package. A
+    numpy array or CPU tensor is checked on the host; a CUDA tensor with one
+    reduction and a sync."""
+    if isinstance(id_maps, torch.Tensor):
+        if id_maps.numel() == 0:
+            return
+        lo, hi = (int(v) for v in torch.stack(torch.aminmax(id_maps)).tolist())
+    else:
+        id_maps = np.asarray(id_maps)
+        if id_maps.size == 0:
+            return
+        lo, hi = int(id_maps.min()), int(id_maps.max())
+    if lo >= 1 - dict_size and hi <= dict_size:
+        return
+    if isinstance(id_maps, torch.Tensor):
+        id_maps = id_maps.cpu().numpy()
+    bad = np.unique(id_maps[(id_maps < 1 - dict_size) | (id_maps > dict_size)])
+    raise ValueError(
+        f"painted labels {bad[:8].tolist()}{' ...' if bad.size > 8 else ''} outside "
+        f"[{1 - dict_size}, {dict_size}]: 0 is background, 1..{dict_size} the "
+        "codebook's entries"
+    )
+
+
+def to_checked_ids(id_maps, dict_size: int, device) -> torch.Tensor:
+    """Painted id maps (numpy or tensor) → int32 tensor on `device`, checked
+    by `check_labels` where they arrive: on the host for numpy and CPU
+    tensors, before the copy to the card."""
+    check_labels(id_maps, dict_size)
+    return torch.as_tensor(id_maps, device=device).to(torch.int32)
+
+
 def decode_painted(decoder, vq_state: VQState, id_maps: torch.Tensor, *,
                    is_lung: bool, dataset_window, per_slice: bool = True):
     """id maps (B,H,W), 0 = background → (recon (B,H,W) f32, mask (B,H,W)).
 
-    The embedding is zeroed under the mask and rescaled by
-    numel/sum(mask): per slice (`per_slice=True`) or over the whole batch,
-    as the single-slice edit does. Lung: dataset window → lung window."""
+    The labels are checked first (`check_labels`). The embedding is zeroed
+    under the mask and rescaled by numel/sum(mask): per slice
+    (`per_slice=True`) or over the whole batch, as the single-slice edit
+    does. Lung: dataset window → lung window."""
+    check_labels(id_maps, vq_state.embed.shape[0])
+    return _decode(decoder, vq_state, id_maps, is_lung=is_lung,
+                   dataset_window=dataset_window, per_slice=per_slice)
+
+
+def _decode(decoder, vq_state, id_maps, *, is_lung, dataset_window, per_slice):
+    """`decode_painted` on labels already checked."""
     ids = id_maps.to(torch.int32)
     bg = ids == 0
     mask = 1.0 - bg.float()
@@ -76,8 +127,8 @@ def make_batched_edit_fn(
     decoder.to(dev).eval()
 
     def edit_chunk(vq_state, id_maps):
-        recon, _ = decode_painted(decoder, vq_state, id_maps, is_lung=is_lung,
-                                  dataset_window=dataset_window)
+        recon, _ = _decode(decoder, vq_state, id_maps, is_lung=is_lung,
+                           dataset_window=dataset_window, per_slice=True)
         if output_dtype == "uint8":
             recon = ((recon.clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8)
         return recon
@@ -85,7 +136,7 @@ def make_batched_edit_fn(
     @torch.inference_mode()
     def edit(vq_state, id_maps):
         vq_state = VQState(*(t.to(dev) for t in vq_state))
-        id_maps = torch.as_tensor(id_maps, device=dev)
+        id_maps = to_checked_ids(id_maps, vq_state.embed.shape[0], dev)
         b = id_maps.shape[0]
         if not microbatch or b <= microbatch:
             return edit_chunk(vq_state, id_maps)
@@ -146,10 +197,15 @@ def main(argv=None):
                         help="directory of label_*.nii.gz painted id maps")
     parser.add_argument("--out-dir", required=True)
     parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--dtype", choices=["f32", "bf16"], default=None,
+                        help="decode compute dtype (parameters and checkpoints "
+                             "stay f32); default: $MEDIMG_EDIT_DTYPE, else f32")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     config = LungConfig() if args.config == "lung" else CRCConfig()
+    if args.dtype:
+        config.compute_dtype = {"f32": None, "bf16": "bfloat16"}[args.dtype]
     _, decoder, vq_state = load_model(config, device=args.device)
     written = edit_study(
         decoder, vq_state, args.label_dir, args.out_dir,

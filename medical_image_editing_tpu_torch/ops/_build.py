@@ -10,6 +10,10 @@ is kept beside each library; `ptxas_report` returns it.
 `launches` counts kernel launches by name: each wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show that its main path
 went through the kernels.
+
+`KernelError` is what the build, the loading and the wrappers' launches
+raise: a failure of the card or of its toolchain, after which a serving loop
+stops rather than retries.
 """
 
 import ctypes
@@ -30,6 +34,12 @@ NVCC_FLAGS = (
 )
 
 launches: Counter = Counter()
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build or to launch."""
+
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -41,7 +51,7 @@ def nvcc() -> str:
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
             return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
         "kernels of medical_image_editing_tpu_torch are built at first use"
     )
@@ -82,7 +92,7 @@ def build_all(stems: Optional[Iterable[str]] = None) -> None:
         out.with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA build failed:\n" + "\n".join(failed))
 
 
 def load(stem: str) -> ctypes.CDLL:

@@ -131,7 +131,7 @@ def _launch(x: torch.Tensor, w_hwio: torch.Tensor, channels_last: bool) -> torch
             b, h, wd, cin, cout, sb, sc, sh, sw, ysb, ysc, ysh, ysw, stream,
         )
     if err != 0:
-        raise RuntimeError(f"conv3x3_packed launch failed: cudaError {err}")
+        raise _build.KernelError(f"conv3x3_packed launch failed: cudaError {err}")
     _build.launches[KERNEL] += 1
     return y
 

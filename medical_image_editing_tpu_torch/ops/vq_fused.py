@@ -8,6 +8,11 @@ launch failure raises. On a CPU tensor it computes the same function with
 `vq_assign_fused_reference`, the plain PyTorch version, which the tests and
 `chip_smoke.py` hold the kernel to.
 
+The kernel takes fewer than `MAX_ROWS` rows, so that its per-launch counts
+stay exact in f32; `vq_assign_fused` walks larger inputs in row chunks below
+that limit and adds the chunks' counts and sums in chunk order, a fixed
+order, so reruns stay bit-identical. The JAX kernel has no such limit.
+
 `vq_apply_fused` is the drop-in for `ops.vq.vq_apply` (same returns).
 """
 
@@ -22,7 +27,7 @@ from . import _build
 from .vq import VQState, quantize, vq_scores
 
 KERNEL = "vq_fused"
-# counts are exact in f32 only below 2**24
+# rows of one launch: its counts are exact in f32 only below 2**24
 MAX_ROWS = 2**24
 # dynamic shared memory one Hopper block may use
 MAX_SMEM_BYTES = 232448
@@ -81,7 +86,7 @@ def _grid(n: int, c: int, k: int, device_index: int) -> int:
         )
     grid = lib.vq_fused_grid(n, c, k)
     if grid < 1:
-        raise RuntimeError(f"vq_fused: no grid for N={n}, C={c}, K={k} on cuda:{device_index}")
+        raise _build.KernelError(f"vq_fused: no grid for N={n}, C={c}, K={k} on cuda:{device_index}")
     return grid
 
 
@@ -121,7 +126,7 @@ def _launch(embed: torch.Tensor, flat: torch.Tensor):
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"vq_fused launch failed: cudaError {err}")
+        raise _build.KernelError(f"vq_fused launch failed: cudaError {err}")
     _build.launches[KERNEL] += 1
     return ids, quant, counts, sums
 
@@ -133,12 +138,26 @@ def vq_assign_fused(
     quantized (N,C) f32, counts (K,) f32, sums (K,C) f32).
 
     CUDA tensors go through the kernel (or raise); CPU tensors through the
-    plain version."""
+    plain version. N ≥ `MAX_ROWS` rows go in chunks below it."""
     if flat.device.type == "cpu" and embed.device.type == "cpu":
-        return vq_assign_fused_reference(embed, flat)
-    if flat.device.type != "cuda":
+        assign = vq_assign_fused_reference
+    elif flat.device.type != "cuda":
         raise ValueError(f"vq_assign_fused: no kernel for device {flat.device}")
-    return _launch(embed.float().contiguous(), flat.float().contiguous())
+    else:
+        assign = _launch
+        embed, flat = embed.float().contiguous(), flat.float().contiguous()
+    n = flat.shape[0]
+    if n < MAX_ROWS:
+        return assign(embed, flat)
+    # a multiple of 4 rows keeps every chunk's start 16-byte aligned
+    step = max(4, (MAX_ROWS - 1) // 4 * 4)
+    parts = [assign(embed, flat[i : i + step]) for i in range(0, n, step)]
+    counts, sums = parts[0][2], parts[0][3]
+    for part in parts[1:]:
+        counts = counts + part[2]
+        sums = sums + part[3]
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+            counts, sums)
 
 
 def vq_apply_fused(

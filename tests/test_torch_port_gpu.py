@@ -283,3 +283,81 @@ def test_train_step_goes_through_both_kernels(cuda, monkeypatch):
     assert _build.launches[tvqf.KERNEL] == 2
     assert _build.launches[tcp.KERNEL] == 3 + 4 * (3 + 10)  # 2 views × (forward + dx)
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.gpu
+def test_conv_kernel_bf16_at_serving_size(cuda):
+    """The bf16 packed conv at a single request's decoder shape (batch 1,
+    32→32, 512²) against f32 `F.conv2d` on the same values, to one rounding
+    of the f32 sum (2^-8 relative, 1e-4 absolute)."""
+    x, wt, _ = _conv_inputs(1, 32, 32, 512, 512, torch.bfloat16, cuda, seed=13)
+    before = _build.launches[tcp.KERNEL]
+    y = tcp.conv3x3_packed_nchw(x, wt)
+    torch.cuda.synchronize()
+    assert _build.launches[tcp.KERNEL] == before + 1
+    ref = torch.nn.functional.conv2d(x.float(), wt.float(), padding=1)
+    assert ((y.float() - ref).abs() <= 2.0**-8 * ref.abs() + 1e-4).all()
+
+
+@pytest.mark.gpu
+def test_vq_kernel_walks_rows_past_the_limit(cuda):
+    """N = 2^24 + 3 rows (past one launch's limit) go through the kernel in
+    two chunks: ids where the plain top-2 gap is clear, rows, exact counts,
+    sums within 1e-5·Σ|x|, bit-identical reruns."""
+    n, c, k = tvqf.MAX_ROWS + 3, 16, 10
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(n, c, generator=g, device=cuda)
+    e = torch.randn(k, c, generator=g, device=cuda)
+    before = _build.launches[tvqf.KERNEL]
+    got = tvqf.vq_assign_fused(e, x)
+    again = tvqf.vq_assign_fused(e, x)
+    torch.cuda.synchronize()
+    assert _build.launches[tvqf.KERNEL] == before + 4
+    want = tvqf.vq_assign_fused_reference(e, x)
+    top2 = tvq.vq_scores(e, x).topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5 * top2.abs().max()
+    assert torch.equal(got[0][clear], want[0][clear])
+    ids = got[0].long()
+    assert torch.equal(got[1], e[ids])
+    assert torch.equal(got[2], torch.bincount(ids, minlength=k).float())
+    segment = torch.zeros(k, c, dtype=torch.float64, device=cuda).index_add_(
+        0, ids, x.double())
+    assert (got[3].double() - segment).abs().max() <= 1e-5 * x.abs().sum()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["xla", "packed"])
+def test_bf16_serve_decode_on_card_matches_cpu(cuda, monkeypatch, route):
+    """The decode at the lung widths on a 64² crop, card vs the port's CPU
+    path on the same seeded weights. f32 (TF32 off): within 1e-3, as the
+    serve phase holds its encode and decode. bf16: both devices round every
+    operation to bf16, so at random init the two bf16 decodes scatter
+    around the f32 one alike: the card's mean abs gap from the CPU's f32
+    decode is at most 1.5× the CPU bf16 decode's own. Under the packed
+    route the decoder's 32-channel convolutions launch the conv kernel, in
+    f32 and in bf16."""
+    from medical_image_editing_tpu_torch.cli.run_recon import LungConfig, load_model
+    from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
+
+    monkeypatch.setenv("MEDIMG_CONV_IMPL", route)
+    ids = np.random.default_rng(15).integers(0, 11, (2, 64, 64)).astype(np.int32)
+    out, launched = {}, {}
+    for device in ("cpu", cuda):
+        for dtype in (None, "bfloat16"):
+            cfg = LungConfig()
+            cfg.resume_checkpoint, cfg.compute_dtype = None, dtype
+            _, dec, vq = load_model(cfg, device=device, seed=3)
+            before = _build.launches[tcp.KERNEL]
+            recon = make_batched_edit_fn(dec, is_lung=True, device=device)(vq, ids)
+            out[(torch.device(device).type, dtype)] = recon.float().cpu().numpy()
+            launched[(torch.device(device).type, dtype)] = _build.launches[tcp.KERNEL] - before
+    for dtype in (None, "bfloat16"):  # the packed route takes f32 and bf16 alike
+        assert (launched[("cuda", dtype)] > 0) == (route == "packed")
+    cpu32, cpu16 = out[("cpu", None)], out[("cpu", "bfloat16")]
+    card32, card16 = out[("cuda", None)], out[("cuda", "bfloat16")]
+    assert np.abs(card32 - cpu32).max() <= 1e-3
+    assert np.isfinite(card16).all() and np.abs(card16).max() <= 1.0
+    card_gap, cpu_gap = np.abs(card16 - cpu32).mean(), np.abs(cpu16 - cpu32).mean()
+    assert card_gap <= 1.5 * cpu_gap, (card_gap, cpu_gap)

@@ -47,19 +47,30 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 29
+    assert len(modules) >= 31
 
 
 def test_entry_points_refuse_missing_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable")
+    from medical_image_editing_tpu_torch.cli import edit_batch, run_recon, serve_http
     from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
     from medical_image_editing_tpu_torch.cli.run_recon import LungConfig, load_model
     from medical_image_editing_tpu_torch.train.evaluate import make_eval_forward
 
+    def lung():
+        cfg = LungConfig()
+        cfg.resume_checkpoint, cfg.edited_file_path = None, "edited.nii.gz"
+        return cfg
+
     for call in (lambda: load_model(LungConfig()),
                  lambda: make_eval_forward(torch.nn.Identity(), torch.nn.Identity()),
-                 lambda: make_batched_edit_fn(torch.nn.Identity())):
+                 lambda: make_batched_edit_fn(torch.nn.Identity()),
+                 lambda: serve_http.EditService(lung()),
+                 lambda: run_recon.serve(lung(), max_iters=1),
+                 lambda: run_recon.main(["--max-iters", "1"]),
+                 lambda: serve_http.main(["--warm", "none"]),
+                 lambda: edit_batch.main(["--label-dir", ".", "--out-dir", "."])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -108,4 +119,31 @@ def test_chip_smoke_train_phase_on_cpu(capsys):
     assert rec["phase"] == "train" and rec["compute_dtype"] == "bfloat16"
     assert rec["routed_convs"] == {"encoder": 0, "decoder": 10}
     assert len(rec["step_s"]) == 2 and trained.state.step == 2
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+
+
+def test_chip_smoke_serve_runtime_phase_on_cpu(tmp_path, capsys):
+    """The serve_runtime phase end to end at tiny size on the CPU: three
+    routes, the HTTP service and the file-watching loop; no kernel launch."""
+    import numpy as np
+
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(0)
+    painted = smoke.paint(rng.integers(1, 7, (4, 32, 32)), rng, TINY_MODEL["dict_size"])
+    launches = smoke.serve_runtime_phase("cpu", TINY_MODEL, painted, tmp_path, requests=2)
+    assert launches == {}
+    recs = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()
+            if line.startswith("{")]
+    parts = [(r["part"], r.get("route")) for r in recs if r.get("phase") == "serve_runtime"]
+    assert parts == [("bf16", "f32"), ("bf16", "bf16_cudnn"), ("bf16", "bf16_packed"),
+                     ("http", None), ("watch", None)]
+    bf16 = {r["route"]: r for r in recs if r.get("part") == "bf16"}
+    assert bf16["f32"]["vs_f32"]["max_abs_err"] == 0.0
+    assert bf16["bf16_cudnn"]["vs_f32"]["max_abs_err"] > 0
+    assert len(bf16["bf16_packed"]["edit_request_s"]) == 2
+    http = next(r for r in recs if r.get("part") == "http")
+    assert [c["status"] for c in http["requests"]] == [200, 200, 200, 200, 400, 400, 400]
+    watch = next(r for r in recs if r.get("part") == "watch")
+    assert watch["recon_pngs"] == watch["label_pngs"] == watch["processed"] == 3
+    assert watch["elapsed_s"] < 30 and watch["inotify_active"]
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"

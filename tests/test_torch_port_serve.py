@@ -1,0 +1,628 @@
+"""The editing service's runtime, port vs JAX package, at small size on the
+CPU: the edit loop (`load_model` → `make_edit_fn` → `process_edit`), the
+file-watching `serve` loop and its CLI, the HTTP service (`EditService`,
+`make_handler`, `bucket_batch`), bf16 serving, the painted-label check
+(ROADMAP C.1) and the VQ wrapper's row chunks (C.2).
+
+Both sides decode with the same weights: the JAX package's `load_model`
+draws them, and the port loads them from a Lightning `.ckpt` written with
+`utils/weights.py::from_jax_train_state`. Tolerances: f32 decodes within
+atol 1e-4·4096/1500 after the lung re-window (as the slice tests); uint8
+within 1 LSB; bf16 as stated in its tests.
+"""
+
+import io
+import json
+import os
+import threading
+import time
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from medical_image_editing_tpu.cli import edit_batch as jeb
+from medical_image_editing_tpu.cli import run_recon as jrr
+from medical_image_editing_tpu.cli import serve_http as jsh
+from medical_image_editing_tpu.train.evaluate import make_eval_forward as j_eval_forward
+from medical_image_editing_tpu.utils import nifti as jnifti
+from medical_image_editing_tpu_torch.cli import edit_batch as teb
+from medical_image_editing_tpu_torch.cli import run_recon as trr
+from medical_image_editing_tpu_torch.cli import serve_http as tsh
+from medical_image_editing_tpu_torch.ops import _build
+from medical_image_editing_tpu_torch.ops import vq_fused as tvqf
+from medical_image_editing_tpu_torch.train.evaluate import make_eval_forward
+from medical_image_editing_tpu_torch.utils import nifti as tnifti
+from medical_image_editing_tpu_torch.utils.imaging import PNG_SIGNATURE
+from medical_image_editing_tpu_torch.utils.weights import from_jax_train_state
+
+ENC = (4, 8, 16, 32, 64)
+DEC = (4, 8, 16, 32, 64)
+DICT = 10  # LungConfig's dict_size
+SIZE = 32
+LUNG_ATOL = 1e-4 * 4096 / 1500
+
+
+def _tiny(module, tmp, ckpt=None, dtype=None, edited=None):
+    """A LungConfig of `module` (JAX or port) at the test widths."""
+
+    class TinyConfig(module.LungConfig):
+        enc_filters = ENC
+        dec_filters = DEC
+
+        def __init__(self):
+            self.resume_checkpoint = ckpt
+            self.edited_file_path = edited or str(tmp / "edited.nii.gz")
+            self.save_dir_path = str(tmp / "out")
+            self.compute_dtype = dtype
+
+    return TinyConfig()
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The JAX models and state (f32 and bf16 modules, one set of weights)
+    and a Lightning `.ckpt` of those weights for the port."""
+    tmp = tmp_path_factory.mktemp("serve")
+    jenc, jdec, state = jrr.load_model(_tiny(jrr, tmp))
+    jenc16, jdec16, _ = jrr.load_model(_tiny(jrr, tmp, dtype="bfloat16"))
+    groups = from_jax_train_state(state)
+    ckpt = str(tmp / "tiny.ckpt")
+    torch.save({"state_dict": {f"{g}.{k}": v for g, sd in groups.items()
+                               for k, v in sd.items()}}, ckpt)
+    return dict(jenc=jenc, jdec=jdec, jenc16=jenc16, jdec16=jdec16, state=state,
+                ckpt=ckpt, tmp=tmp)
+
+
+def _ids(seed=0, shape=(SIZE, SIZE)):
+    return np.random.default_rng(seed).integers(0, DICT + 1, shape).astype(np.int32)
+
+
+def _jax_edit(world, ids, dtype=None, output_dtype=None):
+    dec = world["jdec16"] if dtype else world["jdec"]
+    with jax.default_matmul_precision("highest"):
+        return np.asarray(jeb.make_batched_edit_fn(dec, is_lung=True, output_dtype=output_dtype)(
+            world["state"].dec_vars, world["state"].vq, jnp.asarray(ids)))
+
+
+def _port_model(world, tmp_path, dtype=None):
+    cfg = _tiny(trr, tmp_path, ckpt=world["ckpt"], dtype=dtype)
+    return cfg, trr.load_model(cfg, device="cpu")
+
+
+def _write_map(path, ids):
+    """A painted map as a clinician's editor leaves it (NIfTI orientation)."""
+    tnifti.save(np.transpose(np.asarray(ids, np.float64)[::-1, ::-1]), str(path))
+
+
+# -- C.1: painted labels outside the codebook ------------------------------
+
+
+@pytest.mark.parametrize("entry", ["make_edit_fn", "make_batched_edit_fn", "decode_painted"])
+def test_out_of_range_label_raises_where_jax_decodes_nan(world, tmp_path, entry):
+    """JAX's `jnp.take` fills NaN rows for a label past the codebook and
+    decodes a non-finite image; every port entry raises `ValueError` naming
+    the label and the limit before the lookup."""
+    ids = _ids(1)[None]
+    ids[0, 3, 4] = DICT + 1
+    assert not np.isfinite(_jax_edit(world, ids)).all()
+    cfg, (_, dec, vq) = _port_model(world, tmp_path)
+    calls = {
+        "make_edit_fn": lambda: trr.make_edit_fn(dec, vq, cfg, device="cpu")(ids),
+        "make_batched_edit_fn": lambda: teb.make_batched_edit_fn(
+            dec, is_lung=True, device="cpu")(vq, ids),
+        "decode_painted": lambda: teb.decode_painted(
+            dec, vq, torch.from_numpy(ids), is_lung=True, dataset_window=(4096, 0.0, 2.0)),
+    }
+    with pytest.raises(ValueError, match=rf"\[{DICT + 1}\] outside \[{1 - DICT}, {DICT}\]"):
+        calls[entry]()
+
+
+def test_negative_labels_wrap_like_jax(world, tmp_path):
+    """Labels −K+1..−1 index the codebook from its end on both sides (the
+    same rows), so the port accepts them and decodes what JAX decodes;
+    −K and below are outside on both sides (JAX: NaN; port: ValueError)."""
+    ids = _ids(2)[None]
+    ids[0, :8] = -3
+    ids[0, 8:10] = 1 - DICT
+    cfg, (_, dec, vq) = _port_model(world, tmp_path)
+    got = teb.make_batched_edit_fn(dec, is_lung=True, device="cpu")(vq, ids).numpy()
+    np.testing.assert_allclose(got, _jax_edit(world, ids), atol=LUNG_ATOL, rtol=0)
+    ids[0, 0, 0] = -DICT
+    assert not np.isfinite(_jax_edit(world, ids)).all()
+    with pytest.raises(ValueError, match=rf"\[{-DICT}\]"):
+        teb.make_batched_edit_fn(dec, is_lung=True, device="cpu")(vq, ids)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_check_labels_bounds(as_tensor):
+    """[1 − K, K] passes, one past either end raises; numpy and tensors alike."""
+    wrap = torch.as_tensor if as_tensor else np.asarray
+    teb.check_labels(wrap(np.array([[1 - DICT, 0, DICT]])), DICT)
+    teb.check_labels(wrap(np.zeros((0, 4, 4), np.int32)), DICT)
+    for bad in (-DICT, DICT + 1):
+        with pytest.raises(ValueError, match=rf"\[{bad}\]"):
+            teb.check_labels(wrap(np.array([[0, bad, 3]])), DICT)
+
+
+# -- C.2: the VQ wrapper's row chunks --------------------------------------
+
+
+@pytest.mark.parametrize("n,c,k", [(1000, 16, 10), (777, 7, 5), (300, 16, 10)])
+def test_vq_row_chunks_match_one_pass(monkeypatch, n, c, k):
+    """With the row limit lowered to 300, `vq_assign_fused` walks chunks of
+    296 rows: ids and rows bit-identical to one pass, counts exact, sums
+    within 1e-5·Σ|x|, reruns bit-identical."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32))
+    e = torch.from_numpy(rng.normal(size=(k, c)).astype(np.float32))
+    whole = tvqf.vq_assign_fused(e, x)
+    calls = []
+    plain = tvqf.vq_assign_fused_reference
+
+    def counted(embed, flat):
+        calls.append(flat.shape[0])
+        return plain(embed, flat)
+
+    monkeypatch.setattr(tvqf, "MAX_ROWS", 300)
+    monkeypatch.setattr(tvqf, "vq_assign_fused_reference", counted)
+    chunked = tvqf.vq_assign_fused(e, x)
+    again = tvqf.vq_assign_fused(e, x)
+    assert calls[: len(calls) // 2] == [296] * (n // 296) + ([n % 296] if n % 296 else [])
+    assert torch.equal(chunked[0], whole[0]) and torch.equal(chunked[1], whole[1])
+    assert torch.equal(chunked[2], whole[2])
+    assert (chunked[3] - whole[3]).abs().max() <= 1e-5 * x.abs().sum()
+    assert all(torch.equal(a, b) for a, b in zip(chunked, again))
+
+
+# -- the edit loop ---------------------------------------------------------
+
+
+def test_edit_loop_round_trip_matches_jax(world, tmp_path):
+    """load_model → make_edit_fn → process_edit: two PNGs, background 0,
+    deterministic, and the recon equal to JAX's within LUNG_ATOL."""
+    ids = _ids(3)
+    jcfg = _tiny(jrr, tmp_path / "jax")
+    with jax.default_matmul_precision("highest"):
+        jfn = jrr.make_edit_fn(world["jdec"], world["state"], jcfg)
+        jrecon, jids = jrr.process_edit(jfn, jcfg, ids, save_dir=str(tmp_path / "jax"))
+    cfg, (_, dec, vq) = _port_model(world, tmp_path)
+    fn = trr.make_edit_fn(dec, vq, cfg, device="cpu")
+    recon, id_out = trr.process_edit(fn, cfg, ids, save_dir=cfg.save_dir_path)
+    assert recon.shape == (SIZE, SIZE) and np.abs(recon).max() <= 1.0
+    np.testing.assert_array_equal(id_out, ids * (ids > 0))
+    np.testing.assert_array_equal(id_out, jids)
+    np.testing.assert_allclose(recon, jrecon, atol=LUNG_ATOL, rtol=0)
+    files = sorted(os.listdir(cfg.save_dir_path))
+    assert [f.split("_")[0] for f in files] == ["label", "recon"]
+    recon2, _ = trr.process_edit(fn, cfg, ids, save_dir=cfg.save_dir_path)
+    np.testing.assert_array_equal(recon, recon2)
+
+
+def test_process_edit_pngs_are_the_images(world, tmp_path):
+    """The PNGs hold one pixel per element: the recon through matplotlib's
+    gray table and the labels through its Spectral table, byte for byte."""
+    from PIL import Image
+    import matplotlib
+
+    ids = _ids(4)
+    cfg, (_, dec, vq) = _port_model(world, tmp_path)
+    recon, id_out = trr.process_edit(trr.make_edit_fn(dec, vq, cfg, device="cpu"), cfg,
+                                     ids, save_dir=cfg.save_dir_path)
+    files = {f.split("_")[0]: os.path.join(cfg.save_dir_path, f)
+             for f in os.listdir(cfg.save_dir_path)}
+    for kind, image, cmap, vmax in (("recon", recon, "gray", 1), ("label", id_out,
+                                                                   "Spectral", DICT)):
+        with open(files[kind], "rb") as f:
+            assert f.read(8) == PNG_SIGNATURE
+        got = np.asarray(Image.open(files[kind]).convert("RGB"))
+        vmin = -1 if kind == "recon" else 0
+        want = matplotlib.colormaps[cmap](matplotlib.colors.Normalize(vmin, vmax)(image),
+                                          bytes=True)[..., :3]
+        np.testing.assert_array_equal(got, want)
+
+
+def test_process_edit_show_uses_matplotlib(world, tmp_path, monkeypatch):
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    shown = []
+    monkeypatch.setattr(plt, "show", lambda: shown.append(True))
+    cfg, (_, dec, vq) = _port_model(world, tmp_path)
+    trr.process_edit(trr.make_edit_fn(dec, vq, cfg, device="cpu"), cfg, _ids(5),
+                     save_dir=cfg.save_dir_path, show=True)
+    assert shown == [True]
+
+
+# -- the file-watching loop ------------------------------------------------
+
+
+def _recons(cfg):
+    try:
+        return sorted(f for f in os.listdir(cfg.save_dir_path) if f.startswith("recon_"))
+    except FileNotFoundError:
+        return []
+
+
+def test_serve_loop_wakes_on_each_edit(world, tmp_path, capsys):
+    """serve(watch="inotify") with an editor thread: each wait wakes on the
+    editor's next write, never on the 60 s poll timeout (the third write
+    wakes the last wait). Outputs carry second-granularity timestamps, so
+    the writes are 1.2 s apart."""
+    cfg = _tiny(trr, tmp_path, ckpt=world["ckpt"])
+    ids = _ids(6)
+    _write_map(cfg.edited_file_path, ids)
+    stop = threading.Event()
+
+    def editor():
+        for k in (1, 2, 3):
+            while len(_recons(cfg)) < k and not stop.is_set():
+                time.sleep(0.05)
+            time.sleep(1.2)
+            _write_map(cfg.edited_file_path, (ids + k) % (DICT + 1))
+
+    th = threading.Thread(target=editor, daemon=True)
+    th.start()
+    t0 = time.monotonic()
+    try:
+        trr.serve(cfg, poll_seconds=60.0, max_iters=3, watch="inotify", device="cpu")
+    finally:
+        stop.set()
+        th.join(timeout=10)
+    elapsed = time.monotonic() - t0
+    assert not th.is_alive()
+    assert len(_recons(cfg)) >= 3, _recons(cfg)
+    labels = [f for f in os.listdir(cfg.save_dir_path) if f.startswith("label_")]
+    assert len(labels) >= 3
+    assert elapsed < 30.0, elapsed  # three 60 s timeouts would take 180 s
+    assert capsys.readouterr().out.count("Processing...") == 3
+
+
+def test_serve_loop_polls_and_skips_unchanged(world, tmp_path, capsys):
+    cfg = _tiny(trr, tmp_path, ckpt=world["ckpt"])
+    _write_map(cfg.edited_file_path, _ids(7))
+    trr.serve(cfg, poll_seconds=0.01, max_iters=3, watch="poll", device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("Processing...") == 1 and out.count("Skip...") == 2
+    assert len(_recons(cfg)) == 1
+
+
+def _failing_edit_fn(monkeypatch, exc):
+    def make(*args, **kw):
+        def fn(ids):
+            raise exc
+        return fn
+
+    monkeypatch.setattr(trr, "make_edit_fn", make)
+
+
+def test_serve_loop_prints_and_retries_other_errors(world, tmp_path, monkeypatch, capsys):
+    """An error that is no device fault (a half-written map, a bad label) is
+    printed and the loop goes on, as in the JAX package."""
+    cfg = _tiny(trr, tmp_path, ckpt=world["ckpt"])
+    _write_map(cfg.edited_file_path, _ids(8))
+    _failing_edit_fn(monkeypatch, ValueError("painted labels [11] outside [-9, 10]"))
+    trr.serve(cfg, poll_seconds=0.01, max_iters=2, watch="poll", device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("Processing...") == 2
+    assert out.count("ValueError: painted labels [11]") == 2
+
+
+@pytest.mark.parametrize("exc", [_build.KernelError("vq_fused launch failed: cudaError 710"),
+                                 torch.AcceleratorError("CUDA error: device-side assert")])
+def test_serve_loop_stops_on_device_faults(world, tmp_path, monkeypatch, exc):
+    """A CUDA error leaves the context unusable: the loop raises it on the
+    first pass instead of polling on, and closes its watcher."""
+    cfg = _tiny(trr, tmp_path, ckpt=world["ckpt"])
+    _write_map(cfg.edited_file_path, _ids(9))
+    _failing_edit_fn(monkeypatch, exc)
+    closed = []
+    from medical_image_editing_tpu_torch.utils import fswatch
+
+    orig_close = fswatch.FileWatcher.close
+    monkeypatch.setattr(fswatch.FileWatcher, "close",
+                        lambda self: (closed.append(True), orig_close(self)))
+    t0 = time.monotonic()
+    with pytest.raises(type(exc)):
+        trr.serve(cfg, poll_seconds=60.0, max_iters=5, watch="inotify", device="cpu")
+    assert time.monotonic() - t0 < 30.0 and closed == [True]
+
+
+def test_run_recon_main_on_cpu(world, tmp_path, monkeypatch, capsys):
+    """`main([..., "--device", "cpu", "--max-iters", "1"])` decodes the map
+    named by LUNG_EDITED_FILE once, in bf16 with `--dtype bf16`."""
+    for name, value in (("enc_filters", ENC), ("dec_filters", DEC)):
+        monkeypatch.setattr(trr.LungConfig, name, value)
+    edited = tmp_path / "edited.nii.gz"
+    _write_map(edited, _ids(10))
+    monkeypatch.setenv("LUNG_EDITED_FILE", str(edited))
+    monkeypatch.setenv("LUNG_CKPT", world["ckpt"])
+    monkeypatch.chdir(tmp_path)
+    seen = []
+    real = trr.load_model
+    monkeypatch.setattr(trr, "load_model", lambda cfg, **kw: seen.append(
+        trr.compute_dtype(cfg)) or real(cfg, **kw))
+    assert trr.main(["--device", "cpu", "--max-iters", "1", "--poll-seconds", "0",
+                     "--dtype", "bf16", "--watch", "poll"]) == 0
+    assert seen == [torch.bfloat16]
+    assert "Processing..." in capsys.readouterr().out
+    assert len(os.listdir(tmp_path / "inference")) == 2  # recon + label PNGs
+
+
+# -- the HTTP service ------------------------------------------------------
+
+
+def _post(port, body, query=""):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/edit{query}", data=body,
+                                 method="POST")
+    return urllib.request.urlopen(req, timeout=60)
+
+
+def _npy(a):
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return buf.getvalue()
+
+
+@pytest.fixture(scope="module")
+def jax_service(world, tmp_path_factory):
+    return jsh.EditService(_tiny(jrr, tmp_path_factory.mktemp("jsvc")))
+
+
+def test_http_edit_service(world, jax_service, tmp_path):
+    """healthz; an .npy edit equal to `service.edit` (1e-6) and to the JAX
+    service's on the same weights (LUNG_ATOL); a batch of 3 padded to 4; the
+    PNG (signature, pixels = the uint8 decode); 400 for a malformed body, an
+    empty batch and a label past the codebook."""
+    from PIL import Image
+
+    service = tsh.EditService(_tiny(trr, tmp_path, ckpt=world["ckpt"]), device="cpu")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), tsh.make_handler(service))
+    port = httpd.server_address[1]
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+            info = json.loads(r.read())
+        assert info["status"] == "ok" and info["dict_size"] == DICT
+        assert info["device"] == "cpu" and info["compute_dtype"] == "float32"
+
+        ids = _ids(11)
+        with _post(port, _npy(ids)) as r:
+            assert float(r.headers["X-Edit-Ms"]) > 0
+            recon = np.load(io.BytesIO(r.read()))
+        assert recon.shape == (SIZE, SIZE) and recon.dtype == np.float32
+        np.testing.assert_allclose(recon, service.edit(ids)[0], atol=1e-6, rtol=0)
+        with jax.default_matmul_precision("highest"):
+            want, _ = jax_service.edit(ids)
+        np.testing.assert_allclose(recon, want, atol=LUNG_ATOL, rtol=0)
+
+        batch = np.stack([_ids(s) for s in (12, 13, 14)])
+        with _post(port, _npy(batch)) as r:
+            recon3 = np.load(io.BytesIO(r.read()))
+        assert recon3.shape == (3, SIZE, SIZE)
+        np.testing.assert_allclose(recon3, service.edit(batch)[0], atol=1e-6, rtol=0)
+
+        with _post(port, _npy(ids), "?format=png") as r:
+            assert r.headers["Content-Type"] == "image/png"
+            png = r.read()
+        assert png[:8] == PNG_SIGNATURE
+        np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(png))),
+                                      service.edit(ids, uint8=True)[0])
+
+        bad_label = ids.copy()
+        bad_label[0, 0] = DICT + 1
+        for body, words in ((b"not an npy", ""), (_npy(np.zeros((0, SIZE, SIZE), np.int32)),
+                                                  "empty"),
+                            (_npy(bad_label), f"[{DICT + 1}] outside")):
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _post(port, body)
+            assert err.value.code == 400
+            assert words in err.value.read().decode()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+        service.close()
+
+
+def test_http_dispatch_failure_is_500(world, tmp_path, monkeypatch):
+    service = tsh.EditService(_tiny(trr, tmp_path, ckpt=world["ckpt"]), device="cpu")
+
+    def broken(vq_state, ids):
+        raise RuntimeError("decode failed")
+
+    service.edit_fn = broken
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), tsh.make_handler(service))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(httpd.server_address[1], _npy(_ids(15)))
+        assert err.value.code == 500 and b"decode failed" in err.value.read()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+        service.close()
+
+
+@pytest.mark.parametrize("bucketing", ["pow2", "exact"])
+@pytest.mark.parametrize("multiple", [1, 8])
+def test_bucket_batch_matches_jax(bucketing, multiple):
+    for b in range(1, 18):
+        assert tsh.bucket_batch(b, bucketing, multiple) == jsh.bucket_batch(
+            b, bucketing, multiple)
+
+
+def test_padded_requests_match_exact_service(world, tmp_path):
+    """pow2 pads 3 → 4 and 5 → 8 and slices back: the same shapes and values
+    as an 'exact' service, which dispatches 3 and 5."""
+    cfg = _tiny(trr, tmp_path, ckpt=world["ckpt"])
+    pow2 = tsh.EditService(cfg, device="cpu")
+    exact = tsh.EditService(cfg, batch_bucketing="exact", device="cpu")
+    seen = {"pow2": [], "exact": []}
+    for name, service in (("pow2", pow2), ("exact", exact)):
+        inner = service.edit_fn
+
+        def spy(vq_state, ids, inner=inner, name=name):
+            seen[name].append(int(ids.shape[0]))
+            return inner(vq_state, ids)
+
+        service.edit_fn = spy
+    for b in (3, 5):
+        ids = np.stack([_ids(20 + i) for i in range(b)])
+        got, _ = pow2.edit(ids)
+        want, _ = exact.edit(ids)
+        assert got.shape == want.shape == (b, SIZE, SIZE)
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    assert seen == {"pow2": [4, 8], "exact": [3, 5]}
+    pow2.close()
+    exact.close()
+
+
+def test_service_decodes_on_one_thread(world, tmp_path):
+    """Requests from many threads are decoded one at a time on one
+    long-lived dispatch thread (cuDNN keeps its execution plans per thread),
+    and each gets its own map's decode back."""
+    service = tsh.EditService(_tiny(trr, tmp_path, ckpt=world["ckpt"]), device="cpu")
+    inner, threads, active, overlap = service.edit_fn, set(), [0], []
+
+    def spy(vq_state, ids):
+        threads.add(threading.get_ident())
+        active[0] += 1
+        overlap.append(active[0])
+        try:
+            return inner(vq_state, ids)
+        finally:
+            active[0] -= 1
+
+    service.edit_fn = spy
+    maps = [_ids(60 + i) for i in range(6)]
+    want = [service.edit(m)[0] for m in maps]
+    got = [None] * len(maps)
+
+    def client(i):
+        got[i] = service.edit(maps[i])[0]
+
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(len(maps))]
+    for th in clients:
+        th.start()
+    for th in clients:
+        th.join(timeout=60)
+    assert not any(th.is_alive() for th in clients)
+    service.close()
+    assert len(threads) == 1 and threading.get_ident() not in threads
+    assert max(overlap) == 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("partition", ["data", "spatial"])
+def test_service_partitions_are_item_15(world, tmp_path, partition):
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tsh.EditService(_tiny(trr, tmp_path, ckpt=world["ckpt"]), partition=partition,
+                        device="cpu")
+
+
+def test_serve_http_main_parses_its_options(monkeypatch):
+    got = {}
+    monkeypatch.setattr(tsh, "serve", lambda config, **kw: got.update(config=config, **kw))
+    assert tsh.main(["--dtype", "bf16", "--warm", "1x64x64,2x32x32", "--bucket", "exact",
+                     "--port", "0", "--device", "cpu"]) == 0
+    assert got["config"].compute_dtype == "bfloat16"
+    assert got["warm_shapes"] == ((1, 64, 64), (2, 32, 32))
+    assert got["batch_bucketing"] == "exact" and got["device"] == "cpu"
+
+
+# -- bf16 serving ----------------------------------------------------------
+
+
+def test_bf16_decode_matches_jax_bf16(world, tmp_path):
+    """Port bf16 vs JAX bf16 on the same weights: correlation > 0.99 (the
+    JAX package's own bar, tests/test_edit_batch.py:269) and max abs
+    difference no larger than JAX's own f32↔bf16 gap on the same maps.
+    The output stays f32; the modules compute in bf16, parameters f32."""
+    ids = np.stack([_ids(30 + i) for i in range(2)])
+    j32 = _jax_edit(world, ids)
+    j16 = _jax_edit(world, ids, dtype="bfloat16")
+    jax_gap = float(np.abs(j16 - j32).max())
+    cfg, (enc, dec, vq) = _port_model(world, tmp_path, dtype="bfloat16")
+    assert enc.compute_dtype == dec.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in dec.parameters())
+    got = teb.make_batched_edit_fn(dec, is_lung=True, device="cpu")(vq, ids)
+    assert got.dtype == torch.float32
+    got = got.numpy()
+    corr = np.corrcoef(got.ravel(), j16.ravel())[0, 1]
+    gap = float(np.abs(got - j16).max())
+    assert corr > 0.99, corr
+    assert gap <= jax_gap, (gap, jax_gap)
+    # the f32 service of the same weights stays f32 and near JAX's f32
+    _, (_, dec32, vq32) = _port_model(world, tmp_path)
+    f32 = teb.make_batched_edit_fn(dec32, is_lung=True, device="cpu")(vq32, ids)
+    assert f32.dtype == torch.float32
+    np.testing.assert_allclose(f32.numpy(), j32, atol=LUNG_ATOL, rtol=0)
+
+
+def test_bf16_encode_ids(world, tmp_path, capsys):
+    """`make_eval_forward` on a bf16 `load_model`: ids in [1, dict_size], and
+    agreeing with JAX's bf16 encode at least as often as JAX's own f32 and
+    bf16 encodes agree with each other. Near-tie flips under bf16 are
+    expected at random init. JAX's bf16 encode runs op by op
+    (`jax.disable_jit`), rounding to bf16 after every operation as the port
+    does: under jit, XLA's CPU fusion drops some intermediate roundings
+    (in this test the port then agrees on ~97% of pixels, as often as JAX's
+    own jitted f32 and bf16 encodes do, and op by op on all of them)."""
+    rng = np.random.default_rng(40)
+    x = rng.uniform(-1, 1, size=(2, SIZE, SIZE, 1)).astype(np.float32)
+    state = world["state"]
+    with jax.default_matmul_precision("highest"):
+        _, j32 = j_eval_forward(world["jenc"], world["jdec"])(state, jnp.asarray(x))
+        _, j16_jit = j_eval_forward(world["jenc16"], world["jdec16"])(state, jnp.asarray(x))
+        with jax.disable_jit():
+            _, j16 = j_eval_forward(world["jenc16"], world["jdec16"])(state, jnp.asarray(x))
+    _, (enc, dec, _) = _port_model(world, tmp_path, dtype="bfloat16")
+    _, ids = make_eval_forward(enc, dec, device="cpu")(x)
+    ids = ids.numpy()
+    assert ids.min() >= 1 and ids.max() <= DICT
+    jax_own = float((np.asarray(j32) == np.asarray(j16)).mean())
+    agree = float((ids == np.asarray(j16)).mean())
+    agree_jit = float((ids == np.asarray(j16_jit)).mean())
+    with capsys.disabled():
+        print(f"\nbf16 encode id agreement: port vs JAX bf16 {agree:.4f} (jitted "
+              f"{agree_jit:.4f}); JAX f32 vs JAX bf16 {jax_own:.4f}")
+    assert agree >= jax_own, (agree, jax_own)
+    assert agree_jit > 0.9, agree_jit
+
+
+def test_edit_batch_main_bf16(world, tmp_path, monkeypatch, capsys):
+    """`edit_batch.main --dtype bf16 --device cpu` decodes a directory of
+    painted maps in bf16: within the f32↔bf16 gap of the f32 run."""
+    for name, value in (("enc_filters", ENC), ("dec_filters", DEC)):
+        monkeypatch.setattr(trr.LungConfig, name, value)
+    monkeypatch.setenv("LUNG_CKPT", world["ckpt"])
+    label_dir = tmp_path / "labels"
+    label_dir.mkdir()
+    for i in range(3):
+        jnifti.save(jnifti.to_nifti_array(_ids(50 + i)), str(label_dir / f"label_{i}.nii.gz"),
+                    dtype=np.int32)
+    outs = {}
+    for dtype in ("f32", "bf16"):
+        out = tmp_path / dtype
+        assert teb.main(["--label-dir", str(label_dir), "--out-dir", str(out),
+                         "--dtype", dtype, "--device", "cpu"]) == 0
+        outs[dtype] = np.stack([tnifti.load(str(out / f"edited_{i}.nii.gz"))
+                                for i in range(3)])
+    assert "3 edited volumes" in capsys.readouterr().out
+    corr = np.corrcoef(outs["f32"].ravel(), outs["bf16"].ravel())[0, 1]
+    assert corr > 0.99 and not np.array_equal(outs["f32"], outs["bf16"])
+    with pytest.raises(SystemExit):
+        teb.main(["--label-dir", str(label_dir), "--out-dir", str(tmp_path / "q"),
+                  "--dtype", "int8", "--device", "cpu"])

@@ -52,10 +52,23 @@ and no result line):
                held to the counts derived from the model; one warm step under
                the profiler; one step on the card held to the port's CPU path
                on a small input;
-  8. kernels — one line listing every hand-written kernel of the paths.
-The serve, serve_runtime (its packed route) and train phases are the main
-paths: each zeroes the launch counts just before it and reads them just
-after.
+  8. trainer — the first-stage training run as a user runs it,
+               `run_vqwnet.main` in-process with `MEDIMG_CONV_IMPL=packed`
+               on the lung config (widths, losses, bf16, batch 8, 256²)
+               over a seeded slice tree of 2 patients × 20 slices read by
+               the native loader: run A trains 10 steps (2 epochs, saves
+               every 3 steps, steps 7-9 profiled); run B stops at 7 and
+               resumes to 10, held to A (slice order, counters, parameter
+               and codebook gap); `-m test` writes result.csv; the
+               "inference" export writes label maps, one of which is
+               painted and decoded through `edit_study`; launch counts of
+               both kernels held to the derived ones; fit-loop step time
+               beside the train phase's bare step, loader and save times,
+               idle share, peak memory;
+  9. kernels — one line listing every hand-written kernel of the paths.
+The serve, serve_runtime (its packed route), train and trainer phases are
+the main paths: each zeroes the launch counts just before it and reads them
+just after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
@@ -67,6 +80,7 @@ without a CUDA device the script fails at once.
 import argparse
 import contextlib
 import copy
+import csv
 import hashlib
 import json
 import os
@@ -1128,6 +1142,285 @@ def train_reference_phase(cfg, *, size=64, batch=2, seed=1):
                            f"loss errors {loss_err}")
 
 
+def write_lung_tree(root, rng, *, patients, slices, size):
+    """`patients` × `slices` lung slices (`make_slices`, mapped from the
+    config's [-1, 1] window back to HU) as `root/patNN/ct_img_SSSS.npy`, the
+    names `NCCLungDataset` walks and parses."""
+    for p in range(patients):
+        d = Path(root) / f"pat{p:02d}"
+        d.mkdir(parents=True)
+        hu = (make_slices(rng, slices, size)[..., 0] / 2 + 0.5) * 4096 - 2048
+        for s in range(slices):
+            np.save(d / f"ct_img_{s:04d}.npy", hu[s].astype(np.float32))
+
+
+@contextlib.contextmanager
+def captured_trainers():
+    """The trainers `run_vqwnet.main` builds inside the block, in order, as
+    (trainer, steps): each training step's call appends (host clock, its
+    image batch) to steps."""
+    from medical_image_editing_tpu_torch.cli import run_vqwnet
+
+    build, seen = run_vqwnet.build_trainer, []
+
+    def capture(*args, **kw):
+        trainer, logger = build(*args, **kw)
+        steps, step = [], trainer.train_step
+
+        def recorded(state, image, draws=None):
+            steps.append((time.perf_counter(), image))
+            return step(state, image, draws)
+
+        trainer.train_step = recorded
+        seen.append((trainer, steps))
+        return trainer, logger
+
+    run_vqwnet.build_trainer = capture
+    try:
+        yield seen
+    finally:
+        run_vqwnet.build_trainer = build
+
+
+def trace_idle_share(path):
+    """Device busy time and idle share of a Chrome trace written by
+    torch.profiler: kernel, copy and memset time over the span of all its
+    events."""
+    events = [e for e in json.load(open(path))["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e6
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e["dur"] for e in device) / 1e6
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    return {"window_s": span, "device_busy_s": busy,
+            "device_idle_share": None if not busy else 1.0 - busy / span,
+            "device_ops": len(device), "cuda_runtime_calls": len(runtime),
+            "cuda_runtime_s": sum(e["dur"] for e in runtime) / 1e6}
+
+
+def trainer_phase(device, workdir, *, size=256, patients=2, slices=20, seed=0,
+                  overrides=None, bare_step_s=None):
+    """The first-stage training run through `run_vqwnet.main`, as a user
+    runs it: the lung config unchanged in widths and losses (`overrides`
+    shrinks it for a CPU rehearsal) on a seeded slice tree of `patients` ×
+    `slices` (5 steps an epoch at the config's batch 8), 2 epochs,
+    `save_every_n_steps: 3`. Run A: 10 steps (steps 7-9 under the
+    profiler). Run B: `--max-steps 7`, then a resume to 10, held to A: the
+    same image batches in the same order, the same counters, and the same
+    final parameters and codebook bit for bit (measured so on an H100 as on
+    the CPU). Then `-m test` (a finite result.csv), the "inference" export
+    (label maps), and one painted export decoded through `edit_study`. The
+    kernel launches of the whole path are held to the counts derived from
+    the model. Last, off the counted path, a planted fault: B's step-7 save
+    with both Adam states dropped (moments and step counters), resumed to
+    10; its gap to A, which must not be 0, is how far the check's limit
+    sits below a faulty resume. Returns the launches."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli import run_vqwnet
+    from medical_image_editing_tpu_torch.cli.edit_batch import edit_study
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils import nifti
+    from medical_image_editing_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_state_file,
+        restore_state,
+    )
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir)
+    rng = np.random.default_rng(seed)
+    write_lung_tree(work / "data", rng, patients=patients, slices=slices, size=size)
+    base = json.loads(MODEL_CONFIG.read_text())
+    for section, values in (overrides or {}).items():
+        node = base
+        for key in section.split("."):
+            node = node[key]
+        node.update(values)
+    base["dataset"]["root_dir_path"] = str(work / "data")
+    base["run"]["n_epochs"] = 2
+    base["save"]["save_every_n_steps"] = 3
+    model, ds = base["model"]["vqmodel"], base["dataset"]
+    batch = int(ds["batch_size"])
+    steps_per_epoch = patients * slices // batch
+    total_steps = 2 * steps_per_epoch
+    eval_batches = -(-patients * slices // batch)
+
+    def run(name, argv, **changes):
+        cfg = copy.deepcopy(base)
+        cfg["save"]["save_dir"] = str(work / name)
+        for section, values in changes.items():
+            cfg[section].update(values)
+        path = work / f"{name}.json"
+        path.write_text(json.dumps(cfg))
+        argv = ["-c", str(path), *argv] + ([] if cuda else ["--device", "cpu"])
+        if run_vqwnet.main(argv) != 0:
+            raise RuntimeError(f"run_vqwnet {argv} failed")
+        return work / name / str(base["save"]["study_name"])
+
+    enc_in = torch.zeros(1, int(model["in_channels"]), size, size)
+    dtype = {"bfloat16": torch.bfloat16}.get(model.get("compute_dtype"), torch.float32)
+    shapes = Trainer(to_config(base), device="cpu").init_state()
+    n_enc = routed_convs(shapes.encoder, enc_in)
+    n_dec = routed_convs(shapes.decoder, torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    del shapes
+    vq_on = cuda and str(model["knn_backend"]) in ("pallas", "faiss")
+    # runs A and B (B in two parts) take 2 × total_steps steps: each sends
+    # both views through encoder and decoder, then every routed conv's input
+    # gradient, and assigns twice; k-means (A, and B's first part): one
+    # encoder forward; eval forwards (encoder, decoder, one assignment):
+    # validation on 2 batches at each of the 4 epoch ends, the test and the
+    # export over every test batch; the edit: one decoder forward
+    evals = 4 * 2 + 2 * eval_batches
+    want = {"conv3x3_packed": (2 * n_enc + 2 * total_steps * 4 * (n_enc + n_dec)
+                               + evals * (n_enc + n_dec) + n_dec),
+            "vq_fused": 2 * total_steps * 2 + evals}
+    if not cuda:
+        want = {}
+    elif not vq_on:
+        want["vq_fused"] = 0
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    # -- main path: train A (profiled), train B + resume, test, export, edit
+    t0 = time.perf_counter()
+    with captured_trainers() as trainers:
+        run_a = run("A", ["-m", "train"],
+                       run={"profile_dir": str(work / "trace"), "profile_start_step": 7,
+                            "profile_num_steps": 2})
+        run_b = run("B", ["-m", "train", "--max-steps", "7"])
+        run("B", ["-m", "train"],
+                        run={"resume_checkpoint": str(run_b / "version_0" / "ckpt")})
+        run_t = run("T", ["-m", "test"],
+                       run={"resume_checkpoint": str(run_a / "version_0" / "ckpt")})
+        run_i = run("I", ["-m", "test"],
+                       run={"training_mode": "inference",
+                            "resume_checkpoint": str(run_a / "version_0" / "ckpt")})
+        (trainer_a, steps_a), (_, steps_b), (_, steps_b2), (trainer_t, _) = trainers[:4]
+        # the painted export, decoded with the trained decoder and codebook
+        state = restore_state(str(run_a / "version_0" / "ckpt"), trainer_t.init_state())
+        labels = sorted((run_i / "pat00").glob("label_*.nii.gz"))
+        ids = nifti.load(str(labels[0])).astype(np.int32)
+        painted_dir, edited_dir = work / "painted", work / "edited"
+        painted_dir.mkdir()
+        nifti.save(paint(ids[None], rng, int(model["dict_size"]))[0],
+                   str(painted_dir / labels[0].name), dtype=np.int32)
+        edited = edit_study(state.decoder, state.vq, str(painted_dir), str(edited_dir),
+                            batch_size=1, is_lung=True,
+                            dataset_window=(ds["window_width"], ds["window_center"],
+                                            ds["window_scale"]), device=device)
+        if cuda:
+            torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    # -- B against A: the batch stream, the counters, the final state
+    steps_resumed = steps_b + steps_b2
+    same_stream = len(steps_a) == len(steps_resumed) == total_steps and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(steps_a, steps_resumed))
+    final_a = load_state_file(str(run_a / "version_0" / "ckpt" / "ckpt-epoch=0001"))
+    final_b = load_state_file(str(run_b / "version_1" / "ckpt" / "ckpt-epoch=0001"))
+    params = {part: {k for k, _ in getattr(trainer_a.init_state(), part).named_parameters()}
+              for part in ("encoder", "decoder")}
+
+    def state_gap(x, y):
+        """The largest parameter difference of each module; the codebook's
+        relative difference."""
+        gap = {part: max(float((x[part][k] - y[part][k]).abs().max()) for k in params[part])
+               for part in params}
+        ex, ey = x["encoder"]["vq.embed"], y["encoder"]["vq.embed"]
+        return {**gap, "codebook_rel": float((ex - ey).norm() / ex.norm())}
+
+    gap = state_gap(final_a, final_b)
+    counters = {"A": (final_a["step"], final_a["epoch"]), "B": (final_b["step"], final_b["epoch"])}
+
+    # -- timings: the fit loop's warm steps in runs A and B, from one step's
+    # call to the next (no save, validation, epoch end or profiler inside
+    # the period), the native loader, one save
+    warm = []
+    for steps, first in ((steps_a, 1), (steps_b, 1), (steps_b2, 8)):
+        t = dict(zip(range(first, first + len(steps)), (c for c, _ in steps)))
+        warm += [t[k] - t[k - 1] for k in sorted(t) if k - 1 in t and (k - 1) % 3
+                 and (k - 1) % steps_per_epoch and not (steps is steps_a and 7 <= k <= 10)]
+    trace = trace_idle_share(work / "trace" / "trace.json")
+    loader = trainer_a.dataloader("train")
+    numpy_loader = trainer_a.dataloader("train")
+    numpy_loader.native = False
+    per_batch = {"native": [], "numpy": []}
+    for name, ld in 2 * (("native", loader), ("numpy", numpy_loader)):  # in turns
+        ld.num_workers = 0
+        t1 = time.perf_counter()
+        n = sum(1 for _ in ld.epoch_iterator(0))
+        per_batch[name].append((time.perf_counter() - t1) / n)
+    t1 = time.perf_counter()
+    saved = CheckpointManager(str(work / "save_probe")).save(state, 0)
+    save_s = time.perf_counter() - t1
+    save_bytes = os.path.getsize(os.path.join(saved, "state.pt"))
+
+    result = list(csv.reader(open(run_t / "version_0" / "result.csv")))
+    result_finite = len(result) == 2 and all(np.isfinite(float(v)) for v in result[1][1:])
+    label_ids = nifti.load(str(labels[0]))
+    out = nifti.load(str(edited_dir / edited[0]))
+    ckpts = {k: sorted(os.listdir(p / "ckpt")) for k, p in
+             (("A", run_a / "version_0"), ("B", run_b / "version_0"),
+              ("B_resumed", run_b / "version_1"))}
+    n_ok = len(list(run_i.rglob("label_*.nii.gz"))) == patients * slices
+
+    # -- the planted fault, off the counted path
+    faulty = load_state_file(str(run_b / "version_0" / "ckpt" / "ckpt-epoch=0001-step=00000007"))
+    faulty["enc_opt"]["state"], faulty["dec_opt"]["state"] = {}, {}
+    planted = work / "planted" / "ckpt-epoch=0001-step=00000007"
+    planted.mkdir(parents=True)
+    torch.save(faulty, planted / "state.pt")
+    run_c = run("C", ["-m", "train"], run={"resume_checkpoint": str(planted)})
+    planted_gap = state_gap(final_a, load_state_file(
+        str(run_c / "version_0" / "ckpt" / "ckpt-epoch=0001")))
+    lr = float(base["enc_optim"]["lr"])
+    rec = {
+        "phase": "trainer", "device": str(device), "size": size, "batch": batch,
+        "steps": total_steps, "steps_per_epoch": steps_per_epoch,
+        "compute_dtype": str(dtype).split(".")[-1],
+        "enc_filters": list(model["enc_filters"]), "dec_filters": list(model["dec_filters"]),
+        "routed_convs": {"encoder": n_enc, "decoder": n_dec},
+        "launches": launches, "launches_expected": want, "path_s": path_s,
+        "native_loader": loader.native, "loader_batch_s": per_batch,
+        "fit_step_s": warm, "fit_step_s_median": float(np.median(warm)),
+        "bare_step_s_median": None if not bare_step_s else float(np.median(bare_step_s)),
+        "profiled_steps": [7, 8, 9], **{f"trace_{k}": v for k, v in trace.items()},
+        "checkpoints_after_retention": ckpts, "save_s": save_s, "save_bytes": save_bytes,
+        "same_batch_stream": same_stream, "counters": counters, "resume_gap": gap,
+        "resume_gap_limit": 0.0, "planted_fault_gap": planted_gap,
+        "planted_fault_param_gap_lr": max(planted_gap["encoder"], planted_gap["decoder"]) / lr,
+        "result_csv": result,
+        "label_maps": n_ok, "label_range": [int(label_ids.min()), int(label_ids.max())],
+        "edited_range": [float(out.min()), float(out.max())],
+        "max_memory_allocated_bytes": peak, "card": nvidia_smi() if cuda else None,
+    }
+    emit(rec)
+    checks = {
+        "native_loader": loader.native, "same_batch_stream": same_stream,
+        "counters": counters["A"] == counters["B"] == (total_steps, 2),
+        "resume_gap": all(v == 0.0 for v in gap.values()),
+        "planted_fault_caught": max(planted_gap["encoder"], planted_gap["decoder"]) > 0.0,
+        "retention": ckpts == {"A": ["ckpt-epoch=0000", "ckpt-epoch=0001"],
+                               "B": ["ckpt-epoch=0000", "ckpt-epoch=0001-step=00000007"],
+                               "B_resumed": ["ckpt-epoch=0001"]},
+        "result_csv": result_finite, "label_maps": n_ok,
+        "labels_in_codebook": 1 <= label_ids.min() and label_ids.max() <= model["dict_size"],
+        "edited": bool(np.isfinite(out).all() and out.min() >= -1.0 and out.max() <= 1.0),
+        "validation_grids": (run_a / "version_0" / "val_0001_1.png").exists(),
+        "launches": ({k: launches.get(k, 0) for k in want} == want) if cuda
+        else launches == {},
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"trainer phase: {checks}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1165,17 +1458,23 @@ def main(argv=None):
     with conv_route("packed"):
         train_launches, trained = train_phase("cuda", cfg, seed=args.seed)
         train_profile_phase(trained)
+        bare_step_s = trained.warm_s
         del trained
         train_reference_phase(cfg, seed=args.seed + 1)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer_launches = trainer_phase("cuda", tmp, seed=args.seed,
+                                             bare_step_s=bare_step_s)
 
     main_conv = next(r for r in conv if r["dtype"] == "bfloat16" and "forward" in r
                      and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
     emit({"kernels": [{
         "name": "vq_fused", "route": "cuda", "source": VQ_SOURCE,
         "replaces": VQ_REPLACES,
-        "launches": serve_launches.get("vq_fused", 0) + train_launches.get("vq_fused", 0),
+        "launches": (serve_launches.get("vq_fused", 0) + train_launches.get("vq_fused", 0)
+                     + trainer_launches.get("vq_fused", 0)),
         "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
-                             "train": train_launches.get("vq_fused", 0)},
+                             "train": train_launches.get("vq_fused", 0),
+                             "trainer": trainer_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
         "n": vq["n"], "c": vq["c"], "k": vq["k"], "path": vq["path"],
@@ -1189,10 +1488,12 @@ def main(argv=None):
         "name": "conv3x3_packed", "route": "cuda", "source": CONV_SOURCE,
         "replaces": CONV_REPLACES,
         "launches": (train_launches.get("conv3x3_packed", 0)
-                     + runtime_launches.get("conv3x3_packed", 0)),
+                     + runtime_launches.get("conv3x3_packed", 0)
+                     + trainer_launches.get("conv3x3_packed", 0)),
         "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
                              "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
-                             "train": train_launches.get("conv3x3_packed", 0)},
+                             "train": train_launches.get("conv3x3_packed", 0),
+                             "trainer": trainer_launches.get("conv3x3_packed", 0)},
         "max_abs_err": main_conv["forward_max_abs_err"],
         "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
                   "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",

@@ -8,7 +8,8 @@ decay added to the gradient before the moments, the same bias-corrected
 update. The JAX `TrainState` pytree becomes `TrainState` holding the
 modules (their parameters, the decoder's BatchNorm running stats and the
 encoder's codebook buffers), the two optimizers, the generator the step
-draws from, and the step count.
+draws from, and the step and epoch counts. `state_dict`/`load_state_dict`
+cover all of it, for `utils/checkpoint.py`.
 """
 
 from dataclasses import dataclass
@@ -48,10 +49,43 @@ class TrainState:
     dec_opt: torch.optim.Optimizer
     generator: torch.Generator  # augmentation draws and k-means seeding
     step: int = 0
+    epoch: int = 0
 
     @property
     def vq(self) -> VQState:
         return self.encoder.vq.state()
+
+    @property
+    def device(self) -> torch.device:
+        return self.encoder.vq.embed.device
+
+    def state_dict(self) -> dict:
+        """Both modules (parameters, BatchNorm stats, the codebook buffers),
+        both Adam states, the generator's state, step and epoch."""
+        return {
+            "encoder": self.encoder.state_dict(),
+            "decoder": self.decoder.state_dict(),
+            "enc_opt": self.enc_opt.state_dict(),
+            "dec_opt": self.dec_opt.state_dict(),
+            "generator": self.generator.get_state(),
+            "step": int(self.step),
+            "epoch": int(self.epoch),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load a `state_dict()` (tensors on any device) in place. The
+        generator's state and Adam's step counters stay on the host, where
+        `torch.Generator.set_state` and the non-capturable Adam keep them."""
+        self.encoder.load_state_dict(sd["encoder"], strict=True)
+        self.decoder.load_state_dict(sd["decoder"], strict=True)
+        for opt, osd in ((self.enc_opt, sd["enc_opt"]), (self.dec_opt, sd["dec_opt"])):
+            opt.load_state_dict(osd)
+            for s in opt.state.values():
+                if isinstance(s.get("step"), torch.Tensor):
+                    s["step"] = s["step"].cpu()
+        self.generator.set_state(sd["generator"].cpu())
+        self.step = int(sd["step"])
+        self.epoch = int(sd["epoch"])
 
 
 def create_train_state(encoder: nn.Module, decoder: nn.Module, enc_opt, dec_opt, *,

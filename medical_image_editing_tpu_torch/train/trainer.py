@@ -1,0 +1,426 @@
+"""Trainer orchestration: config → models, step, loaders → fit / test loops.
+
+Counterpart of `medical_image_editing_tpu/train/trainer.py` (reference
+`src/trainers/base.py`, `src/trainers/single_window_trainer.py`,
+`src/run_vqwnet.py::train_model`), in its single-window flavour with
+`run.training_mode` "first_step" (train), "inference" (label-map export)
+or "test" (metrics):
+  * the encoder with its codebook and the decoder from
+    `config.model.vqmodel`, in its `compute_dtype`; two Adams from
+    `enc_optim`/`dec_optim`; the first-stage step from `config.loss` and
+    `config.augmentation`;
+  * `fit`: codebook k-means on the first batch when the state is fresh
+    (`use_init_embed`), full resume (`run.resume_checkpoint`) and mid-epoch
+    resume that skips exactly the consumed batches, `max_steps` (a break
+    that neither advances the epoch nor saves twice), per-step CSV logging
+    and the divergence guard (`run.halt_on_non_finite`, default on) from
+    one host copy of the step's metrics, epoch and `save_every_n_steps`
+    checkpoints with retention, a train snapshot every SNAPSHOT_INTERVAL
+    steps, validation grids on two batches per epoch, and a
+    `torch.profiler` Chrome trace of steps [profile_start_step,
+    +profile_num_steps) into `run.profile_dir`;
+  * staged loading of a first stage (`run.first_stage_ckpt_path`): a
+    checkpoint directory of this package, or a Lightning `.ckpt` file;
+  * `test`: metrics → `result.csv`, or in "inference" mode the per-slice
+    PNG/NIfTI export.
+
+Not ported yet, and refused rather than run without their part: the
+multi-window (`-w`, ROADMAP item 17) and VQGAN (`-v`, item 18) trainers,
+"second_step"/"joint_step" and the discriminator (item 16), the perceptual
+loss (item 17), DropBlock (`use_dropblock: true`, item 14c).
+"""
+
+import math
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data.loader import get_data_loader, prefetch_to_device
+from ..models.blocks import seeded_init
+from ..models.unet_decoder import UNetDecoder
+from ..models.unet_encoder import EncoderWithVQ
+from ..ops._build import KernelError
+from ..ops.windowing import denormalize, t_normalize
+from ..utils.checkpoint import CheckpointManager, restore_fields, restore_state
+from ..utils.config import getattr_else_none as g
+from ..utils.device import resolve_device
+from ..utils.logging import Logger, is_main_process
+from . import evaluate
+from .first_stage import init_codebook_step, loss_config_from_json, make_first_stage_step
+from .state import create_train_state, make_optimizer_from_config
+
+SNAPSHOT_INTERVAL = 100  # reference `src/trainers/base.py:31`
+
+# errors after which the CUDA context cannot be trusted: snapshots and
+# validation, which otherwise never stop training, re-raise them
+DEVICE_FAULTS = (KernelError, torch.AcceleratorError)
+
+
+class TrainingDivergedError(RuntimeError):
+    """Raised by `Trainer.fit` when the step's 'total' loss goes non-finite
+    and `run.halt_on_non_finite` (default on) is set."""
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP item {item}); "
+        "use the JAX package's trainer for it")
+
+
+class Trainer:
+    """Models + step + loaders for one config, on one device."""
+
+    def __init__(self, config, logger: Optional[Logger] = None, uploader=None,
+                 use_multi_window: bool = False, use_vqgan: bool = False,
+                 device="cuda", seed: int = 0):
+        if use_multi_window:
+            raise _not_ported("the multi-window trainer (-w)", "17")
+        if use_vqgan:
+            raise _not_ported("the VQGAN trainer (-v)", "18")
+        self.config = config
+        self.logger = logger
+        self.uploader = uploader
+        self.device = resolve_device(device)
+        self.seed = int(seed)
+        self._configure_models()
+        self._configure_losses()
+        mode = str(config.run.training_mode)
+        if mode in ("second_step", "joint_step"):
+            raise _not_ported(f"training_mode {mode!r} (the GAN stages)", "16")
+        self.training_mode = mode
+        self._step = None  # (encoder, decoder, step_fn) of the last state trained
+        self._val_loader = None
+
+    # ------------------------------------------------------------------
+    # construction
+    # ------------------------------------------------------------------
+    def _configure_models(self):
+        cfg = self.config
+        gen = cfg.model.vqmodel
+        if g(gen, "model_name", None) == "VQGAN":
+            raise _not_ported("the VQGAN model", "18")
+        if g(gen, "use_dropblock", False):
+            raise _not_ported("DropBlock (model.vqmodel.use_dropblock)", "14c")
+        if g(cfg.run, "discriminator_ckpt_path", None):
+            raise _not_ported("the discriminator (run.discriminator_ckpt_path)", "16")
+        self.dict_size = int(gen.dict_size)
+        self.eval_dict_size = self.dict_size
+        self.compute_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(
+            str(g(gen, "compute_dtype", "") or ""), None)
+        self._enc_kw = dict(
+            in_channels=int(gen.in_channels), filters=tuple(gen.enc_filters),
+            dict_size=self.dict_size, momentum=float(gen.momentum),
+            use_styled_up_block=bool(g(gen, "enc_use_styled_up_block", False)),
+            knn_backend=str(g(gen, "knn_backend", "xla") or "xla"), dtype=self.compute_dtype)
+        self._dec_kw = dict(
+            in_channels=int(gen.enc_filters[0]), out_channels=int(gen.in_channels),
+            filters=tuple(gen.dec_filters),
+            dropped_skip_layers=tuple(gen.dropped_skip_layers or ()),
+            use_pixel_shuffle=bool(g(gen, "use_pixel_shuffle", True)),
+            dtype=self.compute_dtype)
+
+    def _configure_losses(self):
+        cfg = self.config
+        self.first_cfg = loss_config_from_json(cfg.loss)
+        if self.first_cfg.use_perceptual_loss:
+            raise _not_ported("the perceptual loss (loss.use_perceptual_loss)", "17")
+        self.aug_cfg = cfg.augmentation
+        ds = cfg.dataset
+        # None without HU windowing (CRC/BraTS): the lung/mediastinal
+        # converters are then unavailable and grids show raw panels
+        if g(ds, "window_width", None) is None:
+            self.dataset_window = None
+        else:
+            self.dataset_window = (float(ds.window_width),
+                                   float(g(ds, "window_center", 0.0) or 0.0),
+                                   float(g(ds, "window_scale", 2.0) or 2.0))
+
+    def train_step(self, state, image, draws=None):
+        """One first-stage step of `state` (built once per state's models)."""
+        if self._step is None or self._step[:2] != (state.encoder, state.decoder):
+            fn = make_first_stage_step(
+                state.encoder, state.decoder, loss_cfg=self.first_cfg, aug_cfg=self.aug_cfg,
+                dict_size=self.dict_size, compute_dtype=self.compute_dtype or torch.float32,
+                device=self.device)
+            self._step = (state.encoder, state.decoder, fn)
+        return self._step[2](state, image, draws)
+
+    # ------------------------------------------------------------------
+    # state init + staged loading
+    # ------------------------------------------------------------------
+    def init_state(self):
+        """Fresh models (seeded from `seed`, as `models.blocks.seeded_init`
+        fills them) with their Adams and a generator seeded with `seed` on
+        the device; then the staged first stage, if configured. The models
+        take any image size, so no init shapes are needed."""
+        gen = torch.Generator().manual_seed(self.seed)
+        encoder = seeded_init(EncoderWithVQ(**self._enc_kw), gen).to(self.device)
+        decoder = seeded_init(UNetDecoder(**self._dec_kw), gen).to(self.device)
+        state = create_train_state(
+            encoder, decoder,
+            make_optimizer_from_config(encoder.parameters(), self.config.enc_optim),
+            make_optimizer_from_config(decoder.parameters(), self.config.dec_optim),
+            seed=self.seed, device=self.device)
+        path = g(self.config.run, "first_stage_ckpt_path", None)
+        if path:
+            path = str(path)
+            if os.path.isfile(path):
+                from ..utils.weights import load_lightning_state
+
+                groups = load_lightning_state(path)
+                encoder.load_state_dict(groups["encoder"], strict=True)
+                decoder.load_state_dict(groups["decoder"], strict=True)
+                print(f"Imported first stage models from Lightning ckpt {path}")
+            else:
+                restore_fields(path, state, ("encoder", "decoder"))
+                print(f"Restored first stage models from {path}")
+        return state
+
+    # ------------------------------------------------------------------
+    # data
+    # ------------------------------------------------------------------
+    def dataloader(self, mode: str):
+        ds = self.config.dataset
+        return get_data_loader(
+            mode=mode,
+            dataset_name=str(ds.dataset_name),
+            root_dir_path=str(ds.root_dir_path),
+            batch_size=int(ds.batch_size),
+            num_workers=int(g(ds, "num_workers", 0) or 0),
+            modality=g(ds, "modality", None),
+            augmentations=list(g(ds, "augmentations", []) or []) if mode == "train" else None,
+            drop_last=(mode == "train"),
+            window_width=g(ds, "window_width", None),
+            window_center=g(ds, "window_center", None),
+            window_scale=g(ds, "window_scale", None),
+        )
+
+    def _require_window(self, what: str):
+        if self.dataset_window is None:
+            raise ValueError(
+                f"{what} needs dataset.window_width/window_center/window_scale "
+                "in the config (the dataset normalization to invert back to HU)")
+        return self.dataset_window
+
+    def to_lung(self, image):
+        dw, dc, s = self._require_window("to_lung")
+        return t_normalize(denormalize(image, dw, dc, s), 1500, -550, 2.0)
+
+    def to_mediastinal(self, image):
+        dw, dc, s = self._require_window("to_mediastinal")
+        return t_normalize(denormalize(image, dw, dc, s), 400, 20, 2.0)
+
+    def denormalize_ct_values(self, image):
+        dw, dc, s = self._require_window("denormalize_ct_values")
+        return denormalize(image, dw, dc, s)
+
+    # ------------------------------------------------------------------
+    # fit
+    # ------------------------------------------------------------------
+    def fit(self, state=None, max_epochs: Optional[int] = None, max_steps=None):
+        cfg = self.config
+        run = cfg.run
+        if self.training_mode != "first_step":
+            raise ValueError(
+                f"run.training_mode {self.training_mode!r} has no training step here — "
+                "the training mode is 'first_step'; 'inference' and 'test' are "
+                "test-only (run with -m test)")
+        n_epochs = int(max_epochs if max_epochs is not None else run.n_epochs)
+        loader = self.dataloader("train")
+        if len(loader) == 0:
+            raise ValueError("empty train dataloader: fewer slices than one batch")
+        if state is None:
+            state = self.init_state()
+
+        saver = None
+        if self.logger is not None:
+            saver = CheckpointManager(
+                os.path.join(self.logger.log_dir, "ckpt"),
+                limit_num=int(g(cfg.save, "limit_num", 10) or 10),
+                save_interval=int(g(cfg.save, "save_interval", 10) or 10))
+        if g(run, "resume_checkpoint", None):
+            restore_state(str(run.resume_checkpoint), state)
+            print(f"Resumed from {run.resume_checkpoint}")
+
+        # codebook k-means on the first batch (reference: in the first forward)
+        if bool(g(cfg.model.vqmodel, "use_init_embed", False)) and state.step == 0:
+            first = next(iter(loader))
+            init_codebook_step(state.encoder)(state, first["image"])
+            print("Initialized codebook with k-means on the first batch")
+
+        eval_forward = evaluate.make_eval_forward(state.encoder, state.decoder,
+                                                  device=self.device)
+        if self.logger is not None and bool(g(run, "use_validation_sanity_check", False)):
+            self._validate(eval_forward, epoch=-1)
+
+        save_every_n_steps = int(g(cfg.save, "save_every_n_steps", 0) or 0)
+        # divergence guard: halt on a non-finite total instead of training
+        # on a poisoned state; `run.halt_on_non_finite: false` disables
+        halt_on_non_finite = bool(g(run, "halt_on_non_finite", True))
+        profile_dir = g(run, "profile_dir", None)
+        profile_start = int(g(run, "profile_start_step", 10) or 10)
+        profile_num = int(g(run, "profile_num_steps", 5) or 5)
+        profiler = None
+        global_step = int(state.step)
+        start_epoch = int(state.epoch)
+        # mid-epoch resume: the steps past the completed epochs' batches were
+        # consumed before the save; the order is a pure function of (seed,
+        # epoch), so skipping that many replays an uninterrupted run's stream
+        steps_per_epoch = len(loader)
+        resume_skip = max(0, global_step - start_epoch * steps_per_epoch)
+        if resume_skip > steps_per_epoch:
+            resume_skip = 0  # inconsistent counters; replay the whole epoch
+        done = False
+        for epoch in range(start_epoch, n_epochs):
+            skip = resume_skip if epoch == start_epoch else 0
+            batches = loader.epoch_iterator(epoch, skip_batches=skip)
+            for batch in prefetch_to_device(batches, size=2, device=self.device):
+                if profile_dir and profiler is None and global_step + 1 >= profile_start:
+                    profiler = self._start_profiler()
+                state, metrics = self.train_step(state, batch["image"])
+                global_step += 1
+                m = None
+                if self.logger is not None or halt_on_non_finite:
+                    # one device → host copy for every metric
+                    m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+                    if halt_on_non_finite and not math.isfinite(m.get("total", 0.0)):
+                        raise TrainingDivergedError(
+                            f"non-finite 'total' at step {global_step} (epoch {epoch}); "
+                            f"metrics: {m}. The parameter state is poisoned — restart "
+                            "from the last checkpoint with a lower LR / different "
+                            "seed. Set run.halt_on_non_finite: false to train on "
+                            "through NaNs (the reference's behavior).")
+                if profiler is not None and global_step >= profile_start + profile_num:
+                    self._stop_profiler(profiler, str(profile_dir))
+                    profiler, profile_dir = None, None  # one capture per fit
+                if self.logger is not None:
+                    m["epoch"], m["iteration"] = epoch, global_step
+                    self.logger.log_metrics(m, step=global_step)
+                    if global_step % SNAPSHOT_INTERVAL == 0:
+                        self._snapshot(eval_forward, batch, global_step)
+                saved_step = None
+                if saver is not None and save_every_n_steps \
+                        and global_step % save_every_n_steps == 0:
+                    saver.save(state, epoch, step=global_step)  # step-tagged
+                    saved_step = global_step
+                if max_steps is not None and global_step >= max_steps:
+                    done = True
+                    break
+            if done:
+                # a max_steps break lands mid-epoch: the epoch counter stays
+                # (a resume replays the rest of this epoch); save step-tagged
+                # unless this step's periodic save wrote that path already
+                if saver is not None and saved_step != global_step:
+                    saver.save(state, epoch, step=global_step)
+                break
+            state.epoch += 1
+            if saver is not None:
+                saver.save(state, epoch)
+            if self.logger is not None:
+                self._validate(eval_forward, epoch)
+        if profiler is not None:  # fit ended inside the capture window
+            self._stop_profiler(profiler, str(profile_dir))
+        return state
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.__enter__()
+        return profiler
+
+    def _stop_profiler(self, profiler, profile_dir: str):
+        """Close the capture on finished work; write `trace.json` (Chrome
+        trace format) into profile_dir."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.__exit__(None, None, None)
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+    def _snapshot(self, eval_forward, batch, global_step):
+        """Rank-0 train snapshot: image / recon / ids grid, optional upload."""
+        if not is_main_process():
+            return
+        from ..utils.imaging import CMAP, as_numpy, save_snapshot_grid
+
+        try:
+            recon, ids = eval_forward(batch["image"])
+            img = as_numpy(batch["image"])[0, ..., 0]
+            rec = as_numpy(recon)[0, ..., 0]
+            idm = as_numpy(ids)[0]
+            path = os.path.join(self.logger.log_dir, f"train_{str(global_step).zfill(6)}.png")
+            os.makedirs(self.logger.log_dir, exist_ok=True)
+            save_snapshot_grid(path, [(img, "image", "gray", -1, 1, 1),
+                                      (rec, "recon", "gray", -1, 1, 2),
+                                      (idm, "ids", CMAP, 0, self.eval_dict_size, 3)],
+                               n_row=1, n_col=3)
+            print("IDs: ", np.bincount(idm.ravel(), minlength=self.eval_dict_size + 1))
+            if self.uploader is not None:
+                self.uploader.send_image(path, message=f"Global Step: {global_step}")
+        except DEVICE_FAULTS:
+            raise
+        except Exception as e:  # a snapshot never stops training
+            print(f"snapshot failed: {type(e).__name__}: {e}")
+
+    def _validate(self, eval_forward, epoch, limit_val_batches: int = 2):
+        """Rank-0 validation grids on the first `limit_val_batches` batches."""
+        if self._val_loader is None:
+            try:
+                self._val_loader = self.dataloader("val")
+            except (OSError, ValueError) as e:
+                print(f"no validation loader: {e}")
+                return
+        for i, batch in enumerate(self._val_loader):
+            if i >= limit_val_batches:
+                break
+            try:
+                evaluate.validation_snapshot(
+                    eval_forward, batch,
+                    dataset_name=str(self.config.dataset.dataset_name),
+                    dict_size=self.eval_dict_size,
+                    n_save_images=int(g(self.config.save, "n_save_images", 4) or 4),
+                    save_path=os.path.join(self.logger.log_dir, f"val_{epoch:04d}_{i}.png"),
+                    to_lung_fn=self.to_lung if self.dataset_window else None,
+                    to_mediastinal_fn=self.to_mediastinal if self.dataset_window else None)
+            except DEVICE_FAULTS:
+                raise
+            except Exception as e:  # a grid never stops training
+                print(f"validation snapshot failed: {type(e).__name__}: {e}")
+
+    # ------------------------------------------------------------------
+    # test / inference
+    # ------------------------------------------------------------------
+    def test(self, state, save_dir_path: Optional[str] = None):
+        """"inference" mode: the per-slice export, returns the directories
+        written. Otherwise: (per-batch metric dicts, result.csv path)."""
+        loader = self.dataloader("test")
+        if self.training_mode == "inference":
+            forward = evaluate.make_eval_forward(state.encoder, state.decoder,
+                                                 device=self.device)
+            written = []
+            for batch in loader:
+                written += evaluate.inference_export(
+                    forward, batch, dataset_name=str(self.config.dataset.dataset_name),
+                    dict_size=self.eval_dict_size, save_root=str(self.config.save.save_dir),
+                    study_name=str(self.config.save.study_name),
+                    to_lung_fn=self.to_lung if self.dataset_window else None)
+            return written
+
+        fm = evaluate.make_test_metrics_fn(state.encoder, state.decoder, self.dict_size,
+                                           device=self.device)
+        outputs = []
+        for i, batch in enumerate(loader):
+            out = evaluate.test_step(fm, batch, i,
+                                     dataset_name=str(self.config.dataset.dataset_name),
+                                     dict_size=self.dict_size, save_dir_path=save_dir_path)
+            if out is not None:
+                outputs.append(out)
+        if save_dir_path is None and self.logger is not None:
+            save_dir_path = self.logger.log_dir
+        return outputs, evaluate.test_epoch_end(outputs, save_dir_path or ".")

@@ -1,0 +1,181 @@
+"""Checkpoints of the train state with `torch.save`, with the JAX package's
+save, retention and staged-restore rules.
+
+Counterpart of `medical_image_editing_tpu/utils/checkpoint.py` (Orbax there;
+reference `src/utils/logger.py:79-91`, `src/trainers/base.py:85-114`,
+`run_vqwnet.py:90-100`):
+  * the whole train state — both modules with the VQ buffers (`embed`,
+    `cluster_size`, `embed_avg`: without them the codebook is lost), both
+    Adam states, the generator, step and epoch (`TrainState.state_dict`) —
+    is one `state.pt` in a directory `ckpt-epoch=EEEE` (epoch end) or
+    `ckpt-epoch=EEEE-step=SSSSSSSS` (mid-epoch);
+  * retention: the newest `limit_num` epoch checkpoints stay; older ones
+    only every `save_interval` epochs ((epoch + 1) % interval == 0); a
+    step-tagged checkpoint stays only while it is the newest overall;
+  * `restore` loads the newest (or a given epoch's newest) into a state;
+    `restore_fields` copies only the named top-level fields of the state
+    dict (e.g. ("encoder", "decoder") for a first-stage init).
+
+A checkpoint is written under a temporary name in the same directory and
+moved into place with `os.replace`, so no partial checkpoint is ever
+visible. Saves are synchronous (the JAX package's `use_async` overlaps
+Orbax writes with compute; here a save is one `torch.save`).
+
+The JAX package's Orbax checkpoint directories cannot be read here (no orbax
+on the card's machine; cross-reading is ROADMAP item 22): restoring one
+raises an error that points at Lightning `.ckpt` files
+(`utils/weights.py::load_lightning_state`), which the trainer loads.
+"""
+
+import os
+import re
+import shutil
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+_CKPT_RE = re.compile(r"ckpt-epoch=(\d+)(?:-step=(\d+))?")
+STATE_FILE = "state.pt"
+
+
+def _ckpt_name(epoch: int, step: Optional[int] = None) -> str:
+    if step is None:
+        return f"ckpt-epoch={epoch:04d}"
+    return f"ckpt-epoch={epoch:04d}-step={step:08d}"
+
+
+def _sort_key(entry: Tuple[int, Optional[int]]):
+    """Order by recency: an epoch-end save of epoch E holds the state after
+    all of E's batches, so it outranks any step-tagged (E, s)."""
+    epoch, step = entry
+    return (epoch, float("inf") if step is None else step)
+
+
+def load_state_file(path: str, map_location="cpu") -> dict:
+    """The state dict saved in checkpoint directory `path`."""
+    f = os.path.join(path, STATE_FILE)
+    if not os.path.isfile(f):
+        raise ValueError(
+            f"{path} holds no {STATE_FILE}: not a checkpoint of the PyTorch port "
+            "(an Orbax checkpoint of the JAX package cannot be read here). Convert "
+            "it to a Lightning .ckpt with the JAX package's export-ckpt CLI "
+            "(cli/export_ckpt.py); the port loads those through "
+            "utils/weights.py::load_lightning_state (run.first_stage_ckpt_path)"
+        )
+    return torch.load(f, map_location=map_location, weights_only=True)
+
+
+class CheckpointManager:
+    """Epoch checkpoints with the ModelSaver retention policy."""
+
+    def __init__(self, directory: str, limit_num: int = 10, save_interval: int = 10):
+        self.directory = os.path.abspath(directory)
+        self.limit_num = limit_num
+        self.save_interval = save_interval
+        os.makedirs(self.directory, exist_ok=True)
+
+    # -- save / prune ---------------------------------------------------------
+    def save(self, state, epoch: int, step: Optional[int] = None) -> str:
+        """Save `state` (anything with `state_dict()`). `step` marks a
+        mid-epoch save; epoch-end saves omit it. Returns the path."""
+        path = os.path.join(self.directory, _ckpt_name(epoch, step))
+        tmp = os.path.join(self.directory, f".tmp-{os.getpid()}-{_ckpt_name(epoch, step)}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
+        if os.path.isdir(path):  # a re-save of the same name: swap, then drop
+            old = tmp + ".old"
+            os.replace(path, old)
+            os.replace(tmp, path)
+            shutil.rmtree(old)
+        else:
+            os.replace(tmp, path)
+        self._prune()
+        return path
+
+    def _entries(self) -> Sequence[Tuple[int, Optional[int]]]:
+        out = []
+        for bn in os.listdir(self.directory):
+            m = _CKPT_RE.fullmatch(bn)
+            if m:
+                out.append((int(m.group(1)), int(m.group(2)) if m.group(2) else None))
+        return sorted(out, key=_sort_key)
+
+    def _epochs(self) -> Sequence[int]:
+        return sorted({e for e, s in self._entries() if s is None})
+
+    def _prune(self):
+        entries = self._entries()
+        keep_tagged = {entries[-1]} if entries and entries[-1][1] is not None else set()
+        for e, s in entries:
+            if s is not None and (e, s) not in keep_tagged:
+                shutil.rmtree(os.path.join(self.directory, _ckpt_name(e, s)))
+
+        epochs = self._epochs()
+        if len(epochs) <= self.limit_num:
+            return
+        for e in epochs[: len(epochs) - self.limit_num]:
+            if (e + 1) % self.save_interval != 0:
+                shutil.rmtree(os.path.join(self.directory, _ckpt_name(e)))
+
+    # -- restore --------------------------------------------------------------
+    def latest_epoch(self) -> Optional[int]:
+        """Epoch index of the most recent checkpoint (epoch-end or tagged)."""
+        entries = self._entries()
+        return entries[-1][0] if entries else None
+
+    def latest_path(self) -> Optional[str]:
+        entries = self._entries()
+        if not entries:
+            return None
+        return os.path.join(self.directory, _ckpt_name(*entries[-1]))
+
+    def _path(self, epoch: Optional[int]) -> str:
+        entries = self._entries()
+        if epoch is not None:
+            entries = [x for x in entries if x[0] == epoch]
+        if not entries:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        return os.path.join(self.directory, _ckpt_name(*entries[-1]))
+
+    def restore(self, target, epoch: Optional[int] = None):
+        """Full restore (resume) into `target` (a `TrainState`), on its
+        device: that epoch's newest save, else the newest overall (which may
+        be mid-epoch: the trainer replays the unseen tail from `step`)."""
+        target.load_state_dict(load_state_file(self._path(epoch), target.device))
+        return target
+
+
+def _resolve(ckpt_dir_or_path: str, epoch: Optional[int]) -> str:
+    """A checkpoint directory `ckpt-epoch=...` as given, or the newest (or
+    epoch's newest) under a parent directory."""
+    path = ckpt_dir_or_path
+    if _CKPT_RE.fullmatch(os.path.basename(os.path.normpath(path))):
+        return path
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"checkpoint directory does not exist: {path}")
+    return CheckpointManager(path)._path(epoch)
+
+
+def restore_state(ckpt_dir_or_path: str, target_state, epoch: Optional[int] = None):
+    """Full restore from a checkpoint parent directory or a specific
+    `ckpt-epoch=NNNN[-step=M]` directory."""
+    path = _resolve(ckpt_dir_or_path, epoch)
+    target_state.load_state_dict(load_state_file(path, target_state.device))
+    return target_state
+
+
+def restore_fields(ckpt_dir_or_path: str, target_state, fields: Sequence[str],
+                   epoch: Optional[int] = None):
+    """Prefix-selective restore: copy only the named top-level fields of the
+    saved state dict (e.g. ("encoder", "decoder") — the models with the
+    codebook — for a first-stage init) into `target_state`; the rest keeps
+    its values."""
+    saved = load_state_file(_resolve(ckpt_dir_or_path, epoch), target_state.device)
+    missing = [f for f in fields if f not in saved]
+    if missing:
+        raise KeyError(f"checkpoint has no fields {missing}; it has {sorted(saved)}")
+    merged = target_state.state_dict()
+    merged.update({f: saved[f] for f in fields})
+    target_state.load_state_dict(merged)
+    return target_state

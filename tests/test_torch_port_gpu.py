@@ -361,3 +361,73 @@ def test_bf16_serve_decode_on_card_matches_cpu(cuda, monkeypatch, route):
     assert np.isfinite(card16).all() and np.abs(card16).max() <= 1.0
     card_gap, cpu_gap = np.abs(card16 - cpu32).mean(), np.abs(cpu16 - cpu32).mean()
     assert card_gap <= 1.5 * cpu_gap, (card_gap, cpu_gap)
+
+
+@pytest.mark.gpu
+def test_prefetch_to_device_pinned_batches(cuda):
+    """`prefetch_to_device` on the card: every batch arrives intact although
+    each copy is `non_blocking` from pinned memory and the host builds the
+    next batches meanwhile (a pinned buffer is never refilled), and a
+    kernel reading the previous batch does not see it change."""
+    from medical_image_editing_tpu_torch.data.loader import prefetch_to_device
+
+    rng = np.random.default_rng(16)
+    batches = [{"image": rng.normal(size=(8, 256, 256, 1)).astype(np.float32),
+                "patient_id": [f"p{i}"] * 8, "slice_num": np.arange(8, dtype=np.int32)}
+               for i in range(6)]
+    got = []
+    for b in prefetch_to_device(iter(batches), size=2, device=cuda):
+        assert b["image"].device.type == "cuda"
+        got.append((b["patient_id"][0], (b["image"] * 2).sum(dtype=torch.float64), b["image"]))
+    torch.cuda.synchronize()
+    assert [g[0] for g in got] == [f"p{i}" for i in range(6)]
+    for (_, s, image), want in zip(got, batches):
+        assert torch.equal(image.cpu(), torch.from_numpy(want["image"]))
+        assert float(s) == pytest.approx(2 * float(want["image"].sum(dtype=np.float64)),
+                                         rel=1e-9)
+
+
+@pytest.mark.gpu
+def test_cuda_generator_checkpoint_round_trip(cuda, tmp_path):
+    """A train state on the card through `CheckpointManager`: parameters,
+    Adam moments, codebook buffers and the CUDA generator's state come back
+    bit for bit onto the card, Adam's step counters on the host, and the
+    restored generator draws the stream the original draws next."""
+    from medical_image_editing_tpu_torch.models import UNetDecoder
+    from medical_image_editing_tpu_torch.models.blocks import seeded_init
+    from medical_image_editing_tpu_torch.models.unet_encoder import EncoderWithVQ
+    from medical_image_editing_tpu_torch.train import state as tstate
+    from medical_image_editing_tpu_torch.utils.checkpoint import CheckpointManager
+
+    def make(seed):
+        gen = torch.Generator().manual_seed(seed)
+        enc = seeded_init(EncoderWithVQ(1, (4, 8, 8, 16, 16), 6, knn_backend="pallas"), gen)
+        dec = seeded_init(UNetDecoder(4, 1, (8, 8, 16, 16, 32), dropped_skip_layers=(),
+                                      use_pixel_shuffle=False), gen)
+        enc, dec = enc.to(cuda), dec.to(cuda)
+        return tstate.create_train_state(enc, dec, tstate.make_optimizer(enc.parameters(), 1e-3),
+                                         tstate.make_optimizer(dec.parameters(), 1e-3),
+                                         seed=seed, device=cuda)
+
+    state = make(1)
+    for opt, module in ((state.enc_opt, state.encoder), (state.dec_opt, state.decoder)):
+        for p in module.parameters():
+            p.grad = torch.randn(p.shape, generator=state.generator, device=cuda)
+        opt.step()
+    state.step, state.epoch = 5, 2
+    assert state.generator.device.type == "cuda"
+    CheckpointManager(str(tmp_path)).save(state, epoch=2)
+    fresh = make(9)
+    CheckpointManager(str(tmp_path)).restore(fresh)
+    for part in ("encoder", "decoder"):
+        a, b = getattr(state, part).state_dict(), getattr(fresh, part).state_dict()
+        assert all(b[k].device.type == "cuda" and torch.equal(a[k], b[k]) for k in a)
+    for opt_a, opt_b in ((state.enc_opt, fresh.enc_opt), (state.dec_opt, fresh.dec_opt)):
+        for pa, pb in zip(opt_a.param_groups[0]["params"], opt_b.param_groups[0]["params"]):
+            sa, sb = opt_a.state[pa], opt_b.state[pb]
+            assert torch.equal(sa["exp_avg"], sb["exp_avg"]) and sb["exp_avg"].is_cuda
+            assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+            assert sb["step"].device.type == "cpu" and float(sa["step"]) == float(sb["step"])
+    assert (fresh.step, fresh.epoch) == (5, 2)
+    assert torch.equal(torch.rand(1000, generator=state.generator, device=cuda),
+                       torch.rand(1000, generator=fresh.generator, device=cuda))

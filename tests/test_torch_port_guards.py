@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse to fall back to the CPU, `chip_smoke.py` fails
-without a card, and its serve phase runs end to end at tiny size on the CPU.
+without a card, and its serve, train, serve_runtime and trainer phases run
+end to end at tiny size on the CPU.
 """
 
 import importlib.util
@@ -22,6 +23,18 @@ TINY_MODEL = {
     "knn_backend": "pallas", "use_pixel_shuffle": False,
     "dropped_skip_layers": [],
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the phases' small tensors: several test
+    workers on one host, each with a thread per core, spin OpenMP barriers
+    against each other (the trainer phase took 383 s beside another
+    torch-heavy file, 7 s with one thread each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _clean_env():
@@ -47,13 +60,13 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 31
+    assert len(modules) >= 41
 
 
 def test_entry_points_refuse_missing_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable")
-    from medical_image_editing_tpu_torch.cli import edit_batch, run_recon, serve_http
+    from medical_image_editing_tpu_torch.cli import edit_batch, run_recon, run_vqwnet, serve_http
     from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
     from medical_image_editing_tpu_torch.cli.run_recon import LungConfig, load_model
     from medical_image_editing_tpu_torch.train.evaluate import make_eval_forward
@@ -70,7 +83,9 @@ def test_entry_points_refuse_missing_card():
                  lambda: run_recon.serve(lung(), max_iters=1),
                  lambda: run_recon.main(["--max-iters", "1"]),
                  lambda: serve_http.main(["--warm", "none"]),
-                 lambda: edit_batch.main(["--label-dir", ".", "--out-dir", "."])):
+                 lambda: edit_batch.main(["--label-dir", ".", "--out-dir", "."]),
+                 lambda: run_vqwnet.main(["-c", str(ROOT / "configs" / "lung_first_stage.json"),
+                                          "-m", "train"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -146,4 +161,30 @@ def test_chip_smoke_serve_runtime_phase_on_cpu(tmp_path, capsys):
     watch = next(r for r in recs if r.get("part") == "watch")
     assert watch["recon_pngs"] == watch["label_pngs"] == watch["processed"] == 3
     assert watch["elapsed_s"] < 30 and watch["inotify_active"]
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+
+
+def test_chip_smoke_trainer_phase_on_cpu(tmp_path, capsys):
+    """The trainer phase end to end at tiny size on the CPU (5 steps an
+    epoch, as on the card): runs A and B, the resume held bit for bit, test,
+    export, the painted decode, the planted faulty resume that the check
+    catches; no kernel launch."""
+    smoke = _chip_smoke()
+    overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
+                                   "dec_filters": [32, 8, 8, 16, 16]},
+                 "dataset": {"batch_size": 2}}
+    with smoke.conv_route("packed"):
+        launches = smoke.trainer_phase("cpu", tmp_path, size=32, patients=2, slices=5,
+                                       overrides=overrides, bare_step_s=[0.1])
+    assert launches == {}
+    rec = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith('{"phase": "trainer"')][-1]
+    assert rec["native_loader"] and rec["same_batch_stream"]
+    assert rec["counters"] == {"A": [10, 2], "B": [10, 2]}
+    assert rec["resume_gap"] == {"encoder": 0.0, "decoder": 0.0, "codebook_rel": 0.0}
+    assert rec["planted_fault_param_gap_lr"] > 0
+    assert rec["routed_convs"] == {"encoder": 0, "decoder": 10}
+    assert len(rec["fit_step_s"]) == 7 and rec["save_bytes"] > 0
+    assert rec["result_csv"][0][1:] == ["Entropy_avg", "Entropy_std", "NMSE_avg", "NMSE_std",
+                                        "PSNR_avg", "PSNR_std", "SSIM_avg", "SSIM_std"]
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"

@@ -65,10 +65,29 @@ and no result line):
                both kernels held to the derived ones; fit-loop step time
                beside the train phase's bare step, loader and save times,
                idle share, peak memory;
+  8b. second_stage — the second (adversarial) stage at the widths of
+               `configs/lung_second_stage.json` (bf16 encoder and decoder,
+               the f32 U-Net discriminator at D_ch 64, packed conv, 256²,
+               batch 8): (a) 5 bare steps of `make_second_stage_step`
+               after the codebook k-means, launch counts held to the derived
+               ones; a profiled warm step (busy, idle, top kernels), the
+               discriminator's work alone under the profiler (its share of
+               busy, its f32 rate against the operations counted from the
+               model), peak memory, a warm step with cuDNN's TF32 on (time,
+               loss gap); one step on the card held to the CPU path on a
+               small input; (b) `run_vqwnet.main` on the second-stage config
+               staged from the trainer phase's run-A first stage: run A 6
+               steps, run B 3 and a resume to 6 held to A (slice order,
+               counters, parameters, moments and spectral-norm vectors),
+               validation grids with the discriminator's maps, `-m test`,
+               the export, a painted decode with the second-stage decoder,
+               launch counts held to the derived ones, and a planted faulty
+               resume (the discriminator's Adam state and spectral-norm
+               vectors dropped) whose gap is printed;
   9. kernels — one line listing every hand-written kernel of the paths.
-The serve, serve_runtime (its packed route), train and trainer phases are
-the main paths: each zeroes the launch counts just before it and reads them
-just after.
+The serve, serve_runtime (its packed route), train, trainer and
+second_stage (a) and (b) phases are the main paths: each zeroes the launch
+counts just before it and reads them just after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
@@ -96,6 +115,21 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 MODEL_CONFIG = ROOT / "configs" / "lung_first_stage.json"
+SECOND_CONFIG = ROOT / "configs" / "lung_second_stage.json"
+# the resumed second-stage run against the uninterrupted one
+# (`second_stage_run_part.state_gap`), each limit between the gaps measured
+# on an H100 (resume; planted fault): the discriminator's parameters RMS
+# 0.0079 lr; 1.72 lr, its Adam moments 0.0031; 0.88, its spectral-norm
+# vectors 3.3e-4; 2.0, the decoder's moments 0.0105; 0.123. The card's f32
+# weight-gradient sums are not reproducible run to run, and the bf16
+# decoder's Adam steps turn with them: its parameters' RMS gap (0.54 lr)
+# sits near the planted fault's (0.67 lr), which reaches the decoder only
+# through the discriminator, so they are held only to 2 lr (the whole
+# resumed stretch, 3 steps, were it lost)
+SECOND_RESUME_GAP_LIMIT = {
+    "decoder": {"params_rms_lr": 2.0, "moments_rel": 0.05},
+    "discriminator": {"params_rms_lr": 0.1, "moments_rel": 0.05, "sn_max": 0.03},
+}
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
 # tensor cores, bf16 on the dense tensor cores
@@ -1182,6 +1216,24 @@ def captured_trainers():
         run_vqwnet.build_trainer = build
 
 
+def run_cli(work, base, name, argv, cuda, **changes):
+    """`run_vqwnet.main` in-process on the config dict `base` with
+    `changes` ({section: {key: value}}) merged in and `save.save_dir` =
+    work/name; returns the study's run directory."""
+    from medical_image_editing_tpu_torch.cli import run_vqwnet
+
+    cfg = copy.deepcopy(base)
+    cfg["save"]["save_dir"] = str(work / name)
+    for section, values in changes.items():
+        cfg[section].update(values)
+    path = work / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    argv = ["-c", str(path), *argv] + ([] if cuda else ["--device", "cpu"])
+    if run_vqwnet.main(argv) != 0:
+        raise RuntimeError(f"run_vqwnet {argv} failed")
+    return work / name / str(base["save"]["study_name"])
+
+
 def trace_idle_share(path):
     """Device busy time and idle share of a Chrome trace written by
     torch.profiler: kernel, copy and memset time over the span of all its
@@ -1217,7 +1269,6 @@ def trainer_phase(device, workdir, *, size=256, patients=2, slices=20, seed=0,
     sits below a faulty resume. Returns the launches."""
     import torch
 
-    from medical_image_editing_tpu_torch.cli import run_vqwnet
     from medical_image_editing_tpu_torch.cli.edit_batch import edit_study
     from medical_image_editing_tpu_torch.ops import _build
     from medical_image_editing_tpu_torch.train.trainer import Trainer
@@ -1249,16 +1300,7 @@ def trainer_phase(device, workdir, *, size=256, patients=2, slices=20, seed=0,
     eval_batches = -(-patients * slices // batch)
 
     def run(name, argv, **changes):
-        cfg = copy.deepcopy(base)
-        cfg["save"]["save_dir"] = str(work / name)
-        for section, values in changes.items():
-            cfg[section].update(values)
-        path = work / f"{name}.json"
-        path.write_text(json.dumps(cfg))
-        argv = ["-c", str(path), *argv] + ([] if cuda else ["--device", "cpu"])
-        if run_vqwnet.main(argv) != 0:
-            raise RuntimeError(f"run_vqwnet {argv} failed")
-        return work / name / str(base["save"]["study_name"])
+        return run_cli(work, base, name, argv, cuda, **changes)
 
     enc_in = torch.zeros(1, int(model["in_channels"]), size, size)
     dtype = {"bfloat16": torch.bfloat16}.get(model.get("compute_dtype"), torch.float32)
@@ -1421,6 +1463,596 @@ def trainer_phase(device, workdir, *, size=256, patients=2, slices=20, seed=0,
     return launches
 
 
+def second_config(overrides=None, **sections):
+    """The lung second-stage config as a dict, `overrides` ({"a.b": {...}})
+    and `sections` ({"run": {...}}) merged in; the staged first stage
+    cleared unless given."""
+    base = json.loads(SECOND_CONFIG.read_text())
+    base["run"]["first_stage_ckpt_path"] = None
+    for section, values in {**(overrides or {}), **sections}.items():
+        node = base
+        for key in section.split("."):
+            node = node[key]
+        node.update(values)
+    return base
+
+
+def second_state(cfg, device, seed):
+    """The trainer's fresh second-stage state for `cfg` (a dict): encoder
+    and decoder seeded as `seeded_init` fills them, the discriminator as
+    the JAX module initialises, the three Adams, the generator."""
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    trainer = Trainer(to_config(cfg), device=device, seed=seed)
+    return trainer, trainer.init_state()
+
+
+def second_step_fn(trainer, state, device):
+    from medical_image_editing_tpu_torch.train.second_stage import make_second_stage_step
+
+    return make_second_stage_step(state.encoder, state.decoder, state.discriminator,
+                                  loss_cfg=trainer.second_cfg, dis_type=trainer.dis_type,
+                                  device=device)
+
+
+def fork_state(cfg, state, device):
+    """A copy of a second-stage state (modules, Adam states; the generator
+    fresh): a step on it leaves `state` as it was."""
+    from medical_image_editing_tpu_torch.train import state as tstate
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    c = to_config(cfg)
+    enc, dec, dis = (copy.deepcopy(m) for m in (state.encoder, state.decoder,
+                                                 state.discriminator))
+    opts = []
+    for module, section, src in ((enc, c.enc_optim, state.enc_opt),
+                                 (dec, c.dec_optim, state.dec_opt),
+                                 (dis, c.dis_optim, state.dis_opt)):
+        opt = tstate.make_optimizer_from_config(module.parameters(), section)
+        opt.load_state_dict(copy.deepcopy(src.state_dict()))
+        opts.append(opt)
+    return tstate.create_train_state(enc, dec, opts[0], opts[1], device=device,
+                                     discriminator=dis, dis_opt=opts[2])
+
+
+def dis_work(dis, image, recon, draws, opt=None):
+    """The discriminator's work in one second-stage step, alone (NCHW
+    inputs): the generator pass's forward on the reconstruction and its
+    input gradient, the forward on the real batch for the feature targets,
+    then per draw the real, fake and CutMix forwards, one backward into the
+    parameters and (with `opt`) one Adam step."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops.cutmix import cutmix_mask, mask_src_tgt
+
+    params = list(dis.parameters())
+    for p in params:
+        p.requires_grad_(False)
+    x = recon.detach().requires_grad_(True)
+    f_map, f_bottle, f_feats = dis(x)
+    (-(f_map.mean() + f_bottle.mean()) + sum(t.pow(2).mean() for t in f_feats)).backward()
+    with torch.no_grad():
+        dis(image)
+    for p in params:
+        p.requires_grad_(True)
+    h, w = image.shape[-2:]
+    for box, _ in draws:
+        m = cutmix_mask(box, h, w).to(image.device)
+        r_map, r_bottle, _ = dis(image)
+        f_map, f_bottle, _ = dis(recon)
+        c_map, c_bottle, _ = dis(mask_src_tgt(image, recon, m))
+        loss = (torch.relu(1 - r_map).mean() + torch.relu(1 + f_map).mean()
+                + torch.relu(1 - r_bottle).mean() + torch.relu(1 + f_bottle).mean()
+                + torch.relu(1 + c_bottle).mean() + torch.relu(1 - c_map).mean()
+                + (c_map - mask_src_tgt(r_map, f_map, m)).pow(2).mean())
+        if opt is not None:
+            opt.zero_grad()
+        loss.backward()
+        if opt is not None:
+            opt.step()
+
+
+def dis_step_flops(dis, batch, size, n_inner):
+    """Operations of the discriminator's work in one step
+    (`dis_work`), counted by `torch.utils.flop_counter` on the meta device
+    at the step's shapes: (total, one forward)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+
+    meta = copy.deepcopy(dis).to("meta")
+    x = torch.zeros(batch, 1, size, size, device="meta")
+    draws = sample_cutmix_draws(torch.Generator().manual_seed(0), n_inner, size, size)
+    draws = [(tuple(tuple(v.to("meta") for v in p) for p in box), inv) for box, inv in draws]
+    with FlopCounterMode(display=False) as fc:
+        dis_work(meta, x, x.clone(), draws)
+    total = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        meta(x)
+    return total, fc.get_total_flops()
+
+
+def second_stage_phase(device, workdir, *, size=256, batch=8, steps=5, seed=0, overrides=None,
+                       ref_size=64):
+    """The second (adversarial) stage at the lung second-stage config's
+    widths (`overrides` shrinks it for a CPU rehearsal): (a) the bare step,
+    one step held to the CPU path on a small input, (b) the run through
+    `run_vqwnet.main` staged from the trainer phase's run-A first stage in
+    `workdir`. Returns the launches of (a) and (b)."""
+    launches = second_stage_step_part(device, overrides, size=size, batch=batch, steps=steps,
+                                      seed=seed)
+    second_stage_reference_part(overrides, size=ref_size, seed=seed + 1, card=device)
+    run = second_stage_run_part(device, workdir, overrides, seed=seed)
+    return {k: launches.get(k, 0) + run.get(k, 0) for k in set(launches) | set(run)}
+
+
+def second_stage_step_part(device, overrides, *, size, batch, steps, seed):
+    """(a) `make_second_stage_step` from seeded weights (codebook k-means
+    on the batch first, as the trainer's gate), `steps` steps with the
+    packed conv route, launches held to the derived counts; on the card:
+    one profiled warm step (busy, idle share, top kernels), the
+    discriminator's work alone under the profiler (its share of busy and
+    its achieved f32 rate against the operations counted from the model),
+    peak memory, and one warm step with cuDNN's TF32 on (PyTorch's default
+    for convolutions), its time and loss gap beside the f32 step."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+    from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+
+    cfg = second_config(overrides)
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    trainer, state = second_state(cfg, device, seed)
+    model = cfg["model"]["vqmodel"]
+    n_inner = trainer.second_cfg.n_inner_loops
+    step = second_step_fn(trainer, state, device)
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    init_codebook_step(state.encoder)(state, images)
+    n_enc = routed_convs(state.encoder, torch.zeros(1, int(model["in_channels"]), size, size))
+    n_dec = routed_convs(state.decoder,
+                         torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    # each step: the frozen encoder forward (no gradient), the decoder
+    # forward and every routed conv's input gradient; one assignment
+    vq_on = str(model["knn_backend"]) in ("pallas", "faiss")
+    want = {"conv3x3_packed": steps * (n_enc + 2 * n_dec), "vq_fused": steps if vq_on else 0}
+    before = {m: [p.detach().clone() for p in getattr(state, m).parameters()][:1]
+              for m in ("encoder", "decoder", "discriminator")}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    _build.launches.clear()
+    # -- main path: the steps
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, images)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(_build.launches)
+
+    moved = {m: not torch.equal(before[m][0], next(getattr(state, m).parameters()).detach())
+             for m in before}
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    flops, fwd_flops = dis_step_flops(state.discriminator, batch, size, n_inner)
+    rec = {
+        "phase": "second_stage", "part": "step", "device": str(device), "size": size,
+        "batch": batch, "steps": steps, "n_inner_loops": n_inner,
+        "compute_dtype": str(model["compute_dtype"]), "dis": cfg["model"]["dis"],
+        "dis_parameters": sum(p.numel() for p in state.discriminator.parameters()),
+        "routed_convs": {"encoder": n_enc, "decoder": n_dec},
+        "launches": launches, "launches_expected": want if cuda else {},
+        "step_s": step_s, "warm_step_s_median": float(np.median(step_s[1:])),
+        "losses_first": losses[0], "losses_last": losses[-1],
+        "dis_forward_flop": fwd_flops, "dis_step_flop": flops,
+        "dis_step_forward_equivalents": flops / fwd_flops,
+    }
+
+    def measure(fn):
+        """(wall, CUDA kernel events) of one call under the profiler on the
+        card; elsewhere the call alone."""
+        if cuda:
+            return profile_window(fn)
+        fn()
+        return None, []
+
+    if cuda:
+        rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        # one warm step under the profiler
+        wall, kernels = profile_window(lambda: step(state, images))
+        rec["profile"] = kernel_breakdown(wall, kernels, 12)
+        busy = rec["profile"]["device_busy_s"]
+        rec["device_idle_share_of_warm_step"] = 1.0 - busy / rec["warm_step_s_median"]
+    # the discriminator's work alone, on a copy, with the step's draws
+    dis = copy.deepcopy(state.discriminator)
+    dis_opt = torch.optim.Adam(dis.parameters(), lr=4e-4, betas=(0.5, 0.999))
+    x = torch.as_tensor(images, device=device).permute(0, 3, 1, 2)
+    recon = torch.tanh(x + 0.1 * torch.randn_like(x))
+    draws = sample_cutmix_draws(torch.Generator(device=device).manual_seed(seed), n_inner,
+                                size, size)
+    dis_work(dis, x, recon, draws, dis_opt)
+    dwall, dkernels = measure(lambda: dis_work(dis, x, recon, draws, dis_opt))
+    del dis, dis_opt
+    if cuda:
+        dbusy = sum(device_us(e) for e in dkernels) / 1e6
+        rec.update({
+            "dis_work_device_busy_s": dbusy, "dis_share_of_step_busy": dbusy / busy,
+            "dis_work_top": kernel_breakdown(dwall, dkernels, 6)["top"],
+            "dis_achieved_f32_flop_per_s": flops / dbusy,
+            "dis_share_of_f32_peak": flops / dbusy / PEAK_F32_FLOP_PER_S,
+            "dis_f32_floor_s": flops / PEAK_F32_FLOP_PER_S,
+        })
+    # TF32 for cuDNN's convolutions (information: the trainer leaves
+    # precision to PyTorch's settings): one step from the same state and
+    # draws in f32 and in TF32, then a warm TF32 step timed
+    draws = sample_cutmix_draws(torch.Generator(device=device).manual_seed(seed + 1),
+                                n_inner, size, size)
+    f32_state, tf32_state = fork_state(cfg, state, device), fork_state(cfg, state, device)
+    _, m32 = second_step_fn(trainer, f32_state, device)(f32_state, images, draws)
+    tf32_step = second_step_fn(trainer, tf32_state, device)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, m_tf32 = tf32_step(tf32_state, images, draws)
+        tf32_s = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            tf32_step(tf32_state, images, draws)
+            sync()
+            tf32_s.append(time.perf_counter() - t0)
+        _, tkernels = measure(lambda: tf32_step(tf32_state, images, draws))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    # run to run: the same f32 step twice from one state and draws
+    again = fork_state(cfg, state, device)
+    second_step_fn(trainer, again, device)(again, images, draws)
+    rerun = {m: max(float((p.detach() - q.detach()).abs().max()) for p, q in
+                    zip(getattr(f32_state, m).parameters(), getattr(again, m).parameters()))
+             for m in ("decoder", "discriminator")}
+    del f32_state, tf32_state, again
+    rec["f32_step_rerun_param_gap"] = rerun
+    rec.update({
+        "tf32_warm_step_s": tf32_s, "tf32_warm_step_s_median": float(np.median(tf32_s)),
+        "tf32_device_busy_s": sum(device_us(e) for e in tkernels) / 1e6 if cuda else None,
+        "tf32_loss_rel_gap": {k: abs(float(m_tf32[k]) - float(v)) / max(abs(float(v)), 1e-12)
+                              for k, v in m32.items()},
+    })
+    rec["card"] = nvidia_smi() if cuda else None
+    emit(rec)
+    if not finite or not moved["decoder"] or not moved["discriminator"] or moved["encoder"]:
+        raise RuntimeError(f"second-stage step: finite {finite}, moved {moved}")
+    if cuda and {k: launches.get(k, 0) for k in want} != want:
+        raise RuntimeError(f"second-stage kernel launches {launches}, derived {want}")
+    if not cuda and launches:
+        raise RuntimeError(f"CPU tensors launched kernels: {launches}")
+    return launches
+
+
+def second_stage_reference_part(overrides, *, size=64, batch=2, seed=1, card="cuda"):
+    """One second-stage step on the card vs the same step on the port's CPU
+    path, at the config's widths in f32 (TF32 off) on a small input, packed
+    route: the same weights, codebook (k-means on the CPU) and CutMix draws
+    on both. Held: the ids where the top-2 score gap is clear of rounding,
+    every loss (rtol 1e-3), and the gradients of decoder and discriminator
+    read from Adam's first moment (relative Frobenius error), within 5× the
+    card's own floor (its packed and xla conv routes against each other)
+    or 1e-4. The card runs again without cuDNN, for information. `card` is
+    the device held to the CPU ("cpu" rehearses the comparison)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models.unet_encoder import encode_quantize
+    from medical_image_editing_tpu_torch.ops.vq import vq_scores
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+    from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+
+    cfg = second_config(overrides, **{"model.vqmodel": {"compute_dtype": "float32"}})
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    trainer, state = second_state(cfg, "cpu", seed)
+    init_codebook_step(state.encoder)(state, images)
+    start = {m: copy.deepcopy(getattr(state, m).state_dict())
+             for m in ("encoder", "decoder", "discriminator")}
+    draws = sample_cutmix_draws(torch.Generator().manual_seed(seed),
+                                trainer.second_cfg.n_inner_loops, size, size)
+    out = {}
+    runs = [("cpu", "cpu", "packed", True), ("card", card, "packed", True)]
+    if card == "cuda":  # the card again without the conv kernel, and without cuDNN
+        runs += [("card_xla", card, "xla", True), ("card_no_cudnn", card, "xla", False)]
+    for name, device, route, use_cudnn in runs:
+        trainer, state = second_state(cfg, device, seed)
+        for m, sd in start.items():
+            getattr(state, m).load_state_dict(sd)
+        with torch.no_grad():
+            x = torch.as_tensor(images, device=device)
+            feats = state.encoder.eval()(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            _, _, ids, _ = encode_quantize(state.encoder, state.vq, x, train=False,
+                                           backend=state.encoder.knn_backend)
+        on = [(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
+              for box, inv in draws]
+        prev_cudnn = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = use_cudnn
+        try:
+            with conv_route(route):
+                _, metrics = second_step_fn(trainer, state, device)(state, images, draws=on)
+        finally:
+            torch.backends.cudnn.enabled = prev_cudnn
+        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
+                               for p in getattr(state, m).parameters()])
+                 for m, o in (("decoder", state.dec_opt), ("discriminator", state.dis_opt))}
+        out[name] = (feats.cpu(), ids.cpu(), {k: float(v) for k, v in metrics.items()}, grads)
+    feats, ids_cpu, m_cpu, g_cpu = out["cpu"]
+    top2 = vq_scores(start["encoder"]["vq.embed"],
+                     feats.reshape(-1, feats.shape[-1])).topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > 1e-4 * top2.abs().max()).reshape(ids_cpu.shape)
+    id_mismatch = int(((out["card"][1] != ids_cpu) & clear).sum())
+    loss_err = {k: abs(out["card"][2][k] - v) / max(abs(v), 1e-6) for k, v in m_cpu.items()}
+    grad_err = {m: float((out["card"][3][m] - g).norm() / g.norm()) for m, g in g_cpu.items()}
+    variants = {name: {m: float((o[3][m] - g_cpu[m]).norm() / g_cpu[m].norm()) for m in g_cpu}
+                for name, o in out.items() if name.startswith("card_")}
+    # the card's two conv routes against each other: how far f32 rounding
+    # alone moves these gradients (the decoder's is ill-conditioned at
+    # these widths); the card is held to 5× that floor, or 1e-4
+    floor = {m: 0.0 for m in g_cpu}
+    if "card_xla" in out:
+        floor = {m: float((out["card_xla"][3][m] - g).norm() / g.norm())
+                 for m, g in out["card"][3].items()}
+    grad_limit = {m: max(5 * f, 1e-4) for m, f in floor.items()}
+
+    rec = {"phase": "second_stage", "part": "reference", "card": card, "size": size,
+           "batch": batch,
+           "id_mismatches_clear": id_mismatch, "clear_share": float(clear.float().mean()),
+           "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+           "grad_rel_err_variants": variants, "grad_route_floor": floor,
+           "grad_limit": grad_limit,
+           "losses_cpu": m_cpu,
+           "losses_card": out["card"][2],
+           "tolerance": "ids equal where the top-2 score gap > 1e-4·max|score|; losses rtol "
+                        "1e-3; gradients (Adam's first moment) 5x the card's conv-route "
+                        "floor or 1e-4"}
+    emit(rec)
+    if id_mismatch or max(loss_err.values()) > 1e-3 or any(
+            grad_err[m] > grad_limit[m] for m in grad_err):
+        raise RuntimeError(f"card vs CPU second-stage step: {id_mismatch} clear id "
+                           f"mismatches, loss errors {loss_err}, gradient errors {grad_err}")
+
+
+@contextlib.contextmanager
+def captured_validation():
+    """Record the largest |map| of each validation grid's discriminator
+    maps (None where a grid draws zeros) written inside the block."""
+    from medical_image_editing_tpu_torch.train import evaluate
+
+    snapshot, seen = evaluate.validation_snapshot, []
+
+    def capture(*args, dis_maps=None, **kw):
+        seen.append(None if dis_maps is None else
+                    [float(m.abs().max()) if np.isfinite(float(m.abs().max())) else None
+                     for m in dis_maps])
+        return snapshot(*args, dis_maps=dis_maps, **kw)
+
+    evaluate.validation_snapshot = capture
+    try:
+        yield seen
+    finally:
+        evaluate.validation_snapshot = snapshot
+
+
+def second_stage_run_part(device, workdir, overrides, *, seed=0):
+    """(b) The second stage as a user runs it: `run_vqwnet.main` on the lung
+    second-stage config (`overrides` shrinks it for a CPU rehearsal) over
+    the trainer phase's slice tree, staged from its run-A first stage
+    (`first_stage_ckpt_path`), 2 epochs of 5 steps, saving every 3. Run A:
+    6 steps. Run B: stops at 3, resumes to 6; held to A (slice order,
+    counters; parameters, Adam moments and spectral-norm vectors of decoder
+    and discriminator within SECOND_RESUME_GAP_LIMIT, the codebook equal). `-m test` writes
+    result.csv, the "inference" export writes label maps, one of them is
+    painted and decoded through `edit_study` with the second-stage decoder.
+    The validation grids must carry the discriminator's maps; launches are
+    held to the derived counts. Off the counted path, a planted fault: B's
+    step-3 save with the discriminator's Adam state and spectral-norm
+    vectors dropped (fresh u, σ = 1), resumed to 6; its gap is printed
+    beside the resume's."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli.edit_batch import edit_study
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.utils import nifti
+    from medical_image_editing_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_state_file,
+        restore_state,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir)
+    first_study = json.loads(MODEL_CONFIG.read_text())["save"]["study_name"]
+    first_ckpt = work / "A" / first_study / "version_0" / "ckpt"
+    base = second_config(overrides, run={"n_epochs": 2,
+                                         "first_stage_ckpt_path": str(first_ckpt)},
+                         save={"save_every_n_steps": 3})
+    base["dataset"]["root_dir_path"] = str(work / "data")
+    model, ds = base["model"]["vqmodel"], base["dataset"]
+    study = base["save"]["study_name"]
+    batch = int(ds["batch_size"])
+    n_slices = sum(1 for _ in (work / "data").rglob("ct_img_*.npy"))
+    steps_per_epoch = n_slices // batch
+    eval_batches = -(-n_slices // batch)
+    size = int(np.load(next((work / "data").rglob("ct_img_*.npy"))).shape[-1])
+    total = 6
+    if steps_per_epoch != 5:
+        raise RuntimeError(f"the second-stage run needs 5 steps an epoch, has {steps_per_epoch}")
+
+    def run(name, argv, **changes):
+        return run_cli(work, base, name, argv, cuda, **changes)
+
+    trainer, shapes = second_state(base, "cpu", seed)
+    n_enc = routed_convs(shapes.encoder, torch.zeros(1, int(model["in_channels"]), size, size))
+    n_dec = routed_convs(shapes.decoder, torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    params = {m: {k for k, _ in getattr(shapes, m).named_parameters()}
+              for m in ("decoder", "discriminator")}
+    del trainer, shapes
+    # runs A and B (B in two parts) take 2 × 6 steps: each the frozen
+    # encoder forward, the decoder forward and every routed conv's input
+    # gradient, one assignment; k-means (A, and B's first part): one
+    # encoder forward; eval forwards (encoder, decoder, one assignment):
+    # validation on 2 batches at the epoch-0 end of A and of B's resume,
+    # the test and the export over every test batch; the edit: one decoder
+    # forward
+    evals = 2 * 2 + 2 * eval_batches
+    want = {"conv3x3_packed": (2 * n_enc + 2 * total * (n_enc + 2 * n_dec)
+                               + evals * (n_enc + n_dec) + n_dec),
+            "vq_fused": 2 * total + evals}
+    if not cuda:
+        want = {}
+    elif str(model["knn_backend"]) not in ("pallas", "faiss"):
+        want["vq_fused"] = 0
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    # -- main path: train A, train B + resume, test, export, edit
+    t0 = time.perf_counter()
+    with captured_trainers() as trainers, captured_validation() as grids:
+        run_a = run("2A", ["-m", "train", "--max-steps", str(total)])
+        run_b = run("2B", ["-m", "train", "--max-steps", "3"])
+        run("2B", ["-m", "train", "--max-steps", str(total)],
+            run={"resume_checkpoint": str(run_b / "version_0" / "ckpt")})
+        run_t = run("2T", ["-m", "test"],
+                    run={"resume_checkpoint": str(run_a / "version_0" / "ckpt")})
+        run_i = run("2I", ["-m", "test"],
+                    run={"training_mode": "inference",
+                         "resume_checkpoint": str(run_a / "version_0" / "ckpt")})
+        (trainer_a, steps_a), (_, steps_b), (_, steps_b2), (trainer_t, _) = trainers[:4]
+        state = restore_state(str(run_a / "version_0" / "ckpt"), trainer_t.init_state())
+        labels = sorted((run_i / "pat00").glob("label_*.nii.gz"))
+        ids = nifti.load(str(labels[0])).astype(np.int32)
+        painted_dir, edited_dir = work / "2painted", work / "2edited"
+        painted_dir.mkdir()
+        rng = np.random.default_rng(seed)
+        nifti.save(paint(ids[None], rng, int(model["dict_size"]))[0],
+                   str(painted_dir / labels[0].name), dtype=np.int32)
+        edited = edit_study(state.decoder, state.vq, str(painted_dir), str(edited_dir),
+                            batch_size=1, is_lung=True,
+                            dataset_window=(ds["window_width"], ds["window_center"],
+                                            ds["window_scale"]), device=device)
+        if cuda:
+            torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    # -- B against A
+    steps_resumed = steps_b + steps_b2
+    same_stream = len(steps_a) == len(steps_resumed) == total and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(steps_a, steps_resumed))
+    last = f"ckpt-epoch=0001-step={total:08d}"
+    final_a = load_state_file(str(run_a / "version_0" / "ckpt" / last))
+    final_b = load_state_file(str(run_b / "version_1" / "ckpt" / last))
+    first = load_state_file(CheckpointManager(str(first_ckpt)).latest_path())
+
+    def state_gap(x, y):
+        """How far state y is from state x, for the decoder and the
+        discriminator: the parameters' RMS difference in learning rates and
+        their largest difference, Adam's moments' relative difference (norm
+        over all of them), the spectral-norm vectors' largest difference;
+        and the codebook's relative difference."""
+        gap = {}
+        for part, opt in (("decoder", "dec_opt"), ("discriminator", "dis_opt")):
+            lr = float(base[f"{opt[:3]}_optim"]["lr"])
+            keys = sorted(params[part])
+            d = torch.cat([(x[part][k] - y[part][k]).flatten() for k in keys])
+            sx, sy = x[opt]["state"], y[opt]["state"]
+            mx = torch.cat([v.flatten() for i in sorted(sx) for k, v in sx[i].items()
+                            if k != "step"])
+            my = torch.cat([sy[i][k].flatten() if i in sy else torch.zeros_like(v).flatten()
+                            for i in sorted(sx) for k, v in sx[i].items() if k != "step"])
+            sn = [float((x[part][k] - y[part][k]).abs().max()) for k in x[part]
+                  if k.endswith(("u0", "sv0"))]
+            gap[part] = {"params_rms_lr": float(d.pow(2).mean().sqrt()) / lr,
+                         "params_max": float(d.abs().max()),
+                         "moments_rel": float((mx - my).norm() / mx.norm()),
+                         "sn_max": max(sn, default=0.0)}
+        ex, ey = x["encoder"]["vq.embed"], y["encoder"]["vq.embed"]
+        return {**gap, "codebook_rel": float((ex - ey).norm() / ex.norm())}
+
+    gap = state_gap(final_a, final_b)
+    counters = {"A": (final_a["step"], final_a["epoch"]), "B": (final_b["step"], final_b["epoch"])}
+    staged_enc = first["encoder"]
+    encoder_frozen = all(torch.equal(final_a["encoder"][k], v) for k, v in staged_enc.items()
+                         if not k.startswith("vq."))
+    codebook_moved = float((final_a["encoder"]["vq.embed"] - staged_enc["vq.embed"]).norm()
+                           / staged_enc["vq.embed"].norm())
+    warm = []
+    for steps, first_step in ((steps_a, 1), (steps_b, 1), (steps_b2, 4)):
+        t = dict(zip(range(first_step, first_step + len(steps)), (c for c, _ in steps)))
+        warm += [t[k] - t[k - 1] for k in sorted(t) if k - 1 in t and (k - 1) % 3
+                 and (k - 1) % steps_per_epoch]
+    result = list(csv.reader(open(run_t / "version_0" / "result.csv")))
+    result_finite = len(result) == 2 and all(np.isfinite(float(v)) for v in result[1][1:])
+    out = nifti.load(str(edited_dir / edited[0]))
+    label_ids = nifti.load(str(labels[0]))
+    n_ok = len(list(run_i.rglob("label_*.nii.gz"))) == n_slices
+
+    # -- the planted fault, off the counted path
+    faulty = load_state_file(str(run_b / "version_0" / "ckpt" / "ckpt-epoch=0000-step=00000003"))
+    faulty["dis_opt"]["state"] = {}
+    gen = torch.Generator().manual_seed(seed)
+    for k, v in faulty["discriminator"].items():
+        if k.endswith("u0"):
+            faulty["discriminator"][k] = torch.randn(v.shape, generator=gen)
+        elif k.endswith("sv0"):
+            faulty["discriminator"][k] = torch.ones_like(v)
+    planted = work / "2planted" / "ckpt-epoch=0000-step=00000003"
+    planted.mkdir(parents=True)
+    torch.save(faulty, planted / "state.pt")
+    run_c = run("2C", ["-m", "train", "--max-steps", str(total)],
+                run={"resume_checkpoint": str(planted)})
+    planted_gap = state_gap(final_a, load_state_file(str(run_c / "version_0" / "ckpt" / last)))
+    rec = {
+        "phase": "second_stage", "part": "run", "device": str(device), "size": size,
+        "batch": batch, "steps": total, "steps_per_epoch": steps_per_epoch,
+        "routed_convs": {"encoder": n_enc, "decoder": n_dec},
+        "launches": launches, "launches_expected": want, "path_s": path_s,
+        "fit_step_s": warm, "fit_step_s_median": float(np.median(warm)) if warm else None,
+        "same_batch_stream": same_stream, "counters": counters, "resume_gap": gap,
+        "resume_gap_limit": SECOND_RESUME_GAP_LIMIT, "planted_fault_gap": planted_gap,
+        "validation_grids": grids, "encoder_frozen": encoder_frozen,
+        "codebook_rel_distance_from_staged": codebook_moved, "result_csv": result,
+        "label_maps": n_ok, "label_range": [int(label_ids.min()), int(label_ids.max())],
+        "edited_range": [float(out.min()), float(out.max())],
+        "max_memory_allocated_bytes": peak, "card": nvidia_smi() if cuda else None,
+    }
+    emit(rec)
+
+    def within(g):
+        return all(g[part][k] <= limit for part, limits in SECOND_RESUME_GAP_LIMIT.items()
+                   for k, limit in limits.items())
+
+    checks = {
+        "same_batch_stream": same_stream,
+        "counters": counters["A"] == counters["B"] == (total, 1),
+        "resume_gap": within(gap) and gap["codebook_rel"] == 0.0,
+        "planted_fault_caught": not within(planted_gap),
+        "validation_maps": len(grids) == 4 and all(g is not None and all(g) for g in grids),
+        "encoder_frozen": encoder_frozen, "codebook_reclustered": codebook_moved > 0.0,
+        "result_csv": result_finite, "label_maps": n_ok,
+        "labels_in_codebook": 1 <= label_ids.min() and label_ids.max() <= model["dict_size"],
+        "edited": bool(np.isfinite(out).all() and out.min() >= -1.0 and out.max() <= 1.0),
+        "launches": ({k: launches.get(k, 0) for k in want} == want) if cuda
+        else launches == {},
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"second-stage run: {checks}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1464,6 +2096,7 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             trainer_launches = trainer_phase("cuda", tmp, seed=args.seed,
                                              bare_step_s=bare_step_s)
+            second_launches = second_stage_phase("cuda", tmp, seed=args.seed)
 
     main_conv = next(r for r in conv if r["dtype"] == "bfloat16" and "forward" in r
                      and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
@@ -1471,10 +2104,12 @@ def main(argv=None):
         "name": "vq_fused", "route": "cuda", "source": VQ_SOURCE,
         "replaces": VQ_REPLACES,
         "launches": (serve_launches.get("vq_fused", 0) + train_launches.get("vq_fused", 0)
-                     + trainer_launches.get("vq_fused", 0)),
+                     + trainer_launches.get("vq_fused", 0)
+                     + second_launches.get("vq_fused", 0)),
         "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
                              "train": train_launches.get("vq_fused", 0),
-                             "trainer": trainer_launches.get("vq_fused", 0)},
+                             "trainer": trainer_launches.get("vq_fused", 0),
+                             "second_stage": second_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
         "n": vq["n"], "c": vq["c"], "k": vq["k"], "path": vq["path"],
@@ -1489,11 +2124,13 @@ def main(argv=None):
         "replaces": CONV_REPLACES,
         "launches": (train_launches.get("conv3x3_packed", 0)
                      + runtime_launches.get("conv3x3_packed", 0)
-                     + trainer_launches.get("conv3x3_packed", 0)),
+                     + trainer_launches.get("conv3x3_packed", 0)
+                     + second_launches.get("conv3x3_packed", 0)),
         "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
                              "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
                              "train": train_launches.get("conv3x3_packed", 0),
-                             "trainer": trainer_launches.get("conv3x3_packed", 0)},
+                             "trainer": trainer_launches.get("conv3x3_packed", 0),
+                             "second_stage": second_launches.get("conv3x3_packed", 0)},
         "max_abs_err": main_conv["forward_max_abs_err"],
         "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
                   "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",

@@ -11,6 +11,10 @@ TOKEN/CHANNEL_ID variables.
     python -m medical_image_editing_tpu_torch.cli.run_vqwnet \
         -c configs/lung_first_stage.json -m train [--max-steps N] [--device cpu]
 
+The second (adversarial) stage is the same command on a config with
+`run.training_mode: "second_step"` (configs/lung_second_stage.json), whose
+`run.first_stage_ckpt_path` names the first stage's checkpoint directory.
+
 `-w` (multi-window, ROADMAP item 17) and `-v` (VQGAN, item 18) are not
 ported and raise NotImplementedError.
 """

@@ -1,6 +1,7 @@
 """PyTorch modules, NCHW with OIHW weights, named with the reference's torch
 state-dict keys so reference-format checkpoints load with `strict=True`."""
 
+from .biggan_layers import Attention, DBlock, GBlock2, SNConv, SNDense
 from .blocks import (
     ASPP,
     DoubleConv,
@@ -11,5 +12,7 @@ from .blocks import (
     instance_norm,
     pixel_shuffle,
 )
+from .discriminator import NLayerDiscriminator
 from .unet_decoder import UNetDecoder
+from .unet_discriminator import UNetDiscriminator, d_unet_arch
 from .unet_encoder import EncoderWithVQ, UNetEncoder

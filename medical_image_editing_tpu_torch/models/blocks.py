@@ -21,9 +21,10 @@ JAX package's `utils/torch_export.py` writes.
 * InstanceNorm is the two-pass form `F.instance_norm` computes (biased
   variance, eps 1e-5, no affine). The JAX package's five `MEDIMG_IN_IMPL`
   variants are TPU layout forms of this one function.
-* `StyledDenorm`'s parameter-free BatchNorm is flax's `nn.BatchNorm(
-  momentum=0.9)`: in train mode it normalises with the batch statistics
-  (fast variance E[x²] − E[x]², clipped at 0) and moves the running stats
+* `StyledDenorm`'s parameter-free BatchNorm (and, with scale and bias, the
+  PatchGAN discriminator's) is flax's `nn.BatchNorm(momentum=0.9)`: in
+  train mode it normalises with the batch statistics (fast variance
+  E[x²] − E[x]², clipped at 0) and moves the running stats
   by 0.1 towards them, with the *biased* variance, where torch's
   `BatchNorm2d` would store the unbiased one; in eval mode it uses the
   running stats.
@@ -127,14 +128,15 @@ class InstanceNorm(nn.Module):
         return instance_norm(x)
 
 
-class ParamFreeBatchNorm(nn.BatchNorm2d):
-    """flax `nn.BatchNorm(use_scale=False, use_bias=False, momentum=0.9)`
-    under torch's `BatchNorm2d` buffer names (see the module docstring)."""
+class FlaxBatchNorm(nn.BatchNorm2d):
+    """flax `nn.BatchNorm(momentum=0.9)` under torch's `BatchNorm2d`
+    parameter and buffer names (see the module docstring); `affine` adds
+    flax's scale and bias (`weight`, `bias`)."""
 
     FLAX_MOMENTUM = 0.9
 
-    def __init__(self, features: int, eps: float = 1e-5):
-        super().__init__(features, eps=eps, affine=False)
+    def __init__(self, features: int, eps: float = 1e-5, affine: bool = True):
+        super().__init__(features, eps=eps, affine=affine)
 
     def forward(self, x):
         xf = x.float()
@@ -148,8 +150,20 @@ class ParamFreeBatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
-        y = (xf - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
+        mul = torch.rsqrt(var + self.eps)
+        if self.affine:  # flax's order: (x − mean)·(rsqrt(var + eps)·scale) + bias
+            mul = mul * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None]
+        if self.affine:
+            y = y + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+class ParamFreeBatchNorm(FlaxBatchNorm):
+    """flax `nn.BatchNorm(use_scale=False, use_bias=False, momentum=0.9)`."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps=eps, affine=False)
 
 
 def nearest_upsample(x, factor: int = 2):

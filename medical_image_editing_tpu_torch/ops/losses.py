@@ -4,14 +4,18 @@ Counterpart of `medical_image_editing_tpu/ops/losses.py`:
   embedding_loss       — reference `src/functions/embed_loss.py` (cross,
                          distance and regularisation terms);
   focal_frequency_loss — `focal-frequency-loss==0.3.0` as the reference
-                         uses it, `FFL(loss_weight=1, alpha=1)`.
-Layouts are NHWC like the JAX functions. The GAN and segmentation losses
-belong to the second stage and are not ported yet.
+                         uses it, `FFL(loss_weight=1, alpha=1)`;
+  hinge_d_loss, vanilla_d_loss, hinge_g_loss
+                       — the second stage's GAN losses (reference
+                         `src/functions/gan_loss.py`), layout-free means.
+Layouts are NHWC like the JAX functions. The segmentation losses belong to
+the multi-window trainer and are not ported yet (ROADMAP item 17).
 """
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 _EPS = 1e-6  # EmbeddingLoss.epsilon, `embed_loss.py:8`
 
@@ -87,3 +91,19 @@ def focal_frequency_loss(pred, target, alpha: float = 1.0, log_matrix: bool = Fa
     mult = torch.where((col == 0) | ((w_full % 2 == 0) & (col == ncols - 1)), 1.0, 2.0)
     b, c = dist.shape[:2]
     return (w * dist * mult).sum() / (b * c * h * w_full)
+
+
+def hinge_d_loss(logits_real, logits_fake):
+    """Discriminator hinge: ½(mean relu(1 − D(real)) + mean relu(1 + D(fake)))."""
+    return 0.5 * (torch.relu(1.0 - logits_real).mean() + torch.relu(1.0 + logits_fake).mean())
+
+
+def vanilla_d_loss(logits_real, logits_fake):
+    """Non-saturating discriminator loss: ½(mean softplus(−D(real)) +
+    mean softplus(D(fake)))."""
+    return 0.5 * (F.softplus(-logits_real).mean() + F.softplus(logits_fake).mean())
+
+
+def hinge_g_loss(logits_fake):
+    """Generator hinge: −mean D(fake)."""
+    return -logits_fake.mean()

@@ -20,7 +20,9 @@ Counterpart of `medical_image_editing_tpu/train/evaluate.py` (reference
                        NCCLungDataset, vertical flip for CRCDataset), ids as
                        int32.
   validation_snapshot  the validation recon grid (`utils/imaging.py`: the
-                       same panels in the same cells, titles dropped).
+                       same panels in the same cells, titles dropped), with
+                       the discriminator's maps on real and reconstruction
+                       in the second stage.
 
 The forwards here own their models (the JAX versions take the state as an
 argument); exports run on the host, process 0 only.
@@ -163,19 +165,24 @@ def inference_export(forward, batch, *, dataset_name: str, dict_size: int, save_
 
 
 def validation_snapshot(forward, batch, *, dataset_name: str, dict_size: int,
-                        n_save_images: int, save_path: str,
-                        to_lung_fn=None, to_mediastinal_fn=None):
+                        n_save_images: int, save_path: str, dis_maps=None,
+                        to_lung_fn=None, to_mediastinal_fn=None, forward_outputs=None):
     """The validation recon grid: n_rows = min(n_save_images, batch) rows of
     7 cells. Raw panels [image, recon, ids, r_map, f_map] for CRC or without
     the HU converters; else [lung image, lung recon, mediastinal image,
-    mediastinal recon, ids, r_map, f_map]. r_map/f_map hold the
-    discriminator's maps in the JAX package; the discriminator is not ported
-    (ROADMAP item 16), so here they are zeros, which keeps the layout."""
+    mediastinal recon, ids, r_map, f_map]. `dis_maps` is the
+    discriminator's (r_map, f_map) on image and reconstruction, (B,H,W,1)
+    each (second-stage validation); without it both panels are zeros.
+    `forward_outputs` is (recon, ids) when the caller already ran
+    `forward` on the batch."""
     if not is_main_process():
         return None
-    recon, ids = forward(batch["image"])
+    recon, ids = forward_outputs if forward_outputs is not None else forward(batch["image"])
     image = torch.as_tensor(batch["image"]).to(recon)
-    r_map = f_map = np.zeros(tuple(image.shape), np.float32)
+    if dis_maps is None:
+        r_map = f_map = np.zeros(tuple(image.shape), np.float32)
+    else:
+        r_map, f_map = (as_numpy(m) for m in dis_maps)
     ids_h = as_numpy(ids)
     n_rows, n_cols = min(n_save_images, image.shape[0]), 7
     if dataset_name == "CRCDataset" or to_lung_fn is None or to_mediastinal_fn is None:

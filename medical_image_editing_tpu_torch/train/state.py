@@ -8,12 +8,15 @@ decay added to the gradient before the moments, the same bias-corrected
 update. The JAX `TrainState` pytree becomes `TrainState` holding the
 modules (their parameters, the decoder's BatchNorm running stats and the
 encoder's codebook buffers), the two optimizers, the generator the step
-draws from, and the step and epoch counts. `state_dict`/`load_state_dict`
-cover all of it, for `utils/checkpoint.py`.
+draws from, and the step and epoch counts; the second stage adds the
+discriminator (its parameters, spectral-norm vectors and BatchNorm stats)
+and its Adam. `state_dict`/`load_state_dict` cover all of it, for
+`utils/checkpoint.py`; a first-stage state and its checkpoints carry no
+discriminator.
 """
 
 from dataclasses import dataclass
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 from torch import nn
@@ -47,9 +50,11 @@ class TrainState:
     decoder: nn.Module          # UNetDecoder: parameters + BatchNorm stats
     enc_opt: torch.optim.Optimizer
     dec_opt: torch.optim.Optimizer
-    generator: torch.Generator  # augmentation draws and k-means seeding
+    generator: torch.Generator  # augmentation and CutMix draws, k-means seeding
     step: int = 0
     epoch: int = 0
+    discriminator: Optional[nn.Module] = None   # the second stage's
+    dis_opt: Optional[torch.optim.Optimizer] = None
 
     @property
     def vq(self) -> VQState:
@@ -60,9 +65,10 @@ class TrainState:
         return self.encoder.vq.embed.device
 
     def state_dict(self) -> dict:
-        """Both modules (parameters, BatchNorm stats, the codebook buffers),
-        both Adam states, the generator's state, step and epoch."""
-        return {
+        """The modules (parameters, BatchNorm stats, the codebook buffers,
+        spectral-norm vectors), their Adam states, the generator's state,
+        step and epoch."""
+        sd = {
             "encoder": self.encoder.state_dict(),
             "decoder": self.decoder.state_dict(),
             "enc_opt": self.enc_opt.state_dict(),
@@ -71,14 +77,28 @@ class TrainState:
             "step": int(self.step),
             "epoch": int(self.epoch),
         }
+        if self.discriminator is not None:
+            sd["discriminator"] = self.discriminator.state_dict()
+            sd["dis_opt"] = self.dis_opt.state_dict()
+        return sd
 
     def load_state_dict(self, sd: dict) -> None:
         """Load a `state_dict()` (tensors on any device) in place. The
         generator's state and Adam's step counters stay on the host, where
-        `torch.Generator.set_state` and the non-capturable Adam keep them."""
+        `torch.Generator.set_state` and the non-capturable Adam keep them.
+        A state with a discriminator needs one in `sd`; a state without
+        one takes the rest of a second-stage `sd` (its models, e.g. to
+        test or export them)."""
         self.encoder.load_state_dict(sd["encoder"], strict=True)
         self.decoder.load_state_dict(sd["decoder"], strict=True)
-        for opt, osd in ((self.enc_opt, sd["enc_opt"]), (self.dec_opt, sd["dec_opt"])):
+        opts = [(self.enc_opt, sd["enc_opt"]), (self.dec_opt, sd["dec_opt"])]
+        if self.discriminator is not None:
+            if "discriminator" not in sd:
+                raise KeyError("this state has a discriminator and the state dict has "
+                               "none (a first-stage checkpoint cannot resume a second stage)")
+            self.discriminator.load_state_dict(sd["discriminator"], strict=True)
+            opts.append((self.dis_opt, sd["dis_opt"]))
+        for opt, osd in opts:
             opt.load_state_dict(osd)
             for s in opt.state.values():
                 if isinstance(s.get("step"), torch.Tensor):
@@ -89,7 +109,9 @@ class TrainState:
 
 
 def create_train_state(encoder: nn.Module, decoder: nn.Module, enc_opt, dec_opt, *,
-                       seed: int = 0, device="cuda") -> TrainState:
+                       seed: int = 0, device="cuda", discriminator: Optional[nn.Module] = None,
+                       dis_opt=None) -> TrainState:
     """Modules already on `device`; the generator is seeded with `seed` on it."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return TrainState(encoder, decoder, enc_opt, dec_opt, gen)
+    return TrainState(encoder, decoder, enc_opt, dec_opt, gen,
+                      discriminator=discriminator, dis_opt=dis_opt)

@@ -3,12 +3,15 @@
 Counterpart of `medical_image_editing_tpu/train/trainer.py` (reference
 `src/trainers/base.py`, `src/trainers/single_window_trainer.py`,
 `src/run_vqwnet.py::train_model`), in its single-window flavour with
-`run.training_mode` "first_step" (train), "inference" (label-map export)
-or "test" (metrics):
+`run.training_mode` "first_step" or "second_step" (train), "inference"
+(label-map export) or "test" (metrics):
   * the encoder with its codebook and the decoder from
     `config.model.vqmodel`, in its `compute_dtype`; two Adams from
     `enc_optim`/`dec_optim`; the first-stage step from `config.loss` and
     `config.augmentation`;
+  * in "second_step", the discriminator from `config.model.dis` (the
+    U-Net discriminator or the PatchGAN, f32) with its Adam from
+    `dis_optim`, and the second-stage step from `config.loss`;
   * `fit`: codebook k-means on the first batch when the state is fresh
     (`use_init_embed`), full resume (`run.resume_checkpoint`) and mid-epoch
     resume that skips exactly the consumed batches, `max_steps` (a break
@@ -19,15 +22,21 @@ or "test" (metrics):
     steps, validation grids on two batches per epoch, and a
     `torch.profiler` Chrome trace of steps [profile_start_step,
     +profile_num_steps) into `run.profile_dir`;
-  * staged loading of a first stage (`run.first_stage_ckpt_path`): a
-    checkpoint directory of this package, or a Lightning `.ckpt` file;
+  * staged loading of a first stage (`run.first_stage_ckpt_path`) and of
+    a discriminator (`run.discriminator_ckpt_path`): a checkpoint directory
+    of this package, or a Lightning `.ckpt` file. The codebook k-means
+    runs whenever `use_init_embed` is on and the state is at step 0, as in
+    the JAX trainer: a second stage re-clusters the staged codebook;
+  * second-stage validation grids show the U-Net discriminator's
+    eval-mode maps on image and reconstruction;
   * `test`: metrics → `result.csv`, or in "inference" mode the per-slice
     PNG/NIfTI export.
 
 Not ported yet, and refused rather than run without their part: the
-multi-window (`-w`, ROADMAP item 17) and VQGAN (`-v`, item 18) trainers,
-"second_step"/"joint_step" and the discriminator (item 16), the perceptual
-loss (item 17), DropBlock (`use_dropblock: true`, item 14c).
+multi-window trainer (`-w`) and its "joint_step" (ROADMAP item 17), the
+VQGAN trainer (`-v`, item 18), the perceptual loss (item 17), DropBlock
+(`use_dropblock: true`, item 14c), the PatchGAN's actnorm (item 18) and
+projection discrimination (`model.dis.n_classes > 0`, item 21).
 """
 
 import math
@@ -39,7 +48,9 @@ import torch
 
 from ..data.loader import get_data_loader, prefetch_to_device
 from ..models.blocks import seeded_init
+from ..models.discriminator import NLayerDiscriminator
 from ..models.unet_decoder import UNetDecoder
+from ..models.unet_discriminator import UNetDiscriminator, reference_state_dict
 from ..models.unet_encoder import EncoderWithVQ
 from ..ops._build import KernelError
 from ..ops.windowing import denormalize, t_normalize
@@ -49,7 +60,10 @@ from ..utils.device import resolve_device
 from ..utils.logging import Logger, is_main_process
 from . import evaluate
 from .first_stage import init_codebook_step, loss_config_from_json, make_first_stage_step
+from .second_stage import make_second_stage_step, second_stage_config_from_json
 from .state import create_train_state, make_optimizer_from_config
+
+TRAINING_MODES = ("first_step", "second_step")
 
 SNAPSHOT_INTERVAL = 100  # reference `src/trainers/base.py:31`
 
@@ -84,13 +98,13 @@ class Trainer:
         self.uploader = uploader
         self.device = resolve_device(device)
         self.seed = int(seed)
+        mode = str(config.run.training_mode)
+        if mode == "joint_step":
+            raise _not_ported("training_mode 'joint_step' (the multi-window trainer's)", "17")
+        self.training_mode = mode
         self._configure_models()
         self._configure_losses()
-        mode = str(config.run.training_mode)
-        if mode in ("second_step", "joint_step"):
-            raise _not_ported(f"training_mode {mode!r} (the GAN stages)", "16")
-        self.training_mode = mode
-        self._step = None  # (encoder, decoder, step_fn) of the last state trained
+        self._step = None  # (models, step_fn) of the last state trained
         self._val_loader = None
 
     # ------------------------------------------------------------------
@@ -103,8 +117,6 @@ class Trainer:
             raise _not_ported("the VQGAN model", "18")
         if g(gen, "use_dropblock", False):
             raise _not_ported("DropBlock (model.vqmodel.use_dropblock)", "14c")
-        if g(cfg.run, "discriminator_ckpt_path", None):
-            raise _not_ported("the discriminator (run.discriminator_ckpt_path)", "16")
         self.dict_size = int(gen.dict_size)
         self.eval_dict_size = self.dict_size
         self.compute_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(
@@ -120,12 +132,45 @@ class Trainer:
             dropped_skip_layers=tuple(gen.dropped_skip_layers or ()),
             use_pixel_shuffle=bool(g(gen, "use_pixel_shuffle", True)),
             dtype=self.compute_dtype)
+        self._configure_discriminator()
+
+    def _configure_discriminator(self):
+        """The discriminator's type and arguments from `config.model.dis`
+        (built only for the second stage)."""
+        self.dis_type = self._dis_kw = None
+        if self.training_mode != "second_step":
+            return
+        dis = self.config.model.dis
+        self.dis_type = str(dis.model_name)
+        in_ch = int(self.config.model.vqmodel.in_channels)
+        if self.dis_type == "UNetDiscriminator":
+            if int(g(dis, "n_classes", 0) or 0) > 0:
+                raise _not_ported("projection discrimination (model.dis.n_classes > 0)",
+                                  "21")
+            self._dis_kw = dict(D_ch=int(dis.D_ch), D_wide=bool(g(dis, "D_wide", True)),
+                                D_attn=str(g(dis, "D_attn", "0")),
+                                resolution=int(dis.resolution), in_channels=in_ch)
+        elif self.dis_type == "NLayerDiscriminator":
+            if str(dis.normalization) == "actnorm":
+                raise _not_ported("the NLayerDiscriminator's actnorm", "18")
+            self._dis_kw = dict(out_channels=1, n_filters=int(dis.n_filters),
+                                n_layers=int(dis.n_layers),
+                                normalization=str(dis.normalization),
+                                apply_spectral_norm=bool(g(dis, "apply_spectral_norm", False)),
+                                in_channels=in_ch)
+        else:
+            raise ValueError(f"model.dis.model_name {self.dis_type!r} is not "
+                             "'UNetDiscriminator' or 'NLayerDiscriminator'")
 
     def _configure_losses(self):
         cfg = self.config
         self.first_cfg = loss_config_from_json(cfg.loss)
+        self.second_cfg = second_stage_config_from_json(cfg.loss)
         if self.first_cfg.use_perceptual_loss:
             raise _not_ported("the perceptual loss (loss.use_perceptual_loss)", "17")
+        if self.training_mode == "second_step" and self.second_cfg.dis_loss_type != "hinge_d_loss":
+            raise ValueError(f"loss.dis_loss_type {self.second_cfg.dis_loss_type!r}: the "
+                             "second stage trains with 'hinge_d_loss'")
         self.aug_cfg = cfg.augmentation
         ds = cfg.dataset
         # None without HU windowing (CRC/BraTS): the lung/mediastinal
@@ -138,32 +183,48 @@ class Trainer:
                                    float(g(ds, "window_scale", 2.0) or 2.0))
 
     def train_step(self, state, image, draws=None):
-        """One first-stage step of `state` (built once per state's models)."""
-        if self._step is None or self._step[:2] != (state.encoder, state.decoder):
-            fn = make_first_stage_step(
-                state.encoder, state.decoder, loss_cfg=self.first_cfg, aug_cfg=self.aug_cfg,
-                dict_size=self.dict_size, compute_dtype=self.compute_dtype or torch.float32,
-                device=self.device)
-            self._step = (state.encoder, state.decoder, fn)
-        return self._step[2](state, image, draws)
+        """One step of `state` in the training mode, first or second stage
+        (built once per state's models)."""
+        models = (state.encoder, state.decoder, state.discriminator)
+        if self._step is None or self._step[0] != models:
+            if self.training_mode == "second_step":
+                fn = make_second_stage_step(
+                    state.encoder, state.decoder, state.discriminator,
+                    loss_cfg=self.second_cfg, dis_type=self.dis_type, device=self.device)
+            else:
+                fn = make_first_stage_step(
+                    state.encoder, state.decoder, loss_cfg=self.first_cfg,
+                    aug_cfg=self.aug_cfg, dict_size=self.dict_size,
+                    compute_dtype=self.compute_dtype or torch.float32, device=self.device)
+            self._step = (models, fn)
+        return self._step[1](state, image, draws)
 
     # ------------------------------------------------------------------
     # state init + staged loading
     # ------------------------------------------------------------------
     def init_state(self):
-        """Fresh models (seeded from `seed`, as `models.blocks.seeded_init`
-        fills them) with their Adams and a generator seeded with `seed` on
-        the device; then the staged first stage, if configured. The models
+        """Fresh models (seeded from `seed`: the encoder and decoder as
+        `models.blocks.seeded_init` fills them, then, in the second stage,
+        the discriminator as the JAX module initialises) with their Adams
+        and a generator seeded with `seed` on the device; then the staged
+        first stage and the staged discriminator, if configured. The models
         take any image size, so no init shapes are needed."""
         gen = torch.Generator().manual_seed(self.seed)
         encoder = seeded_init(EncoderWithVQ(**self._enc_kw), gen).to(self.device)
         decoder = seeded_init(UNetDecoder(**self._dec_kw), gen).to(self.device)
+        dis = dis_opt = None
+        if self.dis_type is not None:
+            cls = (UNetDiscriminator if self.dis_type == "UNetDiscriminator"
+                   else NLayerDiscriminator)
+            dis = cls(**self._dis_kw).init_weights(gen).to(self.device)
+            dis_opt = make_optimizer_from_config(dis.parameters(), self.config.dis_optim)
         state = create_train_state(
             encoder, decoder,
             make_optimizer_from_config(encoder.parameters(), self.config.enc_optim),
             make_optimizer_from_config(decoder.parameters(), self.config.dec_optim),
-            seed=self.seed, device=self.device)
-        path = g(self.config.run, "first_stage_ckpt_path", None)
+            seed=self.seed, device=self.device, discriminator=dis, dis_opt=dis_opt)
+        run = self.config.run
+        path = g(run, "first_stage_ckpt_path", None)
         if path:
             path = str(path)
             if os.path.isfile(path):
@@ -176,6 +237,23 @@ class Trainer:
             else:
                 restore_fields(path, state, ("encoder", "decoder"))
                 print(f"Restored first stage models from {path}")
+        path = g(run, "discriminator_ckpt_path", None)
+        if path and dis is None:
+            print(f"run.discriminator_ckpt_path {path} not loaded: training_mode "
+                  f"{self.training_mode!r} has no discriminator")
+        elif path:
+            path = str(path)
+            if os.path.isfile(path):
+                from ..utils.weights import load_lightning_state
+
+                sd = load_lightning_state(path)["discriminator"]
+                if self.dis_type == "UNetDiscriminator":
+                    sd = reference_state_dict(sd)
+                dis.load_state_dict(sd, strict=True)
+                print(f"Imported the discriminator from Lightning ckpt {path}")
+            else:
+                restore_fields(path, state, ("discriminator",))
+                print(f"Restored the discriminator from {path}")
         return state
 
     # ------------------------------------------------------------------
@@ -222,11 +300,11 @@ class Trainer:
     def fit(self, state=None, max_epochs: Optional[int] = None, max_steps=None):
         cfg = self.config
         run = cfg.run
-        if self.training_mode != "first_step":
+        if self.training_mode not in TRAINING_MODES:
             raise ValueError(
                 f"run.training_mode {self.training_mode!r} has no training step here — "
-                "the training mode is 'first_step'; 'inference' and 'test' are "
-                "test-only (run with -m test)")
+                "the training modes are 'first_step' and 'second_step'; 'inference' "
+                "and 'test' are test-only (run with -m test)")
         n_epochs = int(max_epochs if max_epochs is not None else run.n_epochs)
         loader = self.dataloader("train")
         if len(loader) == 0:
@@ -253,7 +331,7 @@ class Trainer:
         eval_forward = evaluate.make_eval_forward(state.encoder, state.decoder,
                                                   device=self.device)
         if self.logger is not None and bool(g(run, "use_validation_sanity_check", False)):
-            self._validate(eval_forward, epoch=-1)
+            self._validate(eval_forward, epoch=-1, dis=state.discriminator)
 
         save_every_n_steps = int(g(cfg.save, "save_every_n_steps", 0) or 0)
         # divergence guard: halt on a non-finite total instead of training
@@ -319,7 +397,7 @@ class Trainer:
             if saver is not None:
                 saver.save(state, epoch)
             if self.logger is not None:
-                self._validate(eval_forward, epoch)
+                self._validate(eval_forward, epoch, dis=state.discriminator)
         if profiler is not None:  # fit ended inside the capture window
             self._stop_profiler(profiler, str(profile_dir))
         return state
@@ -368,8 +446,24 @@ class Trainer:
         except Exception as e:  # a snapshot never stops training
             print(f"snapshot failed: {type(e).__name__}: {e}")
 
-    def _validate(self, eval_forward, epoch, limit_val_batches: int = 2):
-        """Rank-0 validation grids on the first `limit_val_batches` batches."""
+    def _dis_maps(self, dis, image, recon):
+        """The U-Net discriminator's pixel maps on image and reconstruction
+        (B,H,W,1), in eval mode (spectral-norm vectors not stored); the
+        module goes back to train mode after."""
+        dis.eval()
+        try:
+            with torch.inference_mode():
+                x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+                r_map = dis(x.permute(0, 3, 1, 2))[0]
+                f_map = dis(recon.permute(0, 3, 1, 2))[0]
+        finally:
+            dis.train()
+        return r_map.permute(0, 2, 3, 1), f_map.permute(0, 2, 3, 1)
+
+    def _validate(self, eval_forward, epoch, limit_val_batches: int = 2, dis=None):
+        """Rank-0 validation grids on the first `limit_val_batches` batches;
+        with a U-Net discriminator `dis`, its maps fill the r_map/f_map
+        panels."""
         if self._val_loader is None:
             try:
                 self._val_loader = self.dataloader("val")
@@ -380,8 +474,12 @@ class Trainer:
             if i >= limit_val_batches:
                 break
             try:
+                dis_maps = outputs = None
+                if dis is not None and self.dis_type == "UNetDiscriminator":
+                    outputs = eval_forward(batch["image"])
+                    dis_maps = self._dis_maps(dis, batch["image"], outputs[0])
                 evaluate.validation_snapshot(
-                    eval_forward, batch,
+                    eval_forward, batch, dis_maps=dis_maps, forward_outputs=outputs,
                     dataset_name=str(self.config.dataset.dataset_name),
                     dict_size=self.eval_dict_size,
                     n_save_images=int(g(self.config.save, "n_save_images", 4) or 4),

@@ -6,15 +6,18 @@ reference `src/utils/logger.py:79-91`, `src/trainers/base.py:85-114`,
 `run_vqwnet.py:90-100`):
   * the whole train state — both modules with the VQ buffers (`embed`,
     `cluster_size`, `embed_avg`: without them the codebook is lost), both
-    Adam states, the generator, step and epoch (`TrainState.state_dict`) —
-    is one `state.pt` in a directory `ckpt-epoch=EEEE` (epoch end) or
+    Adam states, the generator, step and epoch, and in the second stage
+    the discriminator (with its spectral-norm vectors) and its Adam under
+    `discriminator` and `dis_opt` (`TrainState.state_dict`) — is one
+    `state.pt` in a directory `ckpt-epoch=EEEE` (epoch end) or
     `ckpt-epoch=EEEE-step=SSSSSSSS` (mid-epoch);
   * retention: the newest `limit_num` epoch checkpoints stay; older ones
     only every `save_interval` epochs ((epoch + 1) % interval == 0); a
     step-tagged checkpoint stays only while it is the newest overall;
   * `restore` loads the newest (or a given epoch's newest) into a state;
     `restore_fields` copies only the named top-level fields of the state
-    dict (e.g. ("encoder", "decoder") for a first-stage init).
+    dict (("encoder", "decoder") for a staged first stage,
+    ("discriminator",) for `run.discriminator_ckpt_path`).
 
 A checkpoint is written under a temporary name in the same directory and
 moved into place with `os.replace`, so no partial checkpoint is ever

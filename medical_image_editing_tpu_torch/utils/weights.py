@@ -4,9 +4,14 @@ The port's own copy of the mapping in `medical_image_editing_tpu/utils/
 torch_export.py` (the reference's torch state-dict keys): flax HWIO kernels
 → OIHW, BatchNorm running stats (+ a zero `num_batches_tracked`), both
 `StyledResUpBlock` layouts, both decoder heads, and the codebook with
-`embed_avg` transposed to the reference's (C,K). Inputs are nested dicts of
-arrays (numpy, or anything `np.asarray` takes); outputs are dicts of CPU
-tensors that the port's modules load with `load_state_dict(strict=True)`.
+`embed_avg` transposed to the reference's (C,K), and both discriminators:
+the U-Net discriminator's BigGAN layers with their spectral-norm buffers
+`u0` (1,O) and `sv0` (1,) (flax's `u` and `sigma`), and the PatchGAN's
+`main.{i}` layout, spectral-normalized convs under `weight_orig`,
+`weight_u`, `weight_v` (v derived from W and u, as the JAX package's
+export derives it). Inputs are nested dicts of arrays (numpy, or anything
+`np.asarray` takes); outputs are dicts of CPU tensors that the port's
+modules load with `load_state_dict(strict=True)`.
 
 `load_lightning_state` reads a Lightning-shaped `.ckpt` (as the JAX
 package's `cli/export_ckpt.py` writes it) into per-module state dicts.
@@ -125,20 +130,119 @@ def from_jax_decoder(dec_vars: dict) -> StateDict:
     return out
 
 
-def from_jax_train_state(state) -> Dict[str, StateDict]:
-    """A JAX `TrainState` (anything with `enc_vars`, `dec_vars` and `vq`) →
-    {"encoder": `EncoderWithVQ` keys with the codebook, "decoder":
-    `UNetDecoder` keys}: parameters, BatchNorm running stats and the VQ
-    EMA state, for starting a port `TrainState` where a JAX one stands.
-    The optimizers' moments are not carried: both sides start them at 0."""
-    return {"encoder": from_jax_encoder(state.enc_vars, state.vq),
-            "decoder": from_jax_decoder(state.dec_vars)}
+def _sn_conv(out: StateDict, p: str, cp: dict, st: dict):
+    """BigGAN `SNConv` (flax `SpectralNorm(Conv_0)`) → weight, bias, u0, sv0."""
+    _conv(out, p, cp["Conv_0"])
+    sn = st["SpectralNorm_0"]
+    out[f"{p}.u0"] = _t(np.asarray(sn["Conv_0/kernel/u"]).reshape(1, -1))
+    out[f"{p}.sv0"] = _t(np.asarray(sn["Conv_0/kernel/sigma"]).reshape(1))
+
+
+def from_jax_unet_discriminator(dis_vars: dict, *, D_attn: str = "0") -> StateDict:
+    """`UNetDiscriminator` variables → the port's `UNetDiscriminator` keys
+    (the reference's, without its unused `linear.*`). The resolution and
+    `D_ch` are read from the variables; `D_attn` places the attention
+    blocks, as the module's own argument does."""
+    from ..models.unet_discriminator import attention_resolutions, d_unet_arch
+
+    params, stats = dis_vars["params"], dis_vars["batch_stats"]
+    n_down = sum(1 for k in params if k.startswith("DBlock_"))
+    resolution = {5: 128, 6: 256, 7: 512}[n_down]
+    ch = int(np.asarray(params["DBlock_0"]["SNConv_1"]["Conv_0"]["kernel"]).shape[-1])
+    arch = d_unet_arch(resolution, ch)
+    attn_res = attention_resolutions(D_attn)
+    out: StateDict = {}
+    n_d = n_g = n_a = 0
+    for index, down in enumerate(arch["downsample"]):
+        if down:
+            name, n_d = f"DBlock_{n_d}", n_d + 1
+        else:
+            name, n_g = f"GBlock2_{n_g}", n_g + 1
+        for part, sub in (("conv1", "SNConv_0"), ("conv2", "SNConv_1"), ("conv_sc", "SNConv_2")):
+            if sub in params[name]:
+                _sn_conv(out, f"blocks.{index}.0.{part}", params[name][sub], stats[name][sub])
+        if arch["resolution"][index] in attn_res and index < 5:
+            ap, ast = params[f"Attention_{n_a}"], stats[f"Attention_{n_a}"]
+            for t, part in enumerate(("theta", "phi", "g", "o")):
+                _sn_conv(out, f"blocks.{index}.1.{part}", ap[f"SNConv_{t}"], ast[f"SNConv_{t}"])
+            out[f"blocks.{index}.1.gamma"] = _t(np.asarray(ap["gamma"]).reshape(()))
+            n_a += 1
+    _conv(out, f"blocks.{len(arch['downsample'])}", params["Conv_0"])
+    dense = params["SNDense_0"]["Dense_0"]
+    sn = stats["SNDense_0"]["SpectralNorm_0"]
+    out["linear_middle.weight"] = _t(np.asarray(dense["kernel"], dtype=np.float32).T)
+    if "bias" in dense:
+        out["linear_middle.bias"] = _t(dense["bias"])
+    out["linear_middle.u0"] = _t(np.asarray(sn["Dense_0/kernel/u"]).reshape(1, -1))
+    out["linear_middle.sv0"] = _t(np.asarray(sn["Dense_0/kernel/sigma"]).reshape(1))
+    return out
+
+
+def from_jax_nlayer_discriminator(dis_vars: dict) -> StateDict:
+    """`NLayerDiscriminator` variables → the port's `NLayerDiscriminator`
+    keys: conv j at `main.{0 if j == 0 else 3j − 1}`, norm k at
+    `main.{3k + 3}`; a spectral-normalized conv as `weight_orig`,
+    `weight_u` (flax's u, (O,)) and `weight_v` = normalize(Wᵀu)."""
+    params = dis_vars["params"]
+    stats = dis_vars.get("batch_stats", {})
+    if any(k.startswith("ActNorm_") for k in params):
+        raise NotImplementedError("the NLayerDiscriminator's actnorm is not ported to the "
+                                  "PyTorch package yet (ROADMAP item 18)")
+    out: StateDict = {}
+    for j in sorted(int(k.split("_")[1]) for k in params if k.startswith("Conv_")):
+        cp, p = params[f"Conv_{j}"], f"main.{0 if j == 0 else 3 * j - 1}"
+        if f"SpectralNorm_{j}" in stats:
+            w = np.asarray(cp["kernel"], dtype=np.float32).transpose(3, 2, 0, 1)
+            u = np.asarray(stats[f"SpectralNorm_{j}"][f"Conv_{j}/kernel/u"],
+                           dtype=np.float32).reshape(-1)
+            v = w.reshape(w.shape[0], -1).T @ u
+            out[f"{p}.weight_orig"] = _t(w)
+            out[f"{p}.weight_u"] = _t(u)
+            out[f"{p}.weight_v"] = _t(v / (np.linalg.norm(v) + 1e-12))
+            if "bias" in cp:
+                out[f"{p}.bias"] = _t(cp["bias"])
+        else:
+            _conv(out, p, cp)
+    for k in sorted(int(k.split("_")[1]) for k in params if k.startswith("BatchNorm_")):
+        p, bn, st = f"main.{3 * k + 3}", params[f"BatchNorm_{k}"], stats[f"BatchNorm_{k}"]
+        out[f"{p}.weight"] = _t(bn["scale"])
+        out[f"{p}.bias"] = _t(bn["bias"])
+        out[f"{p}.running_mean"] = _t(st["mean"])
+        out[f"{p}.running_var"] = _t(st["var"])
+        out[f"{p}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return out
+
+
+def from_jax_discriminator(dis_vars: dict, *, D_attn: str = "0") -> StateDict:
+    """Either discriminator's variables → the port's keys (the U-Net one is
+    told apart by its `DBlock_0`)."""
+    if "DBlock_0" in dis_vars["params"]:
+        return from_jax_unet_discriminator(dis_vars, D_attn=D_attn)
+    return from_jax_nlayer_discriminator(dis_vars)
+
+
+def from_jax_train_state(state, *, D_attn: str = "0") -> Dict[str, StateDict]:
+    """A JAX `TrainState` (anything with `enc_vars`, `dec_vars` and `vq`,
+    and optionally `dis_vars`) → {"encoder": `EncoderWithVQ` keys with the
+    codebook, "decoder": `UNetDecoder` keys, and "discriminator" where
+    `dis_vars` is not empty}: parameters, BatchNorm running stats,
+    spectral-norm vectors and the VQ EMA state, for starting a port
+    `TrainState` where a JAX one stands. The optimizers' moments are not
+    carried: both sides start them at 0."""
+    out = {"encoder": from_jax_encoder(state.enc_vars, state.vq),
+           "decoder": from_jax_decoder(state.dec_vars)}
+    dis_vars = getattr(state, "dis_vars", None)
+    if dis_vars:
+        out["discriminator"] = from_jax_discriminator(dis_vars, D_attn=D_attn)
+    return out
 
 
 def load_lightning_state(path: str) -> Dict[str, StateDict]:
     """Read a Lightning-shaped `.ckpt` → {"encoder": {...}, "decoder": {...},
-    ...}: the `state_dict` split on its first key component (the encoder's
-    group holds the `vq.*` buffers)."""
+    "discriminator": {...}, ...}: the `state_dict` split on its first key
+    component (the encoder's group holds the `vq.*` buffers; a U-Net
+    discriminator's group still holds the reference's unused `linear.*`,
+    which `models.unet_discriminator.reference_state_dict` drops)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
         raise ValueError(f"{path}: not a Lightning checkpoint (no 'state_dict')")

@@ -431,3 +431,114 @@ def test_cuda_generator_checkpoint_round_trip(cuda, tmp_path):
     assert (fresh.step, fresh.epoch) == (5, 2)
     assert torch.equal(torch.rand(1000, generator=state.generator, device=cuda),
                        torch.rand(1000, generator=fresh.generator, device=cuda))
+
+
+def _second_stage_state(device, seed=0):
+    """A small second-stage state: encoder (4, 32, 8, 16, 16) (3 routed
+    convs at 32²), decoder (32, 8, 8, 16, 16) (10), f32, the U-Net
+    discriminator at D_ch 4 and resolution 128, the lung config's Adams."""
+    from medical_image_editing_tpu_torch.models import UNetDecoder, UNetDiscriminator
+    from medical_image_editing_tpu_torch.models.blocks import seeded_init
+    from medical_image_editing_tpu_torch.models.unet_encoder import EncoderWithVQ
+    from medical_image_editing_tpu_torch.train import state as tstate
+
+    gen = torch.Generator().manual_seed(seed)
+    enc = seeded_init(EncoderWithVQ(1, (4, 32, 8, 16, 16), 6, knn_backend="pallas"), gen)
+    dec = seeded_init(UNetDecoder(4, 1, (32, 8, 8, 16, 16), dropped_skip_layers=(),
+                                  use_pixel_shuffle=False), gen)
+    dis = UNetDiscriminator(D_ch=4, D_attn="0", resolution=128).init_weights(gen)
+    enc, dec, dis = enc.to(device), dec.to(device), dis.to(device)
+    return tstate.create_train_state(
+        enc, dec, tstate.make_optimizer(enc.parameters(), 1e-4),
+        tstate.make_optimizer(dec.parameters(), 1e-4), seed=seed, device=device,
+        discriminator=dis, dis_opt=tstate.make_optimizer(dis.parameters(), 4e-4, b1=0.5))
+
+
+def _second_stage_step(state, device):
+    from medical_image_editing_tpu_torch.train import second_stage as tss
+
+    cfg = tss.SecondStageLossConfig(w_recon=10.0, w_unet_perceptual=1.0)
+    return tss.make_second_stage_step(state.encoder, state.decoder, state.discriminator,
+                                      loss_cfg=cfg, device=device)
+
+
+@pytest.mark.gpu
+def test_second_stage_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One second-stage step (f32) on the CPU and on the card, on both
+    conv routes, from the same weights, codebook and CutMix draws: the
+    packed route's launches derived from the model (the frozen encoder's 3
+    routed convs forward, the decoder's 10 forward and dx; one
+    assignment), the losses (rtol 1e-3), and the gradients read from
+    Adam's first moment within 5× the card's own floor (its two routes
+    against each other) or 1e-4, as `chip_smoke.py`'s second-stage
+    reference part holds them."""
+    from medical_image_editing_tpu_torch.train import first_stage as tfs
+    from medical_image_editing_tpu_torch.train import second_stage as tss
+
+    x = np.random.default_rng(8).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
+    draws = tss.sample_cutmix_draws(torch.Generator().manual_seed(3), 1, 32, 32)
+    out = {}
+    cpu_state = _second_stage_state("cpu")
+    tfs.init_codebook_step(cpu_state.encoder)(cpu_state, x)
+    codebook = {k: v.clone() for k, v in cpu_state.encoder.state_dict().items()}
+    for name, device, route in (("cpu", "cpu", "packed"), ("card", cuda, "packed"),
+                                ("card_xla", cuda, "xla")):
+        monkeypatch.setenv("MEDIMG_CONV_IMPL", route)
+        state = cpu_state if name == "cpu" else _second_stage_state(device)
+        state.encoder.load_state_dict(codebook)
+        on = [(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
+              for box, inv in draws]
+        _build.launches.clear()
+        _, metrics = _second_stage_step(state, device)(state, x, draws=on)
+        if name == "card":
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {tcp.KERNEL: 3 + 2 * 10, tvqf.KERNEL: 1}
+        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
+                               for p in getattr(state, m).parameters()])
+                 for m, o in (("decoder", state.dec_opt), ("discriminator", state.dis_opt))}
+        out[name] = ({k: float(v) for k, v in metrics.items()}, grads)
+    (m_cpu, g_cpu), (m_card, g_card), (_, g_xla) = out["cpu"], out["card"], out["card_xla"]
+    for k, v in m_cpu.items():
+        assert abs(m_card[k] - v) <= 1e-3 * abs(v) + 1e-6, (k, m_card[k], v)
+    for m in g_cpu:
+        floor = float((g_xla[m] - g_card[m]).norm() / g_card[m].norm())
+        err = float((g_card[m] - g_cpu[m]).norm() / g_cpu[m].norm())
+        assert err <= max(5 * floor, 1e-4), (m, err, floor)
+
+
+@pytest.mark.gpu
+def test_second_stage_resume_on_card(cuda, monkeypatch, tmp_path):
+    """4 steps straight against 2 steps, a save, a restore into a fresh
+    state and 2 more, on the card: the CutMix stream (the CUDA generator),
+    the frozen encoder and codebook and the counters bit for bit; the
+    decoder's and discriminator's parameters no further apart than two
+    straight runs are (the card's f32 weight gradients may sum in any order)."""
+    from medical_image_editing_tpu_torch.utils.checkpoint import CheckpointManager
+
+    monkeypatch.setenv("MEDIMG_CONV_IMPL", "packed")
+    x = np.random.default_rng(9).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
+
+    def run(n, state=None):
+        state = state or _second_stage_state(cuda)
+        step = _second_stage_step(state, cuda)
+        for _ in range(n):
+            state, _ = step(state, x)
+        return state
+
+    a, a2 = run(4), run(4)
+    b = run(2)
+    CheckpointManager(str(tmp_path)).save(b, epoch=0, step=2)
+    fresh = _second_stage_state(cuda, seed=5)
+    CheckpointManager(str(tmp_path)).restore(fresh)
+    b = run(2, fresh)
+    assert b.step == a.step == 4
+    assert torch.equal(b.generator.get_state(), a.generator.get_state())
+    assert all(torch.equal(v, b.encoder.state_dict()[k]) for k, v in a.encoder.state_dict().items())
+
+    def gap(x, y):
+        return max(float((p - q).abs().max()) for m in ("decoder", "discriminator")
+                   for p, q in zip(getattr(x, m).state_dict().values(),
+                                   getattr(y, m).state_dict().values()))
+
+    floor = gap(a, a2)
+    assert gap(a, b) <= 5 * floor, (gap(a, b), floor)

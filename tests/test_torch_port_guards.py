@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse to fall back to the CPU, `chip_smoke.py` fails
-without a card, and its serve, train, serve_runtime and trainer phases run
-end to end at tiny size on the CPU.
+without a card, and its serve, train, serve_runtime, trainer and
+second_stage phases run end to end at tiny size on the CPU.
 """
 
 import importlib.util
@@ -60,7 +60,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 41
+    assert len(modules) >= 46
 
 
 def test_entry_points_refuse_missing_card():
@@ -186,5 +186,41 @@ def test_chip_smoke_trainer_phase_on_cpu(tmp_path, capsys):
     assert rec["routed_convs"] == {"encoder": 0, "decoder": 10}
     assert len(rec["fit_step_s"]) == 7 and rec["save_bytes"] > 0
     assert rec["result_csv"][0][1:] == ["Entropy_avg", "Entropy_std", "NMSE_avg", "NMSE_std",
+                                        "PSNR_avg", "PSNR_std", "SSIM_avg", "SSIM_std"]
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+
+
+def test_chip_smoke_second_stage_phase_on_cpu(tmp_path, capsys):
+    """The second_stage phase end to end at tiny size on the CPU, staged
+    from the trainer phase's run-A first stage: (a) the bare steps, the
+    discriminator's work, the TF32 step; the card-vs-CPU comparison (here
+    CPU against CPU: exact); (b) runs A and B, the resume held, the
+    validation maps, test, export, the painted decode, the planted faulty
+    resume that the check catches; no kernel launch."""
+    smoke = _chip_smoke()
+    overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
+                                   "dec_filters": [32, 8, 8, 16, 16]},
+                 "dataset": {"batch_size": 2}}
+    with smoke.conv_route("packed"):
+        smoke.trainer_phase("cpu", tmp_path, size=32, patients=2, slices=5,
+                            overrides=overrides, bare_step_s=[0.1])
+        launches = smoke.second_stage_phase(
+            "cpu", tmp_path, size=32, batch=2, steps=2, ref_size=32,
+            overrides={**overrides, "model.dis": {"D_ch": 4, "resolution": 128}})
+    assert launches == {}
+    recs = {r.get("part"): r for r in (json.loads(line) for line in capsys.readouterr().out
+                                       .splitlines() if line.startswith('{"phase": "second_stage"'))}
+    step, ref, run = recs["step"], recs["reference"], recs["run"]
+    assert step["routed_convs"] == {"encoder": 0, "decoder": 10} and len(step["step_s"]) == 2
+    assert 10 < step["dis_step_forward_equivalents"] < 13
+    assert set(step["tf32_loss_rel_gap"]) == set(step["losses_first"])
+    assert ref["id_mismatches_clear"] == 0 and max(ref["loss_rel_err"].values()) == 0.0
+    assert run["counters"] == {"A": [6, 1], "B": [6, 1]} and run["same_batch_stream"]
+    assert all(v == 0.0 for part in ("decoder", "discriminator")
+               for v in run["resume_gap"][part].values())
+    assert run["planted_fault_gap"]["discriminator"]["sn_max"] > 0
+    assert len(run["validation_grids"]) == 4 and run["encoder_frozen"]
+    assert run["codebook_rel_distance_from_staged"] > 0
+    assert run["result_csv"][0][1:] == ["Entropy_avg", "Entropy_std", "NMSE_avg", "NMSE_std",
                                         "PSNR_avg", "PSNR_std", "SSIM_avg", "SSIM_std"]
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"

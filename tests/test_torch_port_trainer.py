@@ -41,7 +41,8 @@ Tolerances, float32:
 Port only: a resumed run (3 steps, resume, 3 steps, across an epoch end,
 with k-means and the config's augmentation drawing from the generator) is
 bit for bit an uninterrupted 6-step run; the CLI writes metrics,
-checkpoints and `config.json`; the parts not ported yet are refused.
+checkpoints and `config.json`; the parts not ported yet are refused (the
+second stage's are in tests/test_torch_port_gan.py).
 """
 
 import copy
@@ -364,17 +365,25 @@ def test_staged_first_stage_from_checkpoint_and_lightning(env, port_fit):
 @pytest.mark.parametrize("what", ["multiwindow", "vqgan", "second_step", "joint_step",
                                   "dropblock", "perceptual", "discriminator"])
 def test_parts_not_ported_are_refused(env, what):
+    """The second stage itself is ported (tests/test_torch_port_gan.py);
+    "second_step" and "discriminator" check what of it is not: the
+    PatchGAN's actnorm and projection discrimination."""
     cfg = _config(env.root)
     kw = {}
     if what in ("multiwindow", "vqgan"):
         kw = {"use_multi_window": what == "multiwindow", "use_vqgan": what == "vqgan"}
-    elif what in ("second_step", "joint_step"):
+    elif what == "joint_step":
         cfg["run"]["training_mode"] = what
+    elif what == "second_step":
+        cfg["run"]["training_mode"] = what
+        cfg["model"]["dis"]["normalization"] = "actnorm"
     elif what == "dropblock":
         cfg["model"]["vqmodel"]["use_dropblock"] = True
     elif what == "perceptual":
         cfg["loss"]["use_perceptual_loss"] = True
     else:
-        cfg["run"]["discriminator_ckpt_path"] = "dis.ckpt"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[4678]"):
+        cfg["run"]["training_mode"] = "second_step"
+        cfg["model"]["dis"] = {"model_name": "UNetDiscriminator", "D_ch": 4,
+                               "resolution": 128, "n_classes": 3}
+    with pytest.raises(NotImplementedError, match="ROADMAP item (1[4678]|21)"):
         Trainer(to_config(cfg), device="cpu", **kw)

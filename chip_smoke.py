@@ -84,10 +84,28 @@ and no result line):
                launch counts held to the derived ones, and a planted faulty
                resume (the discriminator's Adam state and spectral-norm
                vectors dropped) whose gap is printed;
+  8c. multi_window — the multi-window trainer at the widths of
+               `configs/lung_multiwindow_joint.json` (bf16 encoder and
+               decoder, the f32 U-Net discriminator at D_ch 64, packed conv,
+               256², batch 8): (a) k-means, then 5 bare joint steps (two
+               views, 6 generator-pass and 18 discriminator-pass forwards
+               of the discriminator), launch counts held to the derived
+               ones, peak memory, a profiled warm step (busy, idle, top
+               kernels), the discriminator's work alone (its share of busy,
+               its f32 rate against the operations counted from the model);
+               2 bare steps each of the multi-window first and second
+               steps, launches held; (c) one joint step on the card held to
+               the CPU path on a small input; (b) `run_vqwnet.main -w` over
+               the trainer phase's tree: run A 6 steps, run B 3 and a
+               resume to 6 held to A within MW_RESUME_GAP_LIMIT, validation
+               grids with the discriminator's maps, `-m test` (the HU NIfTI
+               export), a painted decode of an exported label map, launches
+               held, and a planted faulty resume whose gap is printed;
   9. kernels — one line listing every hand-written kernel of the paths.
-The serve, serve_runtime (its packed route), train, trainer and
-second_stage (a) and (b) phases are the main paths: each zeroes the launch
-counts just before it and reads them just after.
+The serve, serve_runtime (its packed route), train, trainer, second_stage
+(a) and (b), and multi_window (a) (each mode) and (b) phases are the main
+paths: each zeroes the launch counts just before it and reads them just
+after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
@@ -116,6 +134,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 MODEL_CONFIG = ROOT / "configs" / "lung_first_stage.json"
 SECOND_CONFIG = ROOT / "configs" / "lung_second_stage.json"
+MW_CONFIG = ROOT / "configs" / "lung_multiwindow_joint.json"
 # the resumed second-stage run against the uninterrupted one
 # (`second_stage_run_part.state_gap`), each limit between the gaps measured
 # on an H100 (resume; planted fault): the discriminator's parameters RMS
@@ -129,6 +148,26 @@ SECOND_CONFIG = ROOT / "configs" / "lung_second_stage.json"
 SECOND_RESUME_GAP_LIMIT = {
     "decoder": {"params_rms_lr": 2.0, "moments_rel": 0.05},
     "discriminator": {"params_rms_lr": 0.1, "moments_rel": 0.05, "sn_max": 0.03},
+}
+# the resumed multi-window joint run against the uninterrupted one
+# (`multi_window_run_part.state_gap`), each limit between the gaps measured
+# on an H100 (resume; planted fault) where the fault reaches the module:
+# the discriminator's parameters RMS 0.038 lr; 1.39 lr, its Adam moments
+# 0.0069; 1.02, its spectral-norm vectors 0.0043; 2.0. The card's f32
+# weight gradients are not reproducible run to run, and the bf16 encoder
+# and decoder steps turn with them through the ill-conditioned
+# reconstruction gradient: after 3 resumed steps their parameters are 1.70
+# and 0.69 lr RMS apart, their moments 0.46-0.48 and 0.043, the codebook
+# 0.022-0.050,
+# and the planted fault (which reaches them only through the
+# discriminator) lands at the same values. They are held only to what a
+# lost state would exceed: 2 lr (the whole resumed stretch), moments below
+# 1 (all of Adam's state gone), the codebook 0.1
+MW_RESUME_GAP_LIMIT = {
+    "encoder": {"params_rms_lr": 2.0, "moments_rel": 0.8},
+    "decoder": {"params_rms_lr": 2.0, "moments_rel": 0.25},
+    "discriminator": {"params_rms_lr": 0.1, "moments_rel": 0.05, "sn_max": 0.03},
+    "codebook": {"rel": 0.1},
 }
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
@@ -1463,11 +1502,11 @@ def trainer_phase(device, workdir, *, size=256, patients=2, slices=20, seed=0,
     return launches
 
 
-def second_config(overrides=None, **sections):
-    """The lung second-stage config as a dict, `overrides` ({"a.b": {...}})
-    and `sections` ({"run": {...}}) merged in; the staged first stage
-    cleared unless given."""
-    base = json.loads(SECOND_CONFIG.read_text())
+def second_config(overrides=None, path=SECOND_CONFIG, **sections):
+    """The lung second-stage config (or the one at `path`) as a dict,
+    `overrides` ({"a.b": {...}}) and `sections` ({"run": {...}}) merged in;
+    the staged first stage cleared unless given."""
+    base = json.loads(Path(path).read_text())
     base["run"]["first_stage_ckpt_path"] = None
     for section, values in {**(overrides or {}), **sections}.items():
         node = base
@@ -1477,14 +1516,15 @@ def second_config(overrides=None, **sections):
     return base
 
 
-def second_state(cfg, device, seed):
-    """The trainer's fresh second-stage state for `cfg` (a dict): encoder
-    and decoder seeded as `seeded_init` fills them, the discriminator as
-    the JAX module initialises, the three Adams, the generator."""
+def second_state(cfg, device, seed, multi_window=False):
+    """The trainer's fresh state for `cfg` (a dict; the multi-window
+    trainer's with `multi_window`): encoder and decoder seeded as
+    `seeded_init` fills them, the discriminator (in the GAN modes) as the
+    JAX module initialises, the Adams, the generator."""
     from medical_image_editing_tpu_torch.train.trainer import Trainer
     from medical_image_editing_tpu_torch.utils.config import to_config
 
-    trainer = Trainer(to_config(cfg), device=device, seed=seed)
+    trainer = Trainer(to_config(cfg), device=device, seed=seed, use_multi_window=multi_window)
     return trainer, trainer.init_state()
 
 
@@ -2053,6 +2093,504 @@ def second_stage_run_part(device, workdir, overrides, *, seed=0):
     return launches
 
 
+def mw_config(overrides=None, **sections):
+    """The multi-window joint config as a dict (see `second_config`)."""
+    return second_config(overrides, path=MW_CONFIG, **sections)
+
+
+def stub_optimizer():
+    """An optimizer that steps nothing: the discriminator's work without
+    its Adam, for counting operations on the meta device."""
+    return SimpleNamespace(zero_grad=lambda: None, step=lambda: None, param_groups=[])
+
+
+def mw_dis_work(dis, views, draws, dataset_window, cfg, opt):
+    """The discriminator's work in one joint step, alone: the generator
+    pass's forwards on both views' reconstructions in the three windows and
+    their input gradients (the discriminator frozen), then the
+    discriminator pass (per window: real, fake and CutMix forwards of both
+    views and one backward) and `opt`'s step. `views`: [(recon, clear)]
+    (B,H,W,1)."""
+    from medical_image_editing_tpu_torch.train import multi_window as tmw
+
+    fns = tmw.window_fns(dataset_window)
+    recon = [r.detach().requires_grad_(True) for r, _ in views]
+    with tmw.frozen(dis):
+        l_gen, _ = tmw.generator_terms(dis, dis, fns, [(r, t) for r, (_, t) in zip(recon, views)],
+                                       False)
+        l_gen.backward()
+    tmw.discriminator_update(dis, dis, fns, [(r.detach(), t) for r, t in views], draws, cfg, opt,
+                             True)
+
+
+def mw_dis_flops(dis, batch, size, dataset_window, cfg):
+    """Operations of `mw_dis_work` at the step's shapes, counted by
+    `torch.utils.flop_counter` on the meta device: (total, one forward)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+
+    meta = copy.deepcopy(dis).to("meta")
+    x = torch.zeros(batch, size, size, 1, device="meta")
+    draws = sample_cutmix_draws(torch.Generator().manual_seed(0), 3, size, size)
+    draws = [(tuple(tuple(v.to("meta") for v in p) for p in box), inv.to("meta"))
+             for box, inv in draws]
+    with FlopCounterMode(display=False) as fc:
+        mw_dis_work(meta, [(x, x.clone()), (x.clone(), x.clone())], draws, dataset_window, cfg,
+                    stub_optimizer())
+    total = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        meta(x.permute(0, 3, 1, 2))
+    return total, fc.get_total_flops()
+
+
+def draws_to(draws, device):
+    """A joint step's draws (two views' augmentation draws, the CutMix
+    draws) on `device`."""
+    views = [{part: [None if d is None else {k: None if v is None else v.to(device)
+                                             for k, v in d.items()} for d in ds]
+              for part, ds in view.items()} for view in draws[:2]]
+    cut = [(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
+           for box, inv in draws[2]]
+    return (*views, cut)
+
+
+def joint_draws(trainer, generator, batch, size):
+    from medical_image_editing_tpu_torch.ops.augment import sample_view_draws
+    from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+
+    views = [sample_view_draws(generator, trainer.aug_cfg, batch, size, size) for _ in range(2)]
+    return (*views, sample_cutmix_draws(generator, 3, size, size))
+
+
+def multi_window_phase(device, workdir, *, size=256, batch=8, steps=5, mode_steps=2, seed=0,
+                       overrides=None, ref_size=64):
+    """The multi-window trainer at the widths of
+    `configs/lung_multiwindow_joint.json` (`overrides` shrinks it for a CPU
+    rehearsal): (a) the bare joint step, and the multi-window first and
+    second steps; (c) one joint step held to the CPU path on a small input;
+    (b) the run through `run_vqwnet.main -w` over the trainer phase's tree
+    in `workdir`. Returns the launches of (a) and (b)."""
+    launches = multi_window_step_part(device, overrides, size=size, batch=batch, steps=steps,
+                                      mode_steps=mode_steps, seed=seed)
+    multi_window_reference_part(overrides, size=ref_size, seed=seed + 1, card=device)
+    run = multi_window_run_part(device, workdir, overrides, seed=seed)
+    return {k: launches.get(k, 0) + run.get(k, 0) for k in set(launches) | set(run)}
+
+
+def multi_window_step_part(device, overrides, *, size, batch, steps, mode_steps, seed):
+    """(a) The joint step (`make_joint_step` through the trainer) from seeded
+    weights after the codebook k-means (the config's `use_init_embed`
+    gate), `steps` steps with the packed conv route, launches held to the
+    derived counts, peak memory; on the card one profiled warm step (busy,
+    idle share, top kernels) and the discriminator's work alone under the
+    profiler (its share of busy and its f32 rate against the operations
+    counted from the model). Then `mode_steps` bare steps each of the
+    multi-window first and second steps at the same widths, their launches
+    held to the derived counts."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+
+    cfg = mw_config(overrides)
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    trainer, state = second_state(cfg, device, seed, multi_window=True)
+    model = cfg["model"]["vqmodel"]
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    init_codebook_step(state.encoder)(state, images)
+    n_enc = routed_convs(state.encoder, torch.zeros(1, int(model["in_channels"]), size, size))
+    n_dec = routed_convs(state.decoder,
+                         torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    vq_on = str(model["knn_backend"]) in ("pallas", "faiss")
+    # a joint step: both views through encoder and decoder, every routed
+    # conv's input gradient, two assignments; the discriminator's
+    # convolutions are cuDNN's
+    want = {"conv3x3_packed": steps * 4 * (n_enc + n_dec), "vq_fused": 2 * steps if vq_on else 0}
+    before = {m: next(getattr(state, m).parameters()).detach().clone()
+              for m in ("encoder", "decoder", "discriminator")}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    _build.launches.clear()
+    # -- main path: the joint steps
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, images)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    moved = {m: not torch.equal(v, next(getattr(state, m).parameters()).detach())
+             for m, v in before.items()}
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    dsw = trainer.dataset_window
+    flops, fwd_flops = mw_dis_flops(state.discriminator, batch, size, dsw, trainer.second_cfg)
+    rec = {
+        "phase": "multi_window", "part": "step", "mode": "joint_step", "device": str(device),
+        "size": size, "batch": batch, "steps": steps,
+        "compute_dtype": str(model["compute_dtype"]), "dis": cfg["model"]["dis"],
+        "use_remat": bool(cfg["run"].get("use_remat")),
+        "routed_convs": {"encoder": n_enc, "decoder": n_dec},
+        "launches": launches, "launches_expected": want if cuda else {},
+        "step_s": step_s, "warm_step_s_median": float(np.median(step_s[1:] or step_s)),
+        "losses_first": losses[0], "losses_last": losses[-1],
+        "max_memory_allocated_bytes": peak,
+        "dis_forward_flop": fwd_flops, "dis_step_flop": flops,
+        "dis_step_forward_equivalents": flops / fwd_flops,
+    }
+    if cuda:
+        wall, kernels = profile_window(lambda: trainer.train_step(state, images))
+        rec["profile"] = kernel_breakdown(wall, kernels, 12)
+        busy = rec["profile"]["device_busy_s"]
+        rec["device_idle_share_of_warm_step"] = 1.0 - busy / rec["warm_step_s_median"]
+        # the discriminator's work alone, on a copy, with one step's draws
+        dis = copy.deepcopy(state.discriminator)
+        dis_opt = torch.optim.Adam(dis.parameters(), lr=4e-4, betas=(0.5, 0.999))
+        x = torch.as_tensor(images, device=device)
+        views = [(torch.tanh(x + 0.1 * torch.randn_like(x)), x) for _ in range(2)]
+        draws = joint_draws(trainer, torch.Generator(device=device).manual_seed(seed), batch,
+                            size)[2]
+        mw_dis_work(dis, views, draws, dsw, trainer.second_cfg, dis_opt)
+        dwall, dkernels = profile_window(
+            lambda: mw_dis_work(dis, views, draws, dsw, trainer.second_cfg, dis_opt))
+        del dis, dis_opt, views
+        dbusy = sum(device_us(e) for e in dkernels) / 1e6
+        rec.update({
+            "dis_work_device_busy_s": dbusy, "dis_share_of_step_busy": dbusy / busy,
+            "dis_work_top": kernel_breakdown(dwall, dkernels, 6)["top"],
+            "dis_achieved_f32_flop_per_s": flops / dbusy,
+            "dis_share_of_f32_peak": flops / dbusy / PEAK_F32_FLOP_PER_S,
+            "dis_f32_floor_s": flops / PEAK_F32_FLOP_PER_S,
+        })
+    rec["card"] = nvidia_smi() if cuda else None
+    emit(rec)
+    del state, trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    if not finite or not all(moved.values()):
+        raise RuntimeError(f"joint step: finite {finite}, moved {moved}")
+    if cuda and {k: launches.get(k, 0) for k in want} != want:
+        raise RuntimeError(f"joint step kernel launches {launches}, derived {want}")
+    if not cuda and launches:
+        raise RuntimeError(f"CPU tensors launched kernels: {launches}")
+
+    # the multi-window first and second steps: each its own main path
+    per_step = {"first_step": ({"conv3x3_packed": 4 * (n_enc + n_dec), "vq_fused": 2},
+                               ("encoder", "decoder")),
+                "second_step": ({"conv3x3_packed": n_enc + 2 * n_dec, "vq_fused": 1},
+                                ("decoder", "discriminator"))}
+    for mode, (per, trained) in per_step.items():
+        mcfg = mw_config(overrides, run={"training_mode": mode})
+        trainer, state = second_state(mcfg, device, seed, multi_window=True)
+        init_codebook_step(state.encoder)(state, images)
+        want_m = {k: mode_steps * v if vq_on or k != "vq_fused" else 0 for k, v in per.items()}
+        before = {m: next(getattr(state, m).parameters()).detach().clone() for m in trained}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        # -- main path: the mode's steps
+        step_s, losses = [], []
+        for _ in range(mode_steps):
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, images)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            losses.append({k: float(v) for k, v in metrics.items()})
+        mode_launches = dict(_build.launches)
+        moved = {m: not torch.equal(v, next(getattr(state, m).parameters()).detach())
+                 for m, v in before.items()}
+        finite = all(np.isfinite(v) for m in losses for v in m.values())
+        emit({"phase": "multi_window", "part": "step", "mode": mode, "device": str(device),
+              "size": size, "batch": batch, "steps": mode_steps, "step_s": step_s,
+              "losses_last": losses[-1], "launches": mode_launches,
+              "launches_expected": want_m if cuda else {},
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if cuda else None})
+        del state, trainer
+        if not finite or not all(moved.values()):
+            raise RuntimeError(f"multi-window {mode}: finite {finite}, moved {moved}")
+        if cuda and {k: mode_launches.get(k, 0) for k in want_m} != want_m:
+            raise RuntimeError(f"multi-window {mode} launches {mode_launches}, derived {want_m}")
+        if not cuda and mode_launches:
+            raise RuntimeError(f"CPU tensors launched kernels: {mode_launches}")
+        for k, v in mode_launches.items():
+            launches[k] = launches.get(k, 0) + v
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def multi_window_reference_part(overrides, *, size=64, batch=2, seed=1, card="cuda"):
+    """One joint step on the card vs the same step on the port's CPU path,
+    at the joint config's widths in f32 (TF32 off) on a small input, packed
+    route: the same weights, codebook (k-means on the CPU) and draws on
+    both. Held: the ids where the top-2 score gap is clear of rounding, the
+    losses (rtol 1e-3; 1e-2 for the first stage's terms that an id flipped
+    at a near tie inside the step moves: cross, dist, recon, freq and the
+    totals), and the gradients of encoder,
+    decoder and discriminator read from Adam's first moment (relative
+    Frobenius error) within 5× the card's own floor (its packed and xla
+    conv routes against each other) or 1e-4. `card` is the device held to
+    the CPU ("cpu" rehearses the comparison)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models.unet_encoder import encode_quantize
+    from medical_image_editing_tpu_torch.ops.vq import vq_scores
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+
+    cfg = mw_config(overrides, **{"model.vqmodel": {"compute_dtype": "float32"}})
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    trainer, state = second_state(cfg, "cpu", seed, multi_window=True)
+    init_codebook_step(state.encoder)(state, images)
+    start = {m: copy.deepcopy(getattr(state, m).state_dict())
+             for m in ("encoder", "decoder", "discriminator")}
+    draws = joint_draws(trainer, torch.Generator().manual_seed(seed), batch, size)
+    parts = (("encoder", "enc_opt"), ("decoder", "dec_opt"), ("discriminator", "dis_opt"))
+    out = {}
+    runs = [("cpu", "cpu", "packed"), ("card", card, "packed")]
+    if card == "cuda":
+        runs.append(("card_xla", card, "xla"))
+    for name, device, route in runs:
+        trainer, state = second_state(cfg, device, seed, multi_window=True)
+        for m, sd in start.items():
+            getattr(state, m).load_state_dict(sd)
+        with torch.no_grad():
+            x = torch.as_tensor(images, device=device)
+            feats = state.encoder.eval()(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            _, _, ids, _ = encode_quantize(state.encoder, state.vq, x, train=False,
+                                           backend=state.encoder.knn_backend)
+        with conv_route(route):
+            _, metrics = trainer.train_step(state, images, draws_to(draws, device))
+        grads = {m: torch.cat([getattr(state, o).state[p]["exp_avg"].flatten().cpu()
+                               for p in getattr(state, m).parameters()]) for m, o in parts}
+        out[name] = (feats.cpu(), ids.cpu(), {k: float(v) for k, v in metrics.items()}, grads)
+        del state
+    feats, ids_cpu, m_cpu, g_cpu = out["cpu"]
+    top2 = vq_scores(start["encoder"]["vq.embed"],
+                     feats.reshape(-1, feats.shape[-1])).topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > 1e-4 * top2.abs().max()).reshape(ids_cpu.shape)
+    id_mismatch = int(((out["card"][1] != ids_cpu) & clear).sum())
+    loss_err = {k: abs(out["card"][2][k] - v) / max(abs(v), 1e-6) for k, v in m_cpu.items()}
+    rtol = {k: 1e-2 if k in ("cross", "dist", "recon", "freq", "total", "gen_total") else 1e-3
+            for k in loss_err}
+    grad_err = {m: float((out["card"][3][m] - g).norm() / g.norm()) for m, g in g_cpu.items()}
+    floor = {m: 0.0 for m in g_cpu}
+    if "card_xla" in out:
+        floor = {m: float((out["card_xla"][3][m] - g).norm() / g.norm())
+                 for m, g in out["card"][3].items()}
+    grad_limit = {m: max(5 * f, 1e-4) for m, f in floor.items()}
+    rec = {"phase": "multi_window", "part": "reference", "card": card, "size": size,
+           "batch": batch, "id_mismatches_clear": id_mismatch,
+           "clear_share": float(clear.float().mean()), "loss_rel_err": loss_err,
+           "grad_rel_err": grad_err, "grad_route_floor": floor, "grad_limit": grad_limit,
+           "losses_cpu": m_cpu, "losses_card": out["card"][2],
+           "tolerance": f"ids equal where the top-2 score gap > 1e-4·max|score|; losses rtol "
+                        f"{rtol}; gradients (Adam's first moment) 5x the card's conv-route "
+                        "floor or 1e-4"}
+    emit(rec)
+    if id_mismatch or any(loss_err[k] > rtol[k] for k in loss_err) or any(
+            grad_err[m] > grad_limit[m] for m in grad_err):
+        raise RuntimeError(f"card vs CPU joint step: {id_mismatch} clear id mismatches, loss "
+                           f"errors {loss_err}, gradient errors {grad_err}")
+
+
+def multi_window_run_part(device, workdir, overrides, *, seed=0):
+    """(b) The multi-window trainer as a user runs it: `run_vqwnet.main -w`
+    on the joint config (`overrides` shrinks it for a CPU rehearsal) over
+    the trainer phase's slice tree in `workdir`, 2 epochs of 5 steps,
+    saving every 3. Run A: 6 steps (the epoch-0 end's validation grids
+    carry the discriminator's maps). Run B: stops at 3, resumes to 6; held
+    to A (slice order, counters; parameters and Adam moments of encoder,
+    decoder and discriminator, the spectral-norm vectors and the codebook
+    within MW_RESUME_GAP_LIMIT). `-m test` writes the HU NIfTI export of
+    every slice; one exported label map is painted and decoded through
+    `edit_study` with the joint decoder. Launches are held to the derived
+    counts. Off the counted path, a planted fault: B's step-3 save with the
+    discriminator's Adam state and spectral-norm vectors dropped, resumed
+    to 6; its gap is printed beside the resume's."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli.edit_batch import edit_study
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.utils import nifti
+    from medical_image_editing_tpu_torch.utils.checkpoint import load_state_file, restore_state
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir)
+    base = mw_config(overrides, run={"n_epochs": 2}, save={"save_every_n_steps": 3})
+    base["dataset"]["root_dir_path"] = str(work / "data")
+    model, ds = base["model"]["vqmodel"], base["dataset"]
+    batch = int(ds["batch_size"])
+    n_slices = sum(1 for _ in (work / "data").rglob("ct_img_*.npy"))
+    steps_per_epoch = n_slices // batch
+    eval_batches = -(-n_slices // batch)
+    size = int(np.load(next((work / "data").rglob("ct_img_*.npy"))).shape[-1])
+    total = 6
+    if steps_per_epoch != 5:
+        raise RuntimeError(f"the multi-window run needs 5 steps an epoch, has {steps_per_epoch}")
+
+    def run(name, argv, **changes):
+        return run_cli(work, base, name, ["-w", *argv], cuda, **changes)
+
+    trainer, shapes = second_state(base, "cpu", seed, multi_window=True)
+    n_enc = routed_convs(shapes.encoder, torch.zeros(1, int(model["in_channels"]), size, size))
+    n_dec = routed_convs(shapes.decoder, torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    params = {m: {k for k, _ in getattr(shapes, m).named_parameters()}
+              for m in ("encoder", "decoder", "discriminator")}
+    del trainer, shapes
+    # runs A and B (B in two parts) take 2 × 6 joint steps; k-means (A, and
+    # B's first part): one encoder forward; eval forwards (encoder, decoder,
+    # one assignment): validation on 2 batches at the epoch-0 end of A and
+    # of B's resume, the test over every test batch; the edit: one decoder
+    # forward
+    evals = 2 * 2 + eval_batches
+    want = {"conv3x3_packed": (2 * n_enc + 2 * total * 4 * (n_enc + n_dec)
+                               + evals * (n_enc + n_dec) + n_dec),
+            "vq_fused": 2 * total * 2 + evals}
+    if not cuda:
+        want = {}
+    elif str(model["knn_backend"]) not in ("pallas", "faiss"):
+        want["vq_fused"] = 0
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    # -- main path: train A, train B + resume, test, edit
+    t0 = time.perf_counter()
+    with captured_trainers() as trainers, captured_validation() as grids:
+        run_a = run("wA", ["-m", "train", "--max-steps", str(total)])
+        run_b = run("wB", ["-m", "train", "--max-steps", "3"])
+        run("wB", ["-m", "train", "--max-steps", str(total)],
+            run={"resume_checkpoint": str(run_b / "version_0" / "ckpt")})
+        export_dir = work / "wT_export"
+        run("wT", ["-m", "test"], run={"resume_checkpoint": str(run_a / "version_0" / "ckpt")},
+            save={"save_dir": str(export_dir)})
+        (trainer_a, steps_a), (_, steps_b), (_, steps_b2), (trainer_t, _) = trainers[:4]
+        state = restore_state(str(run_a / "version_0" / "ckpt"), trainer_t.init_state())
+        labels = sorted((export_dir / "pat00").glob("label_*.nii.gz"))
+        ids = nifti.load(str(labels[0])).astype(np.int32)
+        painted_dir, edited_dir = work / "wpainted", work / "wedited"
+        painted_dir.mkdir()
+        rng = np.random.default_rng(seed)
+        nifti.save(paint(ids[None], rng, int(model["dict_size"]))[0],
+                   str(painted_dir / labels[0].name), dtype=np.int32)
+        edited = edit_study(state.decoder, state.vq, str(painted_dir), str(edited_dir),
+                            batch_size=1, is_lung=True,
+                            dataset_window=(ds["window_width"], ds["window_center"],
+                                            ds["window_scale"]), device=device)
+        if cuda:
+            torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    del state
+
+    steps_resumed = steps_b + steps_b2
+    same_stream = len(steps_a) == len(steps_resumed) == total and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(steps_a, steps_resumed))
+    last = f"ckpt-epoch=0001-step={total:08d}"
+    final_a = load_state_file(str(run_a / "version_0" / "ckpt" / last))
+    final_b = load_state_file(str(run_b / "version_1" / "ckpt" / last))
+
+    def state_gap(x, y):
+        """How far state y is from state x, per module: the parameters' RMS
+        difference in learning rates and their largest difference, Adam's
+        moments' relative difference (norm over all of them), the
+        spectral-norm vectors' largest difference; and the codebook's
+        relative difference."""
+        gap = {}
+        for part, opt in (("encoder", "enc_opt"), ("decoder", "dec_opt"),
+                          ("discriminator", "dis_opt")):
+            lr = float(base[f"{opt[:3]}_optim"]["lr"])
+            keys = sorted(params[part])
+            d = torch.cat([(x[part][k] - y[part][k]).flatten() for k in keys])
+            sx, sy = x[opt]["state"], y[opt]["state"]
+            mx = torch.cat([v.flatten() for i in sorted(sx) for k, v in sx[i].items()
+                            if k != "step"])
+            my = torch.cat([sy[i][k].flatten() if i in sy else torch.zeros_like(v).flatten()
+                            for i in sorted(sx) for k, v in sx[i].items() if k != "step"])
+            sn = [float((x[part][k] - y[part][k]).abs().max()) for k in x[part]
+                  if k.endswith(("u0", "sv0"))]
+            gap[part] = {"params_rms_lr": float(d.pow(2).mean().sqrt()) / lr,
+                         "params_max": float(d.abs().max()),
+                         "moments_rel": float((mx - my).norm() / mx.norm()),
+                         "sn_max": max(sn, default=0.0)}
+        ex, ey = x["encoder"]["vq.embed"], y["encoder"]["vq.embed"]
+        gap["codebook"] = {"rel": float((ex - ey).norm() / ex.norm())}
+        return gap
+
+    gap = state_gap(final_a, final_b)
+    counters = {"A": (final_a["step"], final_a["epoch"]), "B": (final_b["step"], final_b["epoch"])}
+    warm = []
+    for steps, first_step in ((steps_a, 1), (steps_b, 1), (steps_b2, 4)):
+        t = dict(zip(range(first_step, first_step + len(steps)), (c for c, _ in steps)))
+        warm += [t[k] - t[k - 1] for k in sorted(t) if k - 1 in t and (k - 1) % 3
+                 and (k - 1) % steps_per_epoch]
+    exported = sorted(p.name for p in export_dir.rglob("*.nii.gz"))
+    n_export = {kind: sum(1 for f in exported if f.startswith(kind))
+                for kind in ("image_", "recon_", "label_")}
+    hu = nifti.load(str(sorted(export_dir.rglob("image_*.nii.gz"))[0]))
+    out = nifti.load(str(edited_dir / edited[0]))
+
+    # -- the planted fault, off the counted path
+    faulty = load_state_file(str(run_b / "version_0" / "ckpt" / "ckpt-epoch=0000-step=00000003"))
+    faulty["dis_opt"]["state"] = {}
+    gen = torch.Generator().manual_seed(seed)
+    for k, v in faulty["discriminator"].items():
+        if k.endswith("u0"):
+            faulty["discriminator"][k] = torch.randn(v.shape, generator=gen)
+        elif k.endswith("sv0"):
+            faulty["discriminator"][k] = torch.ones_like(v)
+    planted = work / "wplanted" / "ckpt-epoch=0000-step=00000003"
+    planted.mkdir(parents=True)
+    torch.save(faulty, planted / "state.pt")
+    run_c = run("wC", ["-m", "train", "--max-steps", str(total)],
+                run={"resume_checkpoint": str(planted)})
+    planted_gap = state_gap(final_a, load_state_file(str(run_c / "version_0" / "ckpt" / last)))
+    rec = {
+        "phase": "multi_window", "part": "run", "device": str(device), "size": size,
+        "batch": batch, "steps": total, "steps_per_epoch": steps_per_epoch,
+        "routed_convs": {"encoder": n_enc, "decoder": n_dec},
+        "launches": launches, "launches_expected": want, "path_s": path_s,
+        "fit_step_s": warm, "fit_step_s_median": float(np.median(warm)) if warm else None,
+        "same_batch_stream": same_stream, "counters": counters, "resume_gap": gap,
+        "resume_gap_limit": MW_RESUME_GAP_LIMIT, "planted_fault_gap": planted_gap,
+        "validation_grids": grids, "exported": n_export,
+        "image_hu_range": [float(hu.min()), float(hu.max())],
+        "edited_range": [float(out.min()), float(out.max())],
+        "max_memory_allocated_bytes": peak, "card": nvidia_smi() if cuda else None,
+    }
+    emit(rec)
+
+    def within(g):
+        return all(g[part][k] <= limit for part, limits in MW_RESUME_GAP_LIMIT.items()
+                   for k, limit in limits.items())
+
+    checks = {
+        "same_batch_stream": same_stream,
+        "counters": counters["A"] == counters["B"] == (total, 1),
+        "resume_gap": within(gap), "planted_fault_caught": not within(planted_gap),
+        "validation_maps": len(grids) == 4 and all(g is not None and all(g) for g in grids),
+        "exported": n_export == {"image_": n_slices, "recon_": n_slices, "label_": n_slices},
+        "export_in_hu": hu.min() < -100.0 and hu.max() > 100.0,
+        "edited": bool(np.isfinite(out).all() and out.min() >= -1.0 and out.max() <= 1.0),
+        "launches": ({k: launches.get(k, 0) for k in want} == want) if cuda
+        else launches == {},
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"multi-window run: {checks}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2097,6 +2635,7 @@ def main(argv=None):
             trainer_launches = trainer_phase("cuda", tmp, seed=args.seed,
                                              bare_step_s=bare_step_s)
             second_launches = second_stage_phase("cuda", tmp, seed=args.seed)
+            mw_launches = multi_window_phase("cuda", tmp, seed=args.seed)
 
     main_conv = next(r for r in conv if r["dtype"] == "bfloat16" and "forward" in r
                      and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
@@ -2105,11 +2644,12 @@ def main(argv=None):
         "replaces": VQ_REPLACES,
         "launches": (serve_launches.get("vq_fused", 0) + train_launches.get("vq_fused", 0)
                      + trainer_launches.get("vq_fused", 0)
-                     + second_launches.get("vq_fused", 0)),
+                     + second_launches.get("vq_fused", 0) + mw_launches.get("vq_fused", 0)),
         "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
                              "train": train_launches.get("vq_fused", 0),
                              "trainer": trainer_launches.get("vq_fused", 0),
-                             "second_stage": second_launches.get("vq_fused", 0)},
+                             "second_stage": second_launches.get("vq_fused", 0),
+                             "multi_window": mw_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
         "n": vq["n"], "c": vq["c"], "k": vq["k"], "path": vq["path"],
@@ -2125,12 +2665,14 @@ def main(argv=None):
         "launches": (train_launches.get("conv3x3_packed", 0)
                      + runtime_launches.get("conv3x3_packed", 0)
                      + trainer_launches.get("conv3x3_packed", 0)
-                     + second_launches.get("conv3x3_packed", 0)),
+                     + second_launches.get("conv3x3_packed", 0)
+                     + mw_launches.get("conv3x3_packed", 0)),
         "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
                              "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
                              "train": train_launches.get("conv3x3_packed", 0),
                              "trainer": trainer_launches.get("conv3x3_packed", 0),
-                             "second_stage": second_launches.get("conv3x3_packed", 0)},
+                             "second_stage": second_launches.get("conv3x3_packed", 0),
+                             "multi_window": mw_launches.get("conv3x3_packed", 0)},
         "max_abs_err": main_conv["forward_max_abs_err"],
         "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
                   "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",

@@ -2,8 +2,8 @@
 
 Counterpart of `medical_image_editing_tpu/cli/run_vqwnet.py` (reference
 `src/run_vqwnet.py`): `-c` config JSON, `-m train|test`; builds the Logger
-(versioned run directory) and the single-window Trainer, seeds, then fits
-or tests. `--max-steps` caps a run; `--device` picks the device (default
+(versioned run directory) and the Trainer (single-window, or multi-window
+with `-w`), seeds, then fits or tests. `--max-steps` caps a run; `--device` picks the device (default
 "cuda": without a card the run is refused, `--device cpu` asks for the
 CPU). The Slack image upload is a no-op without `slack_sdk` or the
 TOKEN/CHANNEL_ID variables.
@@ -15,8 +15,10 @@ The second (adversarial) stage is the same command on a config with
 `run.training_mode: "second_step"` (configs/lung_second_stage.json), whose
 `run.first_stage_ckpt_path` names the first stage's checkpoint directory.
 
-`-w` (multi-window, ROADMAP item 17) and `-v` (VQGAN, item 18) are not
-ported and raise NotImplementedError.
+`-w` trains the multi-window trainer (configs/lung_multiwindow_joint.json:
+`run.training_mode` "joint_step", "first_step" or "second_step"); its
+`-m test` writes HU NIfTI files under `save.save_dir/<patient>/`. `-v`
+(VQGAN, ROADMAP item 18) is not ported and raises NotImplementedError.
 """
 
 import argparse
@@ -74,7 +76,7 @@ def main(argv=None):
     parser.add_argument("-c", "--config", help="config", required=True)
     parser.add_argument("-m", "--mode", default="train", choices=["train", "test"])
     parser.add_argument("-w", "--multiwindow", action="store_true",
-                        help="multi-window trainer (not ported: ROADMAP item 17)")
+                        help="multi-window trainer (raw, lung and mediastinal windows)")
     parser.add_argument("-v", "--vqgan", action="store_true",
                         help="VQGAN trainer (not ported: ROADMAP item 18)")
     parser.add_argument("--max-steps", type=int, default=None, help="cap on training steps")

@@ -13,6 +13,7 @@ from types import SimpleNamespace
 import numpy as np
 
 LUNG_WINDOW = SimpleNamespace(width=1500, center=-550, scale=2.0)
+MEDIASTINAL_WINDOW = SimpleNamespace(width=400, center=20, scale=2.0)
 
 
 def _clip(image, vmin, vmax):

@@ -19,6 +19,10 @@ Counterpart of `medical_image_editing_tpu/train/evaluate.py` (reference
                        by patient_id/slice_num (lung window for
                        NCCLungDataset, vertical flip for CRCDataset), ids as
                        int32.
+  multi_window_test_export
+                       the multi-window trainer's test: per-slice gzip
+                       NIfTI of image and recon denormalized to HU and the
+                       label map (int32) under save_root/patient_id/.
   validation_snapshot  the validation recon grid (`utils/imaging.py`: the
                        same panels in the same cells, titles dropped), with
                        the discriminator's maps on real and reconstruction
@@ -159,6 +163,30 @@ def inference_export(forward, batch, *, dataset_name: str, dict_size: int, save_
         nifti_save(to_nifti_array(img), os.path.join(out_dir, f"image_{s}.nii.gz"))
         nifti_save(to_nifti_array(rec), os.path.join(out_dir, f"recon_{s}.nii.gz"))
         nifti_save(to_nifti_array(idm), os.path.join(out_dir, f"label_{s}.nii.gz"),
+                   dtype=np.int32)
+        written.append(out_dir)
+    return written
+
+
+def multi_window_test_export(forward, batch, *, save_root: str, denormalize_fn):
+    """HU-denormalized per-slice NIfTI export (reference
+    `multi_window_trainer.py:796-836`): `image_SSSS`, `recon_SSSS` (through
+    `denormalize_fn`) and `label_SSSS` under save_root/patient_id/; returns
+    the directories written (one per slice)."""
+    if not is_main_process():
+        return []
+    recon, ids = forward(batch["image"])
+    image = as_numpy(denormalize_fn(torch.as_tensor(batch["image"]).to(recon)))
+    recon = as_numpy(denormalize_fn(recon))
+    ids = as_numpy(ids).astype(np.int32)
+    written = []
+    for i in range(image.shape[0]):
+        out_dir = os.path.join(save_root, batch["patient_id"][i])
+        os.makedirs(out_dir, exist_ok=True)
+        s = str(int(batch["slice_num"][i])).zfill(4)
+        nifti_save(to_nifti_array(image[i, ..., 0]), os.path.join(out_dir, f"image_{s}.nii.gz"))
+        nifti_save(to_nifti_array(recon[i, ..., 0]), os.path.join(out_dir, f"recon_{s}.nii.gz"))
+        nifti_save(to_nifti_array(ids[i]), os.path.join(out_dir, f"label_{s}.nii.gz"),
                    dtype=np.int32)
         written.append(out_dir)
     return written

@@ -75,19 +75,30 @@ def loss_config_from_json(loss_cfg) -> FirstStageLossConfig:
     )
 
 
-def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, aug_cfg,
-                          dict_size: int, compute_dtype=torch.float32, device="cuda"):
-    """Build the first-stage step.
+def adam_step(opt: torch.optim.Optimizer) -> None:
+    """One Adam step in which, as in optax, every parameter takes the update:
+    a parameter without a gradient steps on a zero one (which still moves
+    the moments), where torch would skip it."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    opt.step()
 
-    encoder: models.unet_encoder.EncoderWithVQ; decoder: models.UNetDecoder;
-    both on `device`, with the optimizers in the `TrainState` the step gets.
-    The JAX step's `perceptual_fn` and `recon_loss_fn` hooks serve the
-    perceptual loss and the multi-window trainer, which are not ported: the
-    perceptual term is 0, as in JAX without a `perceptual_fn`.
-    Returns step_fn(state, image (B,H,W,C) in [-1,1], draws=None) →
-    (state, metrics): `draws` is a pair of views' draws
-    (`ops.augment.sample_view_draws`); by default the step draws them from
-    `state.generator`. Metrics are 0-d tensors on the device."""
+
+def make_first_stage_forward(encoder, decoder, *, loss_cfg: FirstStageLossConfig, aug_cfg,
+                             dict_size: int, compute_dtype=torch.float32, device="cuda",
+                             recon_loss_fn=None):
+    """Steps 1-5 of the first-stage step, without the backward: returns
+    forward(state, image (B,H,W,C) in [-1,1], draws) → (metrics, vq_2,
+    (recon_1, recon_2), (clear_1, clear_2)). `metrics` are the weighted
+    terms commit, cross, dist, reg, recon, freq and perceptual, still in the
+    graph; the reconstructions (f32) and clear views are (B,H,W,C); `draws`
+    is a pair of views' draws. `recon_loss_fn` (recon, clear) → (l_recon,
+    l_freq, l_percep), applied to each view and summed, replaces the
+    single-window terms (the multi-window trainer's per-window losses, JAX
+    `first_stage.py:178-181`); without it the perceptual term is 0, as in
+    JAX without a `perceptual_fn` (the perceptual loss is ROADMAP item 17b)."""
     dev = resolve_device(device)
     cfg = loss_cfg
 
@@ -99,15 +110,9 @@ def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, a
     def decode(q):
         return decoder(q.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float()
 
-    def step_fn(state: TrainState, image, draws=None):
-        image = torch.as_tensor(image, dtype=torch.float32, device=dev)
-        b, h, w, c = image.shape
-        if draws is None:
-            draws = tuple(sample_view_draws(state.generator, aug_cfg, b, h, w, c)
-                          for _ in range(2))
+    def forward(state: TrainState, image, draws):
         encoder.train()
         decoder.train()
-
         with torch.no_grad():
             image01 = denorm(image, 0.0, 1.0)
             noised_1, clear_1, mats_1 = random_transform(image01, aug_cfg, draws[0])
@@ -128,12 +133,20 @@ def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, a
             use_regularization_loss=cfg.use_regularization_loss,
         )
 
+        # the decoder's BatchNorm running stats move on view 1, then view 2
         recon_1, recon_2 = decode(q1), decode(q2)
         zero = torch.zeros((), device=dev)
-        l_recon = (torch.mean((recon_1 - clear_1) ** 2) + torch.mean((recon_2 - clear_2) ** 2)
-                   if cfg.use_recon_loss else zero)
-        l_freq = (focal_frequency_loss(recon_1, clear_1) + focal_frequency_loss(recon_2, clear_2)
-                  if cfg.use_frequency_loss else zero)
+        if recon_loss_fn is not None:
+            lr1, lf1, lp1 = recon_loss_fn(recon_1, clear_1)
+            lr2, lf2, lp2 = recon_loss_fn(recon_2, clear_2)
+            l_recon, l_freq, l_percep = lr1 + lr2, lf1 + lf2, lp1 + lp2
+        else:
+            l_recon = (torch.mean((recon_1 - clear_1) ** 2) + torch.mean((recon_2 - clear_2) ** 2)
+                       if cfg.use_recon_loss else zero)
+            l_freq = (focal_frequency_loss(recon_1, clear_1)
+                      + focal_frequency_loss(recon_2, clear_2)
+                      if cfg.use_frequency_loss else zero)
+            l_percep = zero
 
         metrics = {
             "commit": cfg.w_commit * l_commit,
@@ -142,21 +155,44 @@ def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, a
             "reg": cfg.w_reg * l_reg,
             "recon": cfg.w_recon * l_recon,
             "freq": cfg.w_freq * l_freq,
-            "perceptual": cfg.w_perceptual * zero,
+            "perceptual": cfg.w_perceptual * l_percep,
         }
+        return metrics, vq_2, (recon_1, recon_2), (clear_1, clear_2)
+
+    return forward
+
+
+def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, aug_cfg,
+                          dict_size: int, compute_dtype=torch.float32, device="cuda",
+                          recon_loss_fn=None):
+    """Build the first-stage step.
+
+    encoder: models.unet_encoder.EncoderWithVQ; decoder: models.UNetDecoder;
+    both on `device`, with the optimizers in the `TrainState` the step gets.
+    `recon_loss_fn` as in `make_first_stage_forward` (the multi-window
+    trainer's hook). Returns step_fn(state, image (B,H,W,C) in [-1,1],
+    draws=None) → (state, metrics): `draws` is a pair of views' draws
+    (`ops.augment.sample_view_draws`); by default the step draws them from
+    `state.generator`. Metrics are 0-d tensors on the device."""
+    dev = resolve_device(device)
+    forward = make_first_stage_forward(encoder, decoder, loss_cfg=loss_cfg, aug_cfg=aug_cfg,
+                                       dict_size=dict_size, compute_dtype=compute_dtype,
+                                       device=dev, recon_loss_fn=recon_loss_fn)
+
+    def step_fn(state: TrainState, image, draws=None):
+        image = torch.as_tensor(image, dtype=torch.float32, device=dev)
+        b, h, w, c = image.shape
+        if draws is None:
+            draws = tuple(sample_view_draws(state.generator, aug_cfg, b, h, w, c)
+                          for _ in range(2))
+        metrics, vq_2, _, _ = forward(state, image, draws)
         total = sum(metrics.values())
 
         for opt in (state.enc_opt, state.dec_opt):
             opt.zero_grad()
         total.backward()
-        # as optax, every parameter takes the Adam update (a zero gradient
-        # still moves the moments); torch would skip a parameter without one
         for opt in (state.enc_opt, state.dec_opt):
-            for group in opt.param_groups:
-                for p in group["params"]:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-            opt.step()
+            adam_step(opt)
 
         encoder.vq.set_state(vq_2)
         state.step += 1

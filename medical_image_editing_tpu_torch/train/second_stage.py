@@ -44,6 +44,7 @@ from ..models.unet_encoder import encode_quantize
 from ..ops.cutmix import Box, cutmix_coordinates, cutmix_mask, mask_src_tgt
 from ..ops.losses import focal_frequency_loss, hinge_d_loss
 from ..utils.device import resolve_device
+from .first_stage import adam_step
 from .state import TrainState
 
 DIS_TYPES = ("UNetDiscriminator", "NLayerDiscriminator")
@@ -218,11 +219,7 @@ def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossCo
             dis_total = sum(dis_metrics.values())
             state.dis_opt.zero_grad()
             dis_total.backward()
-            for group in state.dis_opt.param_groups:
-                for p in group["params"]:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-            state.dis_opt.step()
+            adam_step(state.dis_opt)
 
         state.step += 1
         metrics = {"gen_total": gen_total, **gen_metrics, "dis_total": dis_total,

@@ -8,9 +8,10 @@ decay added to the gradient before the moments, the same bias-corrected
 update. The JAX `TrainState` pytree becomes `TrainState` holding the
 modules (their parameters, the decoder's BatchNorm running stats and the
 encoder's codebook buffers), the two optimizers, the generator the step
-draws from, and the step and epoch counts; the second stage adds the
-discriminator (its parameters, spectral-norm vectors and BatchNorm stats)
-and its Adam. `state_dict`/`load_state_dict` cover all of it, for
+draws from, and the step and epoch counts; the second stage and the
+multi-window joint step add the discriminator (its parameters,
+spectral-norm vectors and BatchNorm stats) and its Adam: a joint state
+holds all three modules and three Adams. `state_dict`/`load_state_dict` cover all of it, for
 `utils/checkpoint.py`; a first-stage state and its checkpoints carry no
 discriminator.
 """
@@ -53,7 +54,7 @@ class TrainState:
     generator: torch.Generator  # augmentation and CutMix draws, k-means seeding
     step: int = 0
     epoch: int = 0
-    discriminator: Optional[nn.Module] = None   # the second stage's
+    discriminator: Optional[nn.Module] = None   # the second stage's and joint step's
     dis_opt: Optional[torch.optim.Optimizer] = None
 
     @property

@@ -4,14 +4,22 @@ Counterpart of `medical_image_editing_tpu/train/trainer.py` (reference
 `src/trainers/base.py`, `src/trainers/single_window_trainer.py`,
 `src/run_vqwnet.py::train_model`), in its single-window flavour with
 `run.training_mode` "first_step" or "second_step" (train), "inference"
-(label-map export) or "test" (metrics):
+(label-map export) or "test" (metrics), and its multi-window flavour
+(`use_multi_window`, the CLI's `-w`; reference
+`src/trainers/multi_window_trainer.py`) with "first_step", "second_step"
+or "joint_step":
   * the encoder with its codebook and the decoder from
     `config.model.vqmodel`, in its `compute_dtype`; two Adams from
     `enc_optim`/`dec_optim`; the first-stage step from `config.loss` and
     `config.augmentation`;
-  * in "second_step", the discriminator from `config.model.dis` (the
-    U-Net discriminator or the PatchGAN, f32) with its Adam from
-    `dis_optim`, and the second-stage step from `config.loss`;
+  * in "second_step" and "joint_step", the discriminator from
+    `config.model.dis` (the U-Net discriminator or the PatchGAN, f32; the
+    multi-window GAN steps take the U-Net one only) with its Adam from
+    `dis_optim`, and the step from `config.loss`; multi-window steps
+    (`train/multi_window.py`) weigh each window's terms by
+    `loss.recon_weights`/`freq_weights`/`percep_weights`, rematerialise
+    the discriminator under `run.use_remat`, and need the dataset's HU
+    window (`dataset.window_width/center/scale`);
   * `fit`: codebook k-means on the first batch when the state is fresh
     (`use_init_embed`), full resume (`run.resume_checkpoint`) and mid-epoch
     resume that skips exactly the consumed batches, `max_steps` (a break
@@ -29,12 +37,12 @@ Counterpart of `medical_image_editing_tpu/train/trainer.py` (reference
     the JAX trainer: a second stage re-clusters the staged codebook;
   * second-stage validation grids show the U-Net discriminator's
     eval-mode maps on image and reconstruction;
-  * `test`: metrics → `result.csv`, or in "inference" mode the per-slice
-    PNG/NIfTI export.
+  * `test`: metrics → `result.csv`; in "inference" mode the per-slice
+    PNG/NIfTI export; in the multi-window flavour the HU-denormalized
+    per-slice NIfTI export (`evaluate.multi_window_test_export`).
 
 Not ported yet, and refused rather than run without their part: the
-multi-window trainer (`-w`) and its "joint_step" (ROADMAP item 17), the
-VQGAN trainer (`-v`, item 18), the perceptual loss (item 17), DropBlock
+VQGAN trainer (`-v`, item 18), the perceptual loss (item 17b), DropBlock
 (`use_dropblock: true`, item 14c), the PatchGAN's actnorm (item 18) and
 projection discrimination (`model.dis.n_classes > 0`, item 21).
 """
@@ -60,10 +68,17 @@ from ..utils.device import resolve_device
 from ..utils.logging import Logger, is_main_process
 from . import evaluate
 from .first_stage import init_codebook_step, loss_config_from_json, make_first_stage_step
+from .multi_window import (
+    make_joint_step,
+    make_multi_window_first_stage_step,
+    make_multi_window_second_stage_step,
+)
 from .second_stage import make_second_stage_step, second_stage_config_from_json
 from .state import create_train_state, make_optimizer_from_config
 
 TRAINING_MODES = ("first_step", "second_step")
+MULTI_WINDOW_TRAINING_MODES = ("first_step", "second_step", "joint_step")
+GAN_MODES = ("second_step", "joint_step")
 
 SNAPSHOT_INTERVAL = 100  # reference `src/trainers/base.py:31`
 
@@ -89,19 +104,15 @@ class Trainer:
     def __init__(self, config, logger: Optional[Logger] = None, uploader=None,
                  use_multi_window: bool = False, use_vqgan: bool = False,
                  device="cuda", seed: int = 0):
-        if use_multi_window:
-            raise _not_ported("the multi-window trainer (-w)", "17")
         if use_vqgan:
             raise _not_ported("the VQGAN trainer (-v)", "18")
         self.config = config
         self.logger = logger
         self.uploader = uploader
+        self.use_multi_window = bool(use_multi_window)
         self.device = resolve_device(device)
         self.seed = int(seed)
-        mode = str(config.run.training_mode)
-        if mode == "joint_step":
-            raise _not_ported("training_mode 'joint_step' (the multi-window trainer's)", "17")
-        self.training_mode = mode
+        self.training_mode = str(config.run.training_mode)
         self._configure_models()
         self._configure_losses()
         self._step = None  # (models, step_fn) of the last state trained
@@ -136,9 +147,9 @@ class Trainer:
 
     def _configure_discriminator(self):
         """The discriminator's type and arguments from `config.model.dis`
-        (built only for the second stage)."""
+        (built only for the GAN modes)."""
         self.dis_type = self._dis_kw = None
-        if self.training_mode != "second_step":
+        if self.training_mode not in GAN_MODES:
             return
         dis = self.config.model.dis
         self.dis_type = str(dis.model_name)
@@ -167,8 +178,8 @@ class Trainer:
         self.first_cfg = loss_config_from_json(cfg.loss)
         self.second_cfg = second_stage_config_from_json(cfg.loss)
         if self.first_cfg.use_perceptual_loss:
-            raise _not_ported("the perceptual loss (loss.use_perceptual_loss)", "17")
-        if self.training_mode == "second_step" and self.second_cfg.dis_loss_type != "hinge_d_loss":
+            raise _not_ported("the perceptual loss (loss.use_perceptual_loss)", "17b")
+        if self.training_mode in GAN_MODES and self.second_cfg.dis_loss_type != "hinge_d_loss":
             raise ValueError(f"loss.dis_loss_type {self.second_cfg.dis_loss_type!r}: the "
                              "second stage trains with 'hinge_d_loss'")
         self.aug_cfg = cfg.augmentation
@@ -181,22 +192,45 @@ class Trainer:
             self.dataset_window = (float(ds.window_width),
                                    float(g(ds, "window_center", 0.0) or 0.0),
                                    float(g(ds, "window_scale", 2.0) or 2.0))
+        if self.use_multi_window and self.dataset_window is None:
+            raise ValueError("multi-window training computes losses across HU windows; "
+                             "set dataset.window_width/window_center/window_scale")
+
+    def _make_step(self, state):
+        """The training mode's step on `state`'s models."""
+        dtype = self.compute_dtype or torch.float32
+        first = dict(aug_cfg=self.aug_cfg, dict_size=self.dict_size, compute_dtype=dtype,
+                     device=self.device)
+        if self.use_multi_window:
+            loss = self.config.loss
+            mw = dict(dataset_window=self.dataset_window,
+                      recon_weights=tuple(g(loss, "recon_weights", (1, 1, 1))),
+                      freq_weights=tuple(g(loss, "freq_weights", (1, 1, 1))),
+                      percep_weights=tuple(g(loss, "percep_weights", (1, 1, 1))))
+            use_remat = bool(g(self.config.run, "use_remat", False))
+            if self.training_mode == "first_step":
+                return make_multi_window_first_stage_step(
+                    state.encoder, state.decoder, loss_cfg=self.first_cfg, **first, **mw)
+            if self.training_mode == "second_step":
+                return make_multi_window_second_stage_step(
+                    state.encoder, state.decoder, state.discriminator,
+                    loss_cfg=self.second_cfg, use_remat=use_remat, device=self.device, **mw)
+            return make_joint_step(
+                state.encoder, state.decoder, state.discriminator, first_cfg=self.first_cfg,
+                second_cfg=self.second_cfg, use_remat=use_remat, **first, **mw)
+        if self.training_mode == "second_step":
+            return make_second_stage_step(
+                state.encoder, state.decoder, state.discriminator,
+                loss_cfg=self.second_cfg, dis_type=self.dis_type, device=self.device)
+        return make_first_stage_step(state.encoder, state.decoder, loss_cfg=self.first_cfg,
+                                     **first)
 
     def train_step(self, state, image, draws=None):
-        """One step of `state` in the training mode, first or second stage
-        (built once per state's models)."""
+        """One step of `state` in the training mode (built once per state's
+        models)."""
         models = (state.encoder, state.decoder, state.discriminator)
         if self._step is None or self._step[0] != models:
-            if self.training_mode == "second_step":
-                fn = make_second_stage_step(
-                    state.encoder, state.decoder, state.discriminator,
-                    loss_cfg=self.second_cfg, dis_type=self.dis_type, device=self.device)
-            else:
-                fn = make_first_stage_step(
-                    state.encoder, state.decoder, loss_cfg=self.first_cfg,
-                    aug_cfg=self.aug_cfg, dict_size=self.dict_size,
-                    compute_dtype=self.compute_dtype or torch.float32, device=self.device)
-            self._step = (models, fn)
+            self._step = (models, self._make_step(state))
         return self._step[1](state, image, draws)
 
     # ------------------------------------------------------------------
@@ -300,11 +334,13 @@ class Trainer:
     def fit(self, state=None, max_epochs: Optional[int] = None, max_steps=None):
         cfg = self.config
         run = cfg.run
-        if self.training_mode not in TRAINING_MODES:
+        modes = MULTI_WINDOW_TRAINING_MODES if self.use_multi_window else TRAINING_MODES
+        if self.training_mode not in modes:
             raise ValueError(
                 f"run.training_mode {self.training_mode!r} has no training step here — "
-                "the training modes are 'first_step' and 'second_step'; 'inference' "
-                "and 'test' are test-only (run with -m test)")
+                "the training modes are 'first_step', 'second_step' (and 'joint_step' "
+                "with the multi-window trainer); 'inference' and 'test' are test-only "
+                "(run with -m test)")
         n_epochs = int(max_epochs if max_epochs is not None else run.n_epochs)
         loader = self.dataloader("train")
         if len(loader) == 0:
@@ -495,19 +531,27 @@ class Trainer:
     # test / inference
     # ------------------------------------------------------------------
     def test(self, state, save_dir_path: Optional[str] = None):
-        """"inference" mode: the per-slice export, returns the directories
-        written. Otherwise: (per-batch metric dicts, result.csv path)."""
+        """"inference" mode: the per-slice export; the multi-window trainer:
+        the HU-denormalized per-slice NIfTI export under `save.save_dir`;
+        both return the directories written. Otherwise: (per-batch metric
+        dicts, result.csv path)."""
         loader = self.dataloader("test")
-        if self.training_mode == "inference":
+        if self.training_mode == "inference" or self.use_multi_window:
             forward = evaluate.make_eval_forward(state.encoder, state.decoder,
                                                  device=self.device)
+            save_root = str(self.config.save.save_dir)
             written = []
             for batch in loader:
-                written += evaluate.inference_export(
-                    forward, batch, dataset_name=str(self.config.dataset.dataset_name),
-                    dict_size=self.eval_dict_size, save_root=str(self.config.save.save_dir),
-                    study_name=str(self.config.save.study_name),
-                    to_lung_fn=self.to_lung if self.dataset_window else None)
+                if self.training_mode == "inference":
+                    written += evaluate.inference_export(
+                        forward, batch, dataset_name=str(self.config.dataset.dataset_name),
+                        dict_size=self.eval_dict_size, save_root=save_root,
+                        study_name=str(self.config.save.study_name),
+                        to_lung_fn=self.to_lung if self.dataset_window else None)
+                else:
+                    written += evaluate.multi_window_test_export(
+                        forward, batch, save_root=save_root,
+                        denormalize_fn=self.denormalize_ct_values)
             return written
 
         fm = evaluate.make_test_metrics_fn(state.encoder, state.decoder, self.dict_size,

@@ -7,7 +7,7 @@ reference `src/utils/logger.py:79-91`, `src/trainers/base.py:85-114`,
   * the whole train state — both modules with the VQ buffers (`embed`,
     `cluster_size`, `embed_avg`: without them the codebook is lost), both
     Adam states, the generator, step and epoch, and in the second stage
-    the discriminator (with its spectral-norm vectors) and its Adam under
+    and the multi-window joint step the discriminator (with its spectral-norm vectors) and its Adam under
     `discriminator` and `dis_opt` (`TrainState.state_dict`) — is one
     `state.pt` in a directory `ckpt-epoch=EEEE` (epoch end) or
     `ckpt-epoch=EEEE-step=SSSSSSSS` (mid-epoch);

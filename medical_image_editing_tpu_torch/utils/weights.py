@@ -13,7 +13,9 @@ export derives it). Inputs are nested dicts of arrays (numpy, or anything
 `np.asarray` takes); outputs are dicts of CPU tensors that the port's
 modules load with `load_state_dict(strict=True)`.
 
-`load_lightning_state` reads a Lightning-shaped `.ckpt` (as the JAX
+`load_jax_train_state` loads a whole JAX `TrainState` into a port one (the
+tests start both sides from it). `load_lightning_state` reads a
+Lightning-shaped `.ckpt` (as the JAX
 package's `cli/export_ckpt.py` writes it) into per-module state dicts.
 """
 
@@ -235,6 +237,25 @@ def from_jax_train_state(state, *, D_attn: str = "0") -> Dict[str, StateDict]:
     if dis_vars:
         out["discriminator"] = from_jax_discriminator(dis_vars, D_attn=D_attn)
     return out
+
+
+def load_jax_train_state(port_state, jax_state, *, D_attn: str = "0"):
+    """Load a JAX `TrainState` (its `enc_vars`, `vq`, `dec_vars` and
+    `dis_vars` as arrays) into a port `TrainState` in place, every module
+    with `strict=True`: a joint or second-stage state's encoder with its
+    codebook, decoder and U-Net discriminator. A port state with a
+    discriminator needs JAX `dis_vars`; a JAX discriminator beside a port
+    state without one (the JAX trainer builds it in every mode) is not
+    loaded. Adam's moments are not carried. Returns `port_state`."""
+    sds = from_jax_train_state(jax_state, D_attn=D_attn)
+    for part in ("encoder", "decoder", "discriminator"):
+        module = getattr(port_state, part)
+        if module is None:
+            continue
+        if part not in sds:
+            raise KeyError(f"the JAX state has no {part} for the port state's")
+        module.load_state_dict(sds[part], strict=True)
+    return port_state
 
 
 def load_lightning_state(path: str) -> Dict[str, StateDict]:

@@ -433,19 +433,21 @@ def test_cuda_generator_checkpoint_round_trip(cuda, tmp_path):
                        torch.rand(1000, generator=fresh.generator, device=cuda))
 
 
-def _second_stage_state(device, seed=0):
+def _second_stage_state(device, seed=0, dtype=None):
     """A small second-stage state: encoder (4, 32, 8, 16, 16) (3 routed
-    convs at 32²), decoder (32, 8, 8, 16, 16) (10), f32, the U-Net
-    discriminator at D_ch 4 and resolution 128, the lung config's Adams."""
+    convs at 32²), decoder (32, 8, 8, 16, 16) (10), f32 (or the compute
+    `dtype`), the U-Net discriminator (f32) at D_ch 4 and resolution 128,
+    the lung config's Adams."""
     from medical_image_editing_tpu_torch.models import UNetDecoder, UNetDiscriminator
     from medical_image_editing_tpu_torch.models.blocks import seeded_init
     from medical_image_editing_tpu_torch.models.unet_encoder import EncoderWithVQ
     from medical_image_editing_tpu_torch.train import state as tstate
 
     gen = torch.Generator().manual_seed(seed)
-    enc = seeded_init(EncoderWithVQ(1, (4, 32, 8, 16, 16), 6, knn_backend="pallas"), gen)
+    enc = seeded_init(EncoderWithVQ(1, (4, 32, 8, 16, 16), 6, knn_backend="pallas",
+                                    dtype=dtype), gen)
     dec = seeded_init(UNetDecoder(4, 1, (32, 8, 8, 16, 16), dropped_skip_layers=(),
-                                  use_pixel_shuffle=False), gen)
+                                  use_pixel_shuffle=False, dtype=dtype), gen)
     dis = UNetDiscriminator(D_ch=4, D_attn="0", resolution=128).init_weights(gen)
     enc, dec, dis = enc.to(device), dec.to(device), dis.to(device)
     return tstate.create_train_state(
@@ -542,3 +544,149 @@ def test_second_stage_resume_on_card(cuda, monkeypatch, tmp_path):
 
     floor = gap(a, a2)
     assert gap(a, b) <= 5 * floor, (gap(a, b), floor)
+
+
+# the first stage's terms that an id flipped at a near tie inside the step
+# moves (through the other view's warped ids, or the reconstruction): held
+# to rtol 1e-2, as `chip_smoke.py`'s card-vs-CPU steps hold them
+ID_MOVED_LOSSES = ("cross", "dist", "recon", "freq", "total", "gen_total")
+
+
+def _routed_convs(module, x):
+    """How many convolutions a forward of `module` on x (B,H,W,C) sends to
+    the packed kernel, counted on the meta device."""
+    import copy
+
+    from medical_image_editing_tpu_torch.models.blocks import Conv
+
+    count = [0]
+    meta = copy.deepcopy(module).to("meta")
+    for m in meta.modules():
+        if isinstance(m, Conv):
+            m.register_forward_pre_hook(
+                lambda m, args: count.__setitem__(0, count[0] + int(m.routes_to_kernel(args[0]))))
+    with torch.no_grad():
+        meta(torch.zeros(x.shape, device="meta").permute(0, 3, 1, 2))
+    return count[0]
+
+
+def _joint_step(state, device, dtype=torch.float32, use_remat=False):
+    from medical_image_editing_tpu_torch.train import first_stage as tfs
+    from medical_image_editing_tpu_torch.train import multi_window as tmw
+    from medical_image_editing_tpu_torch.train import second_stage as tss
+
+    aug = {"modules": ["RandomHorizontalFlip", "RandomAffine", "RandomGaussianNoise"],
+           "RandomHorizontalFlip": {"p": 0.5},
+           "RandomAffine": {"degrees": 10.0, "translate": [0.05, 0.05], "p": 0.8},
+           "RandomGaussianNoise": {"std": 0.05, "p": 0.5}}
+    return tmw.make_joint_step(state.encoder, state.decoder, state.discriminator,
+                               first_cfg=tfs.FirstStageLossConfig(w_recon=10.0, w_reg=0.01),
+                               second_cfg=tss.SecondStageLossConfig(use_unet_perceptual_loss=False),
+                               aug_cfg=aug, dict_size=6, dataset_window=(4096.0, 0.0, 2.0),
+                               compute_dtype=dtype, use_remat=use_remat, device=device), aug
+
+
+@pytest.mark.gpu
+def test_joint_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One multi-window joint step (f32, 64², batch 2) on the CPU and on the
+    card from the same weights, codebook and draws: the packed route's
+    launches derived from the model (per view every routed conv of encoder
+    and decoder, forward and dx; one assignment per view); the ids each
+    view quantizes to, equal on both; the losses (rtol 1e-3; 1e-2 for
+    `ID_MOVED_LOSSES`); the gradients of encoder, decoder and discriminator
+    read from Adam's first moment within 5× the floor or 1e-4, the floor
+    the larger of the card's two conv routes against each other and the
+    CPU step against itself perturbed at the rounding level (native
+    convolutions, one-ulp noise on the quantized features, as the CPU tests
+    perturb it). An id that flips at a near tie inside the step moves the
+    gradients far more than rounding: at 128² one of 32,768 flipped and
+    moved the decoder's by 13% (measured), so the ids are held equal first
+    and the size is one at which none flips."""
+    from medical_image_editing_tpu_torch.ops.augment import sample_view_draws
+    from medical_image_editing_tpu_torch.train import first_stage as tfs
+    from medical_image_editing_tpu_torch.train import second_stage as tss
+
+    size = 64
+    x = np.random.default_rng(8).uniform(-1, 1, size=(2, size, size, 1)).astype(np.float32)
+    cpu_state = _second_stage_state("cpu")
+    tfs.init_codebook_step(cpu_state.encoder)(cpu_state, x)
+    start = {m: {k: v.clone() for k, v in getattr(cpu_state, m).state_dict().items()}
+             for m in ("encoder", "decoder", "discriminator")}
+    _, aug = _joint_step(cpu_state, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    views = [sample_view_draws(gen, aug, 2, size, size) for _ in range(2)]
+    cut = tss.sample_cutmix_draws(gen, 3, size, size)
+    real = tfs.encode_quantize
+    out = {}
+    for name, device, route in (("cpu", "cpu", "packed"), ("cpu_floor", "cpu", "packed"),
+                                ("card", cuda, "packed"), ("card_xla", cuda, "xla")):
+        monkeypatch.setenv("MEDIMG_CONV_IMPL", route)
+        ids, noise = [], torch.Generator().manual_seed(0)
+
+        def recorded(*args, **kw):
+            q, commit, idx, vq = real(*args, **kw)
+            ids.append(idx.detach().cpu())
+            if name == "cpu_floor":
+                up = torch.randint(0, 2, q.shape, generator=noise).bool()
+                moved = torch.where(up, torch.nextafter(q, q + 1), torch.nextafter(q, q - 1))
+                q = q + (moved - q).detach()
+            return q, commit, idx, vq
+
+        monkeypatch.setattr(tfs, "encode_quantize", recorded)
+        state = _second_stage_state(device)
+        for m, sd in start.items():
+            getattr(state, m).load_state_dict(sd)
+        on = [{part: [None if d is None else {k: None if v is None else v.to(device)
+                                              for k, v in d.items()} for d in ds]
+               for part, ds in view.items()} for view in views]
+        on.append([(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
+                   for box, inv in cut])
+        _build.launches.clear()
+        step, _ = _joint_step(state, device)
+        with torch.backends.mkldnn.flags(enabled=name != "cpu_floor"):
+            _, metrics = step(state, x, draws=tuple(on))
+        if name == "card":
+            torch.cuda.synchronize()
+            n = _routed_convs(state.encoder, x) + _routed_convs(
+                state.decoder, np.zeros((2, size, size, 4), np.float32))
+            assert dict(_build.launches) == {tcp.KERNEL: 4 * n, tvqf.KERNEL: 2}
+        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
+                               for p in getattr(state, m).parameters()])
+                 for m, o in (("encoder", state.enc_opt), ("decoder", state.dec_opt),
+                              ("discriminator", state.dis_opt))}
+        out[name] = ({k: float(v) for k, v in metrics.items()}, grads, ids)
+    monkeypatch.setattr(tfs, "encode_quantize", real)
+    (m_cpu, g_cpu, ids_cpu), (m_card, g_card, ids_card) = out["cpu"], out["card"]
+    assert [int((a != b).sum()) for a, b in zip(ids_card, ids_cpu)] == [0, 0]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    bad = []
+    for k, v in m_cpu.items():
+        rtol = 1e-2 if k in ID_MOVED_LOSSES else 1e-3
+        if abs(m_card[k] - v) > rtol * abs(v) + 1e-6:
+            bad.append((k, m_card[k], v))
+    for m in g_cpu:
+        floor = max(rel(out["card_xla"][1][m], g_card[m]), rel(out["cpu_floor"][1][m], g_cpu[m]))
+        err = rel(g_card[m], g_cpu[m])
+        if err > max(5 * floor, 1e-4):
+            bad.append((m, err, floor))
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_remat", [False, True])
+def test_joint_step_goes_through_both_kernels(cuda, monkeypatch, use_remat):
+    """A bf16 joint step on the card: 4 × (3 + 10) conv launches (both views,
+    forward and dx) and 2 VQ launches, the discriminator's convolutions on
+    cuDNN; with `use_remat` the same launches and finite losses."""
+    monkeypatch.setenv("MEDIMG_CONV_IMPL", "packed")
+    state = _second_stage_state(cuda, dtype=torch.bfloat16)
+    step, _ = _joint_step(state, cuda, dtype=torch.bfloat16, use_remat=use_remat)
+    x = np.random.default_rng(7).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
+    _build.launches.clear()
+    state, metrics = step(state, x)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10), tvqf.KERNEL: 2}
+    assert all(torch.isfinite(v) for v in metrics.values())

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse to fall back to the CPU, `chip_smoke.py` fails
-without a card, and its serve, train, serve_runtime, trainer and
-second_stage phases run end to end at tiny size on the CPU.
+without a card, and its serve, train, serve_runtime, trainer,
+second_stage and multi_window phases run end to end at tiny size on the
+CPU.
 """
 
 import importlib.util
@@ -60,7 +61,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 46
+    assert len(modules) >= 47
 
 
 def test_entry_points_refuse_missing_card():
@@ -223,4 +224,45 @@ def test_chip_smoke_second_stage_phase_on_cpu(tmp_path, capsys):
     assert run["codebook_rel_distance_from_staged"] > 0
     assert run["result_csv"][0][1:] == ["Entropy_avg", "Entropy_std", "NMSE_avg", "NMSE_std",
                                         "PSNR_avg", "PSNR_std", "SSIM_avg", "SSIM_std"]
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+
+
+def test_chip_smoke_multi_window_phase_on_cpu(tmp_path, capsys):
+    """The multi_window phase end to end at tiny size on the CPU, over a
+    seeded tree of 2 × 5 slices (5 steps an epoch, as on the card): (a) the
+    bare joint steps, the discriminator's operations counted on the meta
+    device, the first and second steps; (c) the card-vs-CPU comparison
+    (here CPU against CPU: exact); (b) runs A and B, the resume held, the
+    validation maps, the HU export, the painted decode, the planted faulty
+    resume that the check catches; no kernel launch."""
+    import numpy as np
+
+    smoke = _chip_smoke()
+    smoke.write_lung_tree(tmp_path / "data", np.random.default_rng(0), patients=2, slices=5,
+                          size=32)
+    overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
+                                   "dec_filters": [32, 8, 8, 16, 16]},
+                 "dataset": {"batch_size": 2}, "model.dis": {"D_ch": 4, "resolution": 128}}
+    with smoke.conv_route("packed"):
+        launches = smoke.multi_window_phase("cpu", tmp_path, size=32, batch=2, steps=2,
+                                            ref_size=32, overrides=overrides)
+    assert launches == {}
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith('{"phase": "multi_window"')]
+    steps = {r["mode"]: r for r in recs if r["part"] == "step"}
+    ref = next(r for r in recs if r["part"] == "reference")
+    run = next(r for r in recs if r["part"] == "run")
+    assert sorted(steps) == ["first_step", "joint_step", "second_step"]
+    joint = steps["joint_step"]
+    assert joint["routed_convs"] == {"encoder": 0, "decoder": 10} and len(joint["step_s"]) == 2
+    # 6 generator-pass forwards and input gradients, 18 forwards and their
+    # backward: ~66 forward-equivalents
+    assert 60 < joint["dis_step_forward_equivalents"] < 72
+    assert ref["id_mismatches_clear"] == 0 and max(ref["loss_rel_err"].values()) == 0.0
+    assert run["counters"] == {"A": [6, 1], "B": [6, 1]} and run["same_batch_stream"]
+    assert all(v == 0.0 for part in ("encoder", "decoder", "discriminator", "codebook")
+               for v in run["resume_gap"][part].values())
+    assert run["planted_fault_gap"]["discriminator"]["sn_max"] > 0
+    assert len(run["validation_grids"]) == 4
+    assert run["exported"] == {"image_": 10, "recon_": 10, "label_": 10}
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"

@@ -365,15 +365,24 @@ def test_staged_first_stage_from_checkpoint_and_lightning(env, port_fit):
 @pytest.mark.parametrize("what", ["multiwindow", "vqgan", "second_step", "joint_step",
                                   "dropblock", "perceptual", "discriminator"])
 def test_parts_not_ported_are_refused(env, what):
-    """The second stage itself is ported (tests/test_torch_port_gan.py);
-    "second_step" and "discriminator" check what of it is not: the
-    PatchGAN's actnorm and projection discrimination."""
+    """The second stage and the multi-window trainer are ported
+    (tests/test_torch_port_gan.py, tests/test_torch_port_multi_window*.py);
+    "second_step", "discriminator", "multiwindow" and "joint_step" check
+    what of them is not: the PatchGAN's actnorm, projection discrimination,
+    the perceptual loss under `-w`, projection discrimination in the joint
+    step."""
     cfg = _config(env.root)
     kw = {}
-    if what in ("multiwindow", "vqgan"):
-        kw = {"use_multi_window": what == "multiwindow", "use_vqgan": what == "vqgan"}
+    if what == "multiwindow":
+        kw = {"use_multi_window": True}
+        cfg["loss"]["use_perceptual_loss"] = True
+    elif what == "vqgan":
+        kw = {"use_vqgan": True}
     elif what == "joint_step":
+        kw = {"use_multi_window": True}
         cfg["run"]["training_mode"] = what
+        cfg["model"]["dis"] = {"model_name": "UNetDiscriminator", "D_ch": 4,
+                               "resolution": 128, "n_classes": 3}
     elif what == "second_step":
         cfg["run"]["training_mode"] = what
         cfg["model"]["dis"]["normalization"] = "actnorm"

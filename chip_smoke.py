@@ -101,11 +101,31 @@ and no result line):
                grids with the discriminator's maps, `-m test` (the HU NIfTI
                export), a painted decode of an exported label map, launches
                held, and a planted faulty resume whose gap is printed;
+  8d. vqgan — the VQGAN trainer at the widths of `configs/crc_vqgan.json`
+               (f32 VQGAN, 126 M parameters, its 64 × 512 codebook on the VQ
+               kernel's generic instance; the f32 U-Net discriminator at
+               D_ch 64, resolution 512), `MEDIMG_CONV_IMPL=packed` (no
+               convolution routes to the conv kernel: 0 launches, held),
+               512², batch 8: (a) 5 bare steps of `make_vqgan_step`,
+               launches held (one assignment a step, the instance seen by
+               the profiler), peak memory, a profiled warm step (busy, idle,
+               top kernels, the VQ kernel's share), the discriminator's work
+               and the VQGAN's forward and backward alone (shares of busy,
+               f32 rates against the operations counted from the models), a
+               painted 16² bottleneck map decoded through
+               `generate_image_from_ids`; (c) one step at 128², batch 2, f32,
+               on the card held to the CPU path; (b) `run_vqwnet.main -v`
+               over a seeded CRC tree of 2 × 20 slices of 512²: run A 6
+               steps, run B 3 and a resume to 6 held to A within
+               VQGAN_RESUME_GAP_LIMIT, `-m test` (result.csv), the
+               "inference" export of the 0-based label maps, launches held,
+               and a planted faulty resume (the codebook's EMA buffers
+               dropped) whose gap is printed;
   9. kernels — one line listing every hand-written kernel of the paths.
 The serve, serve_runtime (its packed route), train, trainer, second_stage
-(a) and (b), and multi_window (a) (each mode) and (b) phases are the main
-paths: each zeroes the launch counts just before it and reads them just
-after.
+(a) and (b), multi_window (a) (each mode) and (b), and vqgan (a) and (b)
+phases are the main paths: each zeroes the launch counts just before it
+and reads them just after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
@@ -135,6 +155,7 @@ ROOT = Path(__file__).resolve().parent
 MODEL_CONFIG = ROOT / "configs" / "lung_first_stage.json"
 SECOND_CONFIG = ROOT / "configs" / "lung_second_stage.json"
 MW_CONFIG = ROOT / "configs" / "lung_multiwindow_joint.json"
+VQGAN_CONFIG = ROOT / "configs" / "crc_vqgan.json"
 # the resumed second-stage run against the uninterrupted one
 # (`second_stage_run_part.state_gap`), each limit between the gaps measured
 # on an H100 (resume; planted fault): the discriminator's parameters RMS
@@ -169,6 +190,20 @@ MW_RESUME_GAP_LIMIT = {
     "discriminator": {"params_rms_lr": 0.1, "moments_rel": 0.05, "sn_max": 0.03},
     "codebook": {"rel": 0.1},
 }
+# the resumed VQGAN run against the uninterrupted one
+# (`vqgan_run_part.state_gap`), each limit between the gaps measured on an
+# H100 (resume; planted fault, the codebook's EMA buffers dropped): the
+# VQGAN's parameters RMS 0.015 lr; 0.159 lr, its Adam moments 0.014; 0.133,
+# the discriminator's parameters 0.0034 lr; 0.023 lr, its moments 0.024;
+# 0.155, its spectral-norm vectors 1.0e-4; 3.4e-3, the codebook's embed
+# 4e-10; 1e5, counts 0; 0.46, sums 8.3e-4; 1.8e4 (relative). The card's f32
+# weight gradients are not reproducible run to run, so the resume is not
+# held to 0
+VQGAN_RESUME_GAP_LIMIT = {
+    "decoder": {"params_rms_lr": 0.08, "moments_rel": 0.08},
+    "discriminator": {"params_rms_lr": 0.015, "moments_rel": 0.1, "sn_max": 0.001},
+    "codebook": {"embed": 0.01, "cluster_size": 0.01, "embed_avg": 0.01},
+}
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
 # tensor cores, bf16 on the dense tensor cores
@@ -177,12 +212,14 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
 
 # (N, C, K): the serve encode (8 slices at 512², C=16, K=10) first, then the
-# JAX package's VQ operating points, a ragged N, and N past one launch's row
-# limit (2**24, walked in two chunks)
+# JAX package's VQ operating points, the VQGAN step's (8 × 16² rows against
+# its 64 × 512 codebook), a ragged N, and N past one launch's row limit
+# (2**24, walked in two chunks)
 VQ_POINTS = [
     (8 * 512 * 512, 16, 10),
     (524288, 16, 10),
     (8192, 512, 64),
+    (2048, 512, 64),
     (32768, 64, 512),
     (1000003, 16, 10),
     (2**24 + 3, 16, 10),
@@ -264,11 +301,10 @@ def device_us(e):
         e, "self_cuda_time_total", 0.0)
 
 
-def profile_window(fn):
-    """One call of fn() under torch.profiler, synchronised: (wall s, CUDA
-    kernel events)."""
+def _profiled(fn):
+    """One call of fn() under torch.profiler, synchronised: (wall s,
+    profile)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -276,8 +312,41 @@ def profile_window(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return wall, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return time.perf_counter() - t0, prof
+
+
+def _cuda_kernels(prof):
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def profile_window(fn):
+    """One call of fn() under torch.profiler, synchronised: (wall s, CUDA
+    kernel events)."""
+    wall, prof = _profiled(fn)
+    return wall, _cuda_kernels(prof)
+
+
+def profile_union(fn):
+    """As `profile_window`, and the device busy time as the union of the
+    kernels' intervals: (wall s, CUDA kernel events, busy s). The union,
+    not the sum, is the time the card was busy when kernels overlap
+    (cuDNN's FFT convolutions run on more than one stream)."""
+    from torch.autograd import DeviceType
+
+    wall, prof = _profiled(fn)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return wall, _cuda_kernels(prof), busy / 1e6
 
 
 def device_ms(fn, match=None, iters=20, tries=3, names=None):
@@ -2591,6 +2660,502 @@ def multi_window_run_part(device, workdir, overrides, *, seed=0):
     return launches
 
 
+# --------------------------------------------------------------------------
+# the VQGAN trainer (`run_vqwnet -v`)
+# --------------------------------------------------------------------------
+
+
+def vqgan_config(overrides=None, **sections):
+    """`configs/crc_vqgan.json` as a dict (see `second_config`)."""
+    return second_config(overrides, path=VQGAN_CONFIG, **sections)
+
+
+def vqgan_state(cfg, device, seed):
+    """The VQGAN trainer's fresh state for `cfg` (a dict): the VQGAN as
+    `seeded_init` fills it (random-normal codebook), the U-Net
+    discriminator as the JAX module initialises, both Adams, the
+    generator."""
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    trainer = Trainer(to_config(cfg), device=device, seed=seed, use_vqgan=True)
+    return trainer, trainer.init_state()
+
+
+def vqgan_flops(vqgan, batch, size):
+    """Operations of the VQGAN's forward and backward at the step's shapes,
+    counted by `torch.utils.flop_counter` on the meta device (the VQ
+    assignment, outside the counter's operators, aside): (forward and
+    backward, forward)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    meta = copy.deepcopy(vqgan).to("meta")
+    x = torch.zeros(batch, 1, size, size, device="meta")
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        meta.decoder(meta.encoder(x))
+    fwd = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc:
+        meta.decoder(meta.encoder(x)).sum().backward()
+    return fc.get_total_flops(), fwd
+
+
+def vqgan_phase(device, workdir, *, size=512, batch=8, steps=5, seed=0, overrides=None,
+                ref_size=128, patients=2, slices=20):
+    """The VQGAN trainer at the widths of `configs/crc_vqgan.json`
+    (`overrides` shrinks it for a CPU rehearsal): (a) the bare step and a
+    painted decode, (c) one step held to the CPU path on a small input,
+    (b) the run through `run_vqwnet.main -v` over a seeded CRC tree in
+    `workdir`. Returns the launches of (a) and (b)."""
+    launches = vqgan_step_part(device, overrides, size=size, batch=batch, steps=steps,
+                               seed=seed)
+    vqgan_reference_part(overrides, size=ref_size, seed=seed + 1, card=device)
+    run = vqgan_run_part(device, workdir, overrides, size=size, patients=patients,
+                         slices=slices, seed=seed)
+    return {k: launches.get(k, 0) + run.get(k, 0) for k in set(launches) | set(run)}
+
+
+def vqgan_step_part(device, overrides, *, size, batch, steps, seed):
+    """(a) `make_vqgan_step` through the trainer from seeded weights,
+    `steps` steps under `MEDIMG_CONV_IMPL=packed` (the VQGAN's and the
+    discriminator's convolutions are cuDNN's, so the conv kernel launches
+    0 times), launches held to the derived counts (one assignment a step,
+    the VQ kernel's instance for the config's codebook), peak memory; on
+    the card one profiled warm step (busy, idle share, top kernels, the VQ
+    kernel's device time and instance), the discriminator's work alone
+    (its share of busy, its f32 rate against the operations counted from
+    the model) and the VQGAN's forward and backward alone under the
+    profiler. Then a painted bottleneck map decoded through
+    `generate_image_from_ids`, timed."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.ops.vq_fused import kernel_path
+    from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+
+    cfg = vqgan_config(overrides)
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    trainer, state = vqgan_state(cfg, device, seed)
+    v = cfg["model"]["vqgan"]
+    n_inner = trainer.second_cfg.n_inner_loops
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    vq_on = str(cfg["model"]["vqmodel"]["knn_backend"]) in ("pallas", "faiss")
+    want = {"conv3x3_packed": 0, "vq_fused": steps if vq_on else 0}
+    before = {m: next(getattr(state, m).parameters()).detach().clone()
+              for m in ("decoder", "discriminator")}
+    counts0 = state.vq.cluster_size.clone()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    _build.launches.clear()
+    # -- main path: the steps
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, images)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    moved = {m: not torch.equal(b, next(getattr(state, m).parameters()).detach())
+             for m, b in before.items()}
+    moved["codebook"] = not torch.equal(counts0, state.vq.cluster_size)
+    finite = all(np.isfinite(x) for m in losses for x in m.values())
+    dis_flops, dis_fwd = dis_step_flops(state.discriminator, batch, size, n_inner)
+    gen_flops, gen_fwd = vqgan_flops(state.decoder, batch, size)
+    rec = {
+        "phase": "vqgan", "part": "step", "device": str(device), "size": size, "batch": batch,
+        "steps": steps, "n_inner_loops": n_inner, "vqgan": v, "dis": cfg["model"]["dis"],
+        "vqgan_parameters": sum(p.numel() for p in state.decoder.parameters()),
+        "dis_parameters": sum(p.numel() for p in state.discriminator.parameters()),
+        "codebook": list(state.vq.embed.shape),
+        "vq_instance": kernel_path(int(v["emb_dim"]), int(v["dict_size"])) if cuda else None,
+        "launches": launches, "launches_expected": want if cuda else {},
+        "step_s": step_s, "warm_step_s_median": float(np.median(step_s[1:] or step_s)),
+        "losses_first": losses[0], "losses_last": losses[-1],
+        "max_memory_allocated_bytes": peak,
+        "vqgan_flop": gen_flops, "vqgan_forward_flop": gen_fwd, "dis_forward_flop": dis_fwd,
+        "dis_step_flop": dis_flops, "dis_step_forward_equivalents": dis_flops / dis_fwd,
+        "step_flop": gen_flops + dis_flops,
+        "step_f32_floor_s": (gen_flops + dis_flops) / PEAK_F32_FLOP_PER_S,
+    }
+    x = torch.as_tensor(images, device=device).permute(0, 3, 1, 2)
+    if cuda:
+        wall, kernels, union = profile_union(lambda: trainer.train_step(state, images))
+        rec["profile"] = kernel_breakdown(wall, kernels, 12)
+        rec["vq_path_seen"] = vq_path([e.key for e in kernels])
+        busy = rec["profile"]["device_busy_s"]  # the kernels' times summed
+        rec["device_busy_union_s"] = union
+        rec["device_idle_share_of_warm_step"] = 1.0 - union / rec["warm_step_s_median"]
+        rec["vq_share_of_step_busy"] = rec["profile"]["vq_fused_device_s"] / busy
+        # the discriminator's work alone, on a copy, with one step's draws
+        dis = copy.deepcopy(state.discriminator)
+        dis_opt = torch.optim.Adam(dis.parameters(), lr=4e-4, betas=(0.5, 0.999))
+        recon = torch.tanh(x + 0.1 * torch.randn_like(x))
+        draws = sample_cutmix_draws(torch.Generator(device=device).manual_seed(seed), n_inner,
+                                    size, size)
+        dis_work(dis, x, recon, draws, dis_opt)
+        dwall, dkernels, dunion = profile_union(lambda: dis_work(dis, x, recon, draws, dis_opt))
+        del dis, dis_opt, recon
+        dbusy = sum(device_us(e) for e in dkernels) / 1e6
+        # the VQGAN's forward (train mode, on a copy) and backward alone
+        gen = copy.deepcopy(state.decoder)
+
+        def gen_work():
+            r, c, _, _ = gen(x, train=True)
+            ((r - x).pow(2).mean() + c).backward()
+
+        gen_work()
+        gwall, gkernels, gunion = profile_union(gen_work)
+        del gen
+        gbusy = sum(device_us(e) for e in gkernels) / 1e6
+        rec.update({
+            "dis_work_device_busy_s": dbusy, "dis_work_busy_union_s": dunion,
+            "dis_share_of_step_busy": dbusy / busy,
+            "dis_work_top": kernel_breakdown(dwall, dkernels, 6)["top"],
+            "dis_achieved_f32_flop_per_s": dis_flops / dunion,
+            "dis_share_of_f32_peak": dis_flops / dunion / PEAK_F32_FLOP_PER_S,
+            "dis_f32_floor_s": dis_flops / PEAK_F32_FLOP_PER_S,
+            "vqgan_work_device_busy_s": gbusy, "vqgan_work_busy_union_s": gunion,
+            "vqgan_share_of_step_busy": gbusy / busy,
+            "vqgan_work_top": kernel_breakdown(gwall, gkernels, 6)["top"],
+            "vqgan_achieved_f32_flop_per_s": gen_flops / gunion,
+        })
+        torch.cuda.empty_cache()
+
+    # the painted decode: the eval forward's bottleneck ids with a disc of
+    # one code and a band of code 0
+    from medical_image_editing_tpu_torch.train.evaluate import make_vqgan_eval_forward
+
+    _, ids = make_vqgan_eval_forward(state.decoder, device=device)(images)
+    painted = torch.as_tensor(paint(ids.cpu().numpy(), np.random.default_rng(seed),
+                                    int(v["dict_size"]) - 1), device=device)
+    vqgan = state.decoder.eval()
+    with torch.inference_mode():
+        out = vqgan.generate_image_from_ids(painted)
+        sync()
+        t0 = time.perf_counter()
+        out = vqgan.generate_image_from_ids(painted)
+        sync()
+        rec["painted_decode_s"] = time.perf_counter() - t0
+        if cuda:
+            rec["painted_decode_ms"] = cuda_ms(lambda: vqgan.generate_image_from_ids(painted),
+                                               warmup=1, iters=5)
+    vqgan.train()
+    rec.update({"painted_ids_shape": list(painted.shape), "painted_out_shape": list(out.shape),
+                "painted_out_range": [float(out.min()), float(out.max())]})
+    decoded = bool(torch.isfinite(out).all()) and tuple(out.shape) == (batch, 1, size, size)
+    rec["card"] = nvidia_smi() if cuda else None
+    emit(rec)
+    del state, trainer, out, vqgan
+    if cuda:
+        torch.cuda.empty_cache()
+    if not finite or not all(moved.values()) or not decoded:
+        raise RuntimeError(f"VQGAN step: finite {finite}, moved {moved}, decoded {decoded}")
+    if cuda and ({k: launches.get(k, 0) for k in want} != want
+                 or rec["vq_path_seen"] != rec["vq_instance"]):
+        raise RuntimeError(f"VQGAN step kernel launches {launches}, derived {want}; VQ "
+                           f"instance {rec['vq_path_seen']}, expected {rec['vq_instance']}")
+    if not cuda and launches:
+        raise RuntimeError(f"CPU tensors launched kernels: {launches}")
+    return launches
+
+
+def vqgan_reference_part(overrides, *, size=128, batch=2, seed=1, card="cuda"):
+    """One VQGAN step on the card vs the same step on the port's CPU path,
+    at the config's widths in f32 (TF32 off) on a small input (128², the
+    512 discriminator's smallest), the same weights and CutMix draws on
+    both. Held: the ids where the top-2 score gap is clear of rounding, every
+    loss (rtol 1e-3), the codebook after the step (rtol 1e-3), and the
+    gradients of the VQGAN and the discriminator read from Adam's first
+    moment (relative Frobenius error) within 5× the card's own floor or
+    1e-4. The floor is the larger of two perturbations of the card's step
+    at the rounding level: cuDNN off (another summation order), and the
+    quantized features moved by one ulp up or down at random
+    (`ulp_nudged_quantization`: at random init every id is one code, the
+    decoder's input is constant over space, and its GroupNorm divides
+    rounding noise by √eps). `card` is the device held to the CPU ("cpu"
+    rehearses the comparison)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops.vq import vq_scores
+    from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+
+    cfg = vqgan_config(overrides)
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    trainer, state = vqgan_state(cfg, "cpu", seed)
+    start = {m: copy.deepcopy(getattr(state, m).state_dict())
+             for m in ("decoder", "discriminator")}
+    draws = sample_cutmix_draws(torch.Generator().manual_seed(seed),
+                                trainer.second_cfg.n_inner_loops, size, size)
+    del state
+    out = {}
+    runs = [("cpu", "cpu", True, False), ("card", card, True, False)]
+    if card == "cuda":
+        runs += [("card_no_cudnn", card, False, False), ("card_ulp", card, True, True)]
+    for name, device, use_cudnn, nudge in runs:
+        trainer, state = vqgan_state(cfg, device, seed)
+        for m, sd in start.items():
+            getattr(state, m).load_state_dict(sd)
+        with torch.no_grad():
+            x = torch.as_tensor(images, device=device).permute(0, 3, 1, 2)
+            vqgan = state.decoder.eval()
+            feats = vqgan.encoder(x).permute(0, 2, 3, 1)
+            ids = vqgan(x, train=False)[2]
+        on = [(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
+              for box, inv in draws]
+        prev_cudnn = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = use_cudnn
+        try:
+            with ulp_nudged_quantization(seed) if nudge else contextlib.nullcontext():
+                _, metrics = trainer.train_step(state, images, draws=on)
+        finally:
+            torch.backends.cudnn.enabled = prev_cudnn
+        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
+                               for p in getattr(state, m).parameters()])
+                 for m, o in (("decoder", state.dec_opt), ("discriminator", state.dis_opt))}
+        out[name] = (feats.cpu(), ids.cpu(), {k: float(v) for k, v in metrics.items()}, grads,
+                     [t.cpu() for t in state.vq])
+        del state, trainer
+    feats, ids_cpu, m_cpu, g_cpu, vq_cpu = out["cpu"]
+    top2 = vq_scores(start["decoder"]["vq.embed"],
+                     feats.reshape(-1, feats.shape[-1])).topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > 1e-4 * top2.abs().max()).reshape(ids_cpu.shape)
+    id_mismatch = int(((out["card"][1] != ids_cpu) & clear).sum())
+    loss_err = {k: abs(out["card"][2][k] - v) / max(abs(v), 1e-6) for k, v in m_cpu.items()}
+    grad_err = {m: float((out["card"][3][m] - g).norm() / g.norm()) for m, g in g_cpu.items()}
+    codebook_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+                       for a, b in zip(out["card"][4], vq_cpu))
+    variants = {name: {m: float((o[3][m] - g).norm() / g.norm())
+                       for m, g in out["card"][3].items()}
+                for name, o in out.items() if name.startswith("card_")}
+    floor = {m: max([v[m] for v in variants.values()], default=0.0) for m in g_cpu}
+    grad_limit = {m: max(5 * f, 1e-4) for m, f in floor.items()}
+    rec = {"phase": "vqgan", "part": "reference", "card": card, "size": size, "batch": batch,
+           "id_mismatches_clear": id_mismatch, "clear_share": float(clear.float().mean()),
+           "loss_rel_err": loss_err, "grad_rel_err": grad_err, "grad_floor_variants": variants,
+           "grad_floor": floor, "grad_limit": grad_limit, "codebook_rel_err": codebook_err,
+           "losses_cpu": m_cpu, "losses_card": out["card"][2],
+           "tolerance": "ids equal where the top-2 score gap > 1e-4·max|score|; losses and "
+                        "the codebook rtol 1e-3; gradients (Adam's first moment) 5x the "
+                        "card's floor (cuDNN off; one-ulp quantized features) or 1e-4"}
+    emit(rec)
+    if id_mismatch or max(loss_err.values()) > 1e-3 or codebook_err > 1e-3 or any(
+            grad_err[m] > grad_limit[m] for m in grad_err):
+        raise RuntimeError(f"card vs CPU VQGAN step: {id_mismatch} clear id mismatches, loss "
+                           f"errors {loss_err}, codebook {codebook_err}, gradient errors "
+                           f"{grad_err}")
+
+
+@contextlib.contextmanager
+def ulp_nudged_quantization(seed=0):
+    """Inside the block the VQGAN's quantized features move by one ulp up
+    or down at random (the gradient still flows straight through)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models import vqgan as tvqgan
+
+    real, gens = tvqgan.vq_apply, {}
+
+    def nudged(*args, **kw):
+        q, *rest = real(*args, **kw)
+        gen = gens.setdefault(q.device, torch.Generator(device=q.device).manual_seed(seed))
+        up = torch.randint(0, 2, q.shape, generator=gen, device=q.device).bool()
+        moved = torch.where(up, torch.nextafter(q, q + 1), torch.nextafter(q, q - 1))
+        return (q + (moved - q).detach(), *rest)
+
+    tvqgan.vq_apply = nudged
+    try:
+        yield
+    finally:
+        tvqgan.vq_apply = real
+
+
+def write_crc_tree(root, rng, *, patients, slices, size):
+    """`patients` × `slices` CRC slices (`make_slices`, mapped from [-1, 1]
+    back to 0-255) as `root/patNN/slice_SSSS.npy`, as `CRCDataset` walks
+    them."""
+    for p in range(patients):
+        d = Path(root) / f"pat{p:02d}"
+        d.mkdir(parents=True)
+        img = (make_slices(rng, slices, size)[..., 0] + 1.0) * 127.5
+        for s in range(slices):
+            np.save(d / f"slice_{s:04d}.npy", img[s].astype(np.float32))
+
+
+def vqgan_run_part(device, workdir, overrides, *, size, patients, slices, seed=0):
+    """(b) The VQGAN trainer as a user runs it: `run_vqwnet.main -v` on
+    `configs/crc_vqgan.json` (`overrides` shrinks it for a CPU rehearsal)
+    over a seeded CRC tree of `patients` × `slices` slices of `size`² (5
+    steps an epoch), 2 epochs. Run A: 6 steps. Run B: stops at 3, resumes
+    to 6; held to A (slice order, counters; parameters and Adam moments of
+    the VQGAN and the discriminator, the spectral-norm vectors and the
+    codebook's EMA buffers within VQGAN_RESUME_GAP_LIMIT). `-m test` writes
+    result.csv, the "inference" export writes the 0-based bottleneck label
+    maps. Launches are held to the derived counts. Off the counted path, a
+    planted fault: B's step-3 save with the codebook's EMA buffers dropped
+    (counts 0, sums = the codebook), resumed to 6; its gap is printed
+    beside the resume's."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.utils import nifti
+    from medical_image_editing_tpu_torch.utils.checkpoint import load_state_file
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir) / "vqgan"
+    write_crc_tree(work / "data", np.random.default_rng(seed + 7), patients=patients,
+                   slices=slices, size=size)
+    base = vqgan_config(overrides, run={"n_epochs": 2})
+    base["dataset"].update(root_dir_path=str(work / "data"), image_size=[size, size])
+    batch = int(base["dataset"]["batch_size"])
+    n_slices = patients * slices
+    steps_per_epoch = n_slices // batch
+    eval_batches = -(-n_slices // batch)
+    total = 6
+    if steps_per_epoch != 5:
+        raise RuntimeError(f"the VQGAN run needs 5 steps an epoch, has {steps_per_epoch}")
+    dict_size = int(base["model"]["vqgan"]["dict_size"])
+    lr = {"decoder": float(base["dec_optim"]["lr"]),
+          "discriminator": float(base["dis_optim"]["lr"])}
+
+    def run(name, argv, **changes):
+        return run_cli(work, base, name, ["-v", *argv], cuda, **changes)
+
+    # runs A and B (B in two parts) take 2 × 6 steps, one assignment each;
+    # eval forwards (one assignment each): validation on 2 batches at the
+    # epoch-0 end of A and of B's resume, the test and the export over
+    # every test batch; no convolution is routed to the conv kernel
+    want = {"conv3x3_packed": 0, "vq_fused": 2 * total + 2 * 2 + 2 * eval_batches}
+    if not cuda:
+        want = {}
+    elif str(base["model"]["vqmodel"]["knn_backend"]) not in ("pallas", "faiss"):
+        want["vq_fused"] = 0
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    # -- main path: train A, train B + resume, test, export
+    t0 = time.perf_counter()
+    with captured_trainers() as trainers, captured_validation() as grids:
+        run_a = run("vA", ["-m", "train", "--max-steps", str(total)])
+        run_b = run("vB", ["-m", "train", "--max-steps", "3"])
+        run("vB", ["-m", "train", "--max-steps", str(total)],
+            run={"resume_checkpoint": str(run_b / "version_0" / "ckpt")})
+        run_t = run("vT", ["-m", "test"],
+                    run={"resume_checkpoint": str(run_a / "version_0" / "ckpt")})
+        run_i = run("vI", ["-m", "test"],
+                    run={"training_mode": "inference",
+                         "resume_checkpoint": str(run_a / "version_0" / "ckpt")})
+        (_, steps_a), (_, steps_b), (_, steps_b2) = trainers[:3]
+        if cuda:
+            torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    steps_resumed = steps_b + steps_b2
+    same_stream = len(steps_a) == len(steps_resumed) == total and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(steps_a, steps_resumed))
+    last = f"ckpt-epoch=0001-step={total:08d}"
+    final_a = load_state_file(str(run_a / "version_0" / "ckpt" / last))
+    final_b = load_state_file(str(run_b / "version_1" / "ckpt" / last))
+    params = {part: {k for k, v in final_a[part].items() if v.is_floating_point()
+                     and not k.startswith("vq.") and not k.endswith(("u0", "sv0"))}
+              for part in ("decoder", "discriminator")}
+
+    def state_gap(x, y):
+        """How far state y is from state x, for the VQGAN and the
+        discriminator: the parameters' RMS difference in learning rates and
+        their largest difference, Adam's moments' relative difference (norm
+        over all of them), the spectral-norm vectors' largest difference;
+        the codebook's embed, counts and sums, each a relative difference."""
+        gap = {}
+        for part, opt in (("decoder", "dec_opt"), ("discriminator", "dis_opt")):
+            keys = sorted(params[part])
+            d = torch.cat([(x[part][k] - y[part][k]).flatten() for k in keys])
+            sx, sy = x[opt]["state"], y[opt]["state"]
+            mx = torch.cat([v.flatten() for i in sorted(sx) for k, v in sx[i].items()
+                            if k != "step"])
+            my = torch.cat([sy[i][k].flatten() if i in sy else torch.zeros_like(v).flatten()
+                            for i in sorted(sx) for k, v in sx[i].items() if k != "step"])
+            sn = [float((x[part][k] - y[part][k]).abs().max()) for k in x[part]
+                  if k.endswith(("u0", "sv0"))]
+            gap[part] = {"params_rms_lr": float(d.pow(2).mean().sqrt()) / lr[part],
+                         "params_max": float(d.abs().max()),
+                         "moments_rel": float((mx - my).norm() / mx.norm()),
+                         "sn_max": max(sn, default=0.0)}
+        gap["codebook"] = {
+            name: float((x["decoder"][f"vq.{name}"] - y["decoder"][f"vq.{name}"]).norm()
+                        / x["decoder"][f"vq.{name}"].norm())
+            for name in ("embed", "cluster_size", "embed_avg")}
+        return gap
+
+    gap = state_gap(final_a, final_b)
+    counters = {"A": (final_a["step"], final_a["epoch"]), "B": (final_b["step"], final_b["epoch"])}
+    warm = []
+    for steps, first_step in ((steps_a, 1), (steps_b, 1), (steps_b2, 4)):
+        t = dict(zip(range(first_step, first_step + len(steps)), (c for c, _ in steps)))
+        warm += [t[k] - t[k - 1] for k in sorted(t) if k - 1 in t and (k - 1) % steps_per_epoch]
+    result = list(csv.reader(open(run_t / "version_0" / "result.csv")))
+    result_finite = len(result) == 2 and all(np.isfinite(float(x)) for x in result[1][1:])
+    labels = sorted(run_i.rglob("label_*.nii.gz"))
+    label_ids = nifti.load(str(labels[0])) if labels else np.zeros(0)
+    bottleneck = size // 2 ** (len(base["model"]["vqgan"]["enc_ch_multiplier"]) - 1)
+
+    # -- the planted fault, off the counted path
+    faulty = load_state_file(str(run_b / "version_0" / "ckpt" / "ckpt-epoch=0000-step=00000003"))
+    faulty["decoder"]["vq.cluster_size"] = torch.zeros_like(faulty["decoder"]["vq.cluster_size"])
+    faulty["decoder"]["vq.embed_avg"] = faulty["decoder"]["vq.embed"].t().clone()
+    planted = work / "vplanted" / "ckpt-epoch=0000-step=00000003"
+    planted.mkdir(parents=True)
+    torch.save(faulty, planted / "state.pt")
+    del faulty
+    run_c = run("vC", ["-m", "train", "--max-steps", str(total)],
+                run={"resume_checkpoint": str(planted)})
+    planted_gap = state_gap(final_a, load_state_file(str(run_c / "version_0" / "ckpt" / last)))
+    rec = {
+        "phase": "vqgan", "part": "run", "device": str(device), "size": size, "batch": batch,
+        "steps": total, "steps_per_epoch": steps_per_epoch, "slices": n_slices,
+        "launches": launches, "launches_expected": want, "path_s": path_s,
+        "fit_step_s": warm, "fit_step_s_median": float(np.median(warm)) if warm else None,
+        "same_batch_stream": same_stream, "counters": counters, "resume_gap": gap,
+        "resume_gap_limit": VQGAN_RESUME_GAP_LIMIT, "planted_fault_gap": planted_gap,
+        "validation_grids": len(grids), "result_csv": result,
+        "label_maps": len(labels), "label_shape": list(np.shape(label_ids)),
+        "label_range": [int(label_ids.min()), int(label_ids.max())] if labels else None,
+        "checkpoint_bytes": os.path.getsize(planted / "state.pt"),
+        "max_memory_allocated_bytes": peak, "card": nvidia_smi() if cuda else None,
+    }
+    emit(rec)
+
+    def within(g):
+        return all(g[part][k] <= limit for part, limits in VQGAN_RESUME_GAP_LIMIT.items()
+                   for k, limit in limits.items())
+
+    checks = {
+        "same_batch_stream": same_stream,
+        "counters": counters["A"] == counters["B"] == (total, 1),
+        "resume_gap": within(gap), "planted_fault_caught": not within(planted_gap),
+        "validation_grids": len(grids) == 4 and all(g is None for g in grids),
+        "result_csv": result_finite, "label_maps": len(labels) == n_slices,
+        "labels_0_based": bool(labels) and label_ids.shape == (bottleneck, bottleneck)
+        and 0 <= label_ids.min() and label_ids.max() < dict_size,
+        "launches": ({k: launches.get(k, 0) for k in want} == want) if cuda
+        else launches == {},
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"VQGAN run: {checks}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2636,6 +3201,7 @@ def main(argv=None):
                                              bare_step_s=bare_step_s)
             second_launches = second_stage_phase("cuda", tmp, seed=args.seed)
             mw_launches = multi_window_phase("cuda", tmp, seed=args.seed)
+            vqgan_launches = vqgan_phase("cuda", tmp, seed=args.seed)
 
     main_conv = next(r for r in conv if r["dtype"] == "bfloat16" and "forward" in r
                      and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
@@ -2644,12 +3210,14 @@ def main(argv=None):
         "replaces": VQ_REPLACES,
         "launches": (serve_launches.get("vq_fused", 0) + train_launches.get("vq_fused", 0)
                      + trainer_launches.get("vq_fused", 0)
-                     + second_launches.get("vq_fused", 0) + mw_launches.get("vq_fused", 0)),
+                     + second_launches.get("vq_fused", 0) + mw_launches.get("vq_fused", 0)
+                     + vqgan_launches.get("vq_fused", 0)),
         "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
                              "train": train_launches.get("vq_fused", 0),
                              "trainer": trainer_launches.get("vq_fused", 0),
                              "second_stage": second_launches.get("vq_fused", 0),
-                             "multi_window": mw_launches.get("vq_fused", 0)},
+                             "multi_window": mw_launches.get("vq_fused", 0),
+                             "vqgan": vqgan_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
         "n": vq["n"], "c": vq["c"], "k": vq["k"], "path": vq["path"],
@@ -2666,13 +3234,15 @@ def main(argv=None):
                      + runtime_launches.get("conv3x3_packed", 0)
                      + trainer_launches.get("conv3x3_packed", 0)
                      + second_launches.get("conv3x3_packed", 0)
-                     + mw_launches.get("conv3x3_packed", 0)),
+                     + mw_launches.get("conv3x3_packed", 0)
+                     + vqgan_launches.get("conv3x3_packed", 0)),
         "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
                              "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
                              "train": train_launches.get("conv3x3_packed", 0),
                              "trainer": trainer_launches.get("conv3x3_packed", 0),
                              "second_stage": second_launches.get("conv3x3_packed", 0),
-                             "multi_window": mw_launches.get("conv3x3_packed", 0)},
+                             "multi_window": mw_launches.get("conv3x3_packed", 0),
+                             "vqgan": vqgan_launches.get("conv3x3_packed", 0)},
         "max_abs_err": main_conv["forward_max_abs_err"],
         "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
                   "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",

@@ -17,8 +17,13 @@ The second (adversarial) stage is the same command on a config with
 
 `-w` trains the multi-window trainer (configs/lung_multiwindow_joint.json:
 `run.training_mode` "joint_step", "first_step" or "second_step"); its
-`-m test` writes HU NIfTI files under `save.save_dir/<patient>/`. `-v`
-(VQGAN, ROADMAP item 18) is not ported and raises NotImplementedError.
+`-m test` writes HU NIfTI files under `save.save_dir/<patient>/`.
+
+`-v` trains the VQGAN against the U-Net discriminator
+(configs/crc_vqgan.json, `model.vqmodel.model_name: "VQGAN"`, the model
+from `model.vqgan`); its `-m test` writes NMSE, SSIM, PSNR and the label
+entropy to `result.csv`, and `"training_mode": "inference"` exports the
+VQGAN's 0-based bottleneck label maps.
 """
 
 import argparse
@@ -78,7 +83,7 @@ def main(argv=None):
     parser.add_argument("-w", "--multiwindow", action="store_true",
                         help="multi-window trainer (raw, lung and mediastinal windows)")
     parser.add_argument("-v", "--vqgan", action="store_true",
-                        help="VQGAN trainer (not ported: ROADMAP item 18)")
+                        help="VQGAN trainer (the VQGAN against the U-Net discriminator)")
     parser.add_argument("--max-steps", type=int, default=None, help="cap on training steps")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)

@@ -1,6 +1,7 @@
 """PyTorch modules, NCHW with OIHW weights, named with the reference's torch
 state-dict keys so reference-format checkpoints load with `strict=True`."""
 
+from .actnorm import ActNorm
 from .biggan_layers import Attention, DBlock, GBlock2, SNConv, SNDense
 from .blocks import (
     ASPP,
@@ -16,3 +17,4 @@ from .discriminator import NLayerDiscriminator
 from .unet_decoder import UNetDecoder
 from .unet_discriminator import UNetDiscriminator, d_unet_arch
 from .unet_encoder import EncoderWithVQ, UNetEncoder
+from .vqgan import VQGAN

@@ -3,10 +3,10 @@
 Counterpart of `medical_image_editing_tpu/models/discriminator.py`
 (reference `src/networks/discriminator.py`, `NLayerDiscriminator` from
 taming-transformers): 4×4 convs (stride 2 for the first `n_layers`, then
-stride 1), LeakyReLU(0.2), channel multipliers min(2ⁿ, 8), instance or
-batch normalization (bias-free convs under batchnorm), a final 4×4 conv to
-a 1-channel logit map. Optional spectral norm on every conv, with the JAX
-package's (flax's) semantics (`biggan_layers.spectral_normalize`).
+stride 1), LeakyReLU(0.2), channel multipliers min(2ⁿ, 8), instance,
+batch or act normalization (bias-free convs under batchnorm), a final 4×4
+conv to a 1-channel logit map. Optional spectral norm on every conv, with the JAX package's (flax's)
+semantics (`biggan_layers.spectral_normalize`).
 
 Keys are the reference's: one `main` Sequential, conv j at `main.{0 if j
 == 0 else 3j − 1}`, norm k at `main.{3k + 3}`. A spectral-normalized conv
@@ -15,14 +15,15 @@ carries `torch.nn.utils.spectral_norm`'s names (`weight_orig`, `weight_u`
 `import_nlayer_discriminator` reads the same keys; `weight_v` is stored
 for those keys only and never read. The batchnorm is flax's
 (`blocks.FlaxBatchNorm`: batch statistics in training, the biased
-variance in the running stats). `normalization: "actnorm"` needs
-`models/actnorm.py`, not ported yet (ROADMAP item 18).
+variance in the running stats); the actnorm is `models/actnorm.py`
+(initialised on the first train-mode forward).
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .actnorm import ActNorm
 from .biggan_layers import spectral_normalize
 from .blocks import FlaxBatchNorm, InstanceNorm
 
@@ -58,11 +59,7 @@ class NLayerDiscriminator(nn.Module):
                  normalization: str = "batchnorm", apply_spectral_norm: bool = False,
                  in_channels: int = 1):
         super().__init__()
-        if normalization == "actnorm":
-            raise NotImplementedError(
-                "the NLayerDiscriminator's actnorm (models/actnorm.py) is not ported to "
-                "the PyTorch package yet (ROADMAP item 18); use the JAX package for it")
-        if normalization not in ("instancenorm", "batchnorm"):
+        if normalization not in ("instancenorm", "batchnorm", "actnorm"):
             raise ValueError(f"unknown normalization {normalization!r}")
         use_bias = normalization != "batchnorm"
 
@@ -72,7 +69,9 @@ class NLayerDiscriminator(nn.Module):
             return nn.Conv2d(cin, cout, 4, stride, 1, bias=bias)
 
         def norm(c):
-            return FlaxBatchNorm(c) if normalization == "batchnorm" else InstanceNorm()
+            if normalization == "batchnorm":
+                return FlaxBatchNorm(c)
+            return ActNorm(c) if normalization == "actnorm" else InstanceNorm()
 
         layers = [conv(in_channels, n_filters, 2), nn.LeakyReLU(0.2)]
         cin = n_filters
@@ -92,7 +91,8 @@ class NLayerDiscriminator(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "NLayerDiscriminator":
         """The JAX module's initialisation, drawn from `generator` in module
         order: conv weights N(0, 0.02), zero biases, BatchNorm scale 1 and
-        bias 0 with reset running stats, a random-normal spectral-norm u."""
+        bias 0 with reset running stats, ActNorm at loc 0 and scale 1 (not
+        initialized), a random-normal spectral-norm u."""
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, SNConv2d)):
                 w = m.weight if isinstance(m, nn.Conv2d) else m.weight_orig
@@ -102,6 +102,6 @@ class NLayerDiscriminator(nn.Module):
                 if isinstance(m, SNConv2d):
                     m.weight_u.copy_(torch.randn(m.weight_u.shape, generator=generator))
                     m.weight_v.zero_()
-            elif isinstance(m, FlaxBatchNorm):
+            elif isinstance(m, (FlaxBatchNorm, ActNorm)):
                 m.reset_parameters()
         return self

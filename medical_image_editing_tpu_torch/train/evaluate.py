@@ -8,6 +8,9 @@ Counterpart of `medical_image_editing_tpu/train/evaluate.py` (reference
                        `label_*.nii.gz` maps a clinician paints. With the
                        encoder's `knn_backend` "pallas"/"faiss" and CUDA
                        tensors the VQ assignment runs the fused CUDA kernel.
+  make_vqgan_eval_forward
+                       the same through the whole VQGAN, its ids raw
+                       (0-based) at the bottleneck resolution.
   test_step            NMSE/SSIM/PSNR + base-2 label entropy per batch
                        (pulled to the host in one copy), and the first
                        slice's PNGs + fused overlay (CRC flipped back).
@@ -75,19 +78,50 @@ def make_eval_forward(encoder, decoder, *, device="cuda"):
     return forward
 
 
-def make_test_metrics_fn(encoder, decoder, dict_size: int, *, device="cuda"):
+def make_vqgan_eval_forward(vqgan, *, device="cuda"):
+    """Moves the VQGAN to `device` and returns forward(image (B,H,W,1)) →
+    (recon (B,H,W,1) f32, ids (B,h,w) int32, raw and 0-based at the
+    bottleneck), through the whole autoencoder in eval mode (the codebook
+    does not move)."""
+    dev = resolve_device(device)
+    vqgan.to(dev)
+
+    @torch.inference_mode()
+    def forward(image):
+        vqgan.eval()
+        image = torch.as_tensor(image, dtype=torch.float32, device=dev)
+        recon, _, ids, _ = vqgan(image.permute(0, 3, 1, 2), train=False)
+        return recon.permute(0, 2, 3, 1).float(), ids
+
+    return forward
+
+
+def forward_metrics_fn(forward, dict_size: int, id_offset: int = 0):
     """fn(image) → (metrics {NMSE, SSIM, PSNR, Entropy} as 0-d tensors,
-    recon, ids)."""
-    forward = make_eval_forward(encoder, decoder, device=device)
+    recon, ids) from an eval forward; the entropy is of ids + `id_offset`
+    (1 for the VQGAN's raw ids, as the JAX trainer counts them)."""
 
     def fn(image):
         recon, ids = forward(image)
         image = torch.as_tensor(image).to(recon)
         metrics = {"NMSE": nmse(recon, image), "SSIM": ssim(recon, image),
-                   "PSNR": psnr(recon, image), "Entropy": label_entropy(ids, dict_size)}
+                   "PSNR": psnr(recon, image),
+                   "Entropy": label_entropy(ids + id_offset, dict_size)}
         return metrics, recon, ids
 
     return fn
+
+
+def make_test_metrics_fn(encoder, decoder, dict_size: int, *, device="cuda"):
+    """`forward_metrics_fn` of the encoder and decoder's eval forward."""
+    return forward_metrics_fn(make_eval_forward(encoder, decoder, device=device), dict_size)
+
+
+def host_metrics(metrics) -> dict:
+    """{name: 0-d tensor} → {name: float}, keys sorted, as they leave the
+    JAX package's jitted metrics; one device → host copy."""
+    keys = sorted(metrics)
+    return dict(zip(keys, torch.stack([metrics[k] for k in keys]).tolist()))
 
 
 def test_step(forward_metrics, batch, batch_idx: int, *, dataset_name: str,
@@ -97,10 +131,8 @@ def test_step(forward_metrics, batch, batch_idx: int, *, dataset_name: str,
     if not is_main_process():
         return None
     metrics, recon, ids = forward_metrics(batch["image"])
-    # keys sorted, as they leave the JAX package's jitted metrics (its
-    # result.csv columns are Entropy, NMSE, PSNR, SSIM)
-    values = torch.stack([metrics[k] for k in sorted(metrics)]).tolist()
-    out = dict(zip(sorted(metrics), values))
+    # the JAX package's result.csv columns are Entropy, NMSE, PSNR, SSIM
+    out = host_metrics(metrics)
 
     if save_dir_path is not None:
         os.makedirs(save_dir_path, exist_ok=True)

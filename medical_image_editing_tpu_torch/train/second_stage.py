@@ -115,6 +115,47 @@ def sample_cutmix_draws(generator: torch.Generator, n_inner_loops: int, height: 
     return draws
 
 
+def discriminator_inner_loop(dis, x, recon, draws, cfg: SecondStageLossConfig, opt,
+                             is_unet: bool = True):
+    """`cfg.n_inner_loops` discriminator updates on the real batch `x` and
+    the detached reconstruction `recon` (both NCHW, f32): per iteration the
+    real, then the fake forward, hinge losses on map and bottleneck; for
+    the U-Net discriminator the CutMix composite of draw i (one box for the
+    batch, inverted at random), the hinge on its map with the (2m − 1) sign
+    and on its bottleneck, and the consistency MSE between its map and the
+    maps of real and fake mixed by the same box; then one Adam step of
+    `opt`. The PatchGAN's scalar logits have no CutMix: its `cutmix` and
+    `consistency` are 0. Returns the last iteration's (total, {dis,
+    cutmix, consistency})."""
+    dev = x.device
+    h, w = x.shape[-2:]
+    zero = torch.zeros((), device=dev)
+    for i in range(cfg.n_inner_loops):
+        if is_unet:
+            r_map, r_bottle, _ = dis(x)
+            f_map, f_bottle, _ = dis(recon)
+            l_dis = hinge_d_loss(r_map, f_map) + hinge_d_loss(r_bottle, f_bottle)
+            box, invert = draws[i]
+            # mask = cutmix(ones, zeros, box) = 1 − box, inverted at random
+            mask2d = 1.0 - cutmix_mask(box, h, w).to(dev)
+            mask2d = torch.where(torch.as_tensor(invert, device=dev), 1.0 - mask2d, mask2d)
+            c_map, c_bottle, _ = dis(mask_src_tgt(x, recon, mask2d))
+            m = mask2d[None, None]
+            l_cutmix = (torch.relu(1.0 + c_bottle).mean()
+                        + torch.relu(1.0 - (m * 2.0 - 1.0) * c_map).mean())
+            l_consistency = ((c_map - mask_src_tgt(r_map, f_map, mask2d)) ** 2).mean()
+            dis_metrics = {"dis": cfg.w_dis * l_dis, "cutmix": cfg.w_cutmix * l_cutmix,
+                           "consistency": cfg.w_consistency * l_consistency}
+        else:
+            l_dis = hinge_d_loss(dis(x), dis(recon))
+            dis_metrics = {"dis": cfg.w_dis * l_dis, "cutmix": zero, "consistency": zero}
+        dis_total = sum(dis_metrics.values())
+        opt.zero_grad()
+        dis_total.backward()
+        adam_step(opt)
+    return dis_total, dis_metrics
+
+
 def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossConfig,
                            dis_type: str = "UNetDiscriminator", device="cuda"):
     """Build the second-stage step.
@@ -196,31 +237,8 @@ def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossCo
         state.dec_opt.step()
         recon = recon.detach()  # the pre-update reconstruction, as the reference
 
-        # ---- discriminator inner loop
-        for i in range(cfg.n_inner_loops):
-            if is_unet:
-                r_map, r_bottle, _ = dis(x)
-                f_map, f_bottle, _ = dis(recon)
-                l_dis = hinge_d_loss(r_map, f_map) + hinge_d_loss(r_bottle, f_bottle)
-                box, invert = draws[i]
-                # mask = cutmix(ones, zeros, box) = 1 − box, inverted at random
-                mask2d = 1.0 - cutmix_mask(box, h, w).to(dev)
-                mask2d = torch.where(torch.as_tensor(invert, device=dev), 1.0 - mask2d, mask2d)
-                c_map, c_bottle, _ = dis(mask_src_tgt(x, recon, mask2d))
-                m = mask2d[None, None]
-                l_cutmix = (torch.relu(1.0 + c_bottle).mean()
-                            + torch.relu(1.0 - (m * 2.0 - 1.0) * c_map).mean())
-                l_consistency = ((c_map - mask_src_tgt(r_map, f_map, mask2d)) ** 2).mean()
-                dis_metrics = {"dis": cfg.w_dis * l_dis, "cutmix": cfg.w_cutmix * l_cutmix,
-                               "consistency": cfg.w_consistency * l_consistency}
-            else:
-                l_dis = hinge_d_loss(dis(x), dis(recon))
-                dis_metrics = {"dis": cfg.w_dis * l_dis, "cutmix": zero, "consistency": zero}
-            dis_total = sum(dis_metrics.values())
-            state.dis_opt.zero_grad()
-            dis_total.backward()
-            adam_step(state.dis_opt)
-
+        dis_total, dis_metrics = discriminator_inner_loop(dis, x, recon, draws, cfg,
+                                                          state.dis_opt, is_unet)
         state.step += 1
         metrics = {"gen_total": gen_total, **gen_metrics, "dis_total": dis_total,
                    **dis_metrics, "total": gen_total + dis_total}

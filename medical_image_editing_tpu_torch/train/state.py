@@ -10,10 +10,14 @@ modules (their parameters, the decoder's BatchNorm running stats and the
 encoder's codebook buffers), the two optimizers, the generator the step
 draws from, and the step and epoch counts; the second stage and the
 multi-window joint step add the discriminator (its parameters,
-spectral-norm vectors and BatchNorm stats) and its Adam: a joint state
-holds all three modules and three Adams. `state_dict`/`load_state_dict` cover all of it, for
-`utils/checkpoint.py`; a first-stage state and its checkpoints carry no
-discriminator.
+spectral-norm vectors and BatchNorm or ActNorm stats) and its Adam: a
+joint state holds all three modules and three Adams. A VQGAN state holds
+the whole autoencoder with its codebook in the decoder slot, as the JAX
+package keeps it in `dec_vars`, its Adam in `dec_opt`, the discriminator
+and its Adam, and no encoder (`encoder` and `enc_opt` are None; the JAX
+state's `enc_vars` are empty). `state_dict`/`load_state_dict` cover all
+of it, for `utils/checkpoint.py`; a first-stage state and its checkpoints
+carry no discriminator.
 """
 
 from dataclasses import dataclass
@@ -47,9 +51,9 @@ def make_optimizer_from_config(params, optim_cfg) -> torch.optim.Adam:
 
 @dataclass
 class TrainState:
-    encoder: nn.Module          # EncoderWithVQ: parameters + codebook buffers
-    decoder: nn.Module          # UNetDecoder: parameters + BatchNorm stats
-    enc_opt: torch.optim.Optimizer
+    encoder: Optional[nn.Module]  # EncoderWithVQ: parameters + codebook buffers
+    decoder: nn.Module          # UNetDecoder (parameters + BatchNorm stats) or VQGAN
+    enc_opt: Optional[torch.optim.Optimizer]
     dec_opt: torch.optim.Optimizer
     generator: torch.Generator  # augmentation and CutMix draws, k-means seeding
     step: int = 0
@@ -58,26 +62,27 @@ class TrainState:
     dis_opt: Optional[torch.optim.Optimizer] = None
 
     @property
+    def codebook_owner(self) -> nn.Module:
+        """The module holding the codebook: the encoder, or the VQGAN."""
+        return self.decoder if self.encoder is None else self.encoder
+
+    @property
     def vq(self) -> VQState:
-        return self.encoder.vq.state()
+        return self.codebook_owner.vq.state()
 
     @property
     def device(self) -> torch.device:
-        return self.encoder.vq.embed.device
+        return self.codebook_owner.vq.embed.device
 
     def state_dict(self) -> dict:
         """The modules (parameters, BatchNorm stats, the codebook buffers,
         spectral-norm vectors), their Adam states, the generator's state,
         step and epoch."""
-        sd = {
-            "encoder": self.encoder.state_dict(),
-            "decoder": self.decoder.state_dict(),
-            "enc_opt": self.enc_opt.state_dict(),
-            "dec_opt": self.dec_opt.state_dict(),
-            "generator": self.generator.get_state(),
-            "step": int(self.step),
-            "epoch": int(self.epoch),
-        }
+        modules = {"encoder": self.encoder, "decoder": self.decoder}
+        opts = {"enc_opt": self.enc_opt, "dec_opt": self.dec_opt}
+        sd = {k: m.state_dict() for k, m in {**modules, **opts}.items() if m is not None}
+        sd.update(generator=self.generator.get_state(), step=int(self.step),
+                  epoch=int(self.epoch))
         if self.discriminator is not None:
             sd["discriminator"] = self.discriminator.state_dict()
             sd["dis_opt"] = self.dis_opt.state_dict()
@@ -90,9 +95,11 @@ class TrainState:
         A state with a discriminator needs one in `sd`; a state without
         one takes the rest of a second-stage `sd` (its models, e.g. to
         test or export them)."""
-        self.encoder.load_state_dict(sd["encoder"], strict=True)
         self.decoder.load_state_dict(sd["decoder"], strict=True)
-        opts = [(self.enc_opt, sd["enc_opt"]), (self.dec_opt, sd["dec_opt"])]
+        opts = [(self.dec_opt, sd["dec_opt"])]
+        if self.encoder is not None:
+            self.encoder.load_state_dict(sd["encoder"], strict=True)
+            opts.append((self.enc_opt, sd["enc_opt"]))
         if self.discriminator is not None:
             if "discriminator" not in sd:
                 raise KeyError("this state has a discriminator and the state dict has "
@@ -109,7 +116,7 @@ class TrainState:
         self.epoch = int(sd["epoch"])
 
 
-def create_train_state(encoder: nn.Module, decoder: nn.Module, enc_opt, dec_opt, *,
+def create_train_state(encoder: Optional[nn.Module], decoder: nn.Module, enc_opt, dec_opt, *,
                        seed: int = 0, device="cuda", discriminator: Optional[nn.Module] = None,
                        dis_opt=None) -> TrainState:
     """Modules already on `device`; the generator is seeded with `seed` on it."""

@@ -4,10 +4,12 @@ Counterpart of `medical_image_editing_tpu/train/trainer.py` (reference
 `src/trainers/base.py`, `src/trainers/single_window_trainer.py`,
 `src/run_vqwnet.py::train_model`), in its single-window flavour with
 `run.training_mode` "first_step" or "second_step" (train), "inference"
-(label-map export) or "test" (metrics), and its multi-window flavour
+(label-map export) or "test" (metrics), its multi-window flavour
 (`use_multi_window`, the CLI's `-w`; reference
 `src/trainers/multi_window_trainer.py`) with "first_step", "second_step"
-or "joint_step":
+or "joint_step", and its VQGAN flavour (`use_vqgan`, the CLI's `-v`;
+reference `src/trainers/vqgan_unet_dis.py`), which trains the VQGAN against
+the discriminator in every training mode:
   * the encoder with its codebook and the decoder from
     `config.model.vqmodel`, in its `compute_dtype`; two Adams from
     `enc_optim`/`dec_optim`; the first-stage step from `config.loss` and
@@ -37,14 +39,21 @@ or "joint_step":
     the JAX trainer: a second stage re-clusters the staged codebook;
   * second-stage validation grids show the U-Net discriminator's
     eval-mode maps on image and reconstruction;
+  * the VQGAN flavour: `models.VQGAN` from `config.model.vqgan` (f32, its
+    EMA momentum the class default 0.99, as the JAX trainer builds it, not
+    `vqmodel.momentum`; `vqmodel.knn_backend`) in the state's decoder slot
+    with its Adam from `dec_optim`, the discriminator in every mode (the
+    JAX trainer always builds it), `train/vqgan_stage.py`'s step, no
+    codebook k-means; snapshots, validation, the export and `test` (NMSE,
+    SSIM, PSNR and the entropy of ids + 1 → `result.csv`) through the
+    whole autoencoder, its ids raw and 0-based;
   * `test`: metrics → `result.csv`; in "inference" mode the per-slice
     PNG/NIfTI export; in the multi-window flavour the HU-denormalized
     per-slice NIfTI export (`evaluate.multi_window_test_export`).
 
 Not ported yet, and refused rather than run without their part: the
-VQGAN trainer (`-v`, item 18), the perceptual loss (item 17b), DropBlock
-(`use_dropblock: true`, item 14c), the PatchGAN's actnorm (item 18) and
-projection discrimination (`model.dis.n_classes > 0`, item 21).
+perceptual loss (item 17b), DropBlock (`use_dropblock: true`, item 14c)
+and projection discrimination (`model.dis.n_classes > 0`, item 21).
 """
 
 import math
@@ -60,6 +69,7 @@ from ..models.discriminator import NLayerDiscriminator
 from ..models.unet_decoder import UNetDecoder
 from ..models.unet_discriminator import UNetDiscriminator, reference_state_dict
 from ..models.unet_encoder import EncoderWithVQ
+from ..models.vqgan import VQGAN
 from ..ops._build import KernelError
 from ..ops.windowing import denormalize, t_normalize
 from ..utils.checkpoint import CheckpointManager, restore_fields, restore_state
@@ -75,6 +85,7 @@ from .multi_window import (
 )
 from .second_stage import make_second_stage_step, second_stage_config_from_json
 from .state import create_train_state, make_optimizer_from_config
+from .vqgan_stage import make_vqgan_step
 
 TRAINING_MODES = ("first_step", "second_step")
 MULTI_WINDOW_TRAINING_MODES = ("first_step", "second_step", "joint_step")
@@ -104,12 +115,11 @@ class Trainer:
     def __init__(self, config, logger: Optional[Logger] = None, uploader=None,
                  use_multi_window: bool = False, use_vqgan: bool = False,
                  device="cuda", seed: int = 0):
-        if use_vqgan:
-            raise _not_ported("the VQGAN trainer (-v)", "18")
         self.config = config
         self.logger = logger
         self.uploader = uploader
         self.use_multi_window = bool(use_multi_window)
+        self.use_vqgan = bool(use_vqgan)
         self.device = resolve_device(device)
         self.seed = int(seed)
         self.training_mode = str(config.run.training_mode)
@@ -124,8 +134,9 @@ class Trainer:
     def _configure_models(self):
         cfg = self.config
         gen = cfg.model.vqmodel
-        if g(gen, "model_name", None) == "VQGAN":
-            raise _not_ported("the VQGAN model", "18")
+        if (g(gen, "model_name", None) == "VQGAN") != self.use_vqgan:
+            raise ValueError("model.vqmodel.model_name 'VQGAN' and the VQGAN trainer (-v) "
+                             "go together")
         if g(gen, "use_dropblock", False):
             raise _not_ported("DropBlock (model.vqmodel.use_dropblock)", "14c")
         self.dict_size = int(gen.dict_size)
@@ -143,13 +154,27 @@ class Trainer:
             dropped_skip_layers=tuple(gen.dropped_skip_layers or ()),
             use_pixel_shuffle=bool(g(gen, "use_pixel_shuffle", True)),
             dtype=self.compute_dtype)
+        if self.use_vqgan:
+            v = cfg.model.vqgan
+            self.eval_dict_size = int(v.dict_size)
+            self._vqgan_kw = dict(
+                in_channels=int(v.in_channels), mid_channels=int(v.mid_channels),
+                out_channels=int(v.out_channels), emb_dim=int(v.emb_dim),
+                dict_size=int(v.dict_size), enc_ch_multiplier=tuple(v.enc_ch_multiplier),
+                dec_ch_multiplier=tuple(v.dec_ch_multiplier),
+                num_res_blocks=int(v.num_res_blocks),
+                enc_attn_resolutions=tuple(v.enc_attn_resolutions or ()),
+                dec_attn_resolutions=tuple(v.dec_attn_resolutions or ()),
+                resolution=int(v.resolution), p_dropout=float(g(v, "p_dropout", 0.0) or 0.0),
+                resamp_with_conv=bool(g(v, "resamp_with_conv", True)),
+                knn_backend=str(g(gen, "knn_backend", "xla") or "xla"))
         self._configure_discriminator()
 
     def _configure_discriminator(self):
         """The discriminator's type and arguments from `config.model.dis`
-        (built only for the GAN modes)."""
+        (built for the GAN modes and, in every mode, for the VQGAN)."""
         self.dis_type = self._dis_kw = None
-        if self.training_mode not in GAN_MODES:
+        if self.training_mode not in GAN_MODES and not self.use_vqgan:
             return
         dis = self.config.model.dis
         self.dis_type = str(dis.model_name)
@@ -162,8 +187,6 @@ class Trainer:
                                 D_attn=str(g(dis, "D_attn", "0")),
                                 resolution=int(dis.resolution), in_channels=in_ch)
         elif self.dis_type == "NLayerDiscriminator":
-            if str(dis.normalization) == "actnorm":
-                raise _not_ported("the NLayerDiscriminator's actnorm", "18")
             self._dis_kw = dict(out_channels=1, n_filters=int(dis.n_filters),
                                 n_layers=int(dis.n_layers),
                                 normalization=str(dis.normalization),
@@ -179,9 +202,10 @@ class Trainer:
         self.second_cfg = second_stage_config_from_json(cfg.loss)
         if self.first_cfg.use_perceptual_loss:
             raise _not_ported("the perceptual loss (loss.use_perceptual_loss)", "17b")
-        if self.training_mode in GAN_MODES and self.second_cfg.dis_loss_type != "hinge_d_loss":
+        if ((self.training_mode in GAN_MODES or self.use_vqgan)
+                and self.second_cfg.dis_loss_type != "hinge_d_loss"):
             raise ValueError(f"loss.dis_loss_type {self.second_cfg.dis_loss_type!r}: the "
-                             "second stage trains with 'hinge_d_loss'")
+                             "second stage and the VQGAN train with 'hinge_d_loss'")
         self.aug_cfg = cfg.augmentation
         ds = cfg.dataset
         # None without HU windowing (CRC/BraTS): the lung/mediastinal
@@ -198,6 +222,9 @@ class Trainer:
 
     def _make_step(self, state):
         """The training mode's step on `state`'s models."""
+        if self.use_vqgan:
+            return make_vqgan_step(state.decoder, state.discriminator, loss_cfg=self.second_cfg,
+                                   w_commit=self.first_cfg.w_commit, device=self.device)
         dtype = self.compute_dtype or torch.float32
         first = dict(aug_cfg=self.aug_cfg, dict_size=self.dict_size, compute_dtype=dtype,
                      device=self.device)
@@ -237,15 +264,21 @@ class Trainer:
     # state init + staged loading
     # ------------------------------------------------------------------
     def init_state(self):
-        """Fresh models (seeded from `seed`: the encoder and decoder as
-        `models.blocks.seeded_init` fills them, then, in the second stage,
-        the discriminator as the JAX module initialises) with their Adams
-        and a generator seeded with `seed` on the device; then the staged
-        first stage and the staged discriminator, if configured. The models
+        """Fresh models (seeded from `seed`: the encoder and decoder, or the
+        VQGAN, as `models.blocks.seeded_init` fills them, then, in the GAN
+        modes and for the VQGAN, the discriminator as the JAX module
+        initialises) with their Adams and a generator seeded with `seed` on
+        the device; then the staged first stage (a VQGAN's: the whole
+        autoencoder) and the staged discriminator, if configured. The models
         take any image size, so no init shapes are needed."""
         gen = torch.Generator().manual_seed(self.seed)
-        encoder = seeded_init(EncoderWithVQ(**self._enc_kw), gen).to(self.device)
-        decoder = seeded_init(UNetDecoder(**self._dec_kw), gen).to(self.device)
+        if self.use_vqgan:
+            encoder = enc_opt = None
+            decoder = seeded_init(VQGAN(**self._vqgan_kw), gen).to(self.device)
+        else:
+            encoder = seeded_init(EncoderWithVQ(**self._enc_kw), gen).to(self.device)
+            decoder = seeded_init(UNetDecoder(**self._dec_kw), gen).to(self.device)
+            enc_opt = make_optimizer_from_config(encoder.parameters(), self.config.enc_optim)
         dis = dis_opt = None
         if self.dis_type is not None:
             cls = (UNetDiscriminator if self.dis_type == "UNetDiscriminator"
@@ -253,8 +286,7 @@ class Trainer:
             dis = cls(**self._dis_kw).init_weights(gen).to(self.device)
             dis_opt = make_optimizer_from_config(dis.parameters(), self.config.dis_optim)
         state = create_train_state(
-            encoder, decoder,
-            make_optimizer_from_config(encoder.parameters(), self.config.enc_optim),
+            encoder, decoder, enc_opt,
             make_optimizer_from_config(decoder.parameters(), self.config.dec_optim),
             seed=self.seed, device=self.device, discriminator=dis, dis_opt=dis_opt)
         run = self.config.run
@@ -265,11 +297,13 @@ class Trainer:
                 from ..utils.weights import load_lightning_state
 
                 groups = load_lightning_state(path)
-                encoder.load_state_dict(groups["encoder"], strict=True)
+                if encoder is not None:
+                    encoder.load_state_dict(groups["encoder"], strict=True)
                 decoder.load_state_dict(groups["decoder"], strict=True)
                 print(f"Imported first stage models from Lightning ckpt {path}")
             else:
-                restore_fields(path, state, ("encoder", "decoder"))
+                restore_fields(path, state, ("decoder",) if encoder is None
+                               else ("encoder", "decoder"))
                 print(f"Restored first stage models from {path}")
         path = g(run, "discriminator_ckpt_path", None)
         if path and dis is None:
@@ -335,7 +369,7 @@ class Trainer:
         cfg = self.config
         run = cfg.run
         modes = MULTI_WINDOW_TRAINING_MODES if self.use_multi_window else TRAINING_MODES
-        if self.training_mode not in modes:
+        if not self.use_vqgan and self.training_mode not in modes:
             raise ValueError(
                 f"run.training_mode {self.training_mode!r} has no training step here — "
                 "the training modes are 'first_step', 'second_step' (and 'joint_step' "
@@ -358,16 +392,19 @@ class Trainer:
             restore_state(str(run.resume_checkpoint), state)
             print(f"Resumed from {run.resume_checkpoint}")
 
-        # codebook k-means on the first batch (reference: in the first forward)
-        if bool(g(cfg.model.vqmodel, "use_init_embed", False)) and state.step == 0:
+        # codebook k-means on the first batch (reference: in the first
+        # forward); the VQGAN's codebook starts random, as in JAX
+        if (not self.use_vqgan and bool(g(cfg.model.vqmodel, "use_init_embed", False))
+                and state.step == 0):
             first = next(iter(loader))
             init_codebook_step(state.encoder)(state, first["image"])
             print("Initialized codebook with k-means on the first batch")
 
-        eval_forward = evaluate.make_eval_forward(state.encoder, state.decoder,
-                                                  device=self.device)
+        eval_forward = self._eval_forward(state)
+        # the validation grids show the discriminator's maps in the GAN modes
+        dis = state.discriminator if self.training_mode in GAN_MODES else None
         if self.logger is not None and bool(g(run, "use_validation_sanity_check", False)):
-            self._validate(eval_forward, epoch=-1, dis=state.discriminator)
+            self._validate(eval_forward, epoch=-1, dis=dis)
 
         save_every_n_steps = int(g(cfg.save, "save_every_n_steps", 0) or 0)
         # divergence guard: halt on a non-finite total instead of training
@@ -433,10 +470,17 @@ class Trainer:
             if saver is not None:
                 saver.save(state, epoch)
             if self.logger is not None:
-                self._validate(eval_forward, epoch, dis=state.discriminator)
+                self._validate(eval_forward, epoch, dis=dis)
         if profiler is not None:  # fit ended inside the capture window
             self._stop_profiler(profiler, str(profile_dir))
         return state
+
+    def _eval_forward(self, state):
+        """image → (recon, label map) of `state`'s models: through the whole
+        VQGAN (raw ids) or the encoder and decoder (ids + 1)."""
+        if self.use_vqgan:
+            return evaluate.make_vqgan_eval_forward(state.decoder, device=self.device)
+        return evaluate.make_eval_forward(state.encoder, state.decoder, device=self.device)
 
     def _start_profiler(self):
         from torch.profiler import ProfilerActivity, profile
@@ -534,11 +578,11 @@ class Trainer:
         """"inference" mode: the per-slice export; the multi-window trainer:
         the HU-denormalized per-slice NIfTI export under `save.save_dir`;
         both return the directories written. Otherwise: (per-batch metric
-        dicts, result.csv path)."""
+        dicts, result.csv path); the VQGAN's metrics, as the JAX trainer's,
+        without the first slice's PNGs."""
         loader = self.dataloader("test")
         if self.training_mode == "inference" or self.use_multi_window:
-            forward = evaluate.make_eval_forward(state.encoder, state.decoder,
-                                                 device=self.device)
+            forward = self._eval_forward(state)
             save_root = str(self.config.save.save_dir)
             written = []
             for batch in loader:
@@ -554,15 +598,20 @@ class Trainer:
                         denormalize_fn=self.denormalize_ct_values)
             return written
 
-        fm = evaluate.make_test_metrics_fn(state.encoder, state.decoder, self.dict_size,
-                                           device=self.device)
-        outputs = []
-        for i, batch in enumerate(loader):
-            out = evaluate.test_step(fm, batch, i,
-                                     dataset_name=str(self.config.dataset.dataset_name),
-                                     dict_size=self.dict_size, save_dir_path=save_dir_path)
-            if out is not None:
-                outputs.append(out)
+        if self.use_vqgan:
+            fm = evaluate.forward_metrics_fn(self._eval_forward(state), self.eval_dict_size,
+                                             id_offset=1)
+            outputs = [evaluate.host_metrics(fm(batch["image"])[0]) for batch in loader]
+        else:
+            fm = evaluate.make_test_metrics_fn(state.encoder, state.decoder, self.dict_size,
+                                               device=self.device)
+            outputs = []
+            for i, batch in enumerate(loader):
+                out = evaluate.test_step(fm, batch, i,
+                                         dataset_name=str(self.config.dataset.dataset_name),
+                                         dict_size=self.dict_size, save_dir_path=save_dir_path)
+                if out is not None:
+                    outputs.append(out)
         if save_dir_path is None and self.logger is not None:
             save_dir_path = self.logger.log_dir
         return outputs, evaluate.test_epoch_end(outputs, save_dir_path or ".")

@@ -9,14 +9,18 @@ the U-Net discriminator's BigGAN layers with their spectral-norm buffers
 `u0` (1,O) and `sv0` (1,) (flax's `u` and `sigma`), and the PatchGAN's
 `main.{i}` layout, spectral-normalized convs under `weight_orig`,
 `weight_u`, `weight_v` (v derived from W and u, as the JAX package's
-export derives it). Inputs are nested dicts of arrays (numpy, or anything
-`np.asarray` takes); outputs are dicts of CPU tensors that the port's
-modules load with `load_state_dict(strict=True)`.
+export derives it), its ActNorms (`loc`, `scale`, `initialized`, and the
+'actnorm' collection's `data_loc`, `data_scale`); and the VQGAN
+(`from_jax_vqgan`: the taming layout, GroupNorm scale/bias, the attention's
+1×1 convs and its codebook). Inputs are nested dicts of arrays (numpy,
+or anything `np.asarray` takes); outputs are dicts of CPU tensors that the
+port's modules load with `load_state_dict(strict=True)`.
 
 `load_jax_train_state` loads a whole JAX `TrainState` into a port one (the
 tests start both sides from it). `load_lightning_state` reads a
-Lightning-shaped `.ckpt` (as the JAX
-package's `cli/export_ckpt.py` writes it) into per-module state dicts.
+Lightning-shaped `.ckpt` (as the JAX package's `cli/export_ckpt.py` writes
+it) into per-module state dicts; a VQGAN checkpoint's `decoder` group is
+the whole autoencoder with its codebook.
 """
 
 from typing import Dict
@@ -187,9 +191,6 @@ def from_jax_nlayer_discriminator(dis_vars: dict) -> StateDict:
     `weight_u` (flax's u, (O,)) and `weight_v` = normalize(Wᵀu)."""
     params = dis_vars["params"]
     stats = dis_vars.get("batch_stats", {})
-    if any(k.startswith("ActNorm_") for k in params):
-        raise NotImplementedError("the NLayerDiscriminator's actnorm is not ported to the "
-                                  "PyTorch package yet (ROADMAP item 18)")
     out: StateDict = {}
     for j in sorted(int(k.split("_")[1]) for k in params if k.startswith("Conv_")):
         cp, p = params[f"Conv_{j}"], f"main.{0 if j == 0 else 3 * j - 1}"
@@ -212,6 +213,90 @@ def from_jax_nlayer_discriminator(dis_vars: dict) -> StateDict:
         out[f"{p}.running_mean"] = _t(st["mean"])
         out[f"{p}.running_var"] = _t(st["var"])
         out[f"{p}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    actnorm = dis_vars.get("actnorm", {})
+    for k in sorted(int(k.split("_")[1]) for k in params if k.startswith("ActNorm_")):
+        p, an = f"main.{3 * k + 3}", actnorm.get(f"ActNorm_{k}", {})
+        c = np.asarray(params[f"ActNorm_{k}"]["loc"]).shape[0]
+        out[f"{p}.loc"] = _t(params[f"ActNorm_{k}"]["loc"]).reshape(1, c, 1, 1)
+        out[f"{p}.scale"] = _t(params[f"ActNorm_{k}"]["scale"]).reshape(1, c, 1, 1)
+        out[f"{p}.initialized"] = torch.tensor(int(bool(np.asarray(an.get("initialized", 0)))),
+                                               dtype=torch.uint8)
+        out[f"{p}.data_loc"] = _t(an.get("data_loc", np.zeros(c))).reshape(1, c, 1, 1)
+        out[f"{p}.data_scale"] = _t(an.get("data_scale", np.ones(c))).reshape(1, c, 1, 1)
+    return out
+
+
+def _gn(out: StateDict, p: str, gp: dict):
+    out[f"{p}.weight"] = _t(gp["scale"])
+    out[f"{p}.bias"] = _t(gp["bias"])
+
+
+def _vqgan_resnet(out: StateDict, p: str, rp: dict, block):
+    _gn(out, f"{p}.norm1", rp["GroupNorm_0"])
+    _conv(out, f"{p}.conv1", rp["Conv_0"])
+    _gn(out, f"{p}.norm2", rp["GroupNorm_1"])
+    _conv(out, f"{p}.conv2", rp["Conv_1"])
+    if "Conv_2" in rp:
+        name = "conv_shortcut" if hasattr(block, "conv_shortcut") else "nin_shortcut"
+        _conv(out, f"{p}.{name}", rp["Conv_2"])
+
+
+def _vqgan_attn(out: StateDict, p: str, ap: dict):
+    _gn(out, f"{p}.norm", ap["GroupNorm_0"])
+    for i, name in enumerate(("q", "k", "v", "proj_out")):
+        _conv(out, f"{p}.{name}", ap[f"Conv_{i}"])
+
+
+def _vqgan_levels(out: StateDict, part: str, levels, order, tree: dict, n_rb: int,
+                  n_at: int, resample: str):
+    """The `down`/`up` levels of the port's `part`, walked in the JAX
+    module's call order `order`, from flax's counters `n_rb`, `n_at`."""
+    n_rs = 0
+    flax_resample = {"downsample": "Downsample", "upsample": "Upsample"}[resample]
+    for lv in order:
+        level = levels[lv]
+        for b, block in enumerate(level.block):
+            _vqgan_resnet(out, f"{part}.{lv}.block.{b}", tree[f"ResnetBlock_{n_rb}"], block)
+            n_rb += 1
+            if len(level.attn):
+                _vqgan_attn(out, f"{part}.{lv}.attn.{b}", tree[f"AttnBlock_{n_at}"])
+                n_at += 1
+        if hasattr(level, resample):
+            _conv(out, f"{part}.{lv}.{resample}.conv",
+                  tree[f"{flax_resample}_{n_rs}"]["Conv_0"])
+            n_rs += 1
+    return n_rb, n_at
+
+
+def from_jax_vqgan(vqgan_vars: dict, vq, module) -> StateDict:
+    """The JAX `VQGAN`'s variables and codebook state → the port's `VQGAN`
+    keys (the reference's): HWIO → OIHW, GroupNorm scale/bias → weight/bias,
+    the attention's 1×1 convs, `embed_avg` as (C,K). `module` is the port's
+    `VQGAN` of the same configuration: its levels give the layout (the
+    flax names count blocks in call order)."""
+    enc = vqgan_vars["params"]["encoder"]
+    dec = vqgan_vars["params"]["decoder"]
+    out: StateDict = {}
+    _conv(out, "encoder.conv_in", enc["Conv_0"])
+    n_rb, n_at = _vqgan_levels(out, "encoder.down", module.encoder.down,
+                               range(len(module.encoder.down)), enc, 0, 0, "downsample")
+    _vqgan_resnet(out, "encoder.mid.block_1", enc[f"ResnetBlock_{n_rb}"],
+                  module.encoder.mid.block_1)
+    _vqgan_attn(out, "encoder.mid.attn_1", enc[f"AttnBlock_{n_at}"])
+    _vqgan_resnet(out, "encoder.mid.block_2", enc[f"ResnetBlock_{n_rb + 1}"],
+                  module.encoder.mid.block_2)
+    _gn(out, "encoder.norm_out", enc["GroupNorm_0"])
+    _conv(out, "encoder.conv_out", enc["Conv_1"])
+
+    _conv(out, "decoder.conv_in", dec["Conv_0"])
+    _vqgan_resnet(out, "decoder.mid.block_1", dec["ResnetBlock_0"], module.decoder.mid.block_1)
+    _vqgan_attn(out, "decoder.mid.attn_1", dec["AttnBlock_0"])
+    _vqgan_resnet(out, "decoder.mid.block_2", dec["ResnetBlock_1"], module.decoder.mid.block_2)
+    _vqgan_levels(out, "decoder.up", module.decoder.up,
+                  reversed(range(len(module.decoder.up))), dec, 2, 1, "upsample")
+    _gn(out, "decoder.norm_out", dec["GroupNorm_0"])
+    _conv(out, "decoder.conv_out", dec["Conv_1"])
+    out.update(from_jax_vq(vq))
     return out
 
 
@@ -243,11 +328,19 @@ def load_jax_train_state(port_state, jax_state, *, D_attn: str = "0"):
     """Load a JAX `TrainState` (its `enc_vars`, `vq`, `dec_vars` and
     `dis_vars` as arrays) into a port `TrainState` in place, every module
     with `strict=True`: a joint or second-stage state's encoder with its
-    codebook, decoder and U-Net discriminator. A port state with a
-    discriminator needs JAX `dis_vars`; a JAX discriminator beside a port
-    state without one (the JAX trainer builds it in every mode) is not
-    loaded. Adam's moments are not carried. Returns `port_state`."""
-    sds = from_jax_train_state(jax_state, D_attn=D_attn)
+    codebook, decoder and U-Net discriminator; a VQGAN state's autoencoder
+    with its codebook (the decoder slot; the JAX `enc_vars` are empty) and
+    discriminator. A port state with a discriminator needs JAX `dis_vars`;
+    a JAX discriminator beside a port state without one (the JAX trainer
+    builds it in every mode) is not loaded. Adam's moments are not carried.
+    Returns `port_state`."""
+    if port_state.encoder is None:  # the VQGAN in the decoder slot
+        sds = {"decoder": from_jax_vqgan(jax_state.dec_vars, jax_state.vq,
+                                         port_state.decoder)}
+        if getattr(jax_state, "dis_vars", None):
+            sds["discriminator"] = from_jax_discriminator(jax_state.dis_vars, D_attn=D_attn)
+    else:
+        sds = from_jax_train_state(jax_state, D_attn=D_attn)
     for part in ("encoder", "decoder", "discriminator"):
         module = getattr(port_state, part)
         if module is None:
@@ -261,7 +354,8 @@ def load_jax_train_state(port_state, jax_state, *, D_attn: str = "0"):
 def load_lightning_state(path: str) -> Dict[str, StateDict]:
     """Read a Lightning-shaped `.ckpt` → {"encoder": {...}, "decoder": {...},
     "discriminator": {...}, ...}: the `state_dict` split on its first key
-    component (the encoder's group holds the `vq.*` buffers; a U-Net
+    component (the encoder's group holds the `vq.*` buffers, a VQGAN
+    checkpoint's `decoder` group the whole autoencoder with them; a U-Net
     discriminator's group still holds the reference's unused `linear.*`,
     which `models.unet_discriminator.reference_state_dict` drops)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)

@@ -292,8 +292,12 @@ def test_nlayer_discriminator_matches_jax(normalization, sn):
 def test_refusals():
     with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
         UNetDiscriminator(D_ch=4, resolution=128, n_classes=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        NLayerDiscriminator(normalization="actnorm")
+    # the actnorm is ported (tests/test_torch_port_vqgan.py); an unknown
+    # normalization is refused
+    assert any(type(m).__name__ == "ActNorm"
+               for m in NLayerDiscriminator(normalization="actnorm").modules())
+    with pytest.raises(ValueError, match="normalization"):
+        NLayerDiscriminator(normalization="groupnorm")
     with pytest.raises(ValueError, match="resolution"):
         UNetDiscriminator(D_ch=4, resolution=64)
 

@@ -8,6 +8,8 @@ JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -690,3 +692,108 @@ def test_joint_step_goes_through_both_kernels(cuda, monkeypatch, use_remat):
     torch.cuda.synchronize()
     assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10), tvqf.KERNEL: 2}
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+def _vqgan_state(device, seed=0):
+    """A small VQGAN state: `mid_channels` 8, multipliers (1, 2, 4), one res
+    block a level, decoder attention at 16², a 12 × 32 codebook (the VQ
+    kernel's generic instance), f32; the U-Net discriminator at D_ch 4 and
+    resolution 128; the VQGAN config's Adams."""
+    from medical_image_editing_tpu_torch.models import UNetDiscriminator, VQGAN
+    from medical_image_editing_tpu_torch.models.blocks import seeded_init
+    from medical_image_editing_tpu_torch.train import state as tstate
+
+    gen = torch.Generator().manual_seed(seed)
+    vqgan = seeded_init(VQGAN(mid_channels=8, emb_dim=32, dict_size=12,
+                              enc_ch_multiplier=(1, 2, 4), dec_ch_multiplier=(1, 2, 4),
+                              num_res_blocks=1, dec_attn_resolutions=(16,), resolution=64,
+                              knn_backend="pallas"), gen).to(device)
+    dis = UNetDiscriminator(D_ch=4, D_attn="0", resolution=128).init_weights(gen).to(device)
+    return tstate.create_train_state(
+        None, vqgan, None, tstate.make_optimizer(vqgan.parameters(), 1e-4), seed=seed,
+        device=device, discriminator=dis,
+        dis_opt=tstate.make_optimizer(dis.parameters(), 4e-4, b1=0.5))
+
+
+@pytest.mark.gpu
+def test_vqgan_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One VQGAN step (f32, 64², batch 2) on the CPU and on the card, from
+    the same weights and CutMix draws, under `MEDIMG_CONV_IMPL=packed`: on
+    the card the VQ kernel's generic instance launches once and the conv
+    kernel never (the VQGAN's and the discriminator's convolutions are
+    cuDNN's); the losses (rtol 1e-3) and the codebook after the step (rtol
+    1e-3); the gradients read from Adam's first moment within 5× the
+    card's own floor (the card again without cuDNN) or 1e-4, as
+    `chip_smoke.py`'s VQGAN reference part holds them."""
+    from medical_image_editing_tpu_torch.train import second_stage as tss
+    from medical_image_editing_tpu_torch.train import vqgan_stage as tvs
+
+    monkeypatch.setenv("MEDIMG_CONV_IMPL", "packed")
+    assert tvqf.kernel_path(32, 12) == "generic"
+    x = np.random.default_rng(8).uniform(-1, 1, size=(2, 64, 64, 1)).astype(np.float32)
+    draws = tss.sample_cutmix_draws(torch.Generator().manual_seed(3), 1, 64, 64)
+    cfg = tss.SecondStageLossConfig(w_recon=10.0, w_unet_perceptual=1.0)
+    out = {}
+    for name, device, use_cudnn in (("cpu", "cpu", True), ("card", cuda, True),
+                                    ("card_no_cudnn", cuda, False)):
+        state = _vqgan_state(device)
+        on = [(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
+              for box, inv in draws]
+        step = tvs.make_vqgan_step(state.decoder, state.discriminator, loss_cfg=cfg,
+                                   device=device)
+        _build.launches.clear()
+        monkeypatch.setattr(torch.backends.cudnn, "enabled", use_cudnn)
+        _, metrics = step(state, x, draws=on)
+        if name == "card":
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {tvqf.KERNEL: 1}
+        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
+                               for p in getattr(state, m).parameters()])
+                 for m, o in (("decoder", state.dec_opt), ("discriminator", state.dis_opt))}
+        out[name] = ({k: float(v) for k, v in metrics.items()}, grads,
+                     [t.cpu() for t in state.vq])
+    (m_cpu, g_cpu, vq_cpu), (m_card, g_card, vq_card) = out["cpu"], out["card"]
+    for k, v in m_cpu.items():
+        assert abs(m_card[k] - v) <= 1e-3 * abs(v) + 1e-6, (k, m_card[k], v)
+    for a, b in zip(vq_card, vq_cpu):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()) + 1e-6
+    for m in g_cpu:
+        floor = float((out["card_no_cudnn"][1][m] - g_card[m]).norm() / g_card[m].norm())
+        err = float((g_card[m] - g_cpu[m]).norm() / g_cpu[m].norm())
+        assert err <= max(5 * floor, 1e-4), (m, err, floor)
+
+
+@pytest.mark.gpu
+def test_actnorm_on_card_matches_cpu(cuda):
+    """The PatchGAN with ActNorm on the card against the CPU: two train-mode
+    forwards that share one backward (the first initialises each ActNorm),
+    an eval forward, the captured statistics and the weight gradients; and
+    ActNorm's reverse and logdet."""
+    from medical_image_editing_tpu_torch.models import ActNorm, NLayerDiscriminator
+
+    gen = torch.Generator().manual_seed(4)
+    x1, x2 = (torch.randn(2, 1, 64, 64, generator=gen) for _ in range(2))
+    cpu = NLayerDiscriminator(n_filters=8, n_layers=2, normalization="actnorm",
+                              apply_spectral_norm=True).init_weights(gen)
+    card = copy.deepcopy(cpu).to(cuda)
+    outs = {}
+    for name, m, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        m.train()
+        loss = m(x1.to(dev)).pow(2).mean() + m(x2.to(dev)).pow(2).mean()
+        loss.backward()
+        with torch.no_grad():
+            ev = m.eval()(x1.to(dev))
+        outs[name] = (ev.cpu(), {k: v.detach().cpu() for k, v in m.state_dict().items()},
+                      {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (ev_cpu, sd_cpu, g_cpu), (ev_card, sd_card, g_card) = outs["cpu"], outs["card"]
+    assert torch.allclose(ev_card, ev_cpu, rtol=1e-4, atol=1e-5)
+    for k in sd_cpu:
+        if k.endswith(("data_loc", "data_scale", "initialized")):
+            assert torch.allclose(sd_card[k].float(), sd_cpu[k].float(), rtol=1e-4, atol=1e-5), k
+    for k, g in g_cpu.items():
+        assert float((g_card[k] - g).norm()) <= 1e-3 * float(g.norm()) + 1e-7, k
+    an = ActNorm(8, logdet=True).to(cuda)
+    y = torch.randn(3, 8, 5, 5, device=cuda) * 2 + 1
+    h, ld = an(y)
+    assert torch.allclose(an.eval()(h, reverse=True), y, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(ld, 25 * torch.log(an.data_scale.abs()).sum().expand(3))

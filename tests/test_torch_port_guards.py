@@ -1,8 +1,8 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse to fall back to the CPU, `chip_smoke.py` fails
 without a card, and its serve, train, serve_runtime, trainer,
-second_stage and multi_window phases run end to end at tiny size on the
-CPU.
+second_stage, multi_window and vqgan phases run end to end at tiny size on
+the CPU.
 """
 
 import importlib.util
@@ -61,7 +61,9 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 47
+    assert len(modules) >= 50
+    assert {f"{PKG}.models.vqgan", f"{PKG}.models.actnorm",
+            f"{PKG}.train.vqgan_stage"} <= set(modules)
 
 
 def test_entry_points_refuse_missing_card():
@@ -70,7 +72,10 @@ def test_entry_points_refuse_missing_card():
     from medical_image_editing_tpu_torch.cli import edit_batch, run_recon, run_vqwnet, serve_http
     from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
     from medical_image_editing_tpu_torch.cli.run_recon import LungConfig, load_model
-    from medical_image_editing_tpu_torch.train.evaluate import make_eval_forward
+    from medical_image_editing_tpu_torch.train.evaluate import (
+        make_eval_forward,
+        make_vqgan_eval_forward,
+    )
 
     def lung():
         cfg = LungConfig()
@@ -86,6 +91,9 @@ def test_entry_points_refuse_missing_card():
                  lambda: serve_http.main(["--warm", "none"]),
                  lambda: edit_batch.main(["--label-dir", ".", "--out-dir", "."]),
                  lambda: run_vqwnet.main(["-c", str(ROOT / "configs" / "lung_first_stage.json"),
+                                          "-m", "train"]),
+                 lambda: make_vqgan_eval_forward(torch.nn.Identity()),
+                 lambda: run_vqwnet.main(["-v", "-c", str(ROOT / "configs" / "crc_vqgan.json"),
                                           "-m", "train"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -265,4 +273,43 @@ def test_chip_smoke_multi_window_phase_on_cpu(tmp_path, capsys):
     assert run["planted_fault_gap"]["discriminator"]["sn_max"] > 0
     assert len(run["validation_grids"]) == 4
     assert run["exported"] == {"image_": 10, "recon_": 10, "label_": 10}
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+
+
+def test_chip_smoke_vqgan_phase_on_cpu(tmp_path, capsys):
+    """The vqgan phase end to end at tiny size on the CPU, over a seeded CRC
+    tree of 2 × 5 slices of 32² (5 steps an epoch at batch 2, as on the
+    card at batch 8): (a) the bare steps, the operations counted on the
+    meta device, the painted decode; (c) the card-vs-CPU comparison (here
+    CPU against CPU: exact); (b) runs A and B, the resume held, test, the
+    0-based label maps, the planted faulty resume (the codebook's EMA
+    buffers dropped) that the check catches; no kernel launch, under the
+    packed conv route too."""
+    smoke = _chip_smoke()
+    overrides = {"model.vqgan": {"mid_channels": 4, "emb_dim": 8, "dict_size": 6,
+                                 "enc_ch_multiplier": [1, 2, 4], "dec_ch_multiplier": [1, 2, 4],
+                                 "num_res_blocks": 1, "dec_attn_resolutions": [8],
+                                 "resolution": 32},
+                 "dataset": {"batch_size": 2}, "model.dis": {"D_ch": 4, "resolution": 128}}
+    with smoke.conv_route("packed"):
+        launches = smoke.vqgan_phase("cpu", tmp_path, size=32, batch=2, steps=2, ref_size=32,
+                                     overrides=overrides, slices=5)
+    assert launches == {}
+    recs = {r["part"]: r for r in (json.loads(line) for line in capsys.readouterr().out
+                                   .splitlines() if line.startswith('{"phase": "vqgan"'))}
+    step, ref, run = recs["step"], recs["reference"], recs["run"]
+    assert len(step["step_s"]) == 2 and step["codebook"] == [6, 8]
+    assert 10 < step["dis_step_forward_equivalents"] < 13
+    assert 2.5 < step["vqgan_flop"] / step["vqgan_forward_flop"] < 3.5
+    assert step["painted_out_shape"] == [2, 1, 32, 32] and step["painted_ids_shape"] == [2, 8, 8]
+    assert ref["id_mismatches_clear"] == 0 and max(ref["loss_rel_err"].values()) == 0.0
+    assert run["counters"] == {"A": [6, 1], "B": [6, 1]} and run["same_batch_stream"]
+    assert all(v == 0.0 for part in ("decoder", "discriminator", "codebook")
+               for v in run["resume_gap"][part].values())
+    limit = smoke.VQGAN_RESUME_GAP_LIMIT["codebook"]["cluster_size"]
+    assert run["planted_fault_gap"]["codebook"]["cluster_size"] > limit
+    assert run["validation_grids"] == 4 and run["label_maps"] == 10
+    assert run["label_shape"] == [8, 8] and run["label_range"][1] < 6
+    assert run["result_csv"][0][1:] == ["Entropy_avg", "Entropy_std", "NMSE_avg", "NMSE_std",
+                                        "PSNR_avg", "PSNR_std", "SSIM_avg", "SSIM_std"]
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"

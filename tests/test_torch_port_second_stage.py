@@ -42,6 +42,11 @@ host in brackets):
   relative difference; the decoder's BatchNorm running stats rtol 1e-4,
   atol 1e-6.
 
+A fifth case runs the PatchGAN with ActNorm in place of batch norm (one
+inner loop); its ActNorms initialise on the first train-mode forward, the
+reconstruction's, and their captured statistics are held as the
+spectral-norm vectors are.
+
 The encoder's codebook is k-means on the batch's features, as a second
 stage starts (the trainer's `use_init_embed` gate); on the random initial
 codebook one near-tie id out of 8,192 flipped between the frameworks
@@ -88,7 +93,10 @@ FILTERS = (4, 8, 16, 32, 64)
 DICT = 10
 B, SIZE = 2, 64
 UNET, NLAYER = "UNetDiscriminator", "NLayerDiscriminator"
-CASES = [(UNET, 1), (UNET, 2), (NLAYER, 1), (NLAYER, 2)]
+# the PatchGAN with ActNorm (its first train-mode forward, on the
+# reconstruction, initialises each ActNorm) in place of batch norm
+NLAYER_ACT = NLAYER + "/actnorm"
+CASES = [(UNET, 1), (UNET, 2), (NLAYER, 1), (NLAYER, 2), (NLAYER_ACT, 1)]
 METRICS = ["gen_total", "recon", "freq", "perceptual", "gen", "unet_perceptual",
            "dis_total", "dis", "cutmix", "consistency", "total"]
 DIS_METRICS = {"dis_total", "dis", "cutmix", "consistency", "total"}
@@ -131,16 +139,21 @@ def _np(state):
                                         "dis_opt")})
 
 
-def _jax_dis(dis_type):
-    if dis_type == UNET:
+def _norm(dis_kind):
+    return "actnorm" if dis_kind == NLAYER_ACT else "batchnorm"
+
+
+def _jax_dis(dis_kind):
+    if dis_kind == UNET:
         return JUNetD(D_ch=4, D_attn="0", resolution=128)
-    return JNLayer(n_filters=8, n_layers=2, normalization="batchnorm", apply_spectral_norm=True)
+    return JNLayer(n_filters=8, n_layers=2, normalization=_norm(dis_kind),
+                   apply_spectral_norm=True)
 
 
-def _port_dis(dis_type):
-    if dis_type == UNET:
+def _port_dis(dis_kind):
+    if dis_kind == UNET:
         return UNetDiscriminator(D_ch=4, D_attn="0", resolution=128)
-    return NLayerDiscriminator(n_filters=8, n_layers=2, normalization="batchnorm",
+    return NLayerDiscriminator(n_filters=8, n_layers=2, normalization=_norm(dis_kind),
                                apply_spectral_norm=True)
 
 
@@ -176,7 +189,7 @@ def jax_init():
                                                    train=False))(
         jax.random.key(2), jax.random.key(3), jnp.zeros((1, SIZE, SIZE, FILTERS[0])))
     dis = {t: (_jax_dis(t), jax.jit(lambda k, x, t=t: _jax_dis(t).init(k, x, train=False))(
-        jax.random.key(5), x)) for t in (UNET, NLAYER)}
+        jax.random.key(5), x)) for t in (UNET, NLAYER, NLAYER_ACT)}
     return SimpleNamespace(jcfg=jcfg, jenc=jenc, jdec=jdec, enc_vars=enc_vars, vq=vq,
                            dec_vars=dict(dec_vars), dis=dis)
 
@@ -196,7 +209,8 @@ def _run_jax(ji, dis_type, n_inner, image, route):
     try:
         with jax.default_matmul_precision("highest"):
             step = jax.jit(jss.make_second_stage_step(ji.jenc, ji.jdec, jdis, dec_tx, dis_tx,
-                                                      loss_cfg=cfg, dis_type=dis_type))
+                                                      loss_cfg=cfg,
+                                                      dis_type=dis_type.split("/")[0]))
             s1, metrics = step(s0, jnp.asarray(image), 0.0)
     finally:
         if prev is None:
@@ -235,7 +249,7 @@ def run_port(s0, dis_type, n_inner, image, draws, plant=None):
     step = tss.make_second_stage_step(
         state.encoder, state.decoder, state.discriminator,
         loss_cfg=tss.second_stage_config_from_json(cfg.loss)._replace(n_inner_loops=n_inner),
-        dis_type=dis_type, device="cpu")
+        dis_type=dis_type.split("/")[0], device="cpu")
     prev = os.environ.get("MEDIMG_CONV_IMPL")
     os.environ["MEDIMG_CONV_IMPL"] = "packed"
     try:
@@ -249,7 +263,11 @@ def run_port(s0, dis_type, n_inner, image, draws, plant=None):
                            metrics={k: float(v) for k, v in metrics.items()})
 
 
-@pytest.fixture(scope="module", params=CASES, ids=lambda c: f"{c[0][:5]}-{c[1]}")
+def _case_id(c):
+    return f"{'actno' if c[0] == NLAYER_ACT else c[0][:5]}-{c[1]}"
+
+
+@pytest.fixture(scope="module", params=CASES, ids=_case_id)
 def case(request, jax_init):
     dis_type, n_inner = request.param
     image = _images()
@@ -342,7 +360,7 @@ def test_step_losses_match_jax(case, name):
     assert set(case.port.metrics) == set(case.jm) == set(METRICS)
     assert metric_within(case, name, case.port.metrics), (
         name, case.port.metrics[name], case.jm[name], case.jm_xla[name])
-    if case.dis_type == NLAYER and name in ("cutmix", "consistency", "unet_perceptual"):
+    if case.dis_type != UNET and name in ("cutmix", "consistency", "unet_perceptual"):
         assert case.port.metrics[name] == 0.0
 
 
@@ -364,7 +382,7 @@ def test_step_spectral_norm_and_batchnorm_state_match_jax(case):
     want, xla = _sds(case.s1)["discriminator"], _sds(case.s1_xla)["discriminator"]
     got = case.port.state.discriminator.state_dict()
     buffers = [k for k in got if k.endswith(("u0", "sv0", "weight_u", "running_mean",
-                                             "running_var"))]
+                                             "running_var", "data_loc", "data_scale"))]
     assert buffers
     for k in buffers:
         floor = float((xla[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-12)

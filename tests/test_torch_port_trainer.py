@@ -365,12 +365,13 @@ def test_staged_first_stage_from_checkpoint_and_lightning(env, port_fit):
 @pytest.mark.parametrize("what", ["multiwindow", "vqgan", "second_step", "joint_step",
                                   "dropblock", "perceptual", "discriminator"])
 def test_parts_not_ported_are_refused(env, what):
-    """The second stage and the multi-window trainer are ported
-    (tests/test_torch_port_gan.py, tests/test_torch_port_multi_window*.py);
-    "second_step", "discriminator", "multiwindow" and "joint_step" check
-    what of them is not: the PatchGAN's actnorm, projection discrimination,
-    the perceptual loss under `-w`, projection discrimination in the joint
-    step."""
+    """The second stage, the multi-window trainer and the VQGAN trainer are
+    ported (tests/test_torch_port_gan.py, tests/test_torch_port_multi_window*.py,
+    tests/test_torch_port_vqgan*.py); "second_step", "discriminator",
+    "multiwindow", "vqgan" and "joint_step" check what of them is not:
+    DropBlock in the second stage, projection discrimination, the
+    perceptual loss under `-w` and under `-v`, projection discrimination in
+    the joint step."""
     cfg = _config(env.root)
     kw = {}
     if what == "multiwindow":
@@ -378,6 +379,15 @@ def test_parts_not_ported_are_refused(env, what):
         cfg["loss"]["use_perceptual_loss"] = True
     elif what == "vqgan":
         kw = {"use_vqgan": True}
+        cfg["model"]["vqmodel"]["model_name"] = "VQGAN"
+        cfg["model"]["vqgan"] = {"in_channels": 1, "mid_channels": 4, "out_channels": 1,
+                                 "emb_dim": 8, "dict_size": 6, "enc_ch_multiplier": [1, 2],
+                                 "dec_ch_multiplier": [1, 2], "num_res_blocks": 1,
+                                 "enc_attn_resolutions": [], "dec_attn_resolutions": [],
+                                 "resolution": 32}
+        cfg["model"]["dis"] = {"model_name": "UNetDiscriminator", "D_ch": 4,
+                               "resolution": 128}
+        cfg["loss"]["use_perceptual_loss"] = True
     elif what == "joint_step":
         kw = {"use_multi_window": True}
         cfg["run"]["training_mode"] = what
@@ -385,7 +395,7 @@ def test_parts_not_ported_are_refused(env, what):
                                "resolution": 128, "n_classes": 3}
     elif what == "second_step":
         cfg["run"]["training_mode"] = what
-        cfg["model"]["dis"]["normalization"] = "actnorm"
+        cfg["model"]["vqmodel"]["use_dropblock"] = True
     elif what == "dropblock":
         cfg["model"]["vqmodel"]["use_dropblock"] = True
     elif what == "perceptual":

@@ -6,8 +6,11 @@ one CUDA card: the quickest proof that the port starts on the GPU.
 
 Phases, each printing one JSON line and raising on failure (exit code != 0,
 and no result line):
-  1. device  — card name and count, `nvidia-smi` name and power limit; TF32
-               off for cuDNN convolutions and matmuls (the f32 path is full f32);
+  1. device  — card name and count, `nvidia-smi` name and power limit;
+               MEDIMG_CONV_PRECISION=ieee for the whole run, applied as the
+               CLIs apply it: TF32 off for cuDNN convolutions and matmuls
+               (the f32 path is full f32; every CLI call and card-vs-CPU
+               part checks it off again);
   2. build   — every kernel under `medical_image_editing_tpu_torch/csrc` built
                with nvcc for sm_90a (one nvcc per source, all at once); the
                `-Xptxas -v` report;
@@ -121,11 +124,30 @@ and no result line):
                "inference" export of the 0-based label maps, launches held,
                and a planted faulty resume (the codebook's EMA buffers
                dropped) whose gap is printed;
+  8e. losses — the perceptual loss and DropBlock on the lung first stage's
+               path (`configs/lung_first_stage.json` at full widths with
+               only the switches on: the VGG19 loss at weight 1.0 on its
+               seeded fallback, DropBlock at block_size 30), bf16, packed,
+               256², batch 8: (a) k-means and 5 bare steps at drop_prob
+               0.5, launches held to the train phase's derived counts, a
+               profiled warm step, the VGG's work alone (device time, share
+               of busy, f32 rate against the operations counted on the meta
+               device), peak memory, a warm step under `tf32` against
+               `ieee` (times, loss gap); (b) 2 steps with LPIPS, launches
+               held; (c) the VQGAN step at `configs/crc_vqgan.json`'s full
+               widths, 512², batch 8, with the VGG loss: 3 steps, peak
+               memory; (d) one step at 64², batch 2, f32, `ieee`, on the
+               card held to the CPU path; (e) `run_vqwnet.main` over the
+               trainer phase's tree: run A 10 steps, run B 3 and a resume
+               across the epoch end held to A with a gap of 0, the logged
+               `perceptual_fallback`, each step's drop_prob against the
+               schedule, the checkpoint keys, launches held, and the
+               precision the CLIs set by default;
   9. kernels — one line listing every hand-written kernel of the paths.
 The serve, serve_runtime (its packed route), train, trainer, second_stage
-(a) and (b), multi_window (a) (each mode) and (b), and vqgan (a) and (b)
-phases are the main paths: each zeroes the launch counts just before it
-and reads them just after.
+(a) and (b), multi_window (a) (each mode) and (b), vqgan (a) and (b), and
+losses (a), (b), (c) and (e) phases are the main paths: each zeroes the
+launch counts just before it and reads them just after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
@@ -393,11 +415,54 @@ def conv_route(impl):
             os.environ["MEDIMG_CONV_IMPL"] = prev
 
 
-def device_phase():
+@contextlib.contextmanager
+def conv_precision(value):
+    """MEDIMG_CONV_PRECISION=value (None: unset) inside the block, applied
+    as the CLIs apply it (`utils.device.apply_conv_precision`); the
+    variable and the cuDNN and matmul TF32 flags restored after. Yields
+    the value applied."""
     import torch
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from medical_image_editing_tpu_torch.utils.device import apply_conv_precision
+
+    prev = os.environ.get("MEDIMG_CONV_PRECISION")
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    if value is None:
+        os.environ.pop("MEDIMG_CONV_PRECISION", None)
+    else:
+        os.environ["MEDIMG_CONV_PRECISION"] = value
+    try:
+        yield apply_conv_precision()
+    finally:
+        if prev is None:
+            os.environ.pop("MEDIMG_CONV_PRECISION", None)
+        else:
+            os.environ["MEDIMG_CONV_PRECISION"] = prev
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def tf32_off():
+    """Raise unless cuDNN's f32 convolutions and matmuls are full f32."""
+    import torch
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on where the run holds the card to full f32 "
+                           f"(cudnn {torch.backends.cudnn.allow_tf32}, "
+                           f"matmul {torch.backends.cuda.matmul.allow_tf32})")
+
+
+def device_phase():
+    """The card, and the run's precision: MEDIMG_CONV_PRECISION=ieee for
+    the whole process, applied as the CLIs apply it, so that cuDNN's f32
+    convolutions and matmuls are full f32 wherever the card is held to the
+    CPU or a run to another (a phase that measures TF32 says so)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.utils.device import apply_conv_precision
+
+    os.environ["MEDIMG_CONV_PRECISION"] = "ieee"
+    apply_conv_precision()
+    tf32_off()
     smi = nvidia_smi()
     print(smi, flush=True)
     info = {
@@ -407,6 +472,7 @@ def device_phase():
         "nvidia_smi": smi,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
+        "conv_precision": os.environ["MEDIMG_CONV_PRECISION"],
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
     }
@@ -1079,7 +1145,8 @@ def kernel_breakdown(wall, kernels, top=8):
 
 def routed_convs(module, x):
     """How many convolutions a forward of `module` on x sends to the packed
-    kernel (`Conv.routes_to_kernel`), counted on the meta device."""
+    kernel (`Conv.routes_to_kernel`), counted on the meta device in eval
+    mode (which routes as training does, and takes no DropBlock draws)."""
     import torch
 
     from medical_image_editing_tpu_torch.models.blocks import Conv
@@ -1089,7 +1156,7 @@ def routed_convs(module, x):
     def hook(m, args):
         count[0] += int(m.routes_to_kernel(args[0]))
 
-    meta = copy.deepcopy(module).to("meta")
+    meta = copy.deepcopy(module).to("meta").eval()
     handles = [m.register_forward_pre_hook(hook) for m in meta.modules()
                if isinstance(m, Conv)]
     with torch.no_grad():
@@ -1239,6 +1306,8 @@ def train_reference_phase(cfg, *, size=64, batch=2, seed=1):
     from medical_image_editing_tpu_torch.ops.vq import vq_scores
     from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
 
+    tf32_off()  # held to the CPU at full f32
+
     model = cfg.model.vqmodel
     images = make_slices(np.random.default_rng(seed), batch, size)
     gen = torch.Generator().manual_seed(seed)
@@ -1327,7 +1396,10 @@ def captured_trainers():
 def run_cli(work, base, name, argv, cuda, **changes):
     """`run_vqwnet.main` in-process on the config dict `base` with
     `changes` ({section: {key: value}}) merged in and `save.save_dir` =
-    work/name; returns the study's run directory."""
+    work/name, under MEDIMG_CONV_PRECISION=ieee (the CLI sets the
+    precision, and every run here is held to another or to the CPU at full
+    f32), TF32 checked off after it returns; returns the study's run
+    directory."""
     from medical_image_editing_tpu_torch.cli import run_vqwnet
 
     cfg = copy.deepcopy(base)
@@ -1337,8 +1409,10 @@ def run_cli(work, base, name, argv, cuda, **changes):
     path = work / f"{name}.json"
     path.write_text(json.dumps(cfg))
     argv = ["-c", str(path), *argv] + ([] if cuda else ["--device", "cpu"])
-    if run_vqwnet.main(argv) != 0:
-        raise RuntimeError(f"run_vqwnet {argv} failed")
+    with conv_precision("ieee"):
+        if run_vqwnet.main(argv) != 0:
+            raise RuntimeError(f"run_vqwnet {argv} failed")
+        tf32_off()
     return work / name / str(base["save"]["study_name"])
 
 
@@ -1861,6 +1935,8 @@ def second_stage_reference_part(overrides, *, size=64, batch=2, seed=1, card="cu
     from medical_image_editing_tpu_torch.ops.vq import vq_scores
     from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
     from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+
+    tf32_off()  # held to the CPU at full f32
 
     cfg = second_config(overrides, **{"model.vqmodel": {"compute_dtype": "float32"}})
     images = make_slices(np.random.default_rng(seed), batch, size)
@@ -2416,6 +2492,8 @@ def multi_window_reference_part(overrides, *, size=64, batch=2, seed=1, card="cu
     from medical_image_editing_tpu_torch.ops.vq import vq_scores
     from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
 
+    tf32_off()  # held to the CPU at full f32
+
     cfg = mw_config(overrides, **{"model.vqmodel": {"compute_dtype": "float32"}})
     images = make_slices(np.random.default_rng(seed), batch, size)
     trainer, state = second_state(cfg, "cpu", seed, multi_window=True)
@@ -2888,6 +2966,8 @@ def vqgan_reference_part(overrides, *, size=128, batch=2, seed=1, card="cuda"):
     from medical_image_editing_tpu_torch.ops.vq import vq_scores
     from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
 
+    tf32_off()  # held to the CPU at full f32
+
     cfg = vqgan_config(overrides)
     images = make_slices(np.random.default_rng(seed), batch, size)
     trainer, state = vqgan_state(cfg, "cpu", seed)
@@ -3156,6 +3236,604 @@ def vqgan_run_part(device, workdir, overrides, *, size, patients, slices, seed=0
     return launches
 
 
+# --------------------------------------------------------------------------
+# the perceptual loss and DropBlock in the first stage
+# --------------------------------------------------------------------------
+
+
+def losses_config(overrides=None, kind="vgg", path=MODEL_CONFIG, **sections):
+    """A config (the lung first stage's by default; see `second_config`)
+    with only the switches turned on: the perceptual loss of `kind` at
+    weight 1.0, `perceptual_fallback` logged, and DropBlock at the config's
+    `block_size` and schedule."""
+    base = second_config(overrides, path=path, **sections)
+    base["loss"].update(use_perceptual_loss=True, perceptual_loss_type=kind)
+    base["loss"]["loss_weight"]["perceptual"] = 1.0
+    base["run"]["monitoring_metrics"] = [*base["run"]["monitoring_metrics"],
+                                         "perceptual_fallback"]
+    base["model"]["vqmodel"]["use_dropblock"] = True
+    return base
+
+
+def losses_step_fn(trainer, state, device):
+    """The trainer's first-stage step on `state`'s models, with its
+    perceptual loss."""
+    import torch
+
+    from medical_image_editing_tpu_torch.train.first_stage import make_first_stage_step
+
+    return make_first_stage_step(state.encoder, state.decoder, loss_cfg=trainer.first_cfg,
+                                 aug_cfg=trainer.aug_cfg, dict_size=trainer.dict_size,
+                                 compute_dtype=trainer.compute_dtype or torch.float32,
+                                 device=device, perceptual_fn=trainer.perceptual_fn)
+
+
+def fork_first_state(cfg, state, device):
+    """A copy of a first-stage state (modules, Adam states; the generator
+    fresh): a step on it leaves `state` as it was."""
+    from medical_image_editing_tpu_torch.train import state as tstate
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    c = to_config(cfg)
+    enc, dec = copy.deepcopy(state.encoder), copy.deepcopy(state.decoder)
+    opts = []
+    for module, section, src in ((enc, c.enc_optim, state.enc_opt),
+                                 (dec, c.dec_optim, state.dec_opt)):
+        opt = tstate.make_optimizer_from_config(module.parameters(), section)
+        opt.load_state_dict(copy.deepcopy(src.state_dict()))
+        opts.append(opt)
+    return tstate.create_train_state(enc, dec, opts[0], opts[1], device=device)
+
+
+def first_draws(trainer, state, generator, batch, size):
+    """One step's draws from `generator`: the two views', then the two
+    decodes' DropBlock uniforms."""
+    from medical_image_editing_tpu_torch.ops.augment import sample_view_draws
+    from medical_image_editing_tpu_torch.train.first_stage import view_dropblock_draws
+
+    views = tuple(sample_view_draws(generator, trainer.aug_cfg, batch, size, size)
+                  for _ in range(2))
+    return views, view_dropblock_draws(generator, state.decoder, batch, size, size)
+
+
+def vgg_work(vgg, image, recon):
+    """The perceptual loss's work in one first-stage step, alone (NCHW):
+    two views' losses (4 forwards) and their input gradients (2 backward
+    passes; the weights are buffers)."""
+    r = recon.detach().requires_grad_(True)
+    (vgg(r, image) + vgg(r.flip(-1), image.flip(-1))).backward()
+
+
+def vgg_reproducibility(vgg, image, recon):
+    """The VGG work's input gradient taken twice through the module (its
+    convolutions cuDNN's deterministic algorithms, `ops.perceptual.
+    _frozen_conv`) and twice through the same network on plain
+    `F.conv2d` autograd (PyTorch's default cuDNN heuristics): the largest
+    difference between each pair, and each one's time (CUDA events)."""
+    import torch
+    import torch.nn.functional as F
+
+    def plain(x):
+        x = x.float().repeat(1, 3, 1, 1)
+        for idx, kind in ((0, "C"), (2, "C"), (4, "M"), (5, "C"), (7, "C")):
+            if kind == "M":
+                x = F.max_pool2d(x, 2)
+            else:
+                conv = getattr(vgg.features, str(idx))
+                x = F.conv2d(x, conv.weight, conv.bias, padding=1)
+                x = F.relu(x) if idx + 1 < vgg.stop_index else x
+        return x
+
+    def plain_loss(r, t):
+        return torch.mean((plain(r) - plain(t.detach())) ** 2)
+
+    out = {}
+    for name, fn in (("module", vgg), ("default_heuristics", plain_loss)):
+        grads = []
+        for _ in range(2):
+            r = recon.detach().requires_grad_(True)
+            (fn(r, image) + fn(r.flip(-1), image.flip(-1))).backward()
+            grads.append(r.grad)
+        out[f"{name}_grad_rerun_gap"] = float((grads[0] - grads[1]).abs().max())
+
+        def work(fn=fn):
+            r = recon.detach().requires_grad_(True)
+            (fn(r, image) + fn(r.flip(-1), image.flip(-1))).backward()
+
+        out[f"{name}_ms"] = cuda_ms(work, warmup=2, iters=10) if image.is_cuda else None
+    return out
+
+
+def vgg_work_flops(vgg, batch, size):
+    """Operations of `vgg_work` at the step's shapes, counted by
+    `torch.utils.flop_counter` on the meta device: (total, one forward)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    meta = copy.deepcopy(vgg).to("meta")
+    x = torch.zeros(batch, 1, size, size, device="meta")
+    with FlopCounterMode(display=False) as fc:
+        vgg_work(meta, x, x.clone())
+    total = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        meta.feature_stack(x.repeat(1, 3, 1, 1))
+    return total, fc.get_total_flops()
+
+
+def losses_phase(device, workdir, *, size=256, batch=8, steps=5, seed=0, overrides=None,
+                 vqgan_overrides=None, vqgan_size=512, ref_size=64, patients=2, slices=20):
+    """The perceptual loss and DropBlock on the first stage's path (the
+    lung first-stage config at full widths with the switches on;
+    `overrides` shrinks it for a CPU rehearsal): (a) the bare step, (b)
+    the LPIPS step, (c) the VQGAN step with the VGG loss, (d) one step held
+    to the CPU path, (e) the run through `run_vqwnet.main` over the trainer
+    phase's tree in `workdir`. Returns the launches of (a), (b), (c) and
+    (e)."""
+    parts = [losses_step_part(device, overrides, size=size, batch=batch, steps=steps,
+                              seed=seed),
+             losses_lpips_part(device, overrides, size=size, batch=batch, seed=seed),
+             losses_vqgan_part(device, vqgan_overrides, size=vqgan_size, batch=batch,
+                               seed=seed)]
+    losses_reference_part(overrides, size=ref_size, seed=seed + 1, card=device)
+    parts.append(losses_run_part(device, workdir, overrides, patients=patients, slices=slices))
+    return {k: sum(p.get(k, 0) for p in parts) for k in set().union(*parts)}
+
+
+def losses_step_part(device, overrides, *, size, batch, steps, seed):
+    """(a) The first-stage step with the VGG loss (weight 1) and DropBlock
+    (the config's block_size, drop_prob its stop_value) from seeded
+    weights: codebook k-means, then `steps` steps with the packed conv
+    route, the launches held to the train phase's derived counts (neither
+    part adds one); on the card a profiled warm step (busy, idle, top
+    kernels), the VGG's work alone (its device time, share of busy and f32
+    rate against the operations counted on the meta device), peak memory,
+    and one warm step under `tf32` against `ieee` from one state and draws
+    (times, loss gap)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+
+    cfg = losses_config(overrides)
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    trainer, state = second_state(cfg, device, seed)
+    model = cfg["model"]["vqmodel"]
+    drop = float(model["stop_value"])
+    step = losses_step_fn(trainer, state, device)
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    n_enc = routed_convs(state.encoder, torch.zeros(1, int(model["in_channels"]), size, size))
+    n_dec = routed_convs(state.decoder,
+                         torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    vq_on = str(model["knn_backend"]) in ("pallas", "faiss")
+    # the train phase's counts: k-means one encoder forward; each step both
+    # views through encoder and decoder and every routed conv's input
+    # gradient, two assignments
+    want = {"conv3x3_packed": n_enc + steps * 4 * (n_enc + n_dec),
+            "vq_fused": 2 * steps if vq_on else 0}
+    before = [next(state.encoder.parameters()).detach().clone(),
+              next(state.decoder.parameters()).detach().clone()]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    _build.launches.clear()
+    # -- main path: codebook init, then the steps
+    init_codebook_step(state.encoder)(state, images)
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, images, drop_prob=drop)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    moved = [not torch.equal(b, next(m.parameters()).detach())
+             for b, m in zip(before, (state.encoder, state.decoder))]
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    vgg = trainer.perceptual_fn
+    flops, fwd_flops = vgg_work_flops(vgg, batch, size)
+    rec = {
+        "phase": "losses", "part": "step", "device": str(device), "size": size,
+        "batch": batch, "steps": steps, "compute_dtype": str(model["compute_dtype"]),
+        "perceptual": "vgg", "perceptual_pretrained": vgg.pretrained,
+        "perceptual_fallback": trainer.perceptual_fallback,
+        "dropblock": {"block_size": int(model["block_size"]), "drop_prob": drop,
+                      "levels": state.decoder.dropblock_levels()},
+        "routed_convs": {"encoder": n_enc, "decoder": n_dec},
+        "launches": launches, "launches_expected": want if cuda else {},
+        "step_s": step_s, "warm_step_s_median": float(np.median(step_s[1:] or step_s)),
+        "losses_first": losses[0], "losses_last": losses[-1],
+        "max_memory_allocated_bytes": peak,
+        "vgg_forward_flop": fwd_flops, "vgg_step_flop": flops,
+        "vgg_step_forward_equivalents": flops / fwd_flops,
+    }
+    x = torch.as_tensor(images, device=device).permute(0, 3, 1, 2)
+    recon = torch.tanh(x + 0.1 * torch.randn_like(x))
+    vgg_work(vgg, x, recon)
+    if cuda:
+        # one warm step under the profiler, then the VGG's work alone
+        wall, kernels = profile_window(lambda: step(state, images, drop_prob=drop))
+        rec["profile"] = kernel_breakdown(wall, kernels, 12)
+        busy = rec["profile"]["device_busy_s"]
+        rec["device_idle_share_of_warm_step"] = 1.0 - busy / rec["warm_step_s_median"]
+        vwall, vkernels = profile_window(lambda: vgg_work(vgg, x, recon))
+        vbusy = sum(device_us(e) for e in vkernels) / 1e6
+        rec["vgg_reproducibility"] = vgg_reproducibility(vgg, x, recon)
+        rec.update({
+            "vgg_work_device_busy_s": vbusy, "vgg_share_of_step_busy": vbusy / busy,
+            "vgg_work_top": kernel_breakdown(vwall, vkernels, 6)["top"],
+            "vgg_achieved_f32_flop_per_s": flops / vbusy,
+            "vgg_share_of_f32_peak": flops / vbusy / PEAK_F32_FLOP_PER_S,
+            "vgg_f32_floor_s": flops / PEAK_F32_FLOP_PER_S,
+        })
+    # one step from one state and draws at full f32 and under TF32, then
+    # three warm steps of each, timed
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    draws, db = first_draws(trainer, state, gen, batch, size)
+    timed = {}
+    for value in ("ieee", "tf32"):
+        with conv_precision(value):
+            fork = fork_first_state(cfg, state, device)
+            fork_step = losses_step_fn(trainer, fork, device)
+            _, m = fork_step(fork, images, draws, drop, db)
+            times = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                fork_step(fork, images, draws, drop, db)
+                sync()
+                times.append(time.perf_counter() - t0)
+            timed[value] = ({k: float(v) for k, v in m.items()}, times)
+            del fork, fork_step
+    tf32_off()
+    m32, m_tf32 = timed["ieee"][0], timed["tf32"][0]
+    rec.update({
+        "ieee_warm_step_s": timed["ieee"][1], "tf32_warm_step_s": timed["tf32"][1],
+        "ieee_warm_step_s_median": float(np.median(timed["ieee"][1])),
+        "tf32_warm_step_s_median": float(np.median(timed["tf32"][1])),
+        "tf32_loss_rel_gap": {k: abs(m_tf32[k] - v) / max(abs(v), 1e-12)
+                              for k, v in m32.items()},
+        "card": nvidia_smi() if cuda else None,
+    })
+    emit(rec)
+    if not finite or not all(moved) or losses[0]["perceptual"] <= 0:
+        raise RuntimeError(f"losses step: finite {finite}, moved {moved}, "
+                           f"perceptual {losses[0]['perceptual']}")
+    if cuda and rec["vgg_reproducibility"]["module_grad_rerun_gap"] != 0.0:
+        raise RuntimeError(f"the VGG's input gradient is not reproducible: "
+                           f"{rec['vgg_reproducibility']}")
+    if cuda and {k: launches.get(k, 0) for k in want} != want:
+        raise RuntimeError(f"losses step kernel launches {launches}, derived {want}")
+    if not cuda and launches:
+        raise RuntimeError(f"CPU tensors launched kernels: {launches}")
+    return launches
+
+
+def losses_lpips_part(device, overrides, *, size, batch, seed, steps=2):
+    """(b) Codebook k-means, then `steps` first-stage steps with
+    `perceptual_loss_type: "lpips"` (and DropBlock), launches held: one
+    encoder forward, then each step's four encoder and decoder passes and
+    two assignments."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+
+    cfg = losses_config(overrides, kind="lpips")
+    cuda = torch.device(device).type == "cuda"
+    trainer, state = second_state(cfg, device, seed)
+    model = cfg["model"]["vqmodel"]
+    step = losses_step_fn(trainer, state, device)
+    images = make_slices(np.random.default_rng(seed + 2), batch, size)
+    n_enc = routed_convs(state.encoder, torch.zeros(1, int(model["in_channels"]), size, size))
+    n_dec = routed_convs(state.decoder,
+                         torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    vq_on = str(model["knn_backend"]) in ("pallas", "faiss")
+    want = {"conv3x3_packed": n_enc + steps * 4 * (n_enc + n_dec),
+            "vq_fused": 2 * steps if vq_on else 0}
+
+    _build.launches.clear()
+    # -- main path: codebook init, then the steps
+    init_codebook_step(state.encoder)(state, images)
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, images, drop_prob=float(model["stop_value"]))
+        if cuda:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(_build.launches)
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    emit({"phase": "losses", "part": "lpips", "device": str(device), "size": size,
+          "batch": batch, "steps": steps, "perceptual_pretrained": trainer.perceptual_fn.pretrained,
+          "launches": launches, "launches_expected": want if cuda else {}, "step_s": step_s,
+          "losses_first": losses[0], "losses_last": losses[-1]})
+    if not finite or losses[0]["perceptual"] <= 0:
+        raise RuntimeError(f"lpips step: finite {finite}, perceptual {losses[0]['perceptual']}")
+    if cuda and {k: launches.get(k, 0) for k in want} != want:
+        raise RuntimeError(f"lpips step kernel launches {launches}, derived {want}")
+    if not cuda and launches:
+        raise RuntimeError(f"CPU tensors launched kernels: {launches}")
+    return launches
+
+
+def losses_vqgan_part(device, overrides, *, size, batch, seed, steps=3):
+    """(c) The VQGAN step at `configs/crc_vqgan.json`'s widths with the VGG
+    loss on (weight 1): `steps` steps through the trainer, launches held
+    (one assignment a step, no packed conv), peak memory against the
+    card's."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+
+    cfg = losses_config(overrides, path=VQGAN_CONFIG)
+    cfg["model"]["vqmodel"]["use_dropblock"] = False  # the VQGAN has no DropBlock
+    cuda = torch.device(device).type == "cuda"
+    trainer, state = vqgan_state(cfg, device, seed)
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    vq_on = str(cfg["model"]["vqmodel"]["knn_backend"]) in ("pallas", "faiss")
+    want = {"conv3x3_packed": 0, "vq_fused": steps if vq_on else 0}
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    _build.launches.clear()
+    # -- main path: the steps
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, images)
+        if cuda:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    total = torch.cuda.get_device_properties(0).total_memory if cuda else None
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    emit({"phase": "losses", "part": "vqgan", "device": str(device), "size": size,
+          "batch": batch, "steps": steps, "perceptual": "vgg",
+          "launches": launches, "launches_expected": want if cuda else {}, "step_s": step_s,
+          "warm_step_s_median": float(np.median(step_s[1:] or step_s)),
+          "losses_first": losses[0], "losses_last": losses[-1],
+          "max_memory_allocated_bytes": peak, "device_total_memory_bytes": total,
+          "card": nvidia_smi() if cuda else None})
+    del trainer, state
+    if cuda:
+        torch.cuda.empty_cache()
+    if not finite or losses[0]["perceptual"] <= 0:
+        raise RuntimeError(f"VQGAN step with VGG: finite {finite}, "
+                           f"perceptual {losses[0]['perceptual']}")
+    if cuda and {k: launches.get(k, 0) for k in want} != want:
+        raise RuntimeError(f"VQGAN step with VGG kernel launches {launches}, derived {want}")
+    if not cuda and launches:
+        raise RuntimeError(f"CPU tensors launched kernels: {launches}")
+    return launches
+
+
+def losses_reference_part(overrides, *, size=64, batch=2, seed=1, card="cuda"):
+    """(d) One first-stage step with the VGG loss and DropBlock on the card
+    vs the same step on the port's CPU path, at the config's widths in f32
+    under `ieee`, on a small input, packed route: the same weights,
+    codebook (k-means on the CPU), perceptual weights (the seeded
+    fallback), view draws, DropBlock draws and drop_prob. Held as the train
+    phase holds its step: the ids where the top-2 score gap is clear of
+    rounding, every loss rtol 1e-3 (1e-2 for cross, dist and total). `card`
+    is the device held to the CPU ("cpu" rehearses the comparison)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models.unet_encoder import encode_quantize
+    from medical_image_editing_tpu_torch.ops.vq import vq_scores
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+
+    cfg = losses_config(overrides)
+    cfg["model"]["vqmodel"]["compute_dtype"] = "float32"
+    drop = float(cfg["model"]["vqmodel"]["stop_value"])
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    trainer, state = second_state(cfg, "cpu", seed)
+    init_codebook_step(state.encoder)(state, images)
+    start = (copy.deepcopy(state.encoder.state_dict()), copy.deepcopy(state.decoder.state_dict()))
+    draws, db = first_draws(trainer, state, torch.Generator().manual_seed(seed), batch, size)
+
+    def to(d, device):
+        if isinstance(d, torch.Tensor):
+            return d.to(device)
+        if isinstance(d, dict):
+            return {k: to(v, device) for k, v in d.items()}
+        if isinstance(d, (list, tuple)):
+            return type(d)(to(v, device) for v in d)
+        return d
+
+    out = {}
+    with conv_precision("ieee"):
+        for device in ("cpu", card):
+            trainer, state = second_state(cfg, device, seed)
+            state.encoder.load_state_dict(start[0])
+            state.decoder.load_state_dict(start[1])
+            with torch.no_grad():
+                x = torch.as_tensor(images, device=device)
+                feats = state.encoder.eval()(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                _, _, ids, _ = encode_quantize(state.encoder, state.vq, x, train=False,
+                                               backend=state.encoder.knn_backend)
+            _, metrics = losses_step_fn(trainer, state, device)(
+                state, images, to(draws, device), drop, to(db, device))
+            out[device] = (feats.cpu(), ids.cpu(), {k: float(v) for k, v in metrics.items()})
+        tf32_off()
+    feats, ids_cpu, m_cpu = out["cpu"]
+    top2 = vq_scores(start[0]["vq.embed"], feats.reshape(-1, feats.shape[-1])).topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > 1e-4 * top2.abs().max()).reshape(ids_cpu.shape)
+    id_mismatch = int(((out[card][1] != ids_cpu) & clear).sum())
+    loss_err = {k: abs(out[card][2][k] - v) / max(abs(v), 1e-6) for k, v in m_cpu.items()}
+    rtol = {k: 1e-2 if k in ("cross", "total", "dist") else 1e-3 for k in loss_err}
+    emit({"phase": "losses", "part": "reference", "size": size, "batch": batch,
+          "conv_precision": "ieee", "id_mismatches_clear": id_mismatch,
+          "clear_share": float(clear.float().mean()), "loss_rel_err": loss_err,
+          "losses_cpu": m_cpu, "losses_card": out[card][2],
+          "tolerance": "ids equal where the top-2 score gap > 1e-4·max|score|; "
+                       f"losses rtol {rtol}"})
+    if id_mismatch or any(loss_err[k] > rtol[k] for k in loss_err) or m_cpu["perceptual"] <= 0:
+        raise RuntimeError(f"card vs CPU step with the VGG loss and DropBlock: {id_mismatch} "
+                           f"clear id mismatches, loss errors {loss_err}")
+
+
+@contextlib.contextmanager
+def recorded_drop_probs():
+    """The (epoch, drop_prob) of every training step that the trainers
+    built inside the block take, in order."""
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+
+    make, seen = Trainer._make_step, []
+
+    def wrapped(self, state):
+        step = make(self, state)
+
+        def recorded(state, image, draws=None, drop_prob=0.0):
+            seen.append((int(state.epoch), drop_prob))
+            return step(state, image, draws, drop_prob=drop_prob)
+
+        return recorded
+
+    Trainer._make_step = wrapped
+    try:
+        yield seen
+    finally:
+        Trainer._make_step = make
+
+
+def losses_run_part(device, workdir, overrides, *, patients=2, slices=20):
+    """(e) The first stage with the VGG loss and DropBlock as a user runs
+    it: `run_vqwnet.main` on the switched-on config over the trainer
+    phase's seeded tree in `workdir` (5 steps an epoch at batch 8), 2
+    epochs, under `ieee`. Run A trains 10 steps; run B stops at step 3,
+    inside epoch 0, and resumes to 10 across the epoch end, where the
+    schedule moves drop_prob. Held: the same batches in the same order,
+    the counters, the final parameters and codebook with a gap of 0,
+    `perceptual_fallback` 1.0 in every logged step, each step's drop_prob
+    the schedule's at its epoch, a checkpoint's keys those of one written
+    with both switches off, and the launches derived from the model. The
+    precision that the CLIs set by default is read once, and printed."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.ops.dropblock import dropblock_schedule
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_state_file,
+    )
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir)
+    base = losses_config(overrides)
+    base["dataset"]["root_dir_path"] = str(work / "data")
+    base["run"]["n_epochs"] = 2
+    base["save"]["save_every_n_steps"] = 3
+    model, ds = base["model"]["vqmodel"], base["dataset"]
+    batch = int(ds["batch_size"])
+    steps_per_epoch = patients * slices // batch
+    total_steps, stop = 2 * steps_per_epoch, 3
+    schedule = tuple(float(model[k]) for k in ("start_value", "stop_value")) + (
+        int(model["nr_steps"]),)
+    off = copy.deepcopy(base)
+    off["loss"]["use_perceptual_loss"] = off["model"]["vqmodel"]["use_dropblock"] = False
+    shapes = Trainer(to_config(off), device="cpu").init_state()
+    size = int(np.load(next((work / "data").rglob("*.npy"))).shape[-1])
+    n_enc = routed_convs(shapes.encoder, torch.zeros(1, int(model["in_channels"]), size, size))
+    n_dec = routed_convs(shapes.decoder,
+                         torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    off_ckpt = CheckpointManager(str(work / "losses_off_probe")).save(shapes, 0)
+    off_state = load_state_file(off_ckpt)
+    del shapes
+    vq_on = cuda and str(model["knn_backend"]) in ("pallas", "faiss")
+    # A and B take 2 × total_steps steps, k-means twice (A, B's first part),
+    # and validate 2 batches at each of the 4 epoch ends
+    evals = 4 * 2
+    want = {"conv3x3_packed": (2 * n_enc + 2 * total_steps * 4 * (n_enc + n_dec)
+                               + evals * (n_enc + n_dec)),
+            "vq_fused": 2 * total_steps * 2 + evals}
+    if not cuda:
+        want = {}
+    elif not vq_on:
+        want["vq_fused"] = 0
+
+    _build.launches.clear()
+    # -- main path: train A, train B + resume
+    with captured_trainers() as trainers, recorded_drop_probs() as drops:
+        run_a = run_cli(work, base, "LA", ["-m", "train"], cuda)
+        run_b = run_cli(work, base, "LB", ["-m", "train", "--max-steps", str(stop)], cuda)
+        run_cli(work, base, "LB", ["-m", "train"], cuda,
+                run={"resume_checkpoint": str(run_b / "version_0" / "ckpt")})
+        if cuda:
+            torch.cuda.synchronize()
+    launches = dict(_build.launches)
+
+    (trainer_a, steps_a), (_, steps_b), (_, steps_b2) = trainers[:3]
+    steps_resumed = steps_b + steps_b2
+    same_stream = len(steps_a) == len(steps_resumed) == total_steps and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(steps_a, steps_resumed))
+    final_a = load_state_file(str(run_a / "version_0" / "ckpt" / "ckpt-epoch=0001"))
+    final_b = load_state_file(str(run_b / "version_1" / "ckpt" / "ckpt-epoch=0001"))
+    params = {part: {k for k, _ in getattr(trainer_a.init_state(), part).named_parameters()}
+              for part in ("encoder", "decoder")}
+    gap = {part: max(float((final_a[part][k] - final_b[part][k]).abs().max())
+                     for k in params[part]) for part in params}
+    ea, eb = final_a["encoder"]["vq.embed"], final_b["encoder"]["vq.embed"]
+    gap["codebook_rel"] = float((ea - eb).norm() / ea.norm())
+    counters = {"A": (final_a["step"], final_a["epoch"]), "B": (final_b["step"], final_b["epoch"])}
+    logged = [list(csv.DictReader(open(p / "log.csv"))) for p in
+              (run_a / "version_0", run_b / "version_0", run_b / "version_1")]
+    fallback = [float(r["perceptual_fallback"]) for rows in logged for r in rows]
+    drop_by_epoch = {}
+    for epoch, p in drops:
+        drop_by_epoch.setdefault(epoch, set()).add(p)
+    schedule_ok = len(drops) == 2 * total_steps and all(
+        p == dropblock_schedule(epoch, *schedule) for epoch, p in drops)
+    keys_same = (final_a.keys() == off_state.keys() and all(
+        final_a[part].keys() == off_state[part].keys() for part in ("encoder", "decoder")))
+    with conv_precision(None) as default:
+        default_flags = {"applied": default, "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    tf32_off()
+    print(f"CLI default conv precision: {default_flags}", flush=True)
+    rec = {
+        "phase": "losses", "part": "run", "device": str(device), "batch": batch,
+        "steps": total_steps, "steps_per_epoch": steps_per_epoch, "resume_after": stop,
+        "conv_precision": "ieee", "cli_default_conv_precision": default_flags,
+        "routed_convs": {"encoder": n_enc, "decoder": n_dec},
+        "launches": launches, "launches_expected": want,
+        "same_batch_stream": same_stream, "counters": counters, "resume_gap": gap,
+        "resume_gap_limit": 0.0, "perceptual_fallback_logged": sorted(set(fallback)),
+        "logged_steps": len(fallback),
+        "drop_prob_by_epoch": {e: sorted(v) for e, v in sorted(drop_by_epoch.items())},
+        "drop_prob_schedule": {e: dropblock_schedule(e, *schedule) for e in (0, 1)},
+        "checkpoint_keys_as_switches_off": keys_same, "card": nvidia_smi() if cuda else None,
+    }
+    emit(rec)
+    checks = {
+        "same_batch_stream": same_stream,
+        "counters": counters["A"] == counters["B"] == (total_steps, 2),
+        "resume_gap": all(v == 0.0 for v in gap.values()),
+        "perceptual_fallback": len(fallback) == 2 * total_steps and set(fallback) == {1.0},
+        "drop_prob_schedule": schedule_ok and sorted(drop_by_epoch) == [0, 1],
+        "checkpoint_keys": keys_same,
+        "cli_default": default_flags["applied"] == "tf32" and default_flags["cudnn_allow_tf32"]
+        and not default_flags["matmul_allow_tf32"],
+        "launches": ({k: launches.get(k, 0) for k in want} == want) if cuda
+        else launches == {},
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"losses run: {checks}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3202,6 +3880,7 @@ def main(argv=None):
             second_launches = second_stage_phase("cuda", tmp, seed=args.seed)
             mw_launches = multi_window_phase("cuda", tmp, seed=args.seed)
             vqgan_launches = vqgan_phase("cuda", tmp, seed=args.seed)
+            losses_launches = losses_phase("cuda", tmp, seed=args.seed)
 
     main_conv = next(r for r in conv if r["dtype"] == "bfloat16" and "forward" in r
                      and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
@@ -3211,13 +3890,14 @@ def main(argv=None):
         "launches": (serve_launches.get("vq_fused", 0) + train_launches.get("vq_fused", 0)
                      + trainer_launches.get("vq_fused", 0)
                      + second_launches.get("vq_fused", 0) + mw_launches.get("vq_fused", 0)
-                     + vqgan_launches.get("vq_fused", 0)),
+                     + vqgan_launches.get("vq_fused", 0) + losses_launches.get("vq_fused", 0)),
         "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
                              "train": train_launches.get("vq_fused", 0),
                              "trainer": trainer_launches.get("vq_fused", 0),
                              "second_stage": second_launches.get("vq_fused", 0),
                              "multi_window": mw_launches.get("vq_fused", 0),
-                             "vqgan": vqgan_launches.get("vq_fused", 0)},
+                             "vqgan": vqgan_launches.get("vq_fused", 0),
+                             "losses": losses_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
         "n": vq["n"], "c": vq["c"], "k": vq["k"], "path": vq["path"],
@@ -3235,14 +3915,16 @@ def main(argv=None):
                      + trainer_launches.get("conv3x3_packed", 0)
                      + second_launches.get("conv3x3_packed", 0)
                      + mw_launches.get("conv3x3_packed", 0)
-                     + vqgan_launches.get("conv3x3_packed", 0)),
+                     + vqgan_launches.get("conv3x3_packed", 0)
+                     + losses_launches.get("conv3x3_packed", 0)),
         "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
                              "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
                              "train": train_launches.get("conv3x3_packed", 0),
                              "trainer": trainer_launches.get("conv3x3_packed", 0),
                              "second_stage": second_launches.get("conv3x3_packed", 0),
                              "multi_window": mw_launches.get("conv3x3_packed", 0),
-                             "vqgan": vqgan_launches.get("conv3x3_packed", 0)},
+                             "vqgan": vqgan_launches.get("conv3x3_packed", 0),
+                             "losses": losses_launches.get("conv3x3_packed", 0)},
         "max_abs_err": main_conv["forward_max_abs_err"],
         "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
                   "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",

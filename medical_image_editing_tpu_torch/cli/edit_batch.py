@@ -188,8 +188,10 @@ def edit_study(
 def main(argv=None):
     """CLI: decode every painted `label_*.nii.gz` in a directory, batched."""
     from ..utils.config import load_dotenv
+    from ..utils.device import apply_conv_precision
     from .run_recon import CRCConfig, LungConfig, load_model
 
+    apply_conv_precision()
     load_dotenv()  # LUNG_CKPT / CRC_CKPT
     parser = argparse.ArgumentParser(description="Batched codebook-swap editing")
     parser.add_argument("--config", choices=["lung", "crc"], default="lung")

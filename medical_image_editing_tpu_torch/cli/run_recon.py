@@ -52,7 +52,7 @@ class LungConfig:
     window_width = 4096
     window_center = 0.0
     window_scale = 2.0
-    use_dropblock = False  # DropBlock is ROADMAP item 14b; off in every config
+    use_dropblock = False  # off in every config; the identity outside training
     block_size = 30
     dropped_skip_layers = ()
     use_styled_up_block = True
@@ -110,6 +110,8 @@ def load_model(config, *, device="cuda", seed: int = 0):
             in_channels=encoder.emb_dim,
             out_channels=config.in_channels,
             filters=tuple(config.dec_filters),
+            use_dropblock=bool(config.use_dropblock),
+            block_size=int(config.block_size),
             dropped_skip_layers=tuple(config.dropped_skip_layers),
             use_pixel_shuffle=bool(config.use_pixel_shuffle),
             dtype=dtype,
@@ -246,7 +248,9 @@ def serve(config, *, poll_seconds: float = 1.0, max_iters: Optional[int] = None,
 def main(argv=None):
     """CLI of the editing server. Spec: `run_recon.py:274-306`."""
     from ..utils.config import load_dotenv
+    from ..utils.device import apply_conv_precision
 
+    apply_conv_precision()
     load_dotenv()  # LUNG_CKPT / LUNG_EDITED_FILE etc. (reference `:20-24`)
     parser = argparse.ArgumentParser(description="Interactive editing server")
     parser.add_argument("--config", choices=["lung", "crc"], default="lung")

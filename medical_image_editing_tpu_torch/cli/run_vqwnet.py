@@ -77,6 +77,9 @@ def build_trainer(config, args, seed: int = 0):
 
 
 def main(argv=None):
+    from ..utils.device import apply_conv_precision
+
+    apply_conv_precision()
     parser = argparse.ArgumentParser(description="Editable medical image generation")
     parser.add_argument("-c", "--config", help="config", required=True)
     parser.add_argument("-m", "--mode", default="train", choices=["train", "test"])

@@ -232,8 +232,10 @@ def serve(config, host="127.0.0.1", port=8760, warm_shapes=((1, 512, 512),),
 def main(argv=None):
     """CLI of the HTTP service. Spec: `serve_http.py:206-246`."""
     from ..utils.config import load_dotenv
+    from ..utils.device import apply_conv_precision
     from .run_recon import CRCConfig, LungConfig
 
+    apply_conv_precision()
     load_dotenv()
     parser = argparse.ArgumentParser(description="HTTP editing service")
     parser.add_argument("--config", choices=["lung", "crc"], default="lung")

@@ -7,9 +7,12 @@ Counterpart of `medical_image_editing_tpu/ops/losses.py`:
                          uses it, `FFL(loss_weight=1, alpha=1)`;
   hinge_d_loss, vanilla_d_loss, hinge_g_loss
                        — the second stage's GAN losses (reference
-                         `src/functions/gan_loss.py`), layout-free means.
-Layouts are NHWC like the JAX functions. The segmentation losses belong to
-the multi-window trainer and are not ported yet (ROADMAP item 17).
+                         `src/functions/gan_loss.py`), layout-free means;
+  soft_dice_loss, focal_loss
+                       — the segmentation losses (reference
+                         `src/functions/seg_loss.py`; exported, unused by
+                         the reference's trainers).
+Layouts are NHWC like the JAX functions.
 """
 
 from typing import Tuple
@@ -107,3 +110,28 @@ def vanilla_d_loss(logits_real, logits_fake):
 def hinge_g_loss(logits_fake):
     """Generator hinge: −mean D(fake)."""
     return -logits_fake.mean()
+
+
+def soft_dice_loss(output, target, ignore_index=None, smooth: float = 1e-6):
+    """output (B,H,W,K) logits, target (B,H,W,K) one-hot: 1 − the soft Dice
+    over all classes but `ignore_index`, its denominator at least `smooth`."""
+    k = output.shape[-1]
+    p = torch.softmax(output, dim=-1).reshape(-1, k).t()  # (K, N)
+    t = target.reshape(-1, k).float().t()
+    intersect = (p * t).sum(-1)
+    denominator = p.sum(-1) + t.sum(-1)
+    if ignore_index is not None:
+        keep = torch.arange(k, device=p.device) != ignore_index
+        intersect = torch.where(keep, intersect, 0.0)
+        denominator = torch.where(keep, denominator, 0.0)
+    return 1.0 - 2.0 * intersect.sum() / denominator.sum().clamp_min(smooth)
+
+
+def focal_loss(output, target, gamma: float = 2.0):
+    """output (B,H,W,K) logits, target one-hot: mean over pixels of
+    Σ_k −t·log p·(1 − p)^gamma, p clipped to [1e-6, 1 − 1e-6] in the focal
+    factor only (log p is the unclipped log-softmax)."""
+    eps = 1e-6
+    p = torch.softmax(output, dim=-1).clamp(eps, 1.0 - eps)
+    log_p = torch.log_softmax(output, dim=-1)
+    return torch.mean(torch.sum(-target * log_p * (1.0 - p) ** gamma, dim=-1))

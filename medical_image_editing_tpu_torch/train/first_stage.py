@@ -11,21 +11,25 @@ Counterpart of `medical_image_editing_tpu/train/first_stage.py` (reference
   4. embedding loss (cross, dist, reg) between the quantized embeddings and
      the other view's warped ids;
   5. decode both quantized embeddings (the decoder's BatchNorm running
-     stats move on view 1, then view 2); MSE and focal-frequency
+     stats move on view 1, then view 2; DropBlock, with the decoder's
+     `use_dropblock`, at `drop_prob`); MSE, focal-frequency and (with
+     `use_perceptual_loss` and a `perceptual_fn`) perceptual
      reconstruction losses against the clear views;
   6. the weighted sum, one backward, one Adam step each for encoder and
      decoder.
 
 The JAX step is a pure function of (state, image) that splits its PRNG key;
 here the step updates the state's modules, optimizers and codebook in
-place, and takes each view's random draws (`ops/augment.py`) from the
-state's generator, or as data.
+place, and takes each view's random draws (`ops/augment.py`), then each
+decode's DropBlock draws (`models.unet_decoder.sample_dropblock_draws`),
+from the state's generator, or as data.
 """
 
 from typing import NamedTuple
 
 import torch
 
+from ..models.unet_decoder import sample_dropblock_draws
 from ..models.unet_encoder import encode_quantize, init_codebook_from_batch
 from ..ops.augment import cross_view_transform, random_transform, sample_view_draws
 from ..ops.losses import embedding_loss, focal_frequency_loss
@@ -86,19 +90,28 @@ def adam_step(opt: torch.optim.Optimizer) -> None:
     opt.step()
 
 
+def view_dropblock_draws(generator, decoder, batch: int, height: int, width: int):
+    """The two decodes' DropBlock draws (None each without `use_dropblock`)."""
+    return tuple(sample_dropblock_draws(generator, decoder, batch, height, width)
+                 for _ in range(2))
+
+
 def make_first_stage_forward(encoder, decoder, *, loss_cfg: FirstStageLossConfig, aug_cfg,
                              dict_size: int, compute_dtype=torch.float32, device="cuda",
-                             recon_loss_fn=None):
+                             perceptual_fn=None, recon_loss_fn=None):
     """Steps 1-5 of the first-stage step, without the backward: returns
-    forward(state, image (B,H,W,C) in [-1,1], draws) → (metrics, vq_2,
-    (recon_1, recon_2), (clear_1, clear_2)). `metrics` are the weighted
-    terms commit, cross, dist, reg, recon, freq and perceptual, still in the
-    graph; the reconstructions (f32) and clear views are (B,H,W,C); `draws`
-    is a pair of views' draws. `recon_loss_fn` (recon, clear) → (l_recon,
-    l_freq, l_percep), applied to each view and summed, replaces the
-    single-window terms (the multi-window trainer's per-window losses, JAX
-    `first_stage.py:178-181`); without it the perceptual term is 0, as in
-    JAX without a `perceptual_fn` (the perceptual loss is ROADMAP item 17b)."""
+    forward(state, image (B,H,W,C) in [-1,1], draws, drop_prob=0.0,
+    dropblock_draws=(None, None)) → (metrics, vq_2, (recon_1, recon_2),
+    (clear_1, clear_2)). `metrics` are the weighted terms commit, cross,
+    dist, reg, recon, freq and perceptual, still in the graph; the
+    reconstructions (f32) and clear views are (B,H,W,C); `draws` is a pair
+    of views' draws, `dropblock_draws` the pair of decodes' DropBlock draws.
+    `perceptual_fn` (pred, target NCHW) → scalar (`ops/perceptual.py`) is
+    applied to each view under `use_perceptual_loss`; without it the term
+    is 0, as in JAX. `recon_loss_fn` (recon, clear) → (l_recon, l_freq,
+    l_percep), applied to each view and summed, replaces the single-window
+    terms (the multi-window trainer's per-window losses, JAX
+    `first_stage.py:178-181`)."""
     dev = resolve_device(device)
     cfg = loss_cfg
 
@@ -107,10 +120,15 @@ def make_first_stage_forward(encoder, decoder, *, loss_cfg: FirstStageLossConfig
                                momentum=encoder.momentum, eps=encoder.eps, train=True,
                                backend=encoder.knn_backend)
 
-    def decode(q):
-        return decoder(q.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float()
+    def decode(q, drop_prob, dropblock_draws):
+        out = decoder(q.permute(0, 3, 1, 2), drop_prob, dropblock_draws)
+        return out.permute(0, 2, 3, 1).float()
 
-    def forward(state: TrainState, image, draws):
+    def percep(recon, clear):
+        return perceptual_fn(recon.permute(0, 3, 1, 2), clear.permute(0, 3, 1, 2))
+
+    def forward(state: TrainState, image, draws, drop_prob=0.0,
+                dropblock_draws=(None, None)):
         encoder.train()
         decoder.train()
         with torch.no_grad():
@@ -134,7 +152,8 @@ def make_first_stage_forward(encoder, decoder, *, loss_cfg: FirstStageLossConfig
         )
 
         # the decoder's BatchNorm running stats move on view 1, then view 2
-        recon_1, recon_2 = decode(q1), decode(q2)
+        recon_1 = decode(q1, drop_prob, dropblock_draws[0])
+        recon_2 = decode(q2, drop_prob, dropblock_draws[1])
         zero = torch.zeros((), device=dev)
         if recon_loss_fn is not None:
             lr1, lf1, lp1 = recon_loss_fn(recon_1, clear_1)
@@ -146,7 +165,8 @@ def make_first_stage_forward(encoder, decoder, *, loss_cfg: FirstStageLossConfig
             l_freq = (focal_frequency_loss(recon_1, clear_1)
                       + focal_frequency_loss(recon_2, clear_2)
                       if cfg.use_frequency_loss else zero)
-            l_percep = zero
+            l_percep = (percep(recon_1, clear_1) + percep(recon_2, clear_2)
+                        if cfg.use_perceptual_loss and perceptual_fn is not None else zero)
 
         metrics = {
             "commit": cfg.w_commit * l_commit,
@@ -164,28 +184,34 @@ def make_first_stage_forward(encoder, decoder, *, loss_cfg: FirstStageLossConfig
 
 def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, aug_cfg,
                           dict_size: int, compute_dtype=torch.float32, device="cuda",
-                          recon_loss_fn=None):
+                          perceptual_fn=None, recon_loss_fn=None):
     """Build the first-stage step.
 
     encoder: models.unet_encoder.EncoderWithVQ; decoder: models.UNetDecoder;
     both on `device`, with the optimizers in the `TrainState` the step gets.
-    `recon_loss_fn` as in `make_first_stage_forward` (the multi-window
-    trainer's hook). Returns step_fn(state, image (B,H,W,C) in [-1,1],
-    draws=None) → (state, metrics): `draws` is a pair of views' draws
-    (`ops.augment.sample_view_draws`); by default the step draws them from
-    `state.generator`. Metrics are 0-d tensors on the device."""
+    `perceptual_fn` and `recon_loss_fn` as in `make_first_stage_forward`
+    (the latter the multi-window trainer's hook). Returns step_fn(state,
+    image (B,H,W,C) in [-1,1], draws=None, drop_prob=0.0,
+    dropblock_draws=None) → (state, metrics): `draws` is a pair of views'
+    draws (`ops.augment.sample_view_draws`), `dropblock_draws` the pair of
+    decodes' DropBlock draws (`view_dropblock_draws`); by default the step
+    draws them from `state.generator`, in that order. Metrics are 0-d
+    tensors on the device."""
     dev = resolve_device(device)
     forward = make_first_stage_forward(encoder, decoder, loss_cfg=loss_cfg, aug_cfg=aug_cfg,
                                        dict_size=dict_size, compute_dtype=compute_dtype,
-                                       device=dev, recon_loss_fn=recon_loss_fn)
+                                       device=dev, perceptual_fn=perceptual_fn,
+                                       recon_loss_fn=recon_loss_fn)
 
-    def step_fn(state: TrainState, image, draws=None):
+    def step_fn(state: TrainState, image, draws=None, drop_prob=0.0, dropblock_draws=None):
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         b, h, w, c = image.shape
         if draws is None:
             draws = tuple(sample_view_draws(state.generator, aug_cfg, b, h, w, c)
                           for _ in range(2))
-        metrics, vq_2, _, _ = forward(state, image, draws)
+        if dropblock_draws is None:
+            dropblock_draws = view_dropblock_draws(state.generator, decoder, b, h, w)
+        metrics, vq_2, _, _ = forward(state, image, draws, drop_prob, dropblock_draws)
         total = sum(metrics.values())
 
         for opt in (state.enc_opt, state.dec_opt):

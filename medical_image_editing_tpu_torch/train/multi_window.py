@@ -8,8 +8,7 @@ Counterpart of `medical_image_editing_tpu/train/multi_window.py` (reference
     LUNG_WINDOW {1500, −550, 2} / MEDIASTINAL_WINDOW {400, 20, 2}, so
     gradients flow;
   * `make_multiwindow_recon_loss`: (recon, target) → the mean over the
-    windows of the weighted MSE and focal-frequency terms (the perceptual
-    term is 0 until ROADMAP item 17b ports it);
+    windows of the weighted MSE, focal-frequency and perceptual terms;
   * `make_multi_window_first_stage_step`: the first-stage step with those
     terms (its `recon_loss_fn` hook);
   * `make_multi_window_second_stage_step`: the encoder frozen, one decoder
@@ -48,8 +47,10 @@ the decoder is not rematerialised (its BatchNorm stats would move twice).
 The JAX steps are pure functions of (state, image) that split their PRNG
 key; here the steps update the state's modules and optimizers in place and
 take their random draws from the state's generator, or as data: the two
-views' augmentation draws (`ops.augment.sample_view_draws`) and one (box,
-invert) per window (`train.second_stage.sample_cutmix_draws`).
+views' augmentation draws (`ops.augment.sample_view_draws`), one (box,
+invert) per window (`train.second_stage.sample_cutmix_draws`), then each
+decode's DropBlock draws (`models.unet_decoder.sample_dropblock_draws`).
+DropBlock's `drop_prob` is an argument of every step.
 """
 
 import contextlib
@@ -58,6 +59,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..models.unet_decoder import sample_dropblock_draws
 from ..models.unet_encoder import encode_quantize
 from ..ops.augment import sample_view_draws
 from ..ops.cutmix import cutmix_mask, mask_src_tgt
@@ -69,6 +71,7 @@ from .first_stage import (
     adam_step,
     make_first_stage_forward,
     make_first_stage_step,
+    view_dropblock_draws,
 )
 from .second_stage import SecondStageLossConfig, sample_cutmix_draws, unet_perceptual_loss
 from .state import TrainState
@@ -88,26 +91,29 @@ def window_fns(dataset_window) -> List[Callable]:
 
 
 def make_multiwindow_recon_loss(loss_cfg, dataset_window, recon_weights: Sequence[float],
-                                freq_weights: Sequence[float],
-                                percep_weights: Sequence[float] = (0.0, 0.0, 0.0)):
+                                freq_weights: Sequence[float], percep_weights: Sequence[float],
+                                perceptual_fn=None):
     """(recon, target) (B,H,W,C) → (l_recon, l_freq, l_percep), each the
     mean over the windows of the per-window weighted term. `loss_cfg` is
-    either stage's loss config (its `use_recon_loss`,
-    `use_frequency_loss`); the perceptual term is 0 (item 17b), so
-    `percep_weights` weigh nothing yet."""
+    either stage's loss config (its `use_recon_loss`, `use_frequency_loss`,
+    `use_perceptual_loss`); `perceptual_fn` (pred, target NCHW) → scalar,
+    the perceptual term 0 without it."""
     fns = window_fns(dataset_window)
     n = float(len(fns))
+    use_percep = loss_cfg.use_perceptual_loss and perceptual_fn is not None
 
     def f(recon, target):
         zero = torch.zeros((), device=recon.device)
-        l_recon, l_freq = zero, zero
+        l_recon, l_freq, l_percep = zero, zero, zero
         for i, wf in enumerate(fns):
             r, t = wf(recon), wf(target)
             if loss_cfg.use_recon_loss:
                 l_recon = l_recon + recon_weights[i] * torch.mean((r - t) ** 2)
             if loss_cfg.use_frequency_loss:
                 l_freq = l_freq + freq_weights[i] * focal_frequency_loss(r, t)
-        return l_recon / n, l_freq / n, zero
+            if use_percep:
+                l_percep = l_percep + percep_weights[i] * perceptual_fn(_nchw(r), _nchw(t))
+        return l_recon / n, l_freq / n, l_percep / n
 
     return f
 
@@ -242,12 +248,12 @@ def make_multi_window_first_stage_step(encoder, decoder, *, loss_cfg: FirstStage
                                        aug_cfg, dict_size: int, dataset_window,
                                        recon_weights=(1.0, 1.0, 1.0),
                                        freq_weights=(1.0, 1.0, 1.0),
-                                       percep_weights=(1.0, 1.0, 1.0),
+                                       percep_weights=(1.0, 1.0, 1.0), perceptual_fn=None,
                                        compute_dtype=torch.float32, device="cuda"):
     """The first-stage step (`first_stage.make_first_stage_step`) with the
     per-window reconstruction terms; same signature of the step."""
     recon_loss_fn = make_multiwindow_recon_loss(loss_cfg, dataset_window, recon_weights,
-                                                freq_weights, percep_weights)
+                                                freq_weights, percep_weights, perceptual_fn)
     return make_first_stage_step(encoder, decoder, loss_cfg=loss_cfg, aug_cfg=aug_cfg,
                                  dict_size=dict_size, compute_dtype=compute_dtype,
                                  device=device, recon_loss_fn=recon_loss_fn)
@@ -257,15 +263,17 @@ def make_multi_window_second_stage_step(encoder, decoder, dis, *,
                                         loss_cfg: SecondStageLossConfig, dataset_window,
                                         recon_weights=(1.0, 1.0, 1.0),
                                         freq_weights=(1.0, 1.0, 1.0),
-                                        percep_weights=(1.0, 1.0, 1.0),
+                                        percep_weights=(1.0, 1.0, 1.0), perceptual_fn=None,
                                         use_remat: bool = False,
                                         per_window_backward: bool = True, device="cuda"):
     """The GAN step over three windows (U-Net discriminator, hinge). Models
     on `device`; the decoder's and the discriminator's Adams in the
     `TrainState` the step gets. Returns step_fn(state, image (B,H,W,C) in
-    [-1,1], draws=None) → (state, metrics): `draws` is one (box, invert) per
-    window (`sample_cutmix_draws(generator, 3, H, W)`), from
-    `state.generator` by default. Metrics are 0-d tensors on the device."""
+    [-1,1], draws=None, drop_prob=0.0, dropblock_draws=None) → (state,
+    metrics): `draws` is one (box, invert) per window
+    (`sample_cutmix_draws(generator, 3, H, W)`), `dropblock_draws` the
+    decode's, from `state.generator` in that order by default. Metrics are
+    0-d tensors on the device."""
     if loss_cfg.dis_loss_type != "hinge_d_loss":
         raise ValueError(f"dis_loss_type {loss_cfg.dis_loss_type!r}: the multi-window "
                          "second stage trains with 'hinge_d_loss'")
@@ -274,14 +282,17 @@ def make_multi_window_second_stage_step(encoder, decoder, dis, *,
     cfg = loss_cfg
     fns = window_fns(dataset_window)
     recon_loss = make_multiwindow_recon_loss(cfg, dataset_window, recon_weights, freq_weights,
-                                             percep_weights)
+                                             percep_weights, perceptual_fn)
     apply_dis = _checkpointed(dis) if use_remat else dis
 
-    def step_fn(state: TrainState, image, draws: Optional[list] = None):
+    def step_fn(state: TrainState, image, draws: Optional[list] = None, drop_prob=0.0,
+                dropblock_draws=None):
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
-        _, h, w, _ = image.shape
+        b, h, w, _ = image.shape
         if draws is None:
             draws = sample_cutmix_draws(state.generator, len(fns), h, w)
+        if dropblock_draws is None:
+            dropblock_draws = sample_dropblock_draws(state.generator, decoder, b, h, w)
 
         # frozen encoder, eval mode: no VQ EMA update, no gradient
         encoder.eval()
@@ -293,7 +304,7 @@ def make_multi_window_second_stage_step(encoder, decoder, dis, *,
         # ---- decoder (generator) update
         decoder.train()
         dis.train()
-        recon = decoder(_nchw(q)).permute(0, 2, 3, 1).float()
+        recon = decoder(_nchw(q), drop_prob, dropblock_draws).permute(0, 2, 3, 1).float()
         l_recon, l_freq, l_percep = recon_loss(recon, image)
         with frozen(dis):
             l_gen, l_up = generator_terms(dis, apply_dis, fns, [(recon, image)],
@@ -324,36 +335,41 @@ def make_multi_window_second_stage_step(encoder, decoder, dis, *,
 def make_joint_step(encoder, decoder, dis, *, first_cfg: FirstStageLossConfig,
                     second_cfg: SecondStageLossConfig, aug_cfg, dict_size: int, dataset_window,
                     recon_weights=(1.0, 1.0, 1.0), freq_weights=(1.0, 1.0, 1.0),
-                    percep_weights=(1.0, 1.0, 1.0), use_remat: bool = False,
-                    per_window_backward: bool = True, compute_dtype=torch.float32,
-                    device="cuda"):
+                    percep_weights=(1.0, 1.0, 1.0), perceptual_fn=None,
+                    use_remat: bool = False, per_window_backward: bool = True,
+                    compute_dtype=torch.float32, device="cuda"):
     """The joint step: encoder, decoder and U-Net discriminator in one step.
     Models on `device`, their three Adams in the `TrainState` the step gets.
-    Returns step_fn(state, image (B,H,W,C) in [-1,1], draws=None) →
-    (state, metrics): `draws` is (view 1's draws, view 2's draws, [one
-    (box, invert) per window]), from `state.generator` in that order by
-    default. Metrics are 0-d tensors on the device."""
+    Returns step_fn(state, image (B,H,W,C) in [-1,1], draws=None,
+    drop_prob=0.0, dropblock_draws=None) → (state, metrics): `draws` is
+    (view 1's draws, view 2's draws, [one (box, invert) per window]),
+    `dropblock_draws` the two decodes' (`view_dropblock_draws`), from
+    `state.generator` in that order by default. Metrics are 0-d tensors on
+    the device."""
     _require_unet(dis)
     dev = resolve_device(device)
     fns = window_fns(dataset_window)
     recon_loss = make_multiwindow_recon_loss(first_cfg, dataset_window, recon_weights,
-                                             freq_weights, percep_weights)
+                                             freq_weights, percep_weights, perceptual_fn)
     forward = make_first_stage_forward(encoder, decoder, loss_cfg=first_cfg, aug_cfg=aug_cfg,
                                        dict_size=dict_size, compute_dtype=compute_dtype,
                                        device=dev, recon_loss_fn=recon_loss)
     apply_dis = _checkpointed(dis) if use_remat else dis
 
-    def step_fn(state: TrainState, image, draws=None):
+    def step_fn(state: TrainState, image, draws=None, drop_prob=0.0, dropblock_draws=None):
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         b, h, w, c = image.shape
         if draws is None:
             views = [sample_view_draws(state.generator, aug_cfg, b, h, w, c) for _ in range(2)]
             draws = (*views, sample_cutmix_draws(state.generator, len(fns), h, w))
+        if dropblock_draws is None:
+            dropblock_draws = view_dropblock_draws(state.generator, decoder, b, h, w)
         dis.train()
 
         # ---- generator pass: the first stage's terms, then the adversarial
         # terms of both views; one Adam step each for encoder and decoder
-        metrics, vq_2, recons, clears = forward(state, image, draws[:2])
+        metrics, vq_2, recons, clears = forward(state, image, draws[:2], drop_prob,
+                                                dropblock_draws)
         views = list(zip(recons, clears))
         with frozen(dis):
             l_gen, l_up = generator_terms(dis, apply_dis, fns, views,

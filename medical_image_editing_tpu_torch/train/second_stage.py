@@ -4,10 +4,12 @@ Counterpart of `medical_image_editing_tpu/train/second_stage.py` (reference
 `src/trainers/single_window_trainer.py:264-539`), the same sequence:
   1. the encoder, frozen in eval mode (no VQ EMA update, no gradient),
      quantizes the batch;
-  2. the decoder (train mode: its BatchNorm running stats move) renders
-     the reconstruction, cast to f32; its loss is recon (MSE, or L1 with
-     `use_l1_loss` and the U-Net discriminator) + focal-frequency + gen
-     + unet_perceptual: gen is −(mean pixel map + mean bottleneck logit)
+  2. the decoder (train mode: its BatchNorm running stats move; DropBlock
+     at `drop_prob` with its `use_dropblock`) renders the reconstruction,
+     cast to f32; its loss is recon (MSE, or L1 with `use_l1_loss` and the
+     U-Net discriminator) + focal-frequency + perceptual (with
+     `use_perceptual_loss` and a `perceptual_fn`) + gen + unet_perceptual:
+     gen is −(mean pixel map + mean bottleneck logit)
      of the discriminator on the reconstruction (−mean logits for the
      PatchGAN), unet_perceptual the feature-matching MSEs against the
      discriminator's up-path features of the real image; one Adam step on
@@ -30,16 +32,15 @@ forwards.
 
 The JAX step is a pure function of (state, image) that splits its PRNG
 key; here the step updates the state's modules and optimizers in place
-and takes each iteration's CutMix draw (box, invert) from the state's
-generator, or as data. The perceptual loss (`perceptual_fn`) and
-DropBlock's `drop_prob` are not ported (ROADMAP items 17 and 14c): the
-perceptual term is 0, as in JAX without a `perceptual_fn`.
+and takes each iteration's CutMix draw (box, invert), then the decode's
+DropBlock draws, from the state's generator, or as data.
 """
 
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..models.unet_decoder import sample_dropblock_draws
 from ..models.unet_encoder import encode_quantize
 from ..ops.cutmix import Box, cutmix_coordinates, cutmix_mask, mask_src_tgt
 from ..ops.losses import focal_frequency_loss, hinge_d_loss
@@ -157,18 +158,22 @@ def discriminator_inner_loop(dis, x, recon, draws, cfg: SecondStageLossConfig, o
 
 
 def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossConfig,
-                           dis_type: str = "UNetDiscriminator", device="cuda"):
+                           dis_type: str = "UNetDiscriminator", perceptual_fn=None,
+                           device="cuda"):
     """Build the second-stage step.
 
     encoder: models.unet_encoder.EncoderWithVQ (frozen); decoder:
     models.UNetDecoder; dis: models.UNetDiscriminator or
     models.NLayerDiscriminator (f32); all on `device`, with the decoder's
     and the discriminator's Adams in the `TrainState` the step gets
-    (`dec_opt`, `dis_opt`). Returns step_fn(state, image (B,H,W,C) in
-    [-1,1], draws=None) → (state, metrics): `draws` holds one (box,
-    invert) per inner iteration (`sample_cutmix_draws`), drawn from
-    `state.generator` by default; the PatchGAN path draws nothing. Metrics
-    are 0-d tensors on the device."""
+    (`dec_opt`, `dis_opt`); `perceptual_fn` (pred, target NCHW) → scalar
+    (`ops/perceptual.py`). Returns step_fn(state, image (B,H,W,C) in
+    [-1,1], draws=None, drop_prob=0.0, dropblock_draws=None) → (state,
+    metrics): `draws` holds one (box, invert) per inner iteration
+    (`sample_cutmix_draws`; the PatchGAN path draws none),
+    `dropblock_draws` the decode's (`sample_dropblock_draws`), drawn from
+    `state.generator` in that order by default. Metrics are 0-d tensors on
+    the device."""
     if loss_cfg.dis_loss_type != "hinge_d_loss":
         raise ValueError(f"dis_loss_type {loss_cfg.dis_loss_type!r}: the second stage "
                          "trains with 'hinge_d_loss'")
@@ -189,13 +194,18 @@ def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossCo
             l_recon = ((recon - image) ** 2).mean()
         l_freq = (focal_frequency_loss(recon.permute(0, 2, 3, 1), image.permute(0, 2, 3, 1))
                   if cfg.use_frequency_loss else zero)
-        return l_recon, l_freq
+        l_percep = (perceptual_fn(recon, image)
+                    if cfg.use_perceptual_loss and perceptual_fn is not None else zero)
+        return l_recon, l_freq, l_percep
 
-    def step_fn(state: TrainState, image, draws: Optional[list] = None):
+    def step_fn(state: TrainState, image, draws: Optional[list] = None, drop_prob=0.0,
+                dropblock_draws=None):
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
-        _, h, w, _ = image.shape
+        b, h, w, _ = image.shape
         if is_unet and draws is None:
             draws = sample_cutmix_draws(state.generator, cfg.n_inner_loops, h, w)
+        if dropblock_draws is None:
+            dropblock_draws = sample_dropblock_draws(state.generator, decoder, b, h, w)
         x = image.permute(0, 3, 1, 2)
         zero = torch.zeros((), device=dev)
 
@@ -209,8 +219,8 @@ def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossCo
         # ---- decoder (generator) update
         decoder.train()
         dis.train()
-        recon = decoder(q.permute(0, 3, 1, 2)).float()
-        l_recon, l_freq = recon_losses(recon, x)
+        recon = decoder(q.permute(0, 3, 1, 2), drop_prob, dropblock_draws).float()
+        l_recon, l_freq, l_percep = recon_losses(recon, x)
         l_unet = zero
         if is_unet:
             f_map, f_bottle, f_feats = dis(recon)
@@ -224,7 +234,7 @@ def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossCo
         gen_metrics = {
             "recon": cfg.w_recon * l_recon,
             "freq": cfg.w_freq * l_freq,
-            "perceptual": cfg.w_perceptual * zero,
+            "perceptual": cfg.w_perceptual * l_percep,
             "gen": cfg.w_gen * l_gen,
             "unet_perceptual": cfg.w_unet_perceptual * l_unet,
         }

@@ -47,13 +47,22 @@ the discriminator in every training mode:
     codebook k-means; snapshots, validation, the export and `test` (NMSE,
     SSIM, PSNR and the entropy of ids + 1 → `result.csv`) through the
     whole autoencoder, its ids raw and 0-based;
+  * the perceptual loss (`loss.use_perceptual_loss`, for either stage's
+    config; `loss.perceptual_loss_type` "vgg" or "lpips",
+    `ops/perceptual.py`), built once on the device and handed to every
+    step; it is no part of the state, its optimizers or its checkpoints.
+    Without pretrained weights (`MEDIMG_VGG19_NPZ` / `MEDIMG_LPIPS_NPZ`) it
+    is the seeded random-feature fallback: a warning before the loop and
+    `perceptual_fallback` = 1.0 in every logged step, as in JAX;
+  * DropBlock (`model.vqmodel.use_dropblock`, `block_size`) on the
+    decoder's skips in training, its drop_prob the schedule
+    (`start_value`, `stop_value`, `nr_steps`) at the state's epoch;
   * `test`: metrics → `result.csv`; in "inference" mode the per-slice
     PNG/NIfTI export; in the multi-window flavour the HU-denormalized
     per-slice NIfTI export (`evaluate.multi_window_test_export`).
 
-Not ported yet, and refused rather than run without their part: the
-perceptual loss (item 17b), DropBlock (`use_dropblock: true`, item 14c)
-and projection discrimination (`model.dis.n_classes > 0`, item 21).
+Not ported yet, and refused rather than run without its part: projection
+discrimination (`model.dis.n_classes > 0`, item 21).
 """
 
 import math
@@ -71,6 +80,7 @@ from ..models.unet_discriminator import UNetDiscriminator, reference_state_dict
 from ..models.unet_encoder import EncoderWithVQ
 from ..models.vqgan import VQGAN
 from ..ops._build import KernelError
+from ..ops.dropblock import dropblock_schedule
 from ..ops.windowing import denormalize, t_normalize
 from ..utils.checkpoint import CheckpointManager, restore_fields, restore_state
 from ..utils.config import getattr_else_none as g
@@ -137,8 +147,6 @@ class Trainer:
         if (g(gen, "model_name", None) == "VQGAN") != self.use_vqgan:
             raise ValueError("model.vqmodel.model_name 'VQGAN' and the VQGAN trainer (-v) "
                              "go together")
-        if g(gen, "use_dropblock", False):
-            raise _not_ported("DropBlock (model.vqmodel.use_dropblock)", "14c")
         self.dict_size = int(gen.dict_size)
         self.eval_dict_size = self.dict_size
         self.compute_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(
@@ -151,9 +159,15 @@ class Trainer:
         self._dec_kw = dict(
             in_channels=int(gen.enc_filters[0]), out_channels=int(gen.in_channels),
             filters=tuple(gen.dec_filters),
+            use_dropblock=bool(g(gen, "use_dropblock", False)),
+            block_size=int(g(gen, "block_size", 30) or 30),
             dropped_skip_layers=tuple(gen.dropped_skip_layers or ()),
             use_pixel_shuffle=bool(g(gen, "use_pixel_shuffle", True)),
             dtype=self.compute_dtype)
+        # DropBlock's schedule (reference `base.py:185-187`)
+        self._db = (float(g(gen, "start_value", 0.0) or 0.0),
+                    float(g(gen, "stop_value", 0.0) or 0.0),
+                    int(g(gen, "nr_steps", 1) or 1))
         if self.use_vqgan:
             v = cfg.model.vqgan
             self.eval_dict_size = int(v.dict_size)
@@ -200,8 +214,14 @@ class Trainer:
         cfg = self.config
         self.first_cfg = loss_config_from_json(cfg.loss)
         self.second_cfg = second_stage_config_from_json(cfg.loss)
-        if self.first_cfg.use_perceptual_loss:
-            raise _not_ported("the perceptual loss (loss.use_perceptual_loss)", "17b")
+        self.perceptual_fn = None
+        self.perceptual_fallback = False
+        if self.first_cfg.use_perceptual_loss or self.second_cfg.use_perceptual_loss:
+            from ..ops.perceptual import make_perceptual_loss
+
+            self.perceptual_fn = make_perceptual_loss(
+                str(g(cfg.loss, "perceptual_loss_type", "vgg")), device=self.device)
+            self.perceptual_fallback = not self.perceptual_fn.pretrained
         if ((self.training_mode in GAN_MODES or self.use_vqgan)
                 and self.second_cfg.dis_loss_type != "hinge_d_loss"):
             raise ValueError(f"loss.dis_loss_type {self.second_cfg.dis_loss_type!r}: the "
@@ -222,12 +242,14 @@ class Trainer:
 
     def _make_step(self, state):
         """The training mode's step on `state`'s models."""
+        percep = dict(perceptual_fn=self.perceptual_fn)
         if self.use_vqgan:
             return make_vqgan_step(state.decoder, state.discriminator, loss_cfg=self.second_cfg,
-                                   w_commit=self.first_cfg.w_commit, device=self.device)
+                                   w_commit=self.first_cfg.w_commit, device=self.device,
+                                   **percep)
         dtype = self.compute_dtype or torch.float32
         first = dict(aug_cfg=self.aug_cfg, dict_size=self.dict_size, compute_dtype=dtype,
-                     device=self.device)
+                     device=self.device, **percep)
         if self.use_multi_window:
             loss = self.config.loss
             mw = dict(dataset_window=self.dataset_window,
@@ -241,24 +263,30 @@ class Trainer:
             if self.training_mode == "second_step":
                 return make_multi_window_second_stage_step(
                     state.encoder, state.decoder, state.discriminator,
-                    loss_cfg=self.second_cfg, use_remat=use_remat, device=self.device, **mw)
+                    loss_cfg=self.second_cfg, use_remat=use_remat, device=self.device,
+                    **percep, **mw)
             return make_joint_step(
                 state.encoder, state.decoder, state.discriminator, first_cfg=self.first_cfg,
                 second_cfg=self.second_cfg, use_remat=use_remat, **first, **mw)
         if self.training_mode == "second_step":
             return make_second_stage_step(
                 state.encoder, state.decoder, state.discriminator,
-                loss_cfg=self.second_cfg, dis_type=self.dis_type, device=self.device)
+                loss_cfg=self.second_cfg, dis_type=self.dis_type, device=self.device, **percep)
         return make_first_stage_step(state.encoder, state.decoder, loss_cfg=self.first_cfg,
                                      **first)
 
+    def drop_prob(self, epoch: int) -> float:
+        """DropBlock's drop_prob in `epoch` (the schedule; JAX
+        `trainer.py:536-538`)."""
+        return dropblock_schedule(epoch, *self._db)
+
     def train_step(self, state, image, draws=None):
         """One step of `state` in the training mode (built once per state's
-        models)."""
+        models), DropBlock at the drop_prob of the state's epoch."""
         models = (state.encoder, state.decoder, state.discriminator)
         if self._step is None or self._step[0] != models:
             self._step = (models, self._make_step(state))
-        return self._step[1](state, image, draws)
+        return self._step[1](state, image, draws, drop_prob=self.drop_prob(int(state.epoch)))
 
     # ------------------------------------------------------------------
     # state init + staged loading
@@ -405,6 +433,11 @@ class Trainer:
         dis = state.discriminator if self.training_mode in GAN_MODES else None
         if self.logger is not None and bool(g(run, "use_validation_sanity_check", False)):
             self._validate(eval_forward, epoch=-1, dis=dis)
+        if self.perceptual_fallback:
+            print("WARNING: use_perceptual_loss is ON but no pretrained weights are loaded "
+                  "(MEDIMG_VGG19_NPZ / MEDIMG_LPIPS_NPZ unset) — training against the seeded "
+                  "random-feature fallback, NOT the reference's learned perceptual metric. "
+                  "Metric key 'perceptual_fallback'=1.0 is attached to every step.")
 
         save_every_n_steps = int(g(cfg.save, "save_every_n_steps", 0) or 0)
         # divergence guard: halt on a non-finite total instead of training
@@ -448,6 +481,8 @@ class Trainer:
                     profiler, profile_dir = None, None  # one capture per fit
                 if self.logger is not None:
                     m["epoch"], m["iteration"] = epoch, global_step
+                    if self.perceptual_fallback:
+                        m["perceptual_fallback"] = 1.0
                     self.logger.log_metrics(m, step=global_step)
                     if global_step % SNAPSHOT_INTERVAL == 0:
                         self._snapshot(eval_forward, batch, global_step)

@@ -8,12 +8,13 @@ decoder slot with its Adam in `dec_opt` (the reference trainer's `decoder`
 field, `src/trainers/base.py:204-222`); its codebook is live. The sequence:
   1. the VQGAN forward in train mode (the codebook's EMA moves; dropout
      masks, if `p_dropout` > 0, from the state's generator);
-  2. recon MSE and focal-frequency loss on the reconstruction (f32);
+  2. recon MSE, focal-frequency and (with `use_perceptual_loss` and a
+     `perceptual_fn`) perceptual loss on the reconstruction (f32);
   3. the discriminator (train mode) on the reconstruction: gen is
      −(mean pixel map + mean bottleneck logit); with
      `use_unet_perceptual_loss` it runs on the image too (train mode, no
      graph) for the feature-matching targets;
-  4. total = w_recon·recon + w_freq·freq + w_perceptual·0 + w_commit·commit
+  4. total = w_recon·recon + w_freq·freq + w_perceptual·perceptual + w_commit·commit
      + w_gen·gen + w_unet_perceptual·unet_perceptual, one Adam step on the
      VQGAN's parameters (every one of them, as optax);
   5. `n_inner_loops` discriminator updates on the pre-update
@@ -26,9 +27,10 @@ The discriminator is frozen (`requires_grad` off) during the generator
 pass, so torch forms no weight gradients there (the JAX step never does),
 and the generator pass's graph is freed before the inner loop: at 512²,
 batch 8 the VQGAN's graph and one discriminator graph, then three
-discriminator graphs, are alive at a time. The perceptual term is 0, as in
-JAX without a `perceptual_fn` (ROADMAP item 17b). The CutMix (box, invert)
-draws come from the state's generator or as data (`sample_cutmix_draws`).
+discriminator graphs, are alive at a time. The CutMix (box, invert) draws
+come from the state's generator or as data (`sample_cutmix_draws`). The
+VQGAN has no DropBlock: the step takes `drop_prob` and ignores it, as the
+JAX step does.
 """
 
 from typing import Optional
@@ -48,13 +50,14 @@ from .state import TrainState
 
 
 def make_vqgan_step(vqgan, dis, *, loss_cfg: SecondStageLossConfig, w_commit: float = 1.0,
-                    device="cuda"):
+                    perceptual_fn=None, device="cuda"):
     """Build the VQGAN step. vqgan: models.VQGAN; dis: models.
     UNetDiscriminator (f32); both on `device`, their Adams in the
-    `TrainState` (`dec_opt`, `dis_opt`). Returns step_fn(state, image
-    (B,H,W,C) in [-1,1], draws=None) → (state, metrics): `draws` holds one
-    (box, invert) per inner iteration, drawn from `state.generator` by
-    default. Metrics are 0-d tensors on the device."""
+    `TrainState` (`dec_opt`, `dis_opt`); `perceptual_fn` (pred, target
+    NCHW) → scalar (`ops/perceptual.py`). Returns step_fn(state, image
+    (B,H,W,C) in [-1,1], draws=None, drop_prob=0.0) → (state, metrics):
+    `draws` holds one (box, invert) per inner iteration, drawn from
+    `state.generator` by default. Metrics are 0-d tensors on the device."""
     if loss_cfg.dis_loss_type != "hinge_d_loss":
         raise ValueError(f"dis_loss_type {loss_cfg.dis_loss_type!r}: the VQGAN trains with "
                          "'hinge_d_loss'")
@@ -63,7 +66,8 @@ def make_vqgan_step(vqgan, dis, *, loss_cfg: SecondStageLossConfig, w_commit: fl
     cfg = loss_cfg
     params = list(vqgan.parameters())
 
-    def step_fn(state: TrainState, image, draws: Optional[list] = None):
+    def step_fn(state: TrainState, image, draws: Optional[list] = None, drop_prob=0.0):
+        del drop_prob  # no DropBlock in the VQGAN
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         _, h, w, _ = image.shape
         if draws is None:
@@ -79,6 +83,8 @@ def make_vqgan_step(vqgan, dis, *, loss_cfg: SecondStageLossConfig, w_commit: fl
         l_recon = ((recon - x) ** 2).mean() if cfg.use_recon_loss else zero
         l_freq = (focal_frequency_loss(recon.permute(0, 2, 3, 1), image)
                   if cfg.use_frequency_loss else zero)
+        l_percep = (perceptual_fn(recon, x)
+                    if cfg.use_perceptual_loss and perceptual_fn is not None else zero)
         l_unet = zero
         with frozen(dis):
             f_map, f_bottle, f_feats = dis(recon)
@@ -90,7 +96,7 @@ def make_vqgan_step(vqgan, dis, *, loss_cfg: SecondStageLossConfig, w_commit: fl
         gen_metrics = {
             "recon": cfg.w_recon * l_recon,
             "freq": cfg.w_freq * l_freq,
-            "perceptual": cfg.w_perceptual * zero,
+            "perceptual": cfg.w_perceptual * l_percep,
             "commit": w_commit * commit,
             "gen": cfg.w_gen * l_gen,
             "unet_perceptual": cfg.w_unet_perceptual * l_unet,

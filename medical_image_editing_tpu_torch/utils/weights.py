@@ -12,7 +12,8 @@ the U-Net discriminator's BigGAN layers with their spectral-norm buffers
 export derives it), its ActNorms (`loc`, `scale`, `initialized`, and the
 'actnorm' collection's `data_loc`, `data_scale`); and the VQGAN
 (`from_jax_vqgan`: the taming layout, GroupNorm scale/bias, the attention's
-1×1 convs and its codebook). Inputs are nested dicts of arrays (numpy,
+1×1 convs and its codebook), and the perceptual networks' frozen weights
+(`from_jax_perceptual`). Inputs are nested dicts of arrays (numpy,
 or anything `np.asarray` takes); outputs are dicts of CPU tensors that the
 port's modules load with `load_state_dict(strict=True)`.
 
@@ -306,6 +307,25 @@ def from_jax_discriminator(dis_vars: dict, *, D_attn: str = "0") -> StateDict:
     if "DBlock_0" in dis_vars["params"]:
         return from_jax_unet_discriminator(dis_vars, D_attn=D_attn)
     return from_jax_nlayer_discriminator(dis_vars)
+
+
+def from_jax_perceptual(params) -> StateDict:
+    """The JAX perceptual networks' parameters (`ops/perceptual.py`) → the
+    port's buffers: the VGG's {torchvision index: (kernel HWIO, bias)} →
+    `VGGLoss` keys `features.{i}.weight` (OIHW) / `.bias`; LPIPS's
+    (convs [(kernel HWIO, bias)], heads [(C,)]) → `LPIPSLoss` keys
+    `convs.{k}.weight` / `.bias` and `lin{k}`."""
+    out = {}
+    if isinstance(params, dict):
+        for i, (w, b) in params.items():
+            out[f"features.{i}.weight"], out[f"features.{i}.bias"] = _k(w), _t(b)
+        return out
+    convs, lins = params
+    for k, (w, b) in enumerate(convs):
+        out[f"convs.{k}.weight"], out[f"convs.{k}.bias"] = _k(w), _t(b)
+    for k, lin in enumerate(lins):
+        out[f"lin{k}"] = _t(lin)
+    return out
 
 
 def from_jax_train_state(state, *, D_attn: str = "0") -> Dict[str, StateDict]:

@@ -797,3 +797,131 @@ def test_actnorm_on_card_matches_cpu(cuda):
     h, ld = an(y)
     assert torch.allclose(an.eval()(h, reverse=True), y, rtol=1e-4, atol=1e-4)
     assert torch.allclose(ld, 25 * torch.log(an.data_scale.abs()).sum().expand(3))
+
+
+def _moved(tree, device):
+    """Draws (tensors in nested dicts, lists and tuples) on `device`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_moved(v, device) for v in tree)
+    return tree
+
+
+def _switched_first_stage(device, perceptual=True, dropblock=True, seed=0):
+    """A small f32 first stage (encoder (4, 32, 8, 16, 16): 3 routed convs
+    at 32²; decoder (32, 8, 8, 16, 16): 10) with DropBlock (block 7) and
+    its step with the VGG loss (the seeded fallback, weight 1)."""
+    import warnings
+
+    from medical_image_editing_tpu_torch.models import UNetDecoder
+    from medical_image_editing_tpu_torch.models.blocks import seeded_init
+    from medical_image_editing_tpu_torch.models.unet_encoder import EncoderWithVQ
+    from medical_image_editing_tpu_torch.ops.perceptual import make_vgg_loss
+    from medical_image_editing_tpu_torch.train import first_stage as tfs
+    from medical_image_editing_tpu_torch.train import state as tstate
+
+    gen = torch.Generator().manual_seed(seed)
+    enc = seeded_init(EncoderWithVQ(1, (4, 32, 8, 16, 16), 6, knn_backend="pallas"), gen)
+    dec = seeded_init(UNetDecoder(4, 1, (32, 8, 8, 16, 16), use_dropblock=dropblock,
+                                  block_size=7, dropped_skip_layers=(),
+                                  use_pixel_shuffle=False), gen)
+    enc, dec = enc.to(device), dec.to(device)
+    state = tstate.create_train_state(enc, dec, tstate.make_optimizer(enc.parameters(), 1e-4),
+                                      tstate.make_optimizer(dec.parameters(), 1e-4),
+                                      seed=seed, device=device)
+    vgg = None
+    if perceptual:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            vgg = make_vgg_loss("22", device=device)
+    cfg = tfs.FirstStageLossConfig(w_recon=10.0, w_perceptual=1.0,
+                                   use_perceptual_loss=perceptual)
+    step = tfs.make_first_stage_step(enc, dec, loss_cfg=cfg, aug_cfg=_AUG, dict_size=6,
+                                     device=device, perceptual_fn=vgg)
+    return state, step
+
+
+_AUG = {"modules": ["RandomHorizontalFlip", "RandomAffine", "RandomGaussianNoise"],
+        "RandomHorizontalFlip": {"p": 0.5},
+        "RandomAffine": {"degrees": 10.0, "translate": [0.05, 0.05], "p": 0.8},
+        "RandomGaussianNoise": {"std": 0.05, "p": 0.5}}
+
+
+@pytest.mark.gpu
+def test_first_stage_step_with_vgg_and_dropblock_on_card_matches_cpu(cuda, monkeypatch):
+    """One first-stage step (f32, TF32 off) with the VGG loss and DropBlock
+    on the CPU and on the card, on both conv routes, from the same weights,
+    codebook, view draws, DropBlock draws and drop_prob 0.5: the packed
+    route's launches are those of the step without either part (3 + 10
+    routed convs forward and dx for both views, two assignments), the
+    losses rtol 1e-3 (1e-2 for cross, dist and total: an id at a near tie
+    moves the cross loss by ~1/(pixels of its code)), and the gradients
+    read from Adam's first moment within 5× the card's own floor or 1e-4:
+    the larger of its two routes against each other and of cuDNN against
+    the card's native convolutions (the VGG's f32 convolutions are
+    cuDNN's, FFT among them, on every route, and the decoder's own cuDNN
+    convolutions change algorithm with the library off)."""
+    from medical_image_editing_tpu_torch.ops.augment import sample_view_draws
+    from medical_image_editing_tpu_torch.train import first_stage as tfs
+
+    x = np.random.default_rng(9).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
+    cpu_state, _ = _switched_first_stage("cpu")
+    gen = torch.Generator().manual_seed(4)
+    views = tuple(sample_view_draws(gen, _AUG, 2, 32, 32) for _ in range(2))
+    db = tfs.view_dropblock_draws(gen, cpu_state.decoder, 2, 32, 32)
+    tfs.init_codebook_step(cpu_state.encoder)(cpu_state, x)
+    start = {m: {k: v.clone() for k, v in getattr(cpu_state, m).state_dict().items()}
+             for m in ("encoder", "decoder")}
+    out = {}
+    for name, device, route in (("cpu", "cpu", "packed"), ("card", cuda, "packed"),
+                                ("card_xla", cuda, "xla"), ("card_native", cuda, "packed")):
+        monkeypatch.setenv("MEDIMG_CONV_IMPL", route)
+        state, step = _switched_first_stage(device)
+        for m in start:
+            getattr(state, m).load_state_dict(start[m])
+        _build.launches.clear()
+        prev = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = name != "card_native"
+        try:
+            _, metrics = step(state, x, _moved(views, device), 0.5, _moved(db, device))
+        finally:
+            torch.backends.cudnn.enabled = prev
+        if name == "card":
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10), tvqf.KERNEL: 2}
+        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
+                               for p in getattr(state, m).parameters()])
+                 for m, o in (("encoder", state.enc_opt), ("decoder", state.dec_opt))}
+        out[name] = ({k: float(v) for k, v in metrics.items()}, grads)
+    (m_cpu, g_cpu), (m_card, g_card) = out["cpu"], out["card"]
+    assert m_cpu["perceptual"] > 0
+    for k, v in m_cpu.items():
+        rtol = 1e-2 if k in ("cross", "dist", "total") else 1e-3
+        assert abs(m_card[k] - v) <= rtol * abs(v) + 1e-6, (k, m_card[k], v)
+    for m in g_cpu:
+        floor = max(float((out[other][1][m] - g_card[m]).norm() / g_card[m].norm())
+                    for other in ("card_xla", "card_native"))
+        err = float((g_card[m] - g_cpu[m]).norm() / g_cpu[m].norm())
+        assert err <= max(5 * floor, 1e-4), (m, err, floor)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("perceptual,dropblock", [(False, False), (True, False),
+                                                  (False, True), (True, True)],
+                         ids=["off", "vgg", "dropblock", "both"])
+def test_switches_add_no_kernel_launch(cuda, monkeypatch, perceptual, dropblock):
+    """The VGG loss's convolutions are cuDNN's (never the packed route) and
+    DropBlock is a max-pool and two elementwise passes: a first-stage step
+    launches the kernels as often with either on as with both off."""
+    monkeypatch.setenv("MEDIMG_CONV_IMPL", "packed")
+    state, step = _switched_first_stage(cuda, perceptual=perceptual, dropblock=dropblock)
+    x = np.random.default_rng(10).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
+    _build.launches.clear()
+    _, metrics = step(state, x, drop_prob=0.5)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10), tvqf.KERNEL: 2}
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert (float(metrics["perceptual"]) > 0) == perceptual

@@ -8,6 +8,7 @@ the CPU.
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -61,9 +62,73 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 50
-    assert {f"{PKG}.models.vqgan", f"{PKG}.models.actnorm",
-            f"{PKG}.train.vqgan_stage"} <= set(modules)
+    assert len(modules) >= 52
+    assert {f"{PKG}.models.vqgan", f"{PKG}.models.actnorm", f"{PKG}.train.vqgan_stage",
+            f"{PKG}.ops.perceptual", f"{PKG}.ops.dropblock"} <= set(modules)
+
+
+@pytest.fixture
+def tf32_flags():
+    """The cuDNN and matmul TF32 flags, restored after the test."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _cli_calls():
+    from medical_image_editing_tpu_torch.cli import edit_batch, run_recon, run_vqwnet, serve_http
+
+    return {
+        "run_vqwnet": lambda: run_vqwnet.main(
+            ["-c", str(ROOT / "configs" / "lung_first_stage.json"), "-m", "train"]),
+        "run_recon": lambda: run_recon.main(["--max-iters", "1"]),
+        "serve_http": lambda: serve_http.main(["--warm", "none"]),
+        "edit_batch": lambda: edit_batch.main(["--label-dir", ".", "--out-dir", "."]),
+    }
+
+
+@pytest.mark.parametrize("value", [None, "tf32", "ieee", "bf16"],
+                         ids=["unset", "tf32", "ieee", "unknown"])
+@pytest.mark.parametrize("cli", ["run_vqwnet", "run_recon", "serve_http", "edit_batch"])
+def test_cli_applies_conv_precision(cli, value, monkeypatch, tf32_flags):
+    """Each CLI sets cuDNN's f32 convolution precision from
+    MEDIMG_CONV_PRECISION first (unset: the default, tf32) and keeps
+    matmuls at full f32; an unknown value raises before anything runs. On
+    a host without a card each call then stops at the device, after the
+    flags are set (the flags are set and read without a card)."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the CLIs would run")
+    from medical_image_editing_tpu_torch.utils.device import DEFAULT_CONV_PRECISION
+
+    if value is None:
+        monkeypatch.delenv("MEDIMG_CONV_PRECISION", raising=False)
+    else:
+        monkeypatch.setenv("MEDIMG_CONV_PRECISION", value)
+    # the opposite of what the CLI should set, so that a CLI that sets
+    # nothing fails
+    want = (value or DEFAULT_CONV_PRECISION) == "tf32"
+    torch.backends.cudnn.allow_tf32 = not want
+    torch.backends.cuda.matmul.allow_tf32 = True
+    if value == "bf16":
+        with pytest.raises(ValueError, match="MEDIMG_CONV_PRECISION='bf16'"):
+            _cli_calls()[cli]()
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _cli_calls()[cli]()
+    assert torch.backends.cudnn.allow_tf32 == want
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_one_tf32_api():
+    """The port, its tests and chip_smoke.py set TF32 through the
+    `allow_tf32` flags only: mixed with the `fp32_precision` settings, a
+    later read of `allow_tf32` can raise."""
+    files = [*(ROOT / PKG).rglob("*.py"), ROOT / "chip_smoke.py",
+             *(ROOT / "tests").glob("test_torch_*.py")]
+    found = [str(p.relative_to(ROOT)) for p in files
+             if p.name != Path(__file__).name
+             and re.search(r"\.fp32_precision\b", p.read_text())]
+    assert not found, found
 
 
 def test_entry_points_refuse_missing_card():
@@ -312,4 +377,66 @@ def test_chip_smoke_vqgan_phase_on_cpu(tmp_path, capsys):
     assert run["label_shape"] == [8, 8] and run["label_range"][1] < 6
     assert run["result_csv"][0][1:] == ["Entropy_avg", "Entropy_std", "NMSE_avg", "NMSE_std",
                                         "PSNR_avg", "PSNR_std", "SSIM_avg", "SSIM_std"]
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+
+
+def test_chip_smoke_losses_phase_on_cpu(tmp_path, capsys, monkeypatch):
+    """The losses phase end to end at tiny size on the CPU, over a seeded
+    tree of 2 × 5 slices (5 steps an epoch, as on the card): (a) the bare
+    steps with the VGG loss and DropBlock, the VGG's operations counted on
+    the meta device, the ieee and tf32 steps; (b) LPIPS; (c) the VQGAN with
+    the VGG loss; (d) the card-vs-CPU comparison (here CPU against CPU:
+    exact); (e) runs A and B, the resume held bit for bit, the fallback
+    flag logged, the schedule's drop_prob, the checkpoint keys; no kernel
+    launch, and TF32 left off."""
+    import numpy as np
+
+    monkeypatch.delenv("MEDIMG_VGG19_NPZ", raising=False)
+    monkeypatch.delenv("MEDIMG_LPIPS_NPZ", raising=False)
+    monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
+    smoke = _chip_smoke()
+    smoke.write_lung_tree(tmp_path / "data", np.random.default_rng(0), patients=2, slices=5,
+                          size=32)
+    overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
+                                   "dec_filters": [32, 8, 8, 16, 16], "block_size": 7},
+                 "dataset": {"batch_size": 2}}
+    vqgan = {"model.vqgan": {"mid_channels": 4, "emb_dim": 8, "dict_size": 6,
+                             "enc_ch_multiplier": [1, 2, 4], "dec_ch_multiplier": [1, 2, 4],
+                             "num_res_blocks": 1, "dec_attn_resolutions": [8],
+                             "resolution": 32},
+             "model.dis": {"D_ch": 4, "resolution": 128}}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with smoke.conv_route("packed"), pytest.warns(UserWarning, match="No pretrained"):
+            launches = smoke.losses_phase("cpu", tmp_path, size=32, batch=2, steps=2,
+                                          overrides=overrides, vqgan_overrides=vqgan,
+                                          vqgan_size=32, ref_size=32, slices=5)
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert launches == {}
+    out = capsys.readouterr().out
+    recs = {r["part"]: r for r in (json.loads(line) for line in out.splitlines()
+                                   if line.startswith('{"phase": "losses"'))}
+    step, ref, run = recs["step"], recs["reference"], recs["run"]
+    assert step["routed_convs"] == {"encoder": 0, "decoder": 10} and len(step["step_s"]) == 2
+    assert step["perceptual_fallback"] and step["losses_first"]["perceptual"] > 0
+    assert step["dropblock"] == {"block_size": 7, "drop_prob": 0.5, "levels": [0, 1, 2, 3]}
+    # 4 forwards and 2 input gradients (one forward's operations each: the
+    # weights are buffers, no weight gradient)
+    assert 5.9 < step["vgg_step_forward_equivalents"] < 6.1
+    assert set(step["tf32_loss_rel_gap"]) == set(step["losses_first"])
+    assert recs["lpips"]["losses_first"]["perceptual"] > 0
+    assert recs["vqgan"]["losses_first"]["perceptual"] > 0
+    assert ref["id_mismatches_clear"] == 0 and max(ref["loss_rel_err"].values()) == 0.0
+    assert run["counters"] == {"A": [10, 2], "B": [10, 2]} and run["same_batch_stream"]
+    assert all(v == 0.0 for v in run["resume_gap"].values())
+    assert run["perceptual_fallback_logged"] == [1.0] and run["logged_steps"] == 20
+    assert run["drop_prob_by_epoch"] == {"0": [run["drop_prob_schedule"]["0"]],
+                                         "1": [run["drop_prob_schedule"]["1"]]}
+    assert run["checkpoint_keys_as_switches_off"]
+    assert run["cli_default_conv_precision"] == {"applied": "tf32", "cudnn_allow_tf32": True,
+                                                 "matmul_allow_tf32": False}
+    assert "CLI default conv precision" in out
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"

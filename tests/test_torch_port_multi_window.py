@@ -460,8 +460,8 @@ def test_multiwindow_recon_loss_matches_jax(weights):
     r = rng.uniform(-1, 1, (2, 32, 32, 1)).astype(np.float32)
     t = rng.uniform(-1, 1, (2, 32, 32, 1)).astype(np.float32)
     cfg = jfs.FirstStageLossConfig()
-    got = tmw.make_multiwindow_recon_loss(cfg, DSW, rw, fw)(torch.from_numpy(r),
-                                                            torch.from_numpy(t))
+    got = tmw.make_multiwindow_recon_loss(cfg, DSW, rw, fw, (1, 1, 1))(torch.from_numpy(r),
+                                                                       torch.from_numpy(t))
     want = jmw.make_multiwindow_recon_loss(cfg, DSW, rw, fw, (1, 1, 1))(jnp.asarray(r),
                                                                        jnp.asarray(t))
     for g, w in zip(got, want):

@@ -41,10 +41,13 @@ Tolerances, float32:
 Port only: a resumed run (3 steps, resume, 3 steps, across an epoch end,
 with k-means and the config's augmentation drawing from the generator) is
 bit for bit an uninterrupted 6-step run; the CLI writes metrics,
-checkpoints and `config.json`; the parts not ported yet are refused (the
-second stage's are in tests/test_torch_port_gan.py).
+checkpoints and `config.json`; the perceptual loss and DropBlock train in
+every flavour and resume bit for bit; projection discrimination, not
+ported yet, is refused (the second stage's other refusals are in
+tests/test_torch_port_gan.py).
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -269,9 +272,11 @@ def test_inference_export_matches_jax(env):
                 np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * 4096 / 1500)
 
 
-def _cli(root, name, argv, **run):
+def _cli(root, name, argv, edit=None, **run):
     cfg = _config(root, plain=False, n_epochs=2, **run)
     cfg["save"].update(study_name=name, save_every_n_steps=2)
+    if edit is not None:
+        edit(cfg)
     path = root / f"{name}.json"
     path.write_text(json.dumps(cfg))
     assert run_vqwnet.main(["-c", str(path), "--device", "cpu", *argv]) == 0
@@ -362,21 +367,51 @@ def test_staged_first_stage_from_checkpoint_and_lightning(env, port_fit):
         assert state.step == 0 and not state.enc_opt.state
 
 
-@pytest.mark.parametrize("what", ["multiwindow", "vqgan", "second_step", "joint_step",
-                                  "dropblock", "perceptual", "discriminator"])
+@pytest.mark.parametrize("what", ["joint_step", "discriminator"])
 def test_parts_not_ported_are_refused(env, what):
-    """The second stage, the multi-window trainer and the VQGAN trainer are
-    ported (tests/test_torch_port_gan.py, tests/test_torch_port_multi_window*.py,
-    tests/test_torch_port_vqgan*.py); "second_step", "discriminator",
-    "multiwindow", "vqgan" and "joint_step" check what of them is not:
-    DropBlock in the second stage, projection discrimination, the
-    perceptual loss under `-w` and under `-v`, projection discrimination in
-    the joint step."""
+    """Projection discrimination (item 21) is refused, in the joint step
+    and in the second stage."""
+    cfg = _config(env.root)
+    kw = {}
+    if what == "joint_step":
+        kw = {"use_multi_window": True}
+        cfg["run"]["training_mode"] = what
+    else:
+        cfg["run"]["training_mode"] = "second_step"
+    cfg["model"]["dis"] = {"model_name": "UNetDiscriminator", "D_ch": 4,
+                           "resolution": 128, "n_classes": 3}
+    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
+        Trainer(to_config(cfg), device="cpu", **kw)
+
+
+def _switches_on(cfg, perceptual=True, dropblock=True):
+    """The perceptual loss (VGG, weight 1, `perceptual_fallback` logged)
+    and DropBlock (block 7, the schedule from 0.5) switched on in a test
+    config."""
+    if perceptual:
+        cfg["loss"].update(use_perceptual_loss=True, perceptual_loss_type="vgg")
+        cfg["loss"]["loss_weight"]["perceptual"] = 1.0
+        cfg["run"]["monitoring_metrics"].append("perceptual_fallback")
+    if dropblock:
+        cfg["model"]["vqmodel"].update(use_dropblock=True, block_size=7, start_value=0.5)
+    return cfg
+
+
+@pytest.mark.parametrize("what", ["multiwindow", "vqgan", "second_step", "dropblock",
+                                  "perceptual"])
+def test_ported_switches_train_a_step(env, what, monkeypatch):
+    """What was refused before its part was ported trains a step on the
+    CPU: the perceptual loss under `-w` (with DropBlock) and under `-v`,
+    DropBlock (and the perceptual loss) in the second stage, DropBlock and
+    the perceptual loss alone in the first stage. The loss is the seeded
+    fallback (no weights here): `perceptual_fallback` is set and the term is
+    positive; DropBlock draws from the state's generator."""
+    monkeypatch.delenv("MEDIMG_VGG19_NPZ", raising=False)
     cfg = _config(env.root)
     kw = {}
     if what == "multiwindow":
         kw = {"use_multi_window": True}
-        cfg["loss"]["use_perceptual_loss"] = True
+        _switches_on(cfg)
     elif what == "vqgan":
         kw = {"use_vqgan": True}
         cfg["model"]["vqmodel"]["model_name"] = "VQGAN"
@@ -387,22 +422,56 @@ def test_parts_not_ported_are_refused(env, what):
                                  "resolution": 32}
         cfg["model"]["dis"] = {"model_name": "UNetDiscriminator", "D_ch": 4,
                                "resolution": 128}
-        cfg["loss"]["use_perceptual_loss"] = True
-    elif what == "joint_step":
-        kw = {"use_multi_window": True}
-        cfg["run"]["training_mode"] = what
-        cfg["model"]["dis"] = {"model_name": "UNetDiscriminator", "D_ch": 4,
-                               "resolution": 128, "n_classes": 3}
+        _switches_on(cfg, dropblock=False)
     elif what == "second_step":
         cfg["run"]["training_mode"] = what
-        cfg["model"]["vqmodel"]["use_dropblock"] = True
-    elif what == "dropblock":
-        cfg["model"]["vqmodel"]["use_dropblock"] = True
-    elif what == "perceptual":
-        cfg["loss"]["use_perceptual_loss"] = True
+        _switches_on(cfg)
     else:
-        cfg["run"]["training_mode"] = "second_step"
-        cfg["model"]["dis"] = {"model_name": "UNetDiscriminator", "D_ch": 4,
-                               "resolution": 128, "n_classes": 3}
-    with pytest.raises(NotImplementedError, match="ROADMAP item (1[4678]|21)"):
-        Trainer(to_config(cfg), device="cpu", **kw)
+        _switches_on(cfg, perceptual=what == "perceptual", dropblock=what == "dropblock")
+    with pytest.warns(UserWarning, match="No pretrained") if what != "dropblock" \
+            else contextlib.nullcontext():
+        trainer = Trainer(to_config(cfg), device="cpu", **kw)
+    state = trainer.init_state()
+    before = state.generator.get_state()
+    image = np.random.default_rng(0).uniform(-1, 1, (2, 32, 32, 1)).astype(np.float32)
+    state, metrics = trainer.train_step(state, image)
+    assert state.step == 1
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert trainer.perceptual_fallback == (what != "dropblock")
+    assert (float(metrics["perceptual"]) > 0) == (what != "dropblock")
+    if what != "vqgan":
+        assert state.decoder.use_dropblock == (what != "perceptual")
+        assert trainer.drop_prob(int(state.epoch)) == (0.5 if what != "perceptual"
+                                                       else float(np.float32(0.1)))
+    else:
+        assert not torch.equal(before, state.generator.get_state())  # the CutMix draw
+
+
+def test_checkpoint_keys_and_dropblock_resume(env, monkeypatch):
+    """With the perceptual loss and DropBlock on: a checkpoint has the keys
+    of one written with both off (the frozen VGG is in no state), every
+    logged step carries `perceptual_fallback` 1.0, and 6 steps straight
+    equal 3, a resume and 3 more bit for bit, across the epoch end where
+    the schedule moves drop_prob."""
+    monkeypatch.delenv("MEDIMG_VGG19_NPZ", raising=False)
+    off = _cli(env.root, "switches_off", ["-m", "train", "--max-steps", "2"]) / "version_0"
+    on = dict(edit=_switches_on)
+    straight = _cli(env.root, "on_straight", ["-m", "train", "--max-steps", "6"],
+                    **on) / "version_0"
+    first = _cli(env.root, "on_split", ["-m", "train", "--max-steps", "3"], **on) / "version_0"
+    resumed = _cli(env.root, "on_split", ["-m", "train", "--max-steps", "6"],
+                   resume_checkpoint=str(first / "ckpt"), **on) / "version_1"
+    a, b = _csv(straight / "log.csv"), _csv(first / "log.csv") + _csv(resumed / "log.csv")
+    assert [r["iteration"] for r in b] == list(range(1, 7)) and a == b
+    assert all(r["perceptual_fallback"] == 1.0 and r["perceptual"] > 0 for r in a)
+    assert "perceptual_fallback" not in _csv(off / "log.csv")[0]
+    name = "ckpt-epoch=0001-step=00000006"
+    sa, sb = (load_state_file(str(p / "ckpt" / name)) for p in (straight, resumed))
+    so = load_state_file(str(off / "ckpt" / "ckpt-epoch=0000-step=00000002"))
+    assert sa.keys() == so.keys()
+    for part in sa:
+        if isinstance(sa[part], dict) and part in ("encoder", "decoder"):
+            assert sa[part].keys() == so[part].keys()
+            for k in sa[part]:
+                assert torch.equal(sa[part][k], sb[part][k]), (part, k)
+    assert torch.equal(sa["generator"], sb["generator"])

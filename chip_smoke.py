@@ -143,11 +143,31 @@ and no result line):
                `perceptual_fallback`, each step's drop_prob against the
                schedule, the checkpoint keys, launches held, and the
                precision the CLIs set by default;
+  8f. volumetric — the 3-D volumetric VQ-WNet at BASELINE config #5's
+               widths (filters 8,16,32,64, `dict_size` 10, 128³, batch 2, on
+               seeded synthetic volumes): (a) `init_volumetric` and 5 bare
+               steps of `make_volumetric_train_step` in f32 and in bf16 with
+               remat (the JAX package's memory plan): warm step, a profiled
+               warm step (busy, idle, top kernels), the rate against the
+               operations counted from the model, peak memory, f32 steps
+               timed under TF32 and `cudnn.benchmark`, the bf16 losses'
+               gap to f32; (b) `train_volumetric.main` (6 steps over
+               4 volumes: the step lines, the checkpoint, `recon_mid.png`),
+               a volume encoded with the trained weights, a box of its ids
+               painted, decoded through `edit_volume.main` from `.npy`,
+               `.nii.gz` and as uint8, the time per decoded volume, a label
+               past the codebook refused; (c) one f32 step at 32³, batch 2,
+               at full widths on the card held to the CPU path, TF32
+               asserted off, and the card's instance norm at 128³ against
+               float64; (d) both kernels held at 0 launches on (a) and (b):
+               the path runs the plain VQ assignment and cuDNN's conv3d, as
+               the JAX path takes neither Pallas kernel;
   9. kernels — one line listing every hand-written kernel of the paths.
 The serve, serve_runtime (its packed route), train, trainer, second_stage
-(a) and (b), multi_window (a) (each mode) and (b), vqgan (a) and (b), and
-losses (a), (b), (c) and (e) phases are the main paths: each zeroes the
-launch counts just before it and reads them just after.
+(a) and (b), multi_window (a) (each mode) and (b), vqgan (a) and (b),
+losses (a), (b), (c) and (e), and volumetric (a) (each mode) and (b)
+phases are the main paths: each zeroes the launch counts just before it and
+reads them just after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
@@ -3834,6 +3854,500 @@ def losses_run_part(device, workdir, overrides, *, patients=2, slices=20):
     return launches
 
 
+# --------------------------------------------------------------------------
+# the volumetric VQ-WNet (`train_volumetric`, `edit_volume`)
+# --------------------------------------------------------------------------
+
+VOL_FILTERS = (8, 16, 32, 64)  # BASELINE config #5, the JAX CLIs' default
+VOL_DICT_SIZE = 10
+
+
+def volumetric_flops(enc, dec, batch, size):
+    """Operations of the encoder's and decoder's forward and backward at
+    (batch, 1, size³), counted by `torch.utils.flop_counter` on the meta
+    device (the convolutions; the VQ assignment, 3·N·K·C, aside; with
+    remat the recomputed forwards count): (forward and backward, forward)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    menc, mdec = copy.deepcopy(enc).to("meta"), copy.deepcopy(dec).to("meta")
+    x = torch.zeros(batch, 1, size, size, size, device="meta")
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        mdec(menc(x))
+    fwd = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc:
+        mdec(menc(x)).sum().backward()
+    return fc.get_total_flops(), fwd
+
+
+def volumetric_phase(device, workdir, *, size=128, batch=2, steps=5, filters=VOL_FILTERS,
+                     dict_size=VOL_DICT_SIZE, ref_size=32, cli_steps=6, n_synthetic=4,
+                     seed=0):
+    """The volumetric VQ-WNet at BASELINE config #5's widths (filters
+    8,16,32,64, `dict_size` 10, 128³, batch 2): (a) bare steps in f32 and in
+    bf16 with remat, (b) `train_volumetric.main` and `edit_volume.main`
+    in-process, (c) one step held to the CPU path at `ref_size`³, (d) both
+    kernels' launches held at 0 on (a) and (b), which are the main path.
+    The synthetic volumes are made once: (a) trains on the first `batch`,
+    which are also the CLI's first (the same seeded draws). Returns the
+    launches of (a) and (b)."""
+    from medical_image_editing_tpu_torch.cli.train_volumetric import _synthetic_volumes
+
+    vols = _synthetic_volumes(batch, size, seed)
+    launches = volumetric_step_part(device, vols, steps=steps, filters=filters,
+                                    dict_size=dict_size, seed=seed)
+    run = volumetric_cli_part(device, workdir, vols[:1], steps=cli_steps,
+                              n_synthetic=n_synthetic, batch=batch, filters=filters,
+                              dict_size=dict_size, seed=seed)
+    volumetric_reference_part(size=ref_size, batch=batch, filters=filters,
+                              dict_size=dict_size, seed=seed + 1, card=device, norm_size=size)
+    for k, v in run.items():
+        launches[k] = launches.get(k, 0) + v
+    if any(launches.values()):
+        raise RuntimeError(f"the volumetric path launched hand-written kernels: {launches} "
+                           "(it runs the plain VQ assignment and cuDNN's conv3d)")
+    return launches
+
+
+def volumetric_step_part(device, vols, *, steps, filters, dict_size, seed):
+    """(a) `init_volumetric` and `steps` bare steps of
+    `make_volumetric_train_step` on `vols` (B, D, H, W, 1), in f32 and in
+    bf16 with remat (the JAX package's memory plan), each from the same
+    seeded weights: warm step time, peak memory, the losses; on the card
+    a profiled warm step (busy as the union of the kernels' intervals, idle
+    share, top kernels) and the rate against the operations counted from
+    the model, and f32 steps timed under TF32 and `cudnn.benchmark`
+    (`f32_step_variants`); the bf16 losses' gap to f32's after the same
+    steps."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.train.volumetric import (
+        init_volumetric,
+        make_volumetric_train_step,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+    batch, size = vols.shape[0], vols.shape[1]
+    x = torch.as_tensor(vols, device=device)
+    launches, recs = {}, {}
+    for name, dtype, remat in (("f32", None, False), ("bf16_remat", torch.bfloat16, True)):
+        enc, dec, vq, eo, do = init_volumetric(
+            torch.Generator().manual_seed(seed), filters=filters, dict_size=dict_size,
+            volume_shape=vols.shape, dtype=dtype, use_remat=remat, device=device)
+        step = make_volumetric_train_step(enc, dec, eo, do)
+        flops, fwd = volumetric_flops(enc, dec, batch, size)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        # -- main path: the steps
+        step_s, losses = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            vq, m = step(vq, x)
+            if cuda:
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append({k: float(v) for k, v in m.items()})
+        for k, v in _build.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        warm = float(np.median(step_s[1:] or step_s))
+        rec = {"phase": "volumetric", "part": "step", "mode": name, "device": str(device),
+               "size": size, "batch": batch, "filters": list(filters), "dict_size": dict_size,
+               "steps": steps, "parameters": sum(p.numel() for p in enc.parameters())
+               + sum(p.numel() for p in dec.parameters()),
+               "launches": dict(_build.launches), "step_s": step_s, "warm_step_s_median": warm,
+               "losses_first": losses[0], "losses_last": losses[-1],
+               "step_flop": flops, "forward_flop": fwd,
+               "step_f32_floor_s": flops / PEAK_F32_FLOP_PER_S,
+               "max_memory_allocated_bytes":
+                   torch.cuda.max_memory_allocated() if cuda else None}
+        if cuda:
+            wall, kernels, union = profile_union(lambda: step(vq, x))
+            rec["profile"] = kernel_breakdown(wall, kernels, 10)
+            rec["device_busy_union_s"] = union
+            rec["device_idle_share_of_warm_step"] = 1.0 - union / warm
+            rec["achieved_flop_per_s"] = flops / union
+            rec["share_of_f32_peak"] = flops / union / PEAK_F32_FLOP_PER_S
+            rec["card"] = nvidia_smi()
+        if cuda and dtype is None:
+            rec["f32_variants"] = f32_step_variants(lambda: step(vq, x))
+        recs[name] = rec
+        del enc, dec, vq, eo, do, step
+        if cuda:
+            torch.cuda.empty_cache()
+    last = {n: r["losses_last"] for n, r in recs.items()}
+    recs["bf16_remat"]["loss_rel_gap_to_f32"] = {
+        k: abs(last["bf16_remat"][k] - v) / max(abs(v), 1e-12) for k, v in last["f32"].items()}
+    if cuda:
+        recs["bf16_remat"]["peak_vs_f32"] = (recs["bf16_remat"]["max_memory_allocated_bytes"]
+                                             / recs["f32"]["max_memory_allocated_bytes"])
+    for rec in recs.values():
+        emit(rec)
+    bad = {n: r["losses_last"] for n, r in recs.items()
+           if not all(np.isfinite(v) for v in r["losses_last"].values())}
+    if bad:
+        raise RuntimeError(f"volumetric steps: losses not finite {bad}")
+    return launches
+
+
+def f32_step_variants(run_step, steps=3):
+    """Time `steps` more f32 steps (`run_step` runs one; the model trains
+    on) under cuDNN's TF32 (the CLIs' default precision) and, apart, under
+    `cudnn.benchmark` (cuDNN times its algorithms on the first call of
+    each shape): the host-clock step times, synchronised, and the median
+    of all but the first. The flags are restored after each."""
+    import torch
+
+    out = {}
+    for name, flag in (("tf32", "allow_tf32"), ("cudnn_benchmark", "benchmark")):
+        prev = getattr(torch.backends.cudnn, flag)
+        setattr(torch.backends.cudnn, flag, True)
+        try:
+            times = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                run_step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            setattr(torch.backends.cudnn, flag, prev)
+        out[name] = {"step_s": times, "warm_step_s_median": float(np.median(times[1:]))}
+    tf32_off()
+    return out
+
+
+def volumetric_cli_part(device, workdir, vol, *, steps, n_synthetic, batch, filters,
+                        dict_size, seed):
+    """(b) The CLIs as a user runs them, in-process under
+    MEDIMG_CONV_PRECISION=ieee (TF32 checked off after each):
+    `train_volumetric.main` on `n_synthetic` seeded volumes, `steps` steps
+    (the step lines, the checkpoint, `recon_mid.png`); `vol` (1, D, H, W, 1)
+    encoded with the trained weights, a sub-box of its ids painted to
+    another code, and decoded through `edit_volume.main` from `.npy`,
+    `.nii.gz` and with `--uint8`; the time per decoded volume; a painted
+    label of dict_size + 1 refused. Returns the launches."""
+    import io
+
+    import torch
+
+    from medical_image_editing_tpu_torch.cli import edit_volume, train_volumetric
+    from medical_image_editing_tpu_torch.models.volumetric import (
+        VolumetricUNetEncoder,
+        volumetric_forward,
+    )
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.utils import nifti
+    from medical_image_editing_tpu_torch.utils.checkpoint import load_state_file
+
+    cuda = torch.device(device).type == "cuda"
+    size = vol.shape[1]
+    out = Path(workdir) / "volumetric"
+    dev_args = [] if cuda else ["--device", "cpu"]
+    fl = ",".join(str(f) for f in filters)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    _build.launches.clear()
+    # -- main path: train, then the edits
+    buf = io.StringIO()
+    with conv_precision("ieee"), contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        rc = train_volumetric.main(
+            ["--size", str(size), "--batch", str(batch), "--n-synthetic", str(n_synthetic),
+             "--steps", str(steps), "--filters", fl, "--dict-size", str(dict_size),
+             "--log-every", "1", "--seed", str(seed), "--out", str(out), *dev_args])
+        sync()
+        train_s = time.perf_counter() - t0
+        tf32_off()
+    step_lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("step ")]
+    ckpt = out / "volumetric_ckpt"
+    sd = load_state_file(str(ckpt))
+    enc = VolumetricUNetEncoder(filters=filters)
+    enc.load_state_dict(sd["enc"])
+    decoder, vq = edit_volume.load_volumetric_checkpoint(str(ckpt), filters=filters,
+                                                         dict_size=dict_size, device=device)
+    with torch.no_grad():
+        _, _, ids, _ = volumetric_forward(enc.to(device), decoder, vq,
+                                          torch.as_tensor(vol, device=device), train=False)
+    del enc
+    ids = ids[0].cpu().numpy().astype(np.int32)
+    box = slice(size // 4, size // 2)
+    codes, counts = np.unique(ids[box, box, box], return_counts=True)
+    label = 1 + int(codes[np.argmax(counts)]) % dict_size  # another code than the box's most
+    painted = ids.copy()
+    painted[box, box, box] = label
+    labels = out / "labels"
+    labels.mkdir()
+    np.save(labels / "vol_a.npy", painted)
+    nifti.save(np.transpose(painted, (2, 1, 0)).astype(np.float64), str(labels / "vol_b.nii.gz"))
+
+    def edit_main(label_dir, name, *extra):
+        return edit_volume.main(["--ckpt", str(ckpt), "--labels", str(label_dir),
+                                 "--out", str(out / f"edited_{name}"), "--filters", fl,
+                                 "--dict-size", str(dict_size), *dev_args, *extra])
+
+    edit_s = {}
+    with conv_precision("ieee"), contextlib.redirect_stdout(io.StringIO()):
+        for name, extra in (("f32", []), ("uint8", ["--uint8"])):
+            t0 = time.perf_counter()
+            if edit_main(labels, name, *extra) != 0:
+                raise RuntimeError(f"edit_volume {name} failed")
+            sync()
+            edit_s[name] = time.perf_counter() - t0
+        tf32_off()
+        bad = out / "bad"
+        bad.mkdir()
+        wrong = painted.copy()
+        wrong[0, 0, 0] = dict_size + 1
+        np.save(bad / "vol_bad.npy", wrong)
+        try:
+            edit_main(bad, "bad")
+            refused = False
+        except ValueError as e:
+            refused = "painted labels" in str(e)
+    launches = dict(_build.launches)
+
+    rec_a = np.load(out / "edited_f32" / "edited_vol_a.npy")
+    rec_b = np.transpose(nifti.load(str(out / "edited_f32" / "edited_vol_b.nii.gz")), (2, 1, 0))
+    u8 = np.load(out / "edited_uint8" / "edited_vol_a.npy")
+    edit = edit_volume.make_volumetric_edit_fn(decoder, device=device)
+    one = painted[None]
+    t0 = time.perf_counter()
+    direct = edit(vq, one)
+    sync()
+    first_s = time.perf_counter() - t0
+    split = edit_split(edit_volume, decoder, vq, labels, out / "split", device)
+    rec = {"phase": "volumetric", "part": "run", "device": str(device), "size": size,
+           "batch": batch, "steps": steps, "n_synthetic": n_synthetic, "rc": rc,
+           "step_lines": step_lines, "train_main_s": train_s,
+           "checkpoint_bytes": (ckpt / "state.pt").stat().st_size,
+           "recon_png_bytes": (out / "recon_mid.png").stat().st_size,
+           "codes_in_encoded_volume": int(len(np.unique(ids))), "painted_label": label,
+           "painted_box": [box.start, box.stop], "edit_main_s": edit_s,
+           "edit_main_s_per_volume": {k: v / 2 for k, v in edit_s.items()},
+           "edit_fn_s": first_s, "edit_split_s": split, "launches": launches,
+           "decoded_range": [float(rec_a.min()), float(rec_a.max())],
+           "nii_vs_npy_max_abs": float(np.abs(rec_b - rec_a).max()),
+           "uint8_vs_f32_max_level": int(np.abs(
+               u8.astype(np.int32) - ((np.clip(rec_a, -1, 1) + 1) * 127.5).astype(np.int32)).max()),
+           "direct_vs_cli_max_abs": float(np.abs(direct[0].cpu().numpy() - rec_a).max()),
+           "out_of_range_label_refused": refused}
+    if cuda:
+        rec["edit_fn_ms"] = cuda_ms(lambda: edit(vq, one), warmup=1, iters=3)
+        rec["card"] = nvidia_smi()
+    emit(rec)
+    checks = {"rc": rc == 0, "step_lines": len(step_lines) == steps,
+              "checkpoint": rec["checkpoint_bytes"] > 0, "png": rec["recon_png_bytes"] > 0,
+              "shape": rec_a.shape == (size,) * 3 and u8.dtype == np.uint8,
+              "finite": bool(np.isfinite(rec_a).all()) and abs(rec_a).max() <= 1.0,
+              "nii": rec["nii_vs_npy_max_abs"] <= 1e-6, "uint8": rec["uint8_vs_f32_max_level"] <= 1,
+              "direct": rec["direct_vs_cli_max_abs"] <= 1e-4, "refused": refused}
+    if not all(checks.values()):
+        raise RuntimeError(f"volumetric CLIs: {checks}")
+    return launches
+
+
+def edit_split(edit_volume, decoder, vq, labels, out, device):
+    """The parts of `edit_volume.main`'s time per volume, each timed apart
+    on the host clock: reading the painted ids from .npy and .nii.gz, the
+    decode (synchronised) in float32 and as uint8, and writing each
+    decoded volume as .npy and as .nii.gz."""
+    import torch
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    out.mkdir()
+    split = {}
+    ids = None
+    for ext, src in (("npy", "vol_a.npy"), ("nii_gz", "vol_b.nii.gz")):
+        ids, split[f"read_{ext}"] = timed(lambda: edit_volume._load_label_volume(
+            str(labels / src)))
+    for dt in ("f32", "uint8"):
+        fn = edit_volume.make_volumetric_edit_fn(
+            decoder, output_dtype="uint8" if dt == "uint8" else None, device=device)
+        rec, split[f"decode_{dt}"] = timed(lambda: fn(vq, ids[None]).cpu().numpy()[0])
+        for ext, suffix in (("npy", ".npy"), ("nii_gz", ".nii.gz")):
+            _, split[f"write_{dt}_{ext}"] = timed(lambda: edit_volume._save_volume(
+                str(out / f"edited_{dt}{suffix}"), rec))
+    return split
+
+
+def volumetric_grads_f64(enc, dec, embed, vols, ids):
+    """The gradients of the volumetric step's loss (reconstruction MSE plus
+    commit, as `make_volumetric_train_step`) in float64 on the CPU, from
+    copies of `enc` and `dec`, the codebook `embed` and the code of each
+    voxel `ids` (B, D, H, W) from 0: the witness that the card's and the
+    CPU's float32 gradients are held to. The ids are given, not recomputed:
+    a voxel whose top two codes tie at float32 rounding may take the other
+    code in float64, and at random init one such voxel moves the decoder's
+    gradient by percents. The instance norm and the tanh stay in float64
+    here (the model takes them in float32). Returns {"enc", "dec"}: each
+    module's parameter gradients, flattened and concatenated in
+    `parameters()` order."""
+    import torch
+    import torch.nn.functional as F
+
+    from medical_image_editing_tpu_torch.models import volumetric as tvol
+
+    enc = copy.deepcopy(enc).cpu().double()
+    dec = copy.deepcopy(dec).cpu().double()
+    real = tvol.instance_norm_3d
+    tvol.instance_norm_3d = lambda x: F.instance_norm(x, eps=1e-5)
+    try:
+        x = torch.as_tensor(np.asarray(vols), dtype=torch.float64).permute(0, 4, 1, 2, 3)
+        feats = enc(x)
+        rows = feats.permute(0, 2, 3, 4, 1).reshape(-1, feats.shape[1])
+        q = embed.detach().cpu().double()[ids.flatten().long().cpu()]
+        commit = ((rows - q) ** 2).mean()
+        q_st = (rows + (q - rows).detach()).reshape(
+            feats.shape[0], *feats.shape[2:], feats.shape[1]).permute(0, 4, 1, 2, 3)
+        recon = torch.tanh(dec.Conv_0(dec.body(q_st)))
+        (((recon - x) ** 2).mean() + commit).backward()
+    finally:
+        tvol.instance_norm_3d = real
+    return {m: torch.cat([p.grad.flatten() for p in mod.parameters()])
+            for m, mod in (("enc", enc), ("dec", dec))}
+
+
+def volumetric_reference_part(*, size=32, batch=2, filters=VOL_FILTERS,
+                              dict_size=VOL_DICT_SIZE, seed=1, card="cuda", norm_size=128):
+    """One f32 volumetric step on the card vs the same step on the port's
+    CPU path, at full widths on `size`³ volumes, from the same seeded
+    weights, TF32 asserted off. Held: the ids where the top-2 score gap is
+    clear of rounding, the losses (rtol 1e-3), the codebook after the step
+    (rtol 1e-3), the parameters after the step within 2·lr of the CPU's
+    (Adam's first step moves each by at most lr), and the gradients
+    (relative Frobenius norm per module) against a witness that does not
+    depend on the card: the step in float64 on the CPU from each run's own
+    ids (`volumetric_grads_f64`). The card's distance from it is held
+    within 5× the CPU's, or 1e-5, the CPU's read on both of its float32
+    convolutions (oneDNN's and PyTorch's native ones) and the larger
+    taken: the max-pools see exact ties (at 32³, seed 1: some 7,000
+    windows of the decoder's first block, on its piecewise-constant
+    codebook input, and about ten of the encoder's), which two float32
+    convolutions break at different voxels, each moving the gradient by a
+    step of its own. The card's step again with cuDNN off is a readout.
+    Also the card's instance norm at the phase's level-0 shape (2 × 8
+    channels of `norm_size`³ voxels: 2²¹ at 128³) against float64 on the
+    CPU. `card` "cpu" rehearses the comparison."""
+    import torch
+    import torch.nn.functional as F
+
+    from medical_image_editing_tpu_torch.cli.train_volumetric import _synthetic_volumes
+    from medical_image_editing_tpu_torch.models import volumetric as tvol
+    from medical_image_editing_tpu_torch.ops.vq import VQState, vq_scores
+    from medical_image_editing_tpu_torch.train.volumetric import (
+        init_volumetric,
+        make_volumetric_train_step,
+    )
+
+    tf32_off()  # held to the CPU at full f32
+    lr = 1e-4
+    vols = _synthetic_volumes(batch, size, seed)
+    enc, dec, vq0, _, _ = init_volumetric(torch.Generator().manual_seed(seed), filters=filters,
+                                          dict_size=dict_size, volume_shape=vols.shape,
+                                          lr=lr, device="cpu")
+    start = (copy.deepcopy(enc.state_dict()), copy.deepcopy(dec.state_dict()))
+    runs = [("cpu", "cpu", True, True), ("cpu_native", "cpu", True, False),
+            ("card", card, True, True)]
+    if card == "cuda":
+        runs += [("card_no_cudnn", card, False, True)]
+    out, witness = {}, {}
+    for name, device, use_cudnn, use_mkldnn in runs:
+        enc_r, dec_r, _, eo, do = init_volumetric(torch.Generator(), filters=filters,
+                                                  dict_size=dict_size, volume_shape=vols.shape,
+                                                  lr=lr, device=device)
+        enc_r.load_state_dict(start[0])
+        dec_r.load_state_dict(start[1])
+        vq = VQState(*(t.to(device) for t in vq0))
+        x = torch.as_tensor(vols, device=device)
+        prev_cudnn = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = use_cudnn
+        try:
+            with (contextlib.nullcontext() if use_mkldnn
+                  else torch.backends.mkldnn.flags(enabled=False)):
+                with torch.no_grad():
+                    feats = enc_r(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+                    ids = tvol.volumetric_forward(enc_r, dec_r, vq, x, train=False)[2].cpu()
+                new_vq, metrics = make_volumetric_train_step(enc_r, dec_r, eo, do)(vq, x)
+        finally:
+            torch.backends.cudnn.enabled = prev_cudnn
+        grads = {m: torch.cat([p.grad.flatten().cpu() for p in mod.parameters()])
+                 for m, mod in (("enc", enc_r), ("dec", dec_r))}
+        params = {m: torch.cat([p.detach().flatten().cpu() for p in mod.parameters()])
+                  for m, mod in (("enc", enc_r), ("dec", dec_r))}
+        key = hashlib.sha1(ids.numpy().tobytes()).hexdigest()
+        if key not in witness:
+            witness[key] = volumetric_grads_f64(enc, dec, vq0.embed, vols, ids - 1)
+        out[name] = SimpleNamespace(
+            feats=feats.cpu(), ids=ids, m={k: float(v) for k, v in metrics.items()},
+            grads=grads, vq=[t.cpu() for t in new_vq], params=params,
+            vs_f64={m: float((g.double() - witness[key][m]).norm() / witness[key][m].norm())
+                    for m, g in grads.items()})
+        del enc_r, dec_r, eo, do
+    cpu, c = out["cpu"], out["card"]
+    top2 = vq_scores(vq0.embed, cpu.feats.reshape(-1, cpu.feats.shape[-1])).topk(2, dim=1)
+    clear = ((top2.values[:, 0] - top2.values[:, 1]) > 1e-4 * top2.values.abs().max()
+             ).reshape(cpu.ids.shape)
+    id_mismatch = int(((c.ids != cpu.ids) & clear).sum())
+    loss_err = {k: abs(c.m[k] - v) / max(abs(v), 1e-6) for k, v in cpu.m.items()}
+    grad_vs_f64 = {name: o.vs_f64 for name, o in out.items()}
+    grad_err = c.vs_f64
+    grad_floor = {m: max(out["cpu"].vs_f64[m], out["cpu_native"].vs_f64[m]) for m in grad_err}
+    grad_limit = {m: max(5 * f, 1e-5) for m, f in grad_floor.items()}
+    grad_card_vs_cpu = {m: float((c.grads[m] - g).norm() / g.norm())
+                        for m, g in cpu.grads.items()}
+    codebook_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+                       for a, b in zip(c.vq, cpu.vq))
+    param_gap = {m: {"max_lr": float((c.params[m] - p).abs().max()) / lr,
+                     "share_over_1e-3_lr": float(((c.params[m] - p).abs() > 1e-3 * lr)
+                                                 .float().mean())}
+                 for m, p in cpu.params.items()}
+    # instance norm over norm_size³ voxels a channel, offset channel means:
+    # the card's f32 and the CPU's f32 against float64
+    g = torch.Generator().manual_seed(seed)
+    act = torch.randn(2, 8, norm_size, norm_size, norm_size, generator=g) * 0.05 + \
+        torch.linspace(-3, 3, 8)[None, :, None, None, None]
+    ref64 = F.instance_norm(act.double(), eps=1e-5)
+    in_err = {"cpu": float((tvol.instance_norm_3d(act).double() - ref64).abs().max())}
+    if card != "cpu":
+        in_err["card"] = float((tvol.instance_norm_3d(act.to(card)).cpu().double()
+                                - ref64).abs().max())
+    del act, ref64
+    rec = {"phase": "volumetric", "part": "reference", "card": card, "size": size,
+           "batch": batch, "filters": list(filters), "id_mismatches_clear": id_mismatch,
+           "clear_share": float(clear.float().mean()), "loss_rel_err": loss_err,
+           "grad_rel_err_vs_f64": grad_vs_f64, "grad_floor": grad_floor,
+           "grad_limit": grad_limit, "grad_card_vs_cpu": grad_card_vs_cpu,
+           "witnesses": len(witness), "codebook_rel_err": codebook_err,
+           "param_gap": param_gap, "losses_cpu": cpu.m, "losses_card": c.m,
+           "instance_norm_size": norm_size, "instance_norm_max_abs_err_vs_f64": in_err,
+           "tolerance": "ids equal where the top-2 score gap > 1e-4·max|score|; losses and "
+                        "the codebook rtol 1e-3; gradients: the card's distance from a "
+                        "float64 CPU step on its own ids within 5x the larger of the CPU's "
+                        "two float32 steps' (oneDNN, native) or 1e-5 (relative Frobenius; "
+                        "cuDNN off a readout); parameters within 2·lr; instance norm "
+                        "within 1e-4 of float64"}
+    emit(rec)
+    if (id_mismatch or max(loss_err.values()) > 1e-3 or codebook_err > 1e-3
+            or any(grad_err[m] > grad_limit[m] for m in grad_err)
+            or any(v["max_lr"] > 2.0 + 1e-3 for v in param_gap.values())
+            or max(in_err.values()) > 1e-4):
+        raise RuntimeError(f"card vs CPU volumetric step: {id_mismatch} clear id mismatches, "
+                           f"loss errors {loss_err}, codebook {codebook_err}, gradient "
+                           f"errors against float64 {grad_vs_f64} (limits {grad_limit}), "
+                           f"parameters {param_gap}, instance norm {in_err}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3881,6 +4395,7 @@ def main(argv=None):
             mw_launches = multi_window_phase("cuda", tmp, seed=args.seed)
             vqgan_launches = vqgan_phase("cuda", tmp, seed=args.seed)
             losses_launches = losses_phase("cuda", tmp, seed=args.seed)
+            vol_launches = volumetric_phase("cuda", tmp, seed=args.seed)
 
     main_conv = next(r for r in conv if r["dtype"] == "bfloat16" and "forward" in r
                      and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
@@ -3890,14 +4405,16 @@ def main(argv=None):
         "launches": (serve_launches.get("vq_fused", 0) + train_launches.get("vq_fused", 0)
                      + trainer_launches.get("vq_fused", 0)
                      + second_launches.get("vq_fused", 0) + mw_launches.get("vq_fused", 0)
-                     + vqgan_launches.get("vq_fused", 0) + losses_launches.get("vq_fused", 0)),
+                     + vqgan_launches.get("vq_fused", 0) + losses_launches.get("vq_fused", 0)
+                     + vol_launches.get("vq_fused", 0)),
         "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
                              "train": train_launches.get("vq_fused", 0),
                              "trainer": trainer_launches.get("vq_fused", 0),
                              "second_stage": second_launches.get("vq_fused", 0),
                              "multi_window": mw_launches.get("vq_fused", 0),
                              "vqgan": vqgan_launches.get("vq_fused", 0),
-                             "losses": losses_launches.get("vq_fused", 0)},
+                             "losses": losses_launches.get("vq_fused", 0),
+                             "volumetric": vol_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
         "n": vq["n"], "c": vq["c"], "k": vq["k"], "path": vq["path"],
@@ -3916,7 +4433,8 @@ def main(argv=None):
                      + second_launches.get("conv3x3_packed", 0)
                      + mw_launches.get("conv3x3_packed", 0)
                      + vqgan_launches.get("conv3x3_packed", 0)
-                     + losses_launches.get("conv3x3_packed", 0)),
+                     + losses_launches.get("conv3x3_packed", 0)
+                     + vol_launches.get("conv3x3_packed", 0)),
         "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
                              "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
                              "train": train_launches.get("conv3x3_packed", 0),
@@ -3924,7 +4442,8 @@ def main(argv=None):
                              "second_stage": second_launches.get("conv3x3_packed", 0),
                              "multi_window": mw_launches.get("conv3x3_packed", 0),
                              "vqgan": vqgan_launches.get("conv3x3_packed", 0),
-                             "losses": losses_launches.get("conv3x3_packed", 0)},
+                             "losses": losses_launches.get("conv3x3_packed", 0),
+                             "volumetric": vol_launches.get("conv3x3_packed", 0)},
         "max_abs_err": main_conv["forward_max_abs_err"],
         "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
                   "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",

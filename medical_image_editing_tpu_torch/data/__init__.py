@@ -1,6 +1,6 @@
-"""Datasets, the host batch loader with device prefetch, and the native
-`.npy` batch reader: counterparts of the JAX package's `data/` modules
-(the offline `preprocess.py` is not ported yet, ROADMAP item 12)."""
+"""Datasets, the host batch loader with device prefetch, the native `.npy`
+batch reader and the offline NIfTI preprocessing (`preprocess.py`):
+counterparts of the JAX package's `data/` modules."""
 
 from .datasets import (
     CRCDataset,

@@ -49,11 +49,11 @@ def conv_impl() -> str:
 
 def seeded_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter and buffer of `module` (on the CPU) from
-    `generator`, in module order: convs get torch's default
+    `generator`, in module order: convs (2-D and 3-D) get torch's default
     uniform(±1/√fan_in) weight and bias, BatchNorm running stats are reset,
     codebooks are drawn random-normal."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             with torch.no_grad():

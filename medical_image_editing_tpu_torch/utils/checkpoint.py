@@ -68,6 +68,28 @@ def load_state_file(path: str, map_location="cpu") -> dict:
     return torch.load(f, map_location=map_location, weights_only=True)
 
 
+def save_state_dir(path: str, state_dict: dict) -> str:
+    """Write `state_dict` as `path/state.pt`, atomically: into a temporary
+    directory beside `path`, moved into place with `os.replace` (a re-save
+    of the same path swaps the old directory out, then drops it). Returns
+    `path`."""
+    parent, name = os.path.split(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    path = os.path.join(parent, name)
+    tmp = os.path.join(parent, f".tmp-{os.getpid()}-{name}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(state_dict, os.path.join(tmp, STATE_FILE))
+    if os.path.isdir(path):
+        old = tmp + ".old"
+        os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old)
+    else:
+        os.replace(tmp, path)
+    return path
+
+
 class CheckpointManager:
     """Epoch checkpoints with the ModelSaver retention policy."""
 
@@ -81,18 +103,8 @@ class CheckpointManager:
     def save(self, state, epoch: int, step: Optional[int] = None) -> str:
         """Save `state` (anything with `state_dict()`). `step` marks a
         mid-epoch save; epoch-end saves omit it. Returns the path."""
-        path = os.path.join(self.directory, _ckpt_name(epoch, step))
-        tmp = os.path.join(self.directory, f".tmp-{os.getpid()}-{_ckpt_name(epoch, step)}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
-        if os.path.isdir(path):  # a re-save of the same name: swap, then drop
-            old = tmp + ".old"
-            os.replace(path, old)
-            os.replace(tmp, path)
-            shutil.rmtree(old)
-        else:
-            os.replace(tmp, path)
+        path = save_state_dir(os.path.join(self.directory, _ckpt_name(epoch, step)),
+                              state.state_dict())
         self._prune()
         return path
 

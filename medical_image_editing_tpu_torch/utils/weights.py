@@ -12,8 +12,9 @@ the U-Net discriminator's BigGAN layers with their spectral-norm buffers
 export derives it), its ActNorms (`loc`, `scale`, `initialized`, and the
 'actnorm' collection's `data_loc`, `data_scale`); and the VQGAN
 (`from_jax_vqgan`: the taming layout, GroupNorm scale/bias, the attention's
-1×1 convs and its codebook), and the perceptual networks' frozen weights
-(`from_jax_perceptual`). Inputs are nested dicts of arrays (numpy,
+1×1 convs and its codebook), the perceptual networks' frozen weights
+(`from_jax_perceptual`), and the volumetric VQ-WNet (`from_jax_volumetric`:
+3-D kernels to (O, I, kd, kh, kw) under the flax paths). Inputs are nested dicts of arrays (numpy,
 or anything `np.asarray` takes); outputs are dicts of CPU tensors that the
 port's modules load with `load_state_dict(strict=True)`.
 
@@ -299,6 +300,34 @@ def from_jax_vqgan(vqgan_vars: dict, vq, module) -> StateDict:
     _conv(out, "decoder.conv_out", dec["Conv_1"])
     out.update(from_jax_vq(vq))
     return out
+
+
+def from_jax_volumetric_params(params: dict, prefix: str = "") -> StateDict:
+    """One volumetric module's flax params (or a tree shaped like them,
+    e.g. Adam's moments) → its state dict: keys the flax paths, 3-D kernels
+    (kd, kh, kw, I, O) → (O, I, kd, kh, kw)."""
+    out: StateDict = {}
+    for name, sub in params.items():
+        if "kernel" in sub:
+            out[f"{prefix}{name}.weight"] = _t(
+                np.asarray(sub["kernel"], dtype=np.float32).transpose(4, 3, 0, 1, 2))
+            if "bias" in sub:
+                out[f"{prefix}{name}.bias"] = _t(sub["bias"])
+        else:
+            out.update(from_jax_volumetric_params(sub, f"{prefix}{name}."))
+    return out
+
+
+def from_jax_volumetric(enc_vars: dict, dec_vars: dict, vq) -> Dict[str, StateDict]:
+    """The volumetric VQ-WNet's variables → {"enc", "dec", "vq"}, the layout
+    of the port's `train_volumetric` checkpoint: the modules' keys are the
+    flax paths (`ResBlock3D_i.Conv_0` the 1×1×1 identity,
+    `ResBlock3D_i.DoubleConv3D_0.Conv_{0,1}`, `DoubleConv3D_0`,
+    `UpBlock3D_j.DoubleConv3D_0`, the decoder's `Conv_0`; the remat-stable
+    names, not flax's `Checkpoint*`), the codebook `from_jax_vq`'s."""
+    return {"enc": from_jax_volumetric_params(enc_vars["params"]),
+            "dec": from_jax_volumetric_params(dec_vars["params"]),
+            "vq": from_jax_vq(vq, prefix="")}
 
 
 def from_jax_discriminator(dis_vars: dict, *, D_attn: str = "0") -> StateDict:

@@ -925,3 +925,26 @@ def test_switches_add_no_kernel_launch(cuda, monkeypatch, perceptual, dropblock)
     assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10), tvqf.KERNEL: 2}
     assert all(torch.isfinite(v) for v in metrics.values())
     assert (float(metrics["perceptual"]) > 0) == perceptual
+
+
+@pytest.mark.gpu
+def test_volumetric_step_on_card_matches_cpu(cuda):
+    """One f32 volumetric step (filters 8,16,32,64, `dict_size` 10, 16³,
+    batch 2) on the CPU and on the card from the same seeded weights, held
+    as `chip_smoke.py`'s volumetric reference part holds it (its
+    `volumetric_reference_part`, which raises on a fault): the ids where
+    the top-2 score gap is clear, the losses and the codebook after the
+    step (rtol 1e-3), the gradients against a float64 step on the CPU
+    within 5× the CPU's own float32 distance from it, or 1e-5. No
+    hand-written kernel launches: the path runs the plain VQ assignment and
+    cuDNN's conv3d."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _build.launches.clear()
+    smoke.volumetric_reference_part(size=16, batch=2, seed=4, card=cuda.type, norm_size=16)
+    assert not any(_build.launches.values()), dict(_build.launches)

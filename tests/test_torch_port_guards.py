@@ -1,8 +1,8 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse to fall back to the CPU, `chip_smoke.py` fails
 without a card, and its serve, train, serve_runtime, trainer,
-second_stage, multi_window and vqgan phases run end to end at tiny size on
-the CPU.
+second_stage, multi_window, vqgan, losses and volumetric phases run end to
+end at tiny size on the CPU.
 """
 
 import importlib.util
@@ -62,9 +62,11 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 52
+    assert len(modules) >= 57
     assert {f"{PKG}.models.vqgan", f"{PKG}.models.actnorm", f"{PKG}.train.vqgan_stage",
-            f"{PKG}.ops.perceptual", f"{PKG}.ops.dropblock"} <= set(modules)
+            f"{PKG}.ops.perceptual", f"{PKG}.ops.dropblock", f"{PKG}.models.volumetric",
+            f"{PKG}.train.volumetric", f"{PKG}.cli.train_volumetric", f"{PKG}.cli.edit_volume",
+            f"{PKG}.data.preprocess"} <= set(modules)
 
 
 @pytest.fixture
@@ -76,7 +78,14 @@ def tf32_flags():
 
 
 def _cli_calls():
-    from medical_image_editing_tpu_torch.cli import edit_batch, run_recon, run_vqwnet, serve_http
+    from medical_image_editing_tpu_torch.cli import (
+        edit_batch,
+        edit_volume,
+        run_recon,
+        run_vqwnet,
+        serve_http,
+        train_volumetric,
+    )
 
     return {
         "run_vqwnet": lambda: run_vqwnet.main(
@@ -84,12 +93,15 @@ def _cli_calls():
         "run_recon": lambda: run_recon.main(["--max-iters", "1"]),
         "serve_http": lambda: serve_http.main(["--warm", "none"]),
         "edit_batch": lambda: edit_batch.main(["--label-dir", ".", "--out-dir", "."]),
+        "train_volumetric": lambda: train_volumetric.main(["--steps", "1"]),
+        "edit_volume": lambda: edit_volume.main(["--ckpt", ".", "--labels", ".", "--out", "."]),
     }
 
 
 @pytest.mark.parametrize("value", [None, "tf32", "ieee", "bf16"],
                          ids=["unset", "tf32", "ieee", "unknown"])
-@pytest.mark.parametrize("cli", ["run_vqwnet", "run_recon", "serve_http", "edit_batch"])
+@pytest.mark.parametrize("cli", ["run_vqwnet", "run_recon", "serve_http", "edit_batch",
+                                 "train_volumetric", "edit_volume"])
 def test_cli_applies_conv_precision(cli, value, monkeypatch, tf32_flags):
     """Each CLI sets cuDNN's f32 convolution precision from
     MEDIMG_CONV_PRECISION first (unset: the default, tf32) and keeps
@@ -134,13 +146,21 @@ def test_one_tf32_api():
 def test_entry_points_refuse_missing_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable")
-    from medical_image_editing_tpu_torch.cli import edit_batch, run_recon, run_vqwnet, serve_http
+    from medical_image_editing_tpu_torch.cli import (
+        edit_batch,
+        edit_volume,
+        run_recon,
+        run_vqwnet,
+        serve_http,
+        train_volumetric,
+    )
     from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
     from medical_image_editing_tpu_torch.cli.run_recon import LungConfig, load_model
     from medical_image_editing_tpu_torch.train.evaluate import (
         make_eval_forward,
         make_vqgan_eval_forward,
     )
+    from medical_image_editing_tpu_torch.train.volumetric import init_volumetric
 
     def lung():
         cfg = LungConfig()
@@ -159,7 +179,11 @@ def test_entry_points_refuse_missing_card():
                                           "-m", "train"]),
                  lambda: make_vqgan_eval_forward(torch.nn.Identity()),
                  lambda: run_vqwnet.main(["-v", "-c", str(ROOT / "configs" / "crc_vqgan.json"),
-                                          "-m", "train"])):
+                                          "-m", "train"]),
+                 lambda: init_volumetric(torch.Generator()),
+                 lambda: edit_volume.make_volumetric_edit_fn(torch.nn.Identity()),
+                 lambda: train_volumetric.main(["--steps", "1"]),
+                 lambda: edit_volume.main(["--ckpt", ".", "--labels", ".", "--out", "."])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -440,3 +464,45 @@ def test_chip_smoke_losses_phase_on_cpu(tmp_path, capsys, monkeypatch):
                                                  "matmul_allow_tf32": False}
     assert "CLI default conv precision" in out
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+
+
+def test_chip_smoke_volumetric_phase_on_cpu(tmp_path, capsys, monkeypatch):
+    """The volumetric phase end to end at tiny size on the CPU (filters
+    4,8,16, `dict_size` 5, 16³, batch 2): (a) the bare steps in f32 and in
+    bf16 with remat, the operations counted on the meta device (remat adds
+    the recomputed forwards); (b) `train_volumetric.main` and
+    `edit_volume.main` in-process (the step lines, the checkpoint, the PNG,
+    the painted decode from .npy, .nii.gz and as uint8, the out-of-range
+    label refused); (c) the card-vs-CPU comparison (here CPU against CPU:
+    exact); no kernel launch, and TF32 left off."""
+    monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
+    smoke = _chip_smoke()
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        launches = smoke.volumetric_phase("cpu", tmp_path, size=16, batch=2, steps=2,
+                                          filters=(4, 8, 16), dict_size=5, ref_size=16,
+                                          cli_steps=3)
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert launches == {}
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith('{"phase": "volumetric"')]
+    steps = {r["mode"]: r for r in recs if r["part"] == "step"}
+    run = next(r for r in recs if r["part"] == "run")
+    ref = next(r for r in recs if r["part"] == "reference")
+    assert sorted(steps) == ["bf16_remat", "f32"]
+    f32, bf16 = steps["f32"], steps["bf16_remat"]
+    assert len(f32["step_s"]) == 2 and f32["launches"] == bf16["launches"] == {}
+    assert 2.5 < f32["step_flop"] / f32["forward_flop"] < 3.5
+    assert bf16["step_flop"] > f32["step_flop"] and bf16["forward_flop"] == f32["forward_flop"]
+    assert max(bf16["loss_rel_gap_to_f32"].values()) < 0.05
+    assert [ln.split(":")[0] for ln in run["step_lines"]] == ["step 1", "step 2", "step 3"]
+    assert run["checkpoint_bytes"] > 0 and run["recon_png_bytes"] > 0
+    assert run["out_of_range_label_refused"] and run["nii_vs_npy_max_abs"] == 0.0
+    assert run["uint8_vs_f32_max_level"] == 0 and run["codes_in_encoded_volume"] >= 2
+    assert len(run["edit_split_s"]) == 8
+    assert ref["id_mismatches_clear"] == 0 and max(ref["loss_rel_err"].values()) == 0.0
+    assert ref["instance_norm_size"] == 16 and ref["witnesses"] == 1
+    assert ref["grad_rel_err_vs_f64"]["card"] == ref["grad_rel_err_vs_f64"]["cpu"]

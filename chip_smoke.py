@@ -47,6 +47,26 @@ and no result line):
                local port: healthz, edits, a padded batch, a PNG and three
                requests that must get 400; (c) the file-watching loop
                (`cli/run_recon.py::serve`, inotify) answering three edits;
+  6c. int8  — the int8 serving decode at the same widths, 512²: (a) the
+               three kernels of `csrc/conv_s8.cu` (channel absmax, s8
+               quantize, the s8×s8→s32 convolution) against their plain
+               versions bit for bit at every distinct convolution of the
+               decoder (batch 8, seeded inputs): maxima, codes, int32 sums,
+               outputs; each timed (`ms`, `device_ms`) beside its bound, its
+               plain version and its calls per decode; yardsticks at the
+               32 → 32 3×3 convolution: `torch._int_mm` over an im2col of
+               the same codes (with and without the im2col), cuDNN's bf16
+               `F.conv2d` and the packed bf16 kernel; (b)
+               `make_batched_edit_fn(quantize="int8")` on the 8 painted
+               maps and on 32 with `microbatch=8`, launches of each kernel
+               held to the decoder's `Conv` count a chunk, each decode
+               bit for bit the same decode through the plain versions on
+               the card, the error against f32 framed as the JAX package's
+               contract (int8 ≤ 4× bf16), 8 slices timed in f32, bf16
+               cuDNN, bf16 packed and int8 with peak memory, the int8
+               decode profiled; (c) `edit_batch.main --dtype int8` over
+               the painted NIfTIs, held to the same decode; (d) after all
+               phases, 0 int8 launches on every other path;
   7. train   — the first-stage training step at the same widths, with the
                config's augmentation, losses, optimizers and bf16 compute
                dtype, `MEDIMG_CONV_IMPL=packed`, 256², batch 8: codebook
@@ -162,12 +182,19 @@ and no result line):
                float64; (d) both kernels held at 0 launches on (a) and (b):
                the path runs the plain VQ assignment and cuDNN's conv3d, as
                the JAX path takes neither Pallas kernel;
+  8g. ckpt_crossing — fault C.4 and the crossings: `run_vqwnet.main`
+               trains the lung first stage (its widths, f32, 256²) for 2
+               steps, `export_ckpt` writes the reference `.ckpt`,
+               `import_ckpt` reads it back; `run_recon.load_model` with
+               `LUNG_CKPT` at the imported directory and at the run's own
+               decodes a painted batch bit for bit as the trained state's
+               own modules do, and the imported tensors equal the run's;
   9. kernels — one line listing every hand-written kernel of the paths.
-The serve, serve_runtime (its packed route), train, trainer, second_stage
-(a) and (b), multi_window (a) (each mode) and (b), vqgan (a) and (b),
-losses (a), (b), (c) and (e), and volumetric (a) (each mode) and (b)
-phases are the main paths: each zeroes the launch counts just before it and
-reads them just after.
+The serve, serve_runtime (its packed route), int8 (b) and (c), train,
+trainer, second_stage (a) and (b), multi_window (a) (each mode) and (b),
+vqgan (a) and (b), losses (a), (b), (c) and (e), volumetric (a) (each
+mode) and (b), and ckpt_crossing phases are the main paths: each zeroes
+the launch counts just before it and reads them just after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
@@ -248,10 +275,11 @@ VQGAN_RESUME_GAP_LIMIT = {
 }
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
-# tensor cores, bf16 on the dense tensor cores
+# tensor cores, bf16 and int8 on the dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_INT8_OPS_PER_S = 1979e12
 
 # (N, C, K): the serve encode (8 slices at 512², C=16, K=10) first, then the
 # JAX package's VQ operating points, the VQGAN step's (8 × 16² rows against
@@ -4348,6 +4376,501 @@ def volumetric_reference_part(*, size=32, batch=2, filters=VOL_FILTERS,
                            f"parameters {param_gap}, instance norm {in_err}")
 
 
+# --------------------------------------------------------------------------
+# int8 serving decode (conv_s8) and checkpoint crossing
+# --------------------------------------------------------------------------
+
+
+def s8_conv_bound(b, h, w, cin, cout, kh, kw, out_bytes, bias):
+    """Least time (ms) of one conv_s8 call and what bounds it: the s8 codes
+    (Cin channels) and weights read once, k_scale and bias read once, the
+    output written once; 2·B·H·W·kh·kw·Cin·Cout operations at the dense
+    int8 tensor-core rate (stride 1, output the input's size)."""
+    nbytes = (b * h * w * cin + kh * kw * cin * cout + 4 * cout * (2 if bias else 1)
+              + out_bytes * b * h * w * cout)
+    ops = 2 * b * h * w * kh * kw * cin * cout
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def s8_pass_bound(b, c, h, w, in_bytes, out_bytes):
+    """Least time (ms) of an activation pass: the input read once, the
+    output (a (C,) vector, or the s8 codes) written once, one f32 operation
+    an element (a max, or a division)."""
+    nbytes = in_bytes * b * c * h * w + out_bytes
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, b * c * h * w / PEAK_F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+@contextlib.contextmanager
+def plain_int8_convs():
+    """Every `Conv` under `quantize_convs("int8")` through the plain
+    versions (`int8_conv_reference`), on any device, inside the block."""
+    from medical_image_editing_tpu_torch.models import blocks
+    from medical_image_editing_tpu_torch.ops.quantized_conv import int8_conv_reference
+
+    prev = blocks.int8_conv
+    blocks.int8_conv = int8_conv_reference
+    try:
+        yield
+    finally:
+        blocks.int8_conv = prev
+
+
+def decoder_conv_calls(decoder, embed):
+    """The (Cin, Cout, kernel, dilation, padding, H, W, bias) of every `Conv`
+    call of one decode of `embed`, in call order (hooks on the meta device;
+    an int8 decode calls the same convolutions)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models.blocks import Conv
+
+    calls = []
+
+    def hook(m, args):
+        _, cin, h, w = args[0].shape
+        calls.append((cin, m.out_channels, m.kernel_size[0], m.dilation[0], m.padding[0],
+                      h, w, m.bias is not None))
+
+    meta = copy.deepcopy(decoder).to("meta").eval()
+    handles = [m.register_forward_pre_hook(hook) for m in meta.modules() if isinstance(m, Conv)]
+    with torch.no_grad():
+        meta(embed.to("meta"))
+    for h in handles:
+        h.remove()
+    return calls
+
+
+S8_KERNELS = ("conv_s8", "conv_s8_absmax", "conv_s8_quantize")
+
+
+def int8_kernel_part(device, calls, batch, seed, iters=50):
+    """(a) Each kernel of the int8 convolution against its plain version,
+    bit for bit, at every distinct convolution of the decode (seeded
+    inputs at the decode's shapes): channel maxima, s8 codes, raw int32
+    sums, the dequantized f32 output. Each timed (`ms`, CUDA events around
+    `iters` calls; `device_ms`, profiler) beside its bound, its plain
+    version and its launches per decode. Returns the records."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import quantized_conv as qc
+
+    cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    per_decode = {}
+    for c in calls:
+        per_decode[c] = per_decode.get(c, 0) + 1
+    records = []
+    for (cin, cout, k, d, pad, h, w, bias), n_calls in per_decode.items():
+        x = torch.randn(batch, cin, h, w, generator=gen, device=device)
+        wt = torch.randn(cout, cin, k, k, generator=gen, device=device) / (k * k * cin) ** 0.5
+        b = torch.randn(cout, generator=gen, device=device) if bias else None
+        geo = dict(kernel_size=(k, k), dilation=(d, d), padding=(pad, pad))
+        amax = qc.channel_absmax(x)
+        scale = qc.symmetric_scale(amax)
+        xq = qc.quantize_s8(x, scale)
+        wq, k_scale = qc.weight_codes(wt, scale)
+        acc = qc.conv_s8(xq, wq, None, None, out_dtype=torch.int32, **geo)
+        out = qc.conv_s8(xq, wq, k_scale, b, **geo)
+        acc_ref = qc.conv_s8_reference(xq, wq, None, None, out_dtype=torch.int32, **geo)
+        checks = {
+            "absmax": bool(torch.equal(amax, qc.channel_absmax_reference(x))),
+            "codes": bool(torch.equal(xq, qc.quantize_s8_reference(x, scale))),
+            "int32_sums": bool(torch.equal(acc, acc_ref)),
+            "output": bool(torch.equal(out, qc.conv_s8_reference(xq, wq, k_scale, b, **geo))),
+        }
+        rec = {"phase": "int8", "part": "kernel", "b": batch, "cin": cin, "cout": cout,
+               "kernel": k, "dilation": d, "padding": pad, "h": h, "w": w, "bias": bias,
+               "calls_per_decode": n_calls, "checks": checks,
+               "max_abs_err": float((out - qc.conv_s8_reference(
+                   xq, wq, k_scale, b, **geo)).abs().max()),
+               "int32_abs_max": int(acc_ref.abs().max())}
+        if cuda:
+            timed = {
+                "conv_s8": (lambda: qc.conv_s8(xq, wq, k_scale, b, **geo),
+                            lambda: qc.conv_s8_reference(xq, wq, k_scale, b, **geo),
+                            s8_conv_bound(batch, h, w, cin, cout, k, k, 4, bias),
+                            "conv_s8_kernel"),
+                "conv_s8_absmax": (lambda: qc.channel_absmax(x),
+                                   lambda: qc.channel_absmax_reference(x),
+                                   s8_pass_bound(batch, cin, h, w, 4, 4 * cin),
+                                   "channel_absmax_kernel"),
+                "conv_s8_quantize": (lambda: qc.quantize_s8(x, scale),
+                                     lambda: qc.quantize_s8_reference(x, scale),
+                                     s8_pass_bound(batch, cin, h, w, 4, batch * h * w * cin),
+                                     "quantize_s8_kernel"),
+            }
+            for name, (fn, plain, (bound_ms, bound_by), sym) in timed.items():
+                ms = cuda_ms(fn, iters=iters)
+                rec[name] = {"ms": ms, "device_ms": device_ms(fn, sym),
+                             "plain_ms": cuda_ms(plain, warmup=1, iters=3),
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "roofline_share": bound_ms / ms}
+            rec["conv_s8"]["ops"] = 2 * batch * h * w * k * k * cin * cout
+            rec["conv_s8_absmax"]["library_ms"] = cuda_ms(
+                lambda: torch.linalg.vector_norm(x, float("inf"), dim=(0, 2, 3)), iters=iters)
+            rec["whole_call_ms"] = cuda_ms(
+                lambda: qc.int8_conv(x, wt, b, padding=pad, dilation=d), iters=iters)
+        emit(rec)
+        if not all(checks.values()):
+            raise RuntimeError(f"conv_s8 disagrees with its plain version at "
+                               f"{(batch, cin, cout, k, d, h, w)}: {checks}")
+        records.append(rec)
+    return records
+
+
+def int8_yardsticks(device, batch, cin, cout, size, seed, iters=50):
+    """Yardsticks at the decode's widest full-resolution convolution (3×3
+    SAME): `torch._int_mm` over an im2col of the same s8 codes (with the
+    im2col, and the product alone), cuDNN's bf16 `F.conv2d` and the packed
+    bf16 kernel; the int32 product checked against conv_s8's sums."""
+    import torch
+    import torch.nn.functional as F
+
+    from medical_image_editing_tpu_torch.ops import quantized_conv as qc
+    from medical_image_editing_tpu_torch.ops.conv_pack import conv3x3_packed_nchw
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(batch, cin, size, size, generator=gen, device=device)
+    wt = torch.randn(cout, cin, 3, 3, generator=gen, device=device) / (9 * cin) ** 0.5
+    scale = qc.symmetric_scale(qc.channel_absmax(x))
+    xq = qc.quantize_s8(x, scale)
+    wq, _ = qc.weight_codes(wt, scale)
+    geo = dict(kernel_size=(3, 3), dilation=(1, 1), padding=(1, 1))
+
+    def im2col():  # (B·H·W, 9·Cin) s8, taps outer, channels inner, as wq
+        xp = F.pad(xq[..., :cin], (0, 0, 1, 1, 1, 1))
+        cols = xp.unfold(1, 3, 1).unfold(2, 3, 1)  # (B, H, W, C, ky, kx)
+        return cols.permute(0, 1, 2, 4, 5, 3).reshape(batch * size * size, 9 * cin)
+
+    wmat = wq[..., :cin].permute(1, 0, 2).reshape(cout, 9 * cin).t()  # (9·Cin, Cout)
+    a = im2col().contiguous()
+    prod = torch._int_mm(a, wmat)
+    acc = qc.conv_s8(xq, wq, None, None, out_dtype=torch.int32, **geo)
+    same = bool(torch.equal(prod.reshape(batch, size, size, cout).permute(0, 3, 1, 2), acc))
+    xb, wb = x.bfloat16(), wt.bfloat16()
+    rec = {"phase": "int8", "part": "yardsticks", "b": batch, "cin": cin, "cout": cout,
+           "h": size, "w": size, "int_mm_equals_conv_s8_sums": same,
+           "conv_s8_int32_ms": cuda_ms(lambda: qc.conv_s8(
+               xq, wq, None, None, out_dtype=torch.int32, **geo), iters=iters),
+           "int_mm_with_im2col_ms": cuda_ms(lambda: torch._int_mm(im2col().contiguous(), wmat),
+                                            iters=iters),
+           "int_mm_ms": cuda_ms(lambda: torch._int_mm(a, wmat), iters=iters),
+           "cudnn_bf16_ms": cuda_ms(lambda: F.conv2d(xb, wb, padding=1), iters=iters),
+           "packed_bf16_ms": cuda_ms(lambda: conv3x3_packed_nchw(xb, wb), iters=iters),
+           "card": nvidia_smi()}
+    emit(rec)
+    if not same:
+        raise RuntimeError("torch._int_mm over the im2col disagrees with conv_s8's sums")
+    return rec
+
+
+def int8_phase(device, model, painted, workdir, *, seed=0, microbatch=8, big_batch=32,
+               kernel_batch=8, iters=50):
+    """The int8 serving decode at `model` widths on the painted maps (B, H,
+    W) of the serve phase: (a) the kernels at the decode's convolutions and
+    the yardsticks; (b) `make_batched_edit_fn(quantize="int8")` on the
+    batch and on `big_batch` maps with `microbatch`, launches per chunk held
+    to the decoder's `Conv` count, each decode bit for bit the same decode
+    through the plain versions on the card; the error against f32 framed as
+    the JAX package's contract (int8 ≤ 4× bf16), timed beside f32 and bf16
+    packed with peak memory; (c) `edit_batch.main --dtype int8` over
+    painted NIfTIs. Returns the launch counts of (b) and (c)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli import edit_batch
+    from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
+    from medical_image_editing_tpu_torch.cli.run_recon import LungConfig, load_model
+    from medical_image_editing_tpu_torch.models.blocks import Conv
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.utils import nifti
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    b, size = int(painted.shape[0]), int(painted.shape[-1])
+    cfg = lung_config(model)
+    _, decoder, vq_state = load_model(cfg, device=device, seed=seed)
+    window = (cfg.window_width, cfg.window_center, cfg.window_scale)
+    n_convs = sum(isinstance(m, Conv) for m in decoder.modules())
+    calls = decoder_conv_calls(decoder, torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    if len(calls) != n_convs:
+        raise RuntimeError(f"{len(calls)} Conv calls a decode, {n_convs} Conv modules")
+
+    # -- (a) the kernels at the decode's shapes, and the yardsticks
+    kernels = int8_kernel_part(device, calls, kernel_batch, seed, iters=iters)
+    f0 = int(model["dec_filters"][0])  # the full-resolution 3×3 f0 → f0, as the bf16 rows
+    yard = int8_yardsticks(device, kernel_batch, f0, f0, size, seed, iters) if cuda else None
+
+    # -- (b) the decode: main path, counted
+    edit8 = make_batched_edit_fn(decoder, is_lung=True, dataset_window=window,
+                                 quantize="int8", device=device)
+    edit8m = make_batched_edit_fn(decoder, is_lung=True, dataset_window=window,
+                                  quantize="int8", microbatch=microbatch, device=device)
+    reps = -(-big_batch // b)
+    big = np.concatenate([painted] * reps)[:big_batch]
+    _build.launches.clear()
+    out8 = edit8(vq_state, painted)
+    sync()
+    one = dict(_build.launches)
+    out8m = edit8m(vq_state, big)
+    sync()
+    launches = dict(_build.launches)
+    chunks = big_batch // microbatch
+    want = {k: n_convs * (1 + chunks) for k in S8_KERNELS} if cuda else {}
+    if cuda and ({k: one.get(k, 0) for k in S8_KERNELS} != {k: n_convs for k in S8_KERNELS}
+                 or {k: launches.get(k, 0) for k in S8_KERNELS} != want):
+        raise RuntimeError(f"int8 decode launches {launches} (one batch {one}); "
+                           f"{n_convs} Convs a chunk")
+    with plain_int8_convs():
+        plain8 = edit8(vq_state, painted)
+        plain8m = edit8m(vq_state, big)
+    same = {"batch": bool(torch.equal(out8, plain8)), "microbatch": bool(torch.equal(out8m,
+                                                                                     plain8m))}
+
+    # the error against f32, framed as JAX's contract, and the times
+    times, outs, peaks = {}, {}, {}
+    routes = (("f32", None, "xla", None), ("bf16_cudnn", "bfloat16", "xla", None),
+              ("bf16_packed", "bfloat16", "packed", None), ("int8", None, "xla", "int8"))
+    for name, dtype, impl, quantize in routes:
+        c = lung_config(model)
+        c.compute_dtype = dtype
+        dec = decoder if dtype is None else load_model(c, device=device, seed=seed)[1]
+        with conv_route(impl):
+            edit = make_batched_edit_fn(dec, is_lung=True, dataset_window=window,
+                                        quantize=quantize, device=device)
+            outs[name] = edit(vq_state, painted).float().cpu().numpy()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                edit(vq_state, painted)
+                sync()
+                runs.append(time.perf_counter() - t0)
+            times[name] = runs
+            peaks[name] = torch.cuda.max_memory_allocated() if cuda else None
+    profiled = {}
+    if cuda:
+        wall, prof = profile_window(lambda: edit8(vq_state, painted))
+        profiled = kernel_breakdown(wall, prof)
+        profiled["s8_kernels_device_s"] = {
+            sym: sum(device_us(e) for e in prof if sym in e.key) / 1e6
+            for sym in ("conv_s8_kernel", "channel_absmax_kernel", "quantize_s8_kernel")}
+    e16 = np.abs(outs["bf16_cudnn"] - outs["f32"])
+    e8 = np.abs(outs["int8"] - outs["f32"])
+    contract = {
+        "int8_mean": float(e8.mean()), "bf16_mean": float(e16.mean()),
+        "int8_p99": float(np.percentile(e8, 99)), "bf16_p99": float(np.percentile(e16, 99)),
+    }
+    contract["mean_ratio"] = contract["int8_mean"] / max(contract["bf16_mean"], 1e-4)
+    contract["p99_ratio"] = contract["int8_p99"] / max(contract["bf16_p99"], 1e-3)
+    contract["holds_4x_bf16"] = contract["mean_ratio"] < 4.0 and contract["p99_ratio"] < 4.0
+    rec = {"phase": "int8", "part": "decode", "size": size, "batch": b,
+           "big_batch": big_batch, "microbatch": microbatch, "convs_per_decode": n_convs,
+           "launches": launches, "launches_one_batch": one,
+           "kernel_equals_plain_on_card": same, "vs_f32": decode_gap(outs["int8"], outs["f32"]),
+           "bf16_vs_f32": decode_gap(outs["bf16_cudnn"], outs["f32"]),
+           "jax_contract": contract, "decode_s": times,
+           "max_memory_allocated_bytes": peaks, "profile": profiled,
+           "card": nvidia_smi() if cuda else None}
+    emit(rec)
+    if not all(same.values()):
+        raise RuntimeError(f"int8 decode through the kernels differs from the plain one: {same}")
+    for name, out in outs.items():
+        if not np.isfinite(out).all() or out.min() < -1.0 or out.max() > 1.0:
+            raise RuntimeError(f"{name} decode not finite in [-1, 1]")
+
+    # -- (c) the CLI, main path, counted
+    workdir = Path(workdir)
+    label_dir, out_dir = workdir / "int8_labels", workdir / "int8_edited"
+    label_dir.mkdir(parents=True, exist_ok=True)
+    for i, m in enumerate(painted):
+        nifti.save(nifti.to_nifti_array(m), str(label_dir / f"label_{i:04d}.nii.gz"),
+                   dtype=np.int32)
+    argv = ["--label-dir", str(label_dir), "--out-dir", str(out_dir), "--dtype", "int8",
+            "--batch-size", str(b)] + ([] if cuda else ["--device", "cpu"])
+    prev = os.environ.pop("LUNG_CKPT", None)
+    try:
+        _build.launches.clear()
+        with conv_precision("ieee"):
+            t0 = time.perf_counter()
+            if edit_batch.main(argv) != 0:
+                raise RuntimeError(f"edit_batch {argv} failed")
+            cli_s = time.perf_counter() - t0
+            tf32_off()
+        cli_launches = dict(_build.launches)
+        lung = LungConfig()
+        lung.resume_checkpoint = None
+        _, dec0, vq0 = load_model(lung, device=device)
+    finally:
+        if prev is not None:
+            os.environ["LUNG_CKPT"] = prev
+    want_cli = make_batched_edit_fn(dec0, is_lung=True, dataset_window=window,
+                                    quantize="int8", device=device)(vq0, painted).cpu().numpy()
+    got = np.stack([nifti.load(str(out_dir / f"edited_{i:04d}.nii.gz")) for i in range(b)])
+    n_cli = sum(isinstance(m, Conv) for m in dec0.modules())
+    cli_ok = bool(np.array_equal(got, np.stack([nifti.to_nifti_array(r) for r in want_cli])))
+    emit({"phase": "int8", "part": "cli", "files": b, "seconds": cli_s,
+          "launches": cli_launches, "equals_make_batched_edit_fn": cli_ok})
+    if not cli_ok:
+        raise RuntimeError("edit_batch --dtype int8 wrote other slices than its decode")
+    if cuda and {k: cli_launches.get(k, 0) for k in S8_KERNELS} != {k: n_cli for k in S8_KERNELS}:
+        raise RuntimeError(f"edit_batch --dtype int8 launches {cli_launches}, {n_cli} Convs")
+    for k, v in cli_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches, {"kernels": kernels, "yardsticks": yard, "decode": rec}
+
+
+def ckpt_crossing_phase(device, workdir, *, size=256, patients=2, slices=8, seed=0,
+                        overrides=None):
+    """Fault C.4 and the checkpoint crossings on the card: `run_vqwnet`
+    trains 2 steps of the lung first stage (its widths, f32), then
+    `export_ckpt` writes the reference `.ckpt` and `import_ckpt` reads it
+    back; `run_recon.load_model` with `LUNG_CKPT` at the imported directory
+    and at the run's own directory decodes a painted batch bit for bit as
+    the trained state's own modules decode it, and the imported models'
+    tensors equal the run's. Returns the launches."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli import export_ckpt, import_ckpt
+    from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
+    from medical_image_editing_tpu_torch.cli.run_recon import LungConfig, load_model
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils.checkpoint import (
+        load_state_file,
+        resolve,
+        restore_state,
+    )
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir) / "crossing"
+    rng = np.random.default_rng(seed)
+    write_lung_tree(work / "data", rng, patients=patients, slices=slices, size=size)
+    base = json.loads(MODEL_CONFIG.read_text())
+    for section, values in (overrides or {}).items():
+        node = base
+        for key in section.split("."):
+            node = node[key]
+        node.update(values)
+    base["dataset"]["root_dir_path"] = str(work / "data")
+    base["model"]["vqmodel"]["compute_dtype"] = "float32"
+    base["run"]["n_epochs"] = 1
+    base["save"]["study_name"] = "crossing"
+    cfg_path = work / "crossing.json"
+    dev = [] if cuda else ["--device", "cpu"]
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    run = run_cli(work, base, "run", ["-m", "train", "--max-steps", "2"], cuda)
+    cfg_path.write_text(json.dumps(base))
+    ckpt_dir = run / "version_0" / "ckpt"
+    ref = str(work / "crossing.ckpt")
+    if export_ckpt.main(["-c", str(cfg_path), "--ckpt", str(ckpt_dir), "--out", ref] + dev):
+        raise RuntimeError("export_ckpt failed")
+    imported = work / "imported"
+    if import_ckpt.main(["-c", str(cfg_path), "--ckpt", ref, "--out", str(imported)] + dev):
+        raise RuntimeError("import_ckpt failed")
+    seconds = time.perf_counter() - t0
+
+    trained = Trainer(to_config(base), device=device).init_state(load_staged=False)
+    restore_state(str(ckpt_dir), trained)
+    run_sd, imp_sd = load_state_file(resolve(str(ckpt_dir))), load_state_file(
+        resolve(str(imported)))
+    tensors_equal = all(torch.equal(run_sd[p][k].cpu(), imp_sd[p][k].cpu())
+                        for p in ("encoder", "decoder") for k in run_sd[p])
+    counters = (imp_sd["step"], imp_sd["epoch"]) == (run_sd["step"], run_sd["epoch"])
+    window = (4096.0, 0.0, 2.0)
+    ids = paint(rng.integers(1, int(base["model"]["vqmodel"]["dict_size"]) + 1,
+                             (2, size, size)), rng, int(base["model"]["vqmodel"]["dict_size"]))
+    want = make_batched_edit_fn(trained.decoder, is_lung=True, dataset_window=window,
+                                device=device)(trained.vq, ids)
+    decodes = {}
+    prev = os.environ.get("LUNG_CKPT")
+    try:
+        for name, path in (("imported", imported), ("run", ckpt_dir)):
+            os.environ["LUNG_CKPT"] = str(path)
+            lung = LungConfig()
+            for key in ("enc_filters", "dec_filters"):
+                setattr(lung, key, tuple(base["model"]["vqmodel"][key]))
+            lung.dict_size = int(base["model"]["vqmodel"]["dict_size"])
+            _, dec, vq = load_model(lung, device=device)
+            got = make_batched_edit_fn(dec, is_lung=True, dataset_window=window,
+                                       device=device)(vq, ids)
+            decodes[name] = bool(torch.equal(got, want))
+    finally:
+        if prev is None:
+            os.environ.pop("LUNG_CKPT", None)
+        else:
+            os.environ["LUNG_CKPT"] = prev
+    launches = dict(_build.launches)
+    rec = {"phase": "ckpt_crossing", "size": size, "steps": int(run_sd["step"]),
+           "seconds": seconds, "ckpt_bytes": os.path.getsize(ref),
+           "imported_tensors_equal_run": tensors_equal, "counters_kept": counters,
+           "decode_equals_trained_state": decodes, "launches": launches,
+           "card": nvidia_smi() if cuda else None}
+    emit(rec)
+    if not (tensors_equal and counters and all(decodes.values()) and len(decodes) == 2):
+        raise RuntimeError(f"checkpoint crossing: {rec}")
+    return launches
+
+
+S8_SOURCE = "medical_image_editing_tpu_torch/csrc/conv_s8.cu"
+S8_REPLACES = {
+    "conv_s8": "medical_image_editing_tpu/ops/quantized_conv.py:104 (XLA's s8 convolution, "
+               "lax.conv_general_dilated with preferred_element_type=int32; no Pallas kernel)",
+    "conv_s8_absmax": "medical_image_editing_tpu/ops/quantized_conv.py:58 (XLA's amax in "
+                      "_quantize_sym; no Pallas kernel)",
+    "conv_s8_quantize": "medical_image_editing_tpu/ops/quantized_conv.py:60 (XLA's divide, "
+                        "round, clip and convert in _quantize_sym; no Pallas kernel)",
+}
+
+
+def s8_kernel_lines(int8, int8_launches, others):
+    """The `kernels` line's entries of the three int8 kernels: the numbers
+    of the full-resolution 3×3 convolution (the yardsticks' shape), every
+    shape of the decode as points, launches on the int8 path and 0
+    elsewhere."""
+    yard = int8["yardsticks"]
+    main = next(r for r in int8["kernels"] if (r["cin"], r["cout"], r["kernel"], r["dilation"],
+                                               r["h"]) == (yard["cin"], yard["cout"], 3, 1,
+                                                           yard["h"]))
+    lines = []
+    for name in S8_KERNELS:
+        rec = main[name]
+        line = {"name": name, "route": "cuda", "source": S8_SOURCE,
+                "replaces": S8_REPLACES[name], "launches": int8_launches.get(name, 0),
+                "launches_by_path": {"int8": int8_launches.get(name, 0),
+                                     **{p: n.get(name, 0) for p, n in others.items()}},
+                "max_abs_err": main["max_abs_err"],
+                "shape": {k: main[k] for k in ("b", "cin", "cout", "kernel", "dilation", "h",
+                                               "w")},
+                **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": rec.get("library_ms"),
+                "points": [{k: r[k] for k in ("cin", "cout", "kernel", "dilation", "h",
+                                              "calls_per_decode")}
+                           | {k: r[name][k] for k in ("ms", "device_ms", "plain_ms",
+                                                       "bound_ms", "bound_by")}
+                           for r in int8["kernels"]]}
+        if name == "conv_s8":
+            line["library_note"] = ("no PyTorch call computes an int8 convolution on CUDA "
+                                    "(F.conv2d refuses int8); yardsticks at the shape:")
+            line["yardsticks"] = {k: yard[k] for k in (
+                "int_mm_with_im2col_ms", "int_mm_ms", "cudnn_bf16_ms", "packed_bf16_ms",
+                "conv_s8_int32_ms")}
+        elif name == "conv_s8_absmax":
+            line["library_note"] = "torch.linalg.vector_norm(x, inf, dim=(0, 2, 3))"
+        else:
+            line["library_note"] = ("none: no PyTorch call writes per-channel s8 codes "
+                                    "channels-innermost")
+        lines.append(line)
+    return lines
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4381,6 +4904,8 @@ def main(argv=None):
     del served
     with tempfile.TemporaryDirectory() as tmp:
         runtime_launches = serve_runtime_phase("cuda", model, painted, tmp, seed=args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        int8_launches, int8 = int8_phase("cuda", model, painted, tmp, seed=args.seed)
     cfg = load_config()
     with conv_route("packed"):
         train_launches, trained = train_phase("cuda", cfg, seed=args.seed)
@@ -4396,6 +4921,19 @@ def main(argv=None):
             vqgan_launches = vqgan_phase("cuda", tmp, seed=args.seed)
             losses_launches = losses_phase("cuda", tmp, seed=args.seed)
             vol_launches = volumetric_phase("cuda", tmp, seed=args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        crossing_launches = ckpt_crossing_phase("cuda", tmp, seed=args.seed)
+    # (d) no other path launches an int8 kernel
+    others = {"serve": serve_launches, "serve_bf16_packed": runtime_launches,
+              "train": train_launches, "trainer": trainer_launches,
+              "second_stage": second_launches, "multi_window": mw_launches,
+              "vqgan": vqgan_launches, "losses": losses_launches, "volumetric": vol_launches,
+              "ckpt_crossing": crossing_launches}
+    stray = {path: {k: n.get(k, 0) for k in S8_KERNELS if n.get(k, 0)}
+             for path, n in others.items() if any(n.get(k, 0) for k in S8_KERNELS)}
+    emit({"phase": "int8", "part": "other_paths", "s8_launches": stray})
+    if stray:
+        raise RuntimeError(f"int8 kernels launched off the int8 path: {stray}")
 
     main_conv = next(r for r in conv if r["dtype"] == "bfloat16" and "forward" in r
                      and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
@@ -4406,7 +4944,7 @@ def main(argv=None):
                      + trainer_launches.get("vq_fused", 0)
                      + second_launches.get("vq_fused", 0) + mw_launches.get("vq_fused", 0)
                      + vqgan_launches.get("vq_fused", 0) + losses_launches.get("vq_fused", 0)
-                     + vol_launches.get("vq_fused", 0)),
+                     + vol_launches.get("vq_fused", 0) + crossing_launches.get("vq_fused", 0)),
         "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
                              "train": train_launches.get("vq_fused", 0),
                              "trainer": trainer_launches.get("vq_fused", 0),
@@ -4414,7 +4952,9 @@ def main(argv=None):
                              "multi_window": mw_launches.get("vq_fused", 0),
                              "vqgan": vqgan_launches.get("vq_fused", 0),
                              "losses": losses_launches.get("vq_fused", 0),
-                             "volumetric": vol_launches.get("vq_fused", 0)},
+                             "volumetric": vol_launches.get("vq_fused", 0),
+                             "int8": int8_launches.get("vq_fused", 0),
+                             "ckpt_crossing": crossing_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
         "n": vq["n"], "c": vq["c"], "k": vq["k"], "path": vq["path"],
@@ -4434,7 +4974,8 @@ def main(argv=None):
                      + mw_launches.get("conv3x3_packed", 0)
                      + vqgan_launches.get("conv3x3_packed", 0)
                      + losses_launches.get("conv3x3_packed", 0)
-                     + vol_launches.get("conv3x3_packed", 0)),
+                     + vol_launches.get("conv3x3_packed", 0)
+                     + crossing_launches.get("conv3x3_packed", 0)),
         "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
                              "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
                              "train": train_launches.get("conv3x3_packed", 0),
@@ -4443,7 +4984,9 @@ def main(argv=None):
                              "multi_window": mw_launches.get("conv3x3_packed", 0),
                              "vqgan": vqgan_launches.get("conv3x3_packed", 0),
                              "losses": losses_launches.get("conv3x3_packed", 0),
-                             "volumetric": vol_launches.get("conv3x3_packed", 0)},
+                             "volumetric": vol_launches.get("conv3x3_packed", 0),
+                             "int8": int8_launches.get("conv3x3_packed", 0),
+                             "ckpt_crossing": crossing_launches.get("conv3x3_packed", 0)},
         "max_abs_err": main_conv["forward_max_abs_err"],
         "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
                   "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",
@@ -4456,7 +4999,7 @@ def main(argv=None):
                     **{k: r[d][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                             "vs_library", "device_ms", "library_device_ms")}}
                    for r in conv if "forward" in r for d in ("forward", "dx")],
-    }]})
+    }, *s8_kernel_lines(int8, int8_launches, others)]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

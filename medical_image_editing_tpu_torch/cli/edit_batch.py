@@ -3,10 +3,12 @@
 Counterpart of `medical_image_editing_tpu/cli/edit_batch.py`: the
 label-0 mask, ids−1, codebook lookup, per-slice mean rescale and decode of
 the reference's editing loop (`run_recon.py:182-197`), over a batch of
-slices, with the lung re-window, a uint8 output and microbatching. The JAX
-version's `mesh`/`partition` (multi-chip, ROADMAP item 15) and
-`quantize="int8"` (item 22) are not ported yet, so this signature has no
-such arguments and `main` no `--partition` and no `--dtype int8`.
+slices, with the lung re-window, a uint8 output, microbatching and the
+int8 decode (`quantize="int8"`, `--dtype int8`: every decoder convolution
+through `ops/quantized_conv.py`, on the card its hand-written s8 kernels).
+The JAX version's `mesh`/`partition` (multi-chip, ROADMAP item 15) is not
+ported yet, so this signature has no such arguments and `main` no
+`--partition`.
 
 Painted labels are checked before the codebook lookup (`check_labels`): a
 label past the codebook raises `ValueError`, where the JAX package's
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 from ..models.unet_encoder import get_embed_from_ids
+from ..ops.quantized_conv import MODES as QUANTIZE_MODES
+from ..ops.quantized_conv import quantize_convs
 from ..ops.vq import VQState
 from ..ops.windowing import LUNG_WINDOW, denormalize, normalize
 from ..utils.device import resolve_device
@@ -112,6 +116,7 @@ def make_batched_edit_fn(
     is_lung: bool = False,
     dataset_window=(4096, 0.0, 2.0),
     output_dtype=None,
+    quantize=None,
     microbatch=None,
     device="cuda",
 ):
@@ -119,16 +124,24 @@ def make_batched_edit_fn(
     edit(vq_state, id_maps (B,H,W) int) → recon (B,H,W) on `device`.
 
     output_dtype="uint8" maps [-1,1] → [0,255] with a truncating cast.
+    quantize="int8" runs every decoder convolution in int8
+    (`ops/quantized_conv.py`: activation scales per input channel over the
+    chunk in flight, folded into per-output-channel weight scales); the
+    same checkpoint, a serving-time choice.
     microbatch=N decodes the batch N slices at a time; per-slice results
-    are unchanged."""
+    are unchanged, but the int8 activation scales are taken over each
+    chunk, as the JAX package's `lax.scan` takes them."""
     if output_dtype not in (None, "uint8"):
         raise ValueError(f"output_dtype {output_dtype!r}: None or 'uint8'")
+    if quantize is not None and quantize not in QUANTIZE_MODES:
+        raise ValueError(f"unknown quantization mode {quantize!r}")
     dev = resolve_device(device)
     decoder.to(dev).eval()
 
     def edit_chunk(vq_state, id_maps):
-        recon, _ = _decode(decoder, vq_state, id_maps, is_lung=is_lung,
-                           dataset_window=dataset_window, per_slice=True)
+        with quantize_convs(quantize):
+            recon, _ = _decode(decoder, vq_state, id_maps, is_lung=is_lung,
+                               dataset_window=dataset_window, per_slice=True)
         if output_dtype == "uint8":
             recon = ((recon.clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8)
         return recon
@@ -157,10 +170,12 @@ def edit_study(
     batch_size: int = 32,
     is_lung: bool = False,
     dataset_window=(4096, 0.0, 2.0),
+    quantize=None,
     device="cuda",
 ):
     """Every `label_*.nii.gz` under label_dir → decoded `edited_*.nii.gz`
-    under out_dir, `batch_size` slices per decode. Returns the names written."""
+    under out_dir, `batch_size` slices per decode (`quantize` as in
+    `make_batched_edit_fn`). Returns the names written."""
     from ..utils.nifti import save, to_nifti_array
 
     files = sorted(
@@ -168,8 +183,8 @@ def edit_study(
     )
     if not files:
         return []
-    edit = make_batched_edit_fn(decoder, is_lung=is_lung,
-                                dataset_window=dataset_window, device=device)
+    edit = make_batched_edit_fn(decoder, is_lung=is_lung, dataset_window=dataset_window,
+                                quantize=quantize, device=device)
     os.makedirs(out_dir, exist_ok=True)
 
     written = []
@@ -199,15 +214,17 @@ def main(argv=None):
                         help="directory of label_*.nii.gz painted id maps")
     parser.add_argument("--out-dir", required=True)
     parser.add_argument("--batch-size", type=int, default=32)
-    parser.add_argument("--dtype", choices=["f32", "bf16"], default=None,
+    parser.add_argument("--dtype", choices=["f32", "bf16", "int8"], default=None,
                         help="decode compute dtype (parameters and checkpoints "
-                             "stay f32); default: $MEDIMG_EDIT_DTYPE, else f32")
+                             "stay f32; int8 runs every decoder convolution on "
+                             "the s8 kernels, in f32 around them); default: "
+                             "$MEDIMG_EDIT_DTYPE, else f32")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     config = LungConfig() if args.config == "lung" else CRCConfig()
     if args.dtype:
-        config.compute_dtype = {"f32": None, "bf16": "bfloat16"}[args.dtype]
+        config.compute_dtype = {"f32": None, "bf16": "bfloat16", "int8": None}[args.dtype]
     _, decoder, vq_state = load_model(config, device=args.device)
     written = edit_study(
         decoder, vq_state, args.label_dir, args.out_dir,
@@ -215,6 +232,7 @@ def main(argv=None):
         is_lung=config.config_name == "LungConfig",
         dataset_window=(config.window_width, config.window_center,
                         config.window_scale),
+        quantize="int8" if args.dtype == "int8" else None,
         device=args.device,
     )
     print(f"{len(written)} edited volumes -> {args.out_dir}")

@@ -2,7 +2,8 @@
 
 Counterpart of `medical_image_editing_tpu/cli/run_recon.py` (reference
 `src/run_recon.py`): the env-configured LungConfig/CRCConfig (`:27-69`),
-model loading (seeded init, or a reference-format Lightning `.ckpt`), the
+model loading (seeded init, a reference-format Lightning `.ckpt`, or a
+checkpoint directory of the port's own trainer), the
 file-watching loop (`serve`, `:164-238`) and per edit (`inner`,
 `:169-228`): CRC flip into model space, label 0 → background mask, ids−1 →
 codebook lookup, embedding zeroed under the mask and rescaled by
@@ -90,10 +91,16 @@ def load_model(config, *, device="cuda", seed: int = 0):
     """Build the encoder (with its codebook) and decoder on `device`, in eval
     mode → (encoder, decoder, vq_state).
 
-    Weights come from a `torch.Generator` seeded with `seed`, or, when
-    `config.resume_checkpoint` names a Lightning `.ckpt` file, from that
-    file, loaded strictly. Both models compute in `compute_dtype(config)`;
-    parameters stay f32."""
+    Weights come from a `torch.Generator` seeded with `seed`, or from
+    `config.resume_checkpoint` (`LUNG_CKPT` / `CRC_CKPT`), loaded strictly:
+    a Lightning `.ckpt` file, or a checkpoint directory of the port's
+    trainer (`run_vqwnet`'s run directory, whose newest `ckpt-epoch=...` is
+    taken, or one `ckpt-epoch=...` directory), whose `encoder` (with the
+    codebook buffers) and `decoder` fields are restored, as the JAX
+    `load_model` restores ("enc_vars", "dec_vars", "vq"). A directory
+    without `state.pt` (an Orbax checkpoint of the JAX package) is refused
+    with the way across (`utils/checkpoint.py::load_state_file`). Both
+    models compute in `compute_dtype(config)`; parameters stay f32."""
     dev = resolve_device(device)
     dtype = compute_dtype(config)
     with torch.device("meta"):
@@ -122,19 +129,22 @@ def load_model(config, *, device="cuda", seed: int = 0):
 
     path = config.resume_checkpoint
     if path:
-        if os.path.isdir(path):
-            raise ValueError(
-                f"{path} is a directory (an Orbax checkpoint of the JAX "
-                "package?); convert it to a Lightning .ckpt with "
-                "medical_image_editing_tpu/cli/export_ckpt.py (export-ckpt) "
-                "and point the config at that file"
-            )
-        from ..utils.weights import load_lightning_state
+        from ..utils.torch_import import is_lightning_ckpt
 
-        groups = load_lightning_state(path)
+        path = str(path)
+        if is_lightning_ckpt(path):
+            from ..utils.weights import load_lightning_state
+
+            groups = load_lightning_state(path)
+            what = "Lightning ckpt"
+        else:
+            from ..utils.checkpoint import load_fields
+
+            groups = load_fields(path, ("encoder", "decoder"))
+            what = "checkpoint"
         encoder.load_state_dict(groups["encoder"], strict=True)
         decoder.load_state_dict(groups["decoder"], strict=True)
-        print(f"Loaded Lightning ckpt {path}")
+        print(f"Loaded {what} {path}")
     encoder.to(dev).eval()
     decoder.to(dev).eval()
     return encoder, decoder, encoder.vq.state()

@@ -12,7 +12,11 @@ JAX package's `utils/torch_export.py` writes.
   `_conv_dispatch` admits (3×3 SAME stride 1, undilated, one group,
   W % 4 == 0, gcd(H, 64) ≥ 8, Cin == 32, input dtype equal to weight dtype)
   go through `ops/conv_pack.py`'s kernel with its analytic backward, the
-  bias added afterwards; everything else goes to `F.conv2d`.
+  bias added afterwards; everything else goes to `F.conv2d`. Inside
+  `ops/quantized_conv.py::quantize_convs("int8")` every `Conv` (the
+  `packable=False` ones too, as the JAX package intercepts every flax
+  `nn.Conv`) runs `int8_conv` on its f32 weight and bias instead, its
+  output in the compute dtype (f32 when none).
 * Compute dtype, as flax's `dtype=`: parameters stay float32; a convolution
   casts its input, weight and bias to the compute dtype (by default the
   promotion of input and weight dtypes) and returns that dtype; norm
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_pack import conv3x3_packed_trainable_nchw, packed_eligible
+from ..ops.quantized_conv import int8_conv, quantize_mode
 from ..ops.vq import VQModule
 
 
@@ -96,6 +101,12 @@ class Conv(nn.Conv2d):
         return self._eligible(*self._cast(x)[:2])
 
     def forward(self, x):
+        if quantize_mode() == "int8":
+            if self.padding_mode != "zeros":
+                raise ValueError(f"int8_conv pads with zeros, not {self.padding_mode!r}")
+            return int8_conv(x, self.weight, self.bias, stride=self.stride,
+                             padding=self.padding, dilation=self.dilation, groups=self.groups,
+                             out_dtype=self.compute_dtype or torch.float32)
         x, w, b = self._cast(x)
         if self._eligible(x, w):
             y = conv3x3_packed_trainable_nchw(x, w)

@@ -184,11 +184,14 @@ class Trainer:
                 knn_backend=str(g(gen, "knn_backend", "xla") or "xla"))
         self._configure_discriminator()
 
-    def _configure_discriminator(self):
+    def _configure_discriminator(self, build: Optional[bool] = None):
         """The discriminator's type and arguments from `config.model.dis`
-        (built for the GAN modes and, in every mode, for the VQGAN)."""
+        (built for the GAN modes and, in every mode, for the VQGAN; `build`
+        True or False overrides that, for the checkpoint CLIs)."""
         self.dis_type = self._dis_kw = None
-        if self.training_mode not in GAN_MODES and not self.use_vqgan:
+        if build is None:
+            build = self.training_mode in GAN_MODES or self.use_vqgan
+        if not build:
             return
         dis = self.config.model.dis
         self.dis_type = str(dis.model_name)
@@ -291,14 +294,19 @@ class Trainer:
     # ------------------------------------------------------------------
     # state init + staged loading
     # ------------------------------------------------------------------
-    def init_state(self):
+    def init_state(self, load_staged: bool = True, with_discriminator: Optional[bool] = None):
         """Fresh models (seeded from `seed`: the encoder and decoder, or the
         VQGAN, as `models.blocks.seeded_init` fills them, then, in the GAN
         modes and for the VQGAN, the discriminator as the JAX module
         initialises) with their Adams and a generator seeded with `seed` on
-        the device; then the staged first stage (a VQGAN's: the whole
-        autoencoder) and the staged discriminator, if configured. The models
-        take any image size, so no init shapes are needed."""
+        the device; then, with `load_staged`, the staged first stage (a
+        VQGAN's: the whole autoencoder) and the staged discriminator, if
+        configured. `with_discriminator` True or False builds the
+        discriminator from `config.model.dis`, or none, whatever the mode
+        (the checkpoint CLIs follow the checkpoint). The models take any
+        image size, so no init shapes are needed."""
+        if with_discriminator is not None and with_discriminator != (self.dis_type is not None):
+            self._configure_discriminator(with_discriminator)
         gen = torch.Generator().manual_seed(self.seed)
         if self.use_vqgan:
             encoder = enc_opt = None
@@ -317,6 +325,8 @@ class Trainer:
             encoder, decoder, enc_opt,
             make_optimizer_from_config(decoder.parameters(), self.config.dec_optim),
             seed=self.seed, device=self.device, discriminator=dis, dis_opt=dis_opt)
+        if not load_staged:
+            return state
         run = self.config.run
         path = g(run, "first_stage_ckpt_path", None)
         if path:

@@ -25,9 +25,11 @@ visible. Saves are synchronous (the JAX package's `use_async` overlaps
 Orbax writes with compute; here a save is one `torch.save`).
 
 The JAX package's Orbax checkpoint directories cannot be read here (no orbax
-on the card's machine; cross-reading is ROADMAP item 22): restoring one
-raises an error that points at Lightning `.ckpt` files
-(`utils/weights.py::load_lightning_state`), which the trainer loads.
+on the card's machine): restoring one raises an error that points at the
+crossing, the JAX package's `export-ckpt` to a Lightning `.ckpt` and then
+the port's `cli/import_ckpt.py`, or the `.ckpt` itself, which the trainer
+and the serving CLIs load. `load_fields` reads named fields of a checkpoint
+(the serving CLIs' encoder and decoder).
 """
 
 import os
@@ -62,8 +64,9 @@ def load_state_file(path: str, map_location="cpu") -> dict:
             f"{path} holds no {STATE_FILE}: not a checkpoint of the PyTorch port "
             "(an Orbax checkpoint of the JAX package cannot be read here). Convert "
             "it to a Lightning .ckpt with the JAX package's export-ckpt CLI "
-            "(cli/export_ckpt.py); the port loads those through "
-            "utils/weights.py::load_lightning_state (run.first_stage_ckpt_path)"
+            "(cli/export_ckpt.py), then to a port checkpoint with "
+            "medical_image_editing_tpu_torch/cli/import_ckpt.py, or point the "
+            "config at the .ckpt itself (utils/weights.py::load_lightning_state)"
         )
     return torch.load(f, map_location=map_location, weights_only=True)
 
@@ -161,23 +164,41 @@ class CheckpointManager:
         return target
 
 
-def _resolve(ckpt_dir_or_path: str, epoch: Optional[int]) -> str:
-    """A checkpoint directory `ckpt-epoch=...` as given, or the newest (or
-    epoch's newest) under a parent directory."""
+def resolve(ckpt_dir_or_path: str, epoch: Optional[int] = None) -> str:
+    """A checkpoint directory `ckpt-epoch=...` (or any directory holding
+    `state.pt`) as given, or the newest (or epoch's newest) under a parent
+    directory. A directory with neither comes back as given, so that
+    `load_state_file` says what it is not."""
     path = ckpt_dir_or_path
-    if _CKPT_RE.fullmatch(os.path.basename(os.path.normpath(path))):
+    if (_CKPT_RE.fullmatch(os.path.basename(os.path.normpath(path)))
+            or os.path.isfile(os.path.join(path, STATE_FILE))):
         return path
     if not os.path.isdir(path):
         raise FileNotFoundError(f"checkpoint directory does not exist: {path}")
-    return CheckpointManager(path)._path(epoch)
+    manager = CheckpointManager(path)
+    if not manager._entries():
+        return path
+    return manager._path(epoch)
 
 
 def restore_state(ckpt_dir_or_path: str, target_state, epoch: Optional[int] = None):
     """Full restore from a checkpoint parent directory or a specific
     `ckpt-epoch=NNNN[-step=M]` directory."""
-    path = _resolve(ckpt_dir_or_path, epoch)
+    path = resolve(ckpt_dir_or_path, epoch)
     target_state.load_state_dict(load_state_file(path, target_state.device))
     return target_state
+
+
+def load_fields(ckpt_dir_or_path: str, fields: Sequence[str], epoch: Optional[int] = None,
+                map_location="cpu") -> dict:
+    """The named top-level fields of the state dict saved in a checkpoint
+    parent directory (its newest, or `epoch`'s newest) or a
+    `ckpt-epoch=...` directory; `KeyError` if one is missing."""
+    saved = load_state_file(resolve(ckpt_dir_or_path, epoch), map_location)
+    missing = [f for f in fields if f not in saved]
+    if missing:
+        raise KeyError(f"checkpoint has no fields {missing}; it has {sorted(saved)}")
+    return {f: saved[f] for f in fields}
 
 
 def restore_fields(ckpt_dir_or_path: str, target_state, fields: Sequence[str],
@@ -186,11 +207,7 @@ def restore_fields(ckpt_dir_or_path: str, target_state, fields: Sequence[str],
     saved state dict (e.g. ("encoder", "decoder") — the models with the
     codebook — for a first-stage init) into `target_state`; the rest keeps
     its values."""
-    saved = load_state_file(_resolve(ckpt_dir_or_path, epoch), target_state.device)
-    missing = [f for f in fields if f not in saved]
-    if missing:
-        raise KeyError(f"checkpoint has no fields {missing}; it has {sorted(saved)}")
     merged = target_state.state_dict()
-    merged.update({f: saved[f] for f in fields})
+    merged.update(load_fields(ckpt_dir_or_path, fields, epoch, target_state.device))
     target_state.load_state_dict(merged)
     return target_state

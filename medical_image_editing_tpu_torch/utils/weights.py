@@ -20,9 +20,10 @@ port's modules load with `load_state_dict(strict=True)`.
 
 `load_jax_train_state` loads a whole JAX `TrainState` into a port one (the
 tests start both sides from it). `load_lightning_state` reads a
-Lightning-shaped `.ckpt` (as the JAX package's `cli/export_ckpt.py` writes
-it) into per-module state dicts; a VQGAN checkpoint's `decoder` group is
-the whole autoencoder with its codebook.
+Lightning-shaped `.ckpt` (as the JAX package's `cli/export_ckpt.py` and the
+port's write it) into per-module state dicts; a VQGAN checkpoint's
+`decoder` group is the whole autoencoder with its codebook.
+`load_lightning_ckpt` returns the file's epoch and step beside them.
 """
 
 from typing import Dict
@@ -400,13 +401,10 @@ def load_jax_train_state(port_state, jax_state, *, D_attn: str = "0"):
     return port_state
 
 
-def load_lightning_state(path: str) -> Dict[str, StateDict]:
-    """Read a Lightning-shaped `.ckpt` → {"encoder": {...}, "decoder": {...},
-    "discriminator": {...}, ...}: the `state_dict` split on its first key
-    component (the encoder's group holds the `vq.*` buffers, a VQGAN
-    checkpoint's `decoder` group the whole autoencoder with them; a U-Net
-    discriminator's group still holds the reference's unused `linear.*`,
-    which `models.unet_discriminator.reference_state_dict` drops)."""
+def load_lightning_ckpt(path: str):
+    """Read a Lightning-shaped `.ckpt` → (groups, {"epoch", "step"}): groups
+    as `load_lightning_state` returns them, and the file's `epoch` and
+    `global_step` (0 where absent)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
         raise ValueError(f"{path}: not a Lightning checkpoint (no 'state_dict')")
@@ -414,4 +412,16 @@ def load_lightning_state(path: str) -> Dict[str, StateDict]:
     for key, value in ckpt["state_dict"].items():
         head, _, rest = key.partition(".")
         groups.setdefault(head, {})[rest] = value
-    return groups
+    meta = {"epoch": int(ckpt.get("epoch", 0) or 0),
+            "step": int(ckpt.get("global_step", 0) or 0)}
+    return groups, meta
+
+
+def load_lightning_state(path: str) -> Dict[str, StateDict]:
+    """Read a Lightning-shaped `.ckpt` → {"encoder": {...}, "decoder": {...},
+    "discriminator": {...}, ...}: the `state_dict` split on its first key
+    component (the encoder's group holds the `vq.*` buffers, a VQGAN
+    checkpoint's `decoder` group the whole autoencoder with them; a U-Net
+    discriminator's group still holds the reference's unused `linear.*`,
+    which `models.unet_discriminator.reference_state_dict` drops)."""
+    return load_lightning_ckpt(path)[0]

@@ -16,6 +16,7 @@ import torch
 
 from medical_image_editing_tpu_torch.ops import _build
 from medical_image_editing_tpu_torch.ops import conv_pack as tcp
+from medical_image_editing_tpu_torch.ops import quantized_conv as tqc
 from medical_image_editing_tpu_torch.ops import vq as tvq
 from medical_image_editing_tpu_torch.ops import vq_fused as tvqf
 
@@ -948,3 +949,107 @@ def test_volumetric_step_on_card_matches_cpu(cuda):
     _build.launches.clear()
     smoke.volumetric_reference_part(size=16, batch=2, seed=4, card=cuda.type, norm_size=16)
     assert not any(_build.launches.values()), dict(_build.launches)
+
+
+# (b, cin, cout, h, w, kernel, dilation, bias, compute dtype): the lung
+# decoder's kinds of convolution at ragged sizes. H, W not multiples of the
+# 128-pixel tile, Cout 1 (conv1x1) and 40 (a ragged n8 tile), Cin 16 (the
+# codebook embedding) and 160 (the ASPP concat), dilation 18 on 32² (most
+# taps past the image), batch 33, and a bf16 compute dtype.
+S8_SHAPES = [
+    (2, 32, 32, 37, 45, 3, 1, True, torch.float32),
+    (2, 16, 32, 33, 31, 1, 1, False, torch.float32),
+    (3, 32, 1, 29, 35, 1, 1, True, torch.float32),
+    (2, 160, 40, 20, 21, 3, 1, True, torch.float32),
+    (2, 32, 32, 32, 32, 3, 18, False, torch.float32),
+    (2, 32, 32, 32, 32, 3, 6, False, torch.float32),
+    (33, 32, 32, 16, 16, 3, 2, False, torch.float32),
+    (2, 64, 96, 17, 19, 3, 1, True, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", S8_SHAPES, ids=lambda s: "x".join(map(str, s[:7])) + (
+    "-bias" if s[7] else "") + ("-bf16" if s[8] == torch.bfloat16 else ""))
+def test_conv_s8_kernels_match_plain(cuda, shape):
+    """Each of the three int8 kernels against its plain version on the
+    card, bit for bit: the channel maxima, the s8 codes (NHWC, zero-padded
+    to 32 channels), the raw int32 sums and the dequantized output (f32, or
+    bf16 from a bf16 input under a bf16 compute dtype); the whole call
+    against `int8_conv_reference`; each launch counted once."""
+    b, cin, cout, h, w, k, d, use_bias, dtype = shape
+    rng = np.random.default_rng(cin * 7 + cout)
+    x = torch.from_numpy(rng.normal(size=(b, cin, h, w)).astype(np.float32)).to(cuda, dtype)
+    wt = torch.from_numpy(rng.normal(size=(cout, cin, k, k)).astype(np.float32)).to(cuda)
+    bias = (torch.from_numpy(rng.normal(size=cout).astype(np.float32)).to(cuda)
+            if use_bias else None)
+    pad = d if k == 3 else 0
+    geo = dict(kernel_size=(k, k), dilation=(d, d), padding=(pad, pad))
+    _build.launches.clear()
+    amax = tqc.channel_absmax(x)
+    assert torch.equal(amax, tqc.channel_absmax_reference(x))
+    scale = tqc.symmetric_scale(amax)
+    xq = tqc.quantize_s8(x, scale)
+    assert torch.equal(xq, tqc.quantize_s8_reference(x, scale))
+    wq, k_scale = tqc.weight_codes(wt, scale)
+    acc = tqc.conv_s8(xq, wq, None, None, out_dtype=torch.int32, **geo)
+    assert torch.equal(acc, tqc.conv_s8_reference(xq, wq, None, None, out_dtype=torch.int32,
+                                                  **geo))
+    out = tqc.conv_s8(xq, wq, k_scale, bias, out_dtype=dtype, **geo)
+    want = tqc.conv_s8_reference(xq, wq, k_scale, bias, out_dtype=dtype, **geo)
+    assert out.dtype == dtype and torch.equal(out, want)
+    whole = tqc.int8_conv(x, wt, bias, padding=pad, dilation=d, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, tqc.int8_conv_reference(x, wt, bias, padding=pad, dilation=d,
+                                                      out_dtype=dtype))
+    assert dict(_build.launches) == {tqc.ABSMAX: 2, tqc.QUANTIZE: 2, tqc.KERNEL: 3}
+
+
+@pytest.mark.gpu
+def test_conv_s8_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros(1, 4, 8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        tqc.channel_absmax(x.half())
+    with pytest.raises(ValueError):
+        tqc.int8_conv(x, torch.zeros(2, 4, 3, 3, device=cuda), stride=2, padding=1)
+    xq = torch.zeros(1, 8, 8, 32, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):  # weights padded to another width
+        tqc.conv_s8(xq, torch.zeros(9, 2, 64, dtype=torch.int8, device=cuda),
+                    torch.ones(2, device=cuda), None, kernel_size=(3, 3), dilation=(1, 1),
+                    padding=(1, 1))
+
+
+@pytest.mark.gpu
+def test_int8_decode_goes_through_the_kernels(cuda, monkeypatch):
+    """`make_batched_edit_fn(quantize="int8")` on the card launches each
+    kernel once a `Conv` of the decoder per chunk (counted from the module)
+    and decodes bit for bit what the same decode through the plain versions
+    on the card decodes, with and without microbatching."""
+    from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
+    from medical_image_editing_tpu_torch.models import blocks
+    from medical_image_editing_tpu_torch.models.blocks import Conv, seeded_init
+    from medical_image_editing_tpu_torch.models.unet_decoder import UNetDecoder
+    from medical_image_editing_tpu_torch.ops.vq import VQState
+
+    dec = seeded_init(UNetDecoder(in_channels=16, filters=(8, 16, 32, 64, 128),
+                                  use_pixel_shuffle=False, dropped_skip_layers=()),
+                      torch.Generator().manual_seed(0))
+    n_convs = sum(isinstance(m, Conv) for m in dec.modules())
+    rng = np.random.default_rng(3)
+    embed = torch.from_numpy(rng.normal(size=(10, 16)).astype(np.float32))
+    vq = VQState(embed, torch.ones(10), embed.clone())
+    ids = rng.integers(0, 11, size=(4, 64, 64)).astype(np.int32)
+    for micro in (None, 2):
+        edit = make_batched_edit_fn(dec, is_lung=True, quantize="int8", microbatch=micro,
+                                    device=cuda)
+        _build.launches.clear()
+        got = edit(vq, ids)
+        torch.cuda.synchronize()
+        chunks = 1 if micro is None else 2
+        assert dict(_build.launches) == {k: n_convs * chunks for k in
+                                         (tqc.KERNEL, tqc.ABSMAX, tqc.QUANTIZE)}
+        with monkeypatch.context() as m:
+            m.setattr(blocks, "int8_conv", tqc.int8_conv_reference)
+            want = edit(vq, ids)
+        assert torch.equal(got, want)
+        assert torch.isfinite(got).all()

@@ -1,8 +1,8 @@
-"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points refuse to fall back to the CPU, `chip_smoke.py` fails
-without a card, and its serve, train, serve_runtime, trainer,
-second_stage, multi_window, vqgan, losses and volumetric phases run end to
-end at tiny size on the CPU.
+"""Guards of the PyTorch port: it imports neither JAX, flax, orbax nor the
+JAX package, its entry points refuse to fall back to the CPU, `chip_smoke.py`
+fails without a card, and its serve, train, serve_runtime, trainer,
+second_stage, multi_window, vqgan, losses, volumetric, int8 and
+ckpt_crossing phases run end to end at tiny size on the CPU.
 """
 
 import importlib.util
@@ -54,19 +54,21 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'medical_image_editing_tpu' or m.startswith('medical_image_editing_tpu.'))\n"
+        "roots = ('jax', 'flax', 'orbax', 'medical_image_editing_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 57
+    assert len(modules) >= 62
     assert {f"{PKG}.models.vqgan", f"{PKG}.models.actnorm", f"{PKG}.train.vqgan_stage",
             f"{PKG}.ops.perceptual", f"{PKG}.ops.dropblock", f"{PKG}.models.volumetric",
             f"{PKG}.train.volumetric", f"{PKG}.cli.train_volumetric", f"{PKG}.cli.edit_volume",
-            f"{PKG}.data.preprocess"} <= set(modules)
+            f"{PKG}.data.preprocess", f"{PKG}.ops.quantized_conv", f"{PKG}.utils.torch_export",
+            f"{PKG}.utils.torch_import", f"{PKG}.cli.import_ckpt",
+            f"{PKG}.cli.export_ckpt"} <= set(modules)
 
 
 @pytest.fixture
@@ -149,6 +151,8 @@ def test_entry_points_refuse_missing_card():
     from medical_image_editing_tpu_torch.cli import (
         edit_batch,
         edit_volume,
+        export_ckpt,
+        import_ckpt,
         run_recon,
         run_vqwnet,
         serve_http,
@@ -183,7 +187,14 @@ def test_entry_points_refuse_missing_card():
                  lambda: init_volumetric(torch.Generator()),
                  lambda: edit_volume.make_volumetric_edit_fn(torch.nn.Identity()),
                  lambda: train_volumetric.main(["--steps", "1"]),
-                 lambda: edit_volume.main(["--ckpt", ".", "--labels", ".", "--out", "."])):
+                 lambda: edit_volume.main(["--ckpt", ".", "--labels", ".", "--out", "."]),
+                 lambda: make_batched_edit_fn(torch.nn.Identity(), quantize="int8"),
+                 lambda: edit_batch.main(["--label-dir", ".", "--out-dir", ".",
+                                          "--dtype", "int8"]),
+                 lambda: import_ckpt.main(["-c", str(ROOT / "configs" / "lung_first_stage.json"),
+                                           "--ckpt", "missing.ckpt", "--out", "."]),
+                 lambda: export_ckpt.main(["-c", str(ROOT / "configs" / "lung_first_stage.json"),
+                                           "--ckpt", "missing", "--out", "out.ckpt"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -506,3 +517,49 @@ def test_chip_smoke_volumetric_phase_on_cpu(tmp_path, capsys, monkeypatch):
     assert ref["id_mismatches_clear"] == 0 and max(ref["loss_rel_err"].values()) == 0.0
     assert ref["instance_norm_size"] == 16 and ref["witnesses"] == 1
     assert ref["grad_rel_err_vs_f64"]["card"] == ref["grad_rel_err_vs_f64"]["cpu"]
+
+
+def test_chip_smoke_int8_phase_on_cpu(tmp_path, capsys):
+    """The int8 phase end to end at tiny size on the CPU: the plain
+    versions at every convolution of the decode, the decode and its
+    microbatched form, the error against f32 framed as JAX's contract, and
+    `edit_batch.main --dtype int8`; no kernel launch."""
+    import numpy as np
+
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(0)
+    painted = smoke.paint(rng.integers(1, 7, (2, 32, 32)), rng, TINY_MODEL["dict_size"])
+    launches, out = smoke.int8_phase("cpu", TINY_MODEL, painted, tmp_path, microbatch=2,
+                                     big_batch=4, kernel_batch=2)
+    assert launches == {} and out["yardsticks"] is None
+    recs = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()
+            if line.startswith('{"phase": "int8"')]
+    kernels = [r for r in recs if r["part"] == "kernel"]
+    assert all(all(r["checks"].values()) for r in kernels)
+    # the ASPP's dilations and 1×1 stage, the 1×1 head to one channel and
+    # the 5·f0-channel concat (f0 = 8 here) are among the shapes
+    shapes = {(r["cin"], r["cout"], r["kernel"], r["dilation"]) for r in kernels}
+    assert {(8, 8, 3, 18), (8, 8, 1, 1), (8, 1, 1, 1), (40, 8, 3, 1)} <= shapes
+    decode = next(r for r in recs if r["part"] == "decode")
+    assert decode["kernel_equals_plain_on_card"] == {"batch": True, "microbatch": True}
+    assert sum(r["calls_per_decode"] for r in kernels) == decode["convs_per_decode"]
+    assert decode["vs_f32"]["max_abs_err"] > 0 and decode["jax_contract"]["int8_mean"] > 0
+    cli = next(r for r in recs if r["part"] == "cli")
+    assert cli["files"] == 2 and cli["equals_make_batched_edit_fn"]
+
+
+def test_chip_smoke_ckpt_crossing_phase_on_cpu(tmp_path, capsys):
+    """The ckpt_crossing phase at tiny widths on the CPU: 2 steps of
+    `run_vqwnet`, `export_ckpt`, `import_ckpt`, and `load_model` at both
+    directories decoding bit for bit what the trained state decodes."""
+    smoke = _chip_smoke()
+    overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
+                                   "dec_filters": [8, 8, 16, 16, 32]},
+                 "dataset": {"batch_size": 2}}
+    launches = smoke.ckpt_crossing_phase("cpu", tmp_path, size=32, slices=2,
+                                         overrides=overrides)
+    assert launches == {}
+    rec = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith('{"phase": "ckpt_crossing"')][-1]
+    assert rec["steps"] == 2 and rec["imported_tensors_equal_run"] and rec["counters_kept"]
+    assert rec["decode_equals_trained_state"] == {"imported": True, "run": True}

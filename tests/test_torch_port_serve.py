@@ -623,6 +623,13 @@ def test_edit_batch_main_bf16(world, tmp_path, monkeypatch, capsys):
     assert "3 edited volumes" in capsys.readouterr().out
     corr = np.corrcoef(outs["f32"].ravel(), outs["bf16"].ravel())[0, 1]
     assert corr > 0.99 and not np.array_equal(outs["f32"], outs["bf16"])
+    # int8 is ported (tests/test_torch_port_quantized_conv.py holds it to
+    # JAX); a dtype the CLI does not know is still refused
+    assert teb.main(["--label-dir", str(label_dir), "--out-dir", str(tmp_path / "q"),
+                     "--dtype", "int8", "--device", "cpu"]) == 0
+    q = np.stack([tnifti.load(str(tmp_path / "q" / f"edited_{i}.nii.gz")) for i in range(3)])
+    assert np.corrcoef(outs["f32"].ravel(), q.ravel())[0, 1] > 0.9
+    assert not np.array_equal(outs["f32"], q)
     with pytest.raises(SystemExit):
-        teb.main(["--label-dir", str(label_dir), "--out-dir", str(tmp_path / "q"),
-                  "--dtype", "int8", "--device", "cpu"])
+        teb.main(["--label-dir", str(label_dir), "--out-dir", str(tmp_path / "q4"),
+                  "--dtype", "int4", "--device", "cpu"])

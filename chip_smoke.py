@@ -189,12 +189,28 @@ and no result line):
                `LUNG_CKPT` at the imported directory and at the run's own
                decodes a painted batch bit for bit as the trained state's
                own modules do, and the imported tensors equal the run's;
+  8h. ddp   — data-parallel first-stage training (ROADMAP 15(i)) at the
+               lung config's full widths (bf16, packed conv, 256²): (a) two
+               ranks sharing the card, each a spawned process in a gloo
+               group (NCCL refuses two ranks on one device), 4 rows each:
+               the Trainer's replicated state, the gathered k-means and 3
+               steps, the ranks' states bit for bit equal after each step;
+               held to one process on the 8 rows with the same draws and
+               the VQ statistics averaged, after the first step, in bf16
+               and in f32 (DDP_GAP_LIMIT), and a planted fault (rank 1's
+               gradients skip the average) that must land above the
+               limits; launches per rank held to the derived
+               counts, collectives and bytes a step; (b) `run_vqwnet -m
+               train --max-steps 3` under a one-rank NCCL group made from
+               a torchrun environment, bit for bit the run without one,
+               and the bare step timed with and without that group;
   9. kernels — one line listing every hand-written kernel of the paths.
 The serve, serve_runtime (its packed route), int8 (b) and (c), train,
 trainer, second_stage (a) and (b), multi_window (a) (each mode) and (b),
 vqgan (a) and (b), losses (a), (b), (c) and (e), volumetric (a) (each
-mode) and (b), and ckpt_crossing phases are the main paths: each zeroes
-the launch counts just before it and reads them just after.
+mode) and (b), ddp (a) (each rank, counted in its process) and (b), and
+ckpt_crossing phases are the main paths: each zeroes the launch counts
+just before it and reads them just after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
@@ -4819,6 +4835,504 @@ def ckpt_crossing_phase(device, workdir, *, size=256, patients=2, slices=8, seed
     return launches
 
 
+# Gaps of the ddp phase's ranks to one process on the same rows after the
+# first step (`ddp_gaps`), by compute dtype; measured on an NVIDIA H100
+# 80GB HBM3 at 700 W (bf16: Adam's first moments 0.357 encoder and 0.399
+# decoder, codebook 9.6e-4, total 2.5e-3; f32: 0.037, 0.0024, 6.6e-8,
+# 3.4e-6; rank 1's moments with the planted fault 0.72 and 0.71 in bf16,
+# 0.63 and 0.56 in f32). bf16 gradients of 4 + 4 rows and of 8 differ
+# that much: the convolutions' rounding at either batch (cuDNN takes other
+# algorithms) moves VQ ids at near-ties, and the cross loss's per-code
+# means weigh a moved pixel of a rare code heavily.
+DDP_GAP_LIMIT = {
+    "bfloat16": {"encoder_moments": 0.5, "decoder_moments": 0.5, "codebook": 2e-3,
+                 "total": 5e-3},
+    "float32": {"encoder_moments": 0.1, "decoder_moments": 0.01, "codebook": 1e-5,
+                "total": 1e-4},
+}
+
+
+@contextlib.contextmanager
+def torchrun_env(**values):
+    """The torchrun variables (RANK, WORLD_SIZE, ...) set inside the block,
+    the previous environment restored after."""
+    prev = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_config(overrides=None):
+    """The lung first-stage config with `overrides` ({"a.b": {key: value}})."""
+    base = json.loads(MODEL_CONFIG.read_text())
+    for section, values in (overrides or {}).items():
+        node = base
+        for key in section.split("."):
+            node = node[key]
+        node.update(values)
+    return base
+
+
+def state_digest(state):
+    """SHA-256 of every tensor of a train state (modules, Adam states,
+    generator) and its counters."""
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x, key=str):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, torch.Tensor):
+            h.update(x.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(x).encode())
+
+    walk(state.state_dict())
+    return h.hexdigest()
+
+
+def adam_moments(state):
+    """Adam's first moments (an average of the steps' gradients) by
+    parameter name, on the host."""
+    return {f"{side}.{k}": opt.state[p]["exp_avg"].detach().float().cpu().clone()
+            for side, m, opt in (("encoder", state.encoder, state.enc_opt),
+                                 ("decoder", state.decoder, state.dec_opt))
+            for k, p in m.named_parameters()}
+
+
+def ddp_rank_run(rank, world, base, *, size, rows, steps, seed, device, fault):
+    """k-means and `steps` steps of the Trainer's data-parallel first stage
+    on this rank's rows; with `fault`, rank 1's gradients skip the average
+    (it takes part in the all-reduce and keeps its own gradients)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.parallel import mesh
+    from medical_image_editing_tpu_torch.train import first_stage
+    from medical_image_editing_tpu_torch.train.state import replicate_state
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    cuda = torch.device(device).type == "cuda"
+    trainer = Trainer(to_config(base), device=device, seed=seed)
+    if trainer.axis_name != mesh.DATA_AXIS:
+        raise RuntimeError("the trainer under the group is not data parallel")
+    state = replicate_state(trainer.init_state(load_staged=False))
+    images = make_slices(np.random.default_rng(seed), world * rows, size)
+    image = mesh.shard_batch(images, rank, world)
+    synced = first_stage.pmean_gradients
+
+    def keep_local(opt):
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for g in opt.param_groups for p in g["params"]]
+        mesh.pmean(grads)  # takes part in the collective, drops the average
+
+    if fault and rank == 1:
+        first_stage.pmean_gradients = keep_local
+    try:
+        _build.launches.clear()
+        mesh.collectives.clear()
+        first_stage.init_codebook_step(state.encoder)(state, image)
+        vq_init = [t.detach().cpu().clone() for t in state.vq]
+        gens, digests, losses, step_s, per_step, moments, embeds = [], [], [], [], [], [], []
+        for _ in range(steps):
+            gens.append(state.generator.get_state().clone())
+            before = dict(mesh.collectives)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, image)
+            if cuda:
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({k: v - before.get(k, 0) for k, v in mesh.collectives.items()})
+            losses.append({k: float(v) for k, v in metrics.items()})
+            digests.append(state_digest(state))
+            if len(losses) in (1, steps):
+                moments.append(adam_moments(state))
+            embeds.append(state.vq.embed.detach().cpu().clone())
+        launches = dict(_build.launches)
+    finally:
+        first_stage.pmean_gradients = synced
+    return {"vq_init": vq_init, "gens": gens, "digests": digests, "losses": losses,
+            "step_s": step_s,
+            "collectives": per_step, "launches": launches, "moments": moments,
+            "embed": embeds}
+
+
+def ddp_rank(rank, world, init_file, workdir, base, size, rows, steps, seed, device,
+             dtypes):
+    """One rank of the ddp phase's part (a), in a process of its own: a gloo
+    group (NCCL refuses two ranks on one card) through `init_file`; in bf16
+    and in f32, the healthy run, then the run with the planted fault; the
+    results saved to `workdir/ddp-RANK.pt`."""
+    import torch
+    import torch.distributed as dist
+
+    from medical_image_editing_tpu_torch.utils.device import apply_conv_precision
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    else:  # two ranks' OpenMP pools on one host spin against each other
+        torch.set_num_threads(1)
+    apply_conv_precision()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        out = {dtype: {fault: ddp_rank_run(rank, world, with_dtype(base, dtype), size=size,
+                                           rows=rows, steps=steps, seed=seed, device=device,
+                                           fault=fault)
+                       for fault in (False, True)}
+               for dtype in dtypes}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, Path(workdir) / f"ddp-{rank}.pt")
+
+
+def with_dtype(base, dtype):
+    """The config dict `base` with the model's compute dtype `dtype`."""
+    cfg = copy.deepcopy(base)
+    cfg["model"]["vqmodel"]["compute_dtype"] = dtype
+    return cfg
+
+
+def cat_draws(parts):
+    """The views' draws of several ranks' rows as one batch's (row order)."""
+    import torch
+
+    def cat(ds):
+        if ds[0] is None:
+            return None
+        return {k: None if ds[0][k] is None else torch.cat([d[k] for d in ds])
+                for k in ds[0]}
+
+    return {part: [cat([p[part][i] for p in parts]) for i in range(len(parts[0][part]))]
+            for part in parts[0]}
+
+
+def ddp_reference(base, run, *, world, size, rows, steps, seed, device):
+    """One process, no group, on all `world`·`rows` rows with the ranks'
+    draws (replayed from the replicated generator's state before each step
+    of `run`, a rank's record), the function the ranks compute together:
+    the VQ statistics divided by the world size (the ranks average them)
+    and the embedding cross loss the mean of each rank's rows' (each rank's
+    is a mean over the (row, code) pairs its rows hold, as in JAX's
+    data-parallel step). Every other term is a mean over equal rows a rank,
+    the same either way. Its own k-means on all the rows gives the codebook
+    gap `kmeans`; the steps then start from the ranks' codebook, so that
+    the first step starts from the ranks' state: bf16 features of 4 rows
+    and of 8 differ in rounding (cuDNN takes other algorithms), which the
+    50 Lloyd iterations carry into the codebook."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import augment, vq_fused
+    from medical_image_editing_tpu_torch.ops.vq import VQState
+    from medical_image_editing_tpu_torch.train import first_stage
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+    from medical_image_editing_tpu_torch.train.state import per_rank_generator
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    trainer = Trainer(to_config(base), device=device, seed=seed)
+    state = trainer.init_state(load_staged=False)
+    images = make_slices(np.random.default_rng(seed), world * rows, size)
+    assign = vq_fused.vq_assign_fused
+
+    loss = first_stage.embedding_loss
+
+    def averaged(embed, flat):
+        ids, quant, counts, sums = assign(embed, flat)
+        return ids, quant, counts / world, sums / world
+
+    def per_rank_loss(q1, oh1, q2, oh2, codebook, **kw):
+        parts = [loss(*(t.chunk(world)[r] for t in (q1, oh1, q2, oh2)), codebook, **kw)
+                 for r in range(world)]
+        return tuple(sum(p[i] for p in parts) / world for i in range(3))
+
+    def draws(gen_state):
+        views = []
+        for r in range(world):
+            g = torch.Generator(device=device)
+            g.set_state(gen_state)
+            g = per_rank_generator(g, r)
+            views.append([augment.sample_view_draws(g, trainer.aug_cfg, rows, size, size, 1)
+                          for _ in range(2)])
+        return tuple(cat_draws([v[i] for v in views]) for i in range(2))
+
+    vq_fused.vq_assign_fused = averaged
+    first_stage.embedding_loss = per_rank_loss
+    try:
+        init_codebook_step(state.encoder)(state, images)
+        ranks_vq = run["vq_init"]
+        kmeans = float((state.vq.embed.cpu() - ranks_vq[0]).norm() / ranks_vq[0].norm())
+        state.encoder.vq.set_state(VQState(*(t.to(state.device) for t in ranks_vq)))
+        losses, moments, embeds = [], [], []
+        for i in range(steps):
+            state, metrics = trainer.train_step(state, images, draws(run["gens"][i]))
+            losses.append({k: float(v) for k, v in metrics.items()})
+            if i in (0, steps - 1):
+                moments.append(adam_moments(state))
+            embeds.append(state.vq.embed.detach().cpu().clone())
+    finally:
+        vq_fused.vq_assign_fused = assign
+        first_stage.embedding_loss = loss
+    return {"moments": moments, "losses": losses, "embed": embeds, "kmeans": kmeans}
+
+
+def ddp_gaps(run, ref):
+    """A rank's gaps to the reference, each a list: Adam's first moments
+    over the encoder's and over the decoder's parameters after the first
+    and the last step (the relative
+    Frobenius norm of the difference: the gradients, weighted by size; the
+    updates themselves are ±lr wherever Adam's first steps see any
+    gradient, a rounding residue included), the codebook after each step
+    (relative) and the total loss of each step (relative). The first step
+    starts from the same state on both sides; later steps start from states
+    that one step of ±lr updates has set apart."""
+    def rel(a, b, side):
+        keys = [k for k in b if k.startswith(side)]
+        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in keys)
+        return (num / sum(float((b[k] ** 2).sum()) for k in keys)) ** 0.5
+
+    return {**{f"{side}_moments": [rel(a, b, side) for a, b in zip(run["moments"],
+                                                                  ref["moments"])]
+               for side in ("encoder", "decoder")},
+            "codebook": [float((a - b).norm() / b.norm())
+                         for a, b in zip(run["embed"], ref["embed"])],
+            "total": [abs(a["total"] - b["total"]) / abs(b["total"])
+                      for a, b in zip(run["losses"], ref["losses"])]}
+
+
+def ddp_nccl_part(device, workdir, base, *, size, seed, steps, timed_steps):
+    """(b): `run_vqwnet -m train --max-steps steps` alone and under a
+    one-rank group made by the CLI from a torchrun environment (NCCL on the
+    card, gloo on the CPU), held bit for bit; then bare steps of the
+    Trainer's step timed under that group and without one, at the config's
+    batch. Returns the record and the grouped run's launches."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.parallel import mesh
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+    from medical_image_editing_tpu_torch.train.state import replicate_state
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils.checkpoint import load_state_file
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    import torch.distributed as dist
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir)
+    batch = int(base["dataset"]["batch_size"])
+    write_lung_tree(work / "data", np.random.default_rng(seed), patients=2, slices=batch,
+                    size=size)
+    cli = copy.deepcopy(base)
+    cli["dataset"]["root_dir_path"] = str(work / "data")
+    cli["run"]["n_epochs"] = 2
+    env = dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR="localhost",
+               MASTER_PORT=free_port())
+    runs, launches = {}, {}
+    for name in ("alone", "group"):
+        with contextlib.ExitStack() as stack:
+            if name == "group":
+                stack.enter_context(torchrun_env(**env))
+            _build.launches.clear()
+            mesh.collectives.clear()
+            runs[name] = run_cli(work, cli, name, ["-m", "train", "--max-steps", str(steps)],
+                                 cuda) / "version_0"
+            launches[name] = dict(_build.launches)
+            if name == "group":
+                collectives = dict(mesh.collectives)
+        if mesh.is_active():
+            raise RuntimeError("run_vqwnet left its process group behind")
+    final = sorted(os.listdir(runs["alone"] / "ckpt"))[-1]
+    sds = [load_state_file(str(runs[n] / "ckpt" / final)) for n in ("alone", "group")]
+    same_logs = ((runs["alone"] / "log.csv").read_text()
+                 == (runs["group"] / "log.csv").read_text())
+    same_state = all(torch.equal(sds[0][p][k], sds[1][p][k])
+                     for p in ("encoder", "decoder") for k in sds[0][p])
+    same_state = same_state and torch.equal(sds[0]["generator"], sds[1]["generator"])
+
+    images = make_slices(np.random.default_rng(seed + 1), batch, size)
+    timed = {}
+    for name in ("group", "alone"):
+        with contextlib.ExitStack() as stack:
+            if name == "group":
+                stack.enter_context(torchrun_env(**{**env, "MASTER_PORT": free_port()}))
+                mesh.initialize_distributed(device)
+                stack.callback(mesh.destroy_distributed)
+            trainer = Trainer(to_config(base), device=device, seed=seed)
+            state = replicate_state(trainer.init_state(load_staged=False))
+            init_codebook_step(state.encoder)(state, images)
+            trainer.train_step(state, images)  # warm
+            mesh.collectives.clear()
+            step_s = []
+            for _ in range(timed_steps):
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_step(state, images)
+                if cuda:
+                    torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            timed[name] = {"step_s": step_s, "axis_name": trainer.axis_name,
+                           "collectives_per_step": {k: v / timed_steps
+                                                    for k, v in mesh.collectives.items()}}
+            if name == "group":
+                timed[name]["backend"] = dist.get_backend()
+    rec = {"final_ckpt": final,
+           "cli_bit_identical": {"log_csv": same_logs, "state": same_state},
+           "cli_collectives": collectives, "launches": launches,
+           "bare_step": timed}
+    return rec, launches["group"]
+
+
+def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=None,
+              timed_steps=5, limits=DDP_GAP_LIMIT):
+    """Data-parallel first-stage training (ROADMAP 15(i)) on the card.
+
+    (a) Two ranks sharing the card (gloo on CUDA tensors: NCCL refuses two
+    ranks on one device), each a process of its own: the Trainer at the
+    lung config's full widths (bf16, the packed conv route, the VQ kernel),
+    `rows` rows of `size`² each, the state replicated, the gathered k-means
+    and `steps` steps, in the config's bf16 and again in f32; after each
+    step the ranks' states are bit for bit equal (digests). Held to one
+    process on all the rows with the same draws and the function the ranks
+    compute together (`ddp_reference`, from the ranks' codebook after the
+    k-means; its own k-means' gap is printed): after the first step within
+    `limits` of the dtype (DDP_GAP_LIMIT, the card's; later steps' gaps are
+    printed: one step of
+    Adam's ±lr updates sets two trajectories apart); then a planted fault,
+    rank 1's gradients skipping the average, must land above the limits
+    (f32 is there because bf16's own gap leaves the fault only ~1.8× above
+    it). The bf16 run's launches of both kernels, on each rank, are held to
+    the counts derived from the model; collectives and bytes all-reduced a
+    step, step times.
+    (b) `ddp_nccl_part`: a one-rank group through `run_vqwnet` bit for bit
+    the run without one; step time with and without the group.
+    Returns the launches of (a)'s bf16 run on both ranks and (b)'s grouped
+    run."""
+    import torch
+
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    cuda = torch.device(device).type == "cuda"
+    base = ddp_config(overrides)
+    world = 2
+    work = Path(workdir) / "ddp"
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=ddp_rank, args=(r, world, str(work / "init"), str(work), base,
+                                                size, rows, steps, seed, device, list(limits)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * world:
+        raise RuntimeError(f"ddp ranks: hung {hung}, exit codes {codes}")
+    ranks = [torch.load(work / f"ddp-{r}.pt", weights_only=True) for r in range(world)]
+    ranks_s = time.perf_counter() - t_phase
+
+    compare = {}
+    for dtype, limit in limits.items():
+        healthy = [r[dtype][False] for r in ranks]
+        faulty = [r[dtype][True] for r in ranks]
+        ref = ddp_reference(with_dtype(base, dtype), healthy[0], world=world, size=size,
+                            rows=rows, steps=steps, seed=seed, device=device)
+        gaps = [ddp_gaps(run, ref) for run in healthy]
+        fault_gaps = [ddp_gaps(run, ref) for run in faulty]
+        compare[dtype] = {
+            "ranks_bit_identical_each_step": [
+                a == b for a, b in zip(healthy[0]["digests"], healthy[1]["digests"])],
+            "generator_replicated": all(torch.equal(a, b) for a, b in
+                                        zip(healthy[0]["gens"], healthy[1]["gens"])),
+            "kmeans_codebook_gap": ref["kmeans"], "gap_to_one_process": gaps,
+            "gap_limit": limit, "planted_fault_gap": fault_gaps,
+            "planted_fault_ranks_bit_identical": [
+                a == b for a, b in zip(faulty[0]["digests"], faulty[1]["digests"])],
+            "within_limits": all(g[k][0] <= limit[k] for g in gaps for k in limit),
+            "fault_caught": any(g[k][0] > limit[k] for g in fault_gaps for k in limit),
+            "step_s_per_rank": [run["step_s"] for run in healthy],
+            "losses_last": healthy[0]["losses"][-1],
+            "reference_losses_last": ref["losses"][-1],
+            "finite": all(np.isfinite(v) for run in healthy for m in run["losses"]
+                          for v in m.values())}
+    main = [r[str(base["model"]["vqmodel"]["compute_dtype"])][False] for r in ranks]
+
+    model = to_config(base).model.vqmodel
+    enc_convs = dec_convs = 0
+    if cuda:
+        probe = Trainer(to_config(base), device="cpu", seed=seed).init_state(load_staged=False)
+        enc_convs = routed_convs(probe.encoder, torch.zeros(1, int(model.in_channels), size, size))
+        dec_convs = routed_convs(probe.decoder, torch.zeros(1, probe.encoder.emb_dim, size, size))
+        del probe
+    want = {"conv3x3_packed": enc_convs + steps * 4 * (enc_convs + dec_convs),
+            "vq_fused": 2 * steps} if cuda else {}
+    launches = [run["launches"] for run in main]
+    counted = all({k: n.get(k, 0) for k in want} == want for n in launches)
+
+    nccl, nccl_launches = ddp_nccl_part(device, work / "one_rank", base, size=size,
+                                        seed=seed, steps=steps, timed_steps=timed_steps)
+    rec = {"phase": "ddp", "part": "two_ranks_one_card", "backend": "gloo", "world": world,
+           "rows_per_rank": rows, "size": size, "steps": steps,
+           "compute_dtype": str(model.compute_dtype),
+           "params": sum(t.numel() for t in main[0]["moments"][0].values()),
+           "param_tensors": len(main[0]["moments"][0]), "by_dtype": compare,
+           "collectives_per_step": main[0]["collectives"][-1],
+           "launches_per_rank": launches, "launches_expected_per_rank": want,
+           "ranks_seconds": ranks_s, **nccl, "phase_seconds": time.perf_counter() - t_phase,
+           "card": nvidia_smi() if cuda else None}
+    emit(rec)
+    checks = {"ranks_identical": all(all(c["ranks_bit_identical_each_step"])
+                                     and c["generator_replicated"] for c in compare.values()),
+              "within_limits": all(c["within_limits"] for c in compare.values()),
+              "fault_caught": all(c["fault_caught"]
+                                  and not all(c["planted_fault_ranks_bit_identical"])
+                                  for c in compare.values()),
+              "launches": counted and (not cuda or all(
+                  nccl_launches.get(k, 0) > 0 for k in want)),
+              "one_rank_group": all(nccl["cli_bit_identical"].values()),
+              "finite": all(c["finite"] for c in compare.values())}
+    if not all(checks.values()):
+        raise RuntimeError(f"ddp phase: {checks}")
+    total = {}
+    for n in (*launches, nccl_launches):
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 S8_SOURCE = "medical_image_editing_tpu_torch/csrc/conv_s8.cu"
 S8_REPLACES = {
     "conv_s8": "medical_image_editing_tpu/ops/quantized_conv.py:104 (XLA's s8 convolution, "
@@ -4921,6 +5435,7 @@ def main(argv=None):
             vqgan_launches = vqgan_phase("cuda", tmp, seed=args.seed)
             losses_launches = losses_phase("cuda", tmp, seed=args.seed)
             vol_launches = volumetric_phase("cuda", tmp, seed=args.seed)
+            ddp_launches = ddp_phase("cuda", tmp, seed=args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         crossing_launches = ckpt_crossing_phase("cuda", tmp, seed=args.seed)
     # (d) no other path launches an int8 kernel
@@ -4928,7 +5443,7 @@ def main(argv=None):
               "train": train_launches, "trainer": trainer_launches,
               "second_stage": second_launches, "multi_window": mw_launches,
               "vqgan": vqgan_launches, "losses": losses_launches, "volumetric": vol_launches,
-              "ckpt_crossing": crossing_launches}
+              "ddp": ddp_launches, "ckpt_crossing": crossing_launches}
     stray = {path: {k: n.get(k, 0) for k in S8_KERNELS if n.get(k, 0)}
              for path, n in others.items() if any(n.get(k, 0) for k in S8_KERNELS)}
     emit({"phase": "int8", "part": "other_paths", "s8_launches": stray})
@@ -4944,7 +5459,8 @@ def main(argv=None):
                      + trainer_launches.get("vq_fused", 0)
                      + second_launches.get("vq_fused", 0) + mw_launches.get("vq_fused", 0)
                      + vqgan_launches.get("vq_fused", 0) + losses_launches.get("vq_fused", 0)
-                     + vol_launches.get("vq_fused", 0) + crossing_launches.get("vq_fused", 0)),
+                     + vol_launches.get("vq_fused", 0) + crossing_launches.get("vq_fused", 0)
+                     + ddp_launches.get("vq_fused", 0)),
         "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
                              "train": train_launches.get("vq_fused", 0),
                              "trainer": trainer_launches.get("vq_fused", 0),
@@ -4954,7 +5470,8 @@ def main(argv=None):
                              "losses": losses_launches.get("vq_fused", 0),
                              "volumetric": vol_launches.get("vq_fused", 0),
                              "int8": int8_launches.get("vq_fused", 0),
-                             "ckpt_crossing": crossing_launches.get("vq_fused", 0)},
+                             "ckpt_crossing": crossing_launches.get("vq_fused", 0),
+                             "ddp": ddp_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],
         "id_mismatches_near_tie": vq["id_mismatches_near_tie"],
         "n": vq["n"], "c": vq["c"], "k": vq["k"], "path": vq["path"],
@@ -4975,7 +5492,8 @@ def main(argv=None):
                      + vqgan_launches.get("conv3x3_packed", 0)
                      + losses_launches.get("conv3x3_packed", 0)
                      + vol_launches.get("conv3x3_packed", 0)
-                     + crossing_launches.get("conv3x3_packed", 0)),
+                     + crossing_launches.get("conv3x3_packed", 0)
+                     + ddp_launches.get("conv3x3_packed", 0)),
         "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
                              "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
                              "train": train_launches.get("conv3x3_packed", 0),
@@ -4986,7 +5504,8 @@ def main(argv=None):
                              "losses": losses_launches.get("conv3x3_packed", 0),
                              "volumetric": vol_launches.get("conv3x3_packed", 0),
                              "int8": int8_launches.get("conv3x3_packed", 0),
-                             "ckpt_crossing": crossing_launches.get("conv3x3_packed", 0)},
+                             "ckpt_crossing": crossing_launches.get("conv3x3_packed", 0),
+                             "ddp": ddp_launches.get("conv3x3_packed", 0)},
         "max_abs_err": main_conv["forward_max_abs_err"],
         "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
                   "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",

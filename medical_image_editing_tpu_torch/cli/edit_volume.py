@@ -20,7 +20,7 @@ each input.
 `--ckpt` is the `volumetric_ckpt` directory the port's `train_volumetric`
 writes (`state.pt`). The JAX package's Orbax checkpoints cannot be read here
 (ROADMAP item 22a). The JAX CLI's `--partition spatial` (decoder depth
-sharded over cards) is ROADMAP item 15 and is refused.
+sharded over cards) is ROADMAP item 15(iii) and is refused.
 """
 
 import argparse
@@ -37,7 +37,7 @@ from ..utils.device import resolve_device
 from .edit_batch import to_checked_ids
 
 PARTITION_REFUSAL = ("--partition spatial shards the decode's depth over several cards: "
-                     "ROADMAP item 15, not ported")
+                     "ROADMAP item 15(iii), not ported")
 
 
 def make_volumetric_edit_fn(decoder, *, mesh=None, output_dtype=None, device="cuda"):
@@ -48,7 +48,7 @@ def make_volumetric_edit_fn(decoder, *, mesh=None, output_dtype=None, device="cu
     the embedding looked up at ids − 1, zeroed under the mask and rescaled
     per volume by D·H·W / max(Σmask, 1), then decoded. output_dtype="uint8"
     maps [-1, 1] → [0, 255] with a truncating cast. A `mesh` (depth
-    sharding, ROADMAP item 15) is refused."""
+    sharding, ROADMAP item 15(iii)) is refused."""
     refuse_mesh(mesh)
     if output_dtype not in (None, "uint8"):
         raise ValueError(f"output_dtype {output_dtype!r}: None or 'uint8'")
@@ -138,7 +138,8 @@ def main(argv=None):
     p.add_argument("--dict-size", type=int, default=10)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--partition", choices=["none", "spatial"], default="none",
-                   help="'spatial' (multi-card depth sharding, ROADMAP item 15) is refused")
+                   help="'spatial' (multi-card depth sharding, ROADMAP item 15(iii)) is "
+                        "refused")
     p.add_argument("--uint8", action="store_true")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)

@@ -18,7 +18,8 @@ codebook as every checkpoint of the port holds it), written atomically
 reconstructions.
 
 The JAX CLI's `--mesh data,spatial` (volumes sharded over batch and depth
-across cards) is ROADMAP item 15 and is refused.
+across cards) is ROADMAP item 15(iii) and is refused, as is a run under
+more than one rank (`torchrun`).
 """
 
 import argparse
@@ -84,17 +85,18 @@ def main(argv=None):
     parser.add_argument("--dict-size", type=int, default=10)
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--mesh", default=None,
-                        help="multi-card depth sharding: ROADMAP item 15, refused")
+                        help="multi-card depth sharding: ROADMAP item 15(iii), refused")
     parser.add_argument("--out", default="volumetric_out")
     parser.add_argument("--log-every", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    from ..train.volumetric import MESH_REFUSAL
+    from ..train.volumetric import MESH_REFUSAL, refuse_ranks
 
     if args.mesh:
         raise SystemExit(f"--mesh {args.mesh}: {MESH_REFUSAL}")
+    refuse_ranks()
 
     import numpy as np
     import torch

@@ -22,7 +22,12 @@ Producer threads run numpy and native IO only; `prefetch_to_device` makes
 the CUDA calls on the caller's (training) thread: each batch's image is
 copied into its own pinned host buffer and sent with a `non_blocking` copy,
 `size` batches ahead. A `torch.distributed` run takes a strided shard of
-the permutation per process (DistributedSampler semantics).
+the permutation per process (DistributedSampler semantics); with
+`drop_last` (the train loader) the permutation is first cut to a multiple
+of the world size, as `DistributedSampler(drop_last=True)` cuts it, so that
+every rank gets as many full batches as every other and no rank waits in a
+collective for a batch that another rank never gets (fault C.5: 9 slices,
+2 ranks, batch 5 gave rank 0 one batch and rank 1 none).
 """
 
 import collections
@@ -153,7 +158,7 @@ class DataLoader:
         n = len(self.dataset)
         pcount, pidx = self._process_shard
         if pcount > 1:
-            n = len(range(pidx, n, pcount))
+            n = n // pcount if self.drop_last else len(range(pidx, n, pcount))
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -177,6 +182,8 @@ class DataLoader:
         order = rng.permutation(n) if self.shuffle else np.arange(n)
         pcount, pidx = self._process_shard
         if pcount > 1:
+            if self.drop_last:
+                order = order[: n - n % pcount]
             order = order[pidx::pcount]
             n = len(order)
         self._epoch += 1

@@ -31,6 +31,11 @@ JAX package's `utils/torch_export.py` writes.
   E[x²] − E[x]², clipped at 0) and moves the running stats
   by 0.1 towards them, with the *biased* variance, where torch's
   `BatchNorm2d` would store the unbiased one; in eval mode it uses the
+  running stats. With `axis_name` (`parallel.DATA_AXIS`, set at
+  construction as flax's `axis_name`) the train-mode mean and mean of
+  squares are averaged over the ranks of the process group in one
+  all-reduce that autograd carries back (flax's `lax.pmean` and its
+  transpose): the synced statistics normalise the batch and move the
   running stats.
 """
 
@@ -44,6 +49,7 @@ from torch import nn
 from ..ops.conv_pack import conv3x3_packed_trainable_nchw, packed_eligible
 from ..ops.quantized_conv import int8_conv, quantize_mode
 from ..ops.vq import VQModule
+from ..parallel.mesh import pmean_differentiable
 
 
 def conv_impl() -> str:
@@ -142,18 +148,23 @@ class InstanceNorm(nn.Module):
 class FlaxBatchNorm(nn.BatchNorm2d):
     """flax `nn.BatchNorm(momentum=0.9)` under torch's `BatchNorm2d`
     parameter and buffer names (see the module docstring); `affine` adds
-    flax's scale and bias (`weight`, `bias`)."""
+    flax's scale and bias (`weight`, `bias`); `axis_name` syncs the batch
+    statistics over the ranks."""
 
     FLAX_MOMENTUM = 0.9
 
-    def __init__(self, features: int, eps: float = 1e-5, affine: bool = True):
+    def __init__(self, features: int, eps: float = 1e-5, affine: bool = True,
+                 axis_name=None):
         super().__init__(features, eps=eps, affine=affine)
+        self.axis_name = axis_name
 
     def forward(self, x):
         xf = x.float()
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, mean2 = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+            if self.axis_name is not None:
+                mean, mean2 = pmean_differentiable([mean, mean2])
+            var = (mean2 - mean * mean).clamp_min(0.0)
             m = self.FLAX_MOMENTUM
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -173,8 +184,8 @@ class FlaxBatchNorm(nn.BatchNorm2d):
 class ParamFreeBatchNorm(FlaxBatchNorm):
     """flax `nn.BatchNorm(use_scale=False, use_bias=False, momentum=0.9)`."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
-        super().__init__(features, eps=eps, affine=False)
+    def __init__(self, features: int, eps: float = 1e-5, axis_name=None):
+        super().__init__(features, eps=eps, affine=False, axis_name=axis_name)
 
 
 def nearest_upsample(x, factor: int = 2):
@@ -235,11 +246,11 @@ class UpBlock(nn.Module):
 
 class StyledDenorm(nn.Module):
     """SPADE denormalization: parameter-free BatchNorm modulated by γ,β
-    computed from the style tensor."""
+    computed from the style tensor; `axis_name` syncs the BatchNorm."""
 
-    def __init__(self, features: int, style_channels: int):
+    def __init__(self, features: int, style_channels: int, axis_name=None):
         super().__init__()
-        self.param_free_norm = ParamFreeBatchNorm(features)
+        self.param_free_norm = ParamFreeBatchNorm(features, axis_name=axis_name)
         self.mlp_shared = nn.Sequential(conv3x3(style_channels, features), nn.ReLU())
         self.mlp_gamma = conv3x3(features, features)
         self.mlp_beta = conv3x3(features, features)
@@ -252,10 +263,12 @@ class StyledDenorm(nn.Module):
 
 class StyledResUpBlock(nn.Module):
     """Upsample (nearest, or conv + PixelShuffle) then two styled conv-norms
-    with a plain conv-IN-ReLU residual; the skip is the SPADE style."""
+    with a plain conv-IN-ReLU residual; the skip is the SPADE style.
+    `axis_name` syncs both norms' BatchNorms."""
 
     def __init__(self, cin: int, features: int, style_channels: int,
-                 use_output_act: bool = True, use_pixel_shuffle: bool = False):
+                 use_output_act: bool = True, use_pixel_shuffle: bool = False,
+                 axis_name=None):
         super().__init__()
         self.use_output_act = use_output_act
         if use_pixel_shuffle:
@@ -264,9 +277,9 @@ class StyledResUpBlock(nn.Module):
             self.up_sample = None
         self.conv = nn.Sequential(conv3x3(cin, features), InstanceNorm(), nn.ReLU())
         self.conv1 = conv3x3(cin, features)
-        self.norm1 = StyledDenorm(features, style_channels)
+        self.norm1 = StyledDenorm(features, style_channels, axis_name)
         self.conv2 = conv3x3(features, features)
-        self.norm2 = StyledDenorm(features, style_channels)
+        self.norm2 = StyledDenorm(features, style_channels, axis_name)
 
     def forward(self, down_input, skip_input):
         if self.up_sample is not None:

@@ -18,7 +18,9 @@ module's train/eval mode. With `use_dropblock`, DropBlock
 `dropped_skip_layers`, in training only: the forward takes `drop_prob` and
 one uniform draw per such skip (`sample_dropblock_draws`), where the JAX
 module draws from its 'dropblock' RNG stream. In eval mode it is the
-identity and takes no draws.
+identity and takes no draws. `axis_name` (`parallel.DATA_AXIS`, as the
+JAX module's) syncs the `StyledDenorm` BatchNorms' statistics over the
+ranks.
 """
 
 from typing import List, Optional, Sequence
@@ -46,7 +48,7 @@ class UNetDecoder(nn.Module):
                  use_dropblock: bool = False, block_size: int = 30,
                  dropped_skip_layers: Sequence[int] = (5, 6),
                  use_pixel_shuffle: bool = True,
-                 use_last_pixel_shuffle: bool = False, dtype=None):
+                 use_last_pixel_shuffle: bool = False, dtype=None, axis_name=None):
         super().__init__()
         self.compute_dtype = dtype
         f = list(filters)
@@ -64,7 +66,7 @@ class UNetDecoder(nn.Module):
         for level in reversed(range(n)):
             setattr(self, f"up_conv2_{level + 1}", StyledResUpBlock(
                 f[level + 1], f[level], f[level],
-                use_pixel_shuffle=bool(use_pixel_shuffle)))
+                use_pixel_shuffle=bool(use_pixel_shuffle), axis_name=axis_name))
         if self.use_last_pixel_shuffle:
             # flax's own nn.Conv in the JAX module: never dispatched
             for level in range(1, n):

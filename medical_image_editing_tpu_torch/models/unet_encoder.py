@@ -9,7 +9,10 @@ label maps. Modules are NCHW; `encode_quantize` and
 
 `dtype` is the compute dtype, as the JAX module's: parameters stay float32
 and the input is cast to it (see `blocks.py`). The styled variant's
-BatchNorm follows the module's train/eval mode.
+BatchNorm follows the module's train/eval mode. `axis_name`
+(`parallel.DATA_AXIS`, as the JAX module's) syncs that BatchNorm and, in
+`EncoderWithVQ`, the codebook's EMA statistics over the ranks; the k-means
+init gathers every rank's features.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -19,6 +22,7 @@ from torch import nn
 
 from ..ops.kmeans import kmeans
 from ..ops.vq import VQModule, VQState, vq_apply, vq_lookup
+from ..parallel.mesh import all_gather_rows
 from .blocks import DoubleConv, ResBlock, StyledResUpBlock, UpBlock, set_compute_dtype
 
 
@@ -28,12 +32,13 @@ class UNetEncoder(nn.Module):
 
     def __init__(self, in_channels: int = 1,
                  filters: Sequence[int] = (64, 128, 256, 512, 1024),
-                 use_styled_up_block: bool = False, dtype=None):
+                 use_styled_up_block: bool = False, dtype=None, axis_name=None):
         super().__init__()
         f = tuple(filters)
         self.filters = f
         self.use_styled_up_block = bool(use_styled_up_block)
         self.compute_dtype = dtype
+        self.axis_name = axis_name
         cin = in_channels
         for i in range(4):
             setattr(self, f"down_conv1_{i + 1}", ResBlock(cin, f[i]))
@@ -41,7 +46,7 @@ class UNetEncoder(nn.Module):
         self.double_conv1 = DoubleConv(f[3], f[4])
         for i in reversed(range(4)):
             if self.use_styled_up_block:
-                up = StyledResUpBlock(f[i + 1], f[i], f[i])
+                up = StyledResUpBlock(f[i + 1], f[i], f[i], axis_name=axis_name)
             else:
                 up = UpBlock(f[i + 1] + f[i], f[i])
             setattr(self, f"up_conv1_{i + 1}", up)
@@ -68,17 +73,20 @@ def encode_quantize(
     eps: float = 1e-5,
     train: bool = False,
     backend: str = "xla",
+    axis_name=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, VQState]:
     """Encoder forward on x (B,H,W,in) → features → VQ →
     (quantized (B,H,W,C), commit, ids+1 (B,H,W), vq_state').
 
-    `train=True` applies the VQ EMA update to the returned state. The
+    `train=True` applies the VQ EMA update to the returned state, its
+    statistics averaged over the ranks with `axis_name`. The
     encoder runs in the mode its caller set: the serving entry points set
     eval, the training step sets train (the styled encoder's BatchNorm then
     uses batch statistics and moves its running stats)."""
     feats = encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     quantized, commit, ids, new_vq = vq_apply(
         vq_state, feats, momentum=momentum, eps=eps, train=train, backend=backend,
+        axis_name=axis_name,
     )
     return quantized, commit, ids + 1, new_vq
 
@@ -96,17 +104,24 @@ def init_codebook_from_batch(
     num_iters: int = 50,
     init_idx: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    axis_name=None,
 ) -> VQState:
     """k-means codebook init from first-batch encoder features (B,H,W,C).
 
-    As the JAX function (reference `unet_encoder.py:66-91`): Lloyd's
-    algorithm from K distinct feature rows (`init_idx`, or drawn from
-    `generator`), then `embed = embed_avg = centers` and `cluster_size = 0`,
-    so the EMA continues from the initialised codebook."""
+    As the JAX function (reference `unet_encoder.py:66-91`): with
+    `axis_name`, every rank's feature rows gathered in rank order; then
+    Lloyd's algorithm from K distinct rows (`init_idx`, or drawn from
+    `generator`, which must be the ranks' replicated stream so that every
+    rank starts from the same rows), computed alike on every rank; then
+    `embed = embed_avg = centers` and `cluster_size = 0`, so the EMA
+    continues from the initialised codebook."""
     c = feats.shape[-1]
     k = vq_state.embed.shape[0]
-    _, centers = kmeans(feats.reshape(-1, c), k, num_iters=num_iters,
-                        init_idx=init_idx, generator=generator)
+    flat = feats.reshape(-1, c)
+    if axis_name is not None:
+        flat = all_gather_rows(flat)
+    _, centers = kmeans(flat, k, num_iters=num_iters, init_idx=init_idx,
+                        generator=generator)
     return VQState(embed=centers, cluster_size=torch.zeros_like(vq_state.cluster_size),
                    embed_avg=centers.clone())
 
@@ -120,8 +135,8 @@ class EncoderWithVQ(UNetEncoder):
                  filters: Sequence[int] = (64, 128, 256, 512, 1024),
                  dict_size: int = 512, momentum: float = 0.99, eps: float = 1e-5,
                  use_styled_up_block: bool = False, knn_backend: str = "xla",
-                 dtype=None):
-        super().__init__(in_channels, filters, use_styled_up_block, dtype)
+                 dtype=None, axis_name=None):
+        super().__init__(in_channels, filters, use_styled_up_block, dtype, axis_name)
         self.dict_size = dict_size
         self.emb_dim = self.filters[0]
         self.momentum = momentum
@@ -133,5 +148,5 @@ class EncoderWithVQ(UNetEncoder):
         """x (B,H,W,in) → (quantized, commit, ids+1, vq_state')."""
         return encode_quantize(
             self, self.vq.state(), x, momentum=self.momentum, eps=self.eps,
-            train=train, backend=self.knn_backend,
+            train=train, backend=self.knn_backend, axis_name=self.axis_name,
         )

@@ -6,6 +6,13 @@ share `quantize` and differ only in the assignment: `knn_backend`
 "pallas"/"faiss" takes the fused CUDA kernel (`vq_fused.vq_assign_fused`),
 "xla"/"torch" its plain PyTorch version (`vq_fused.vq_assign_fused_reference`).
 
+Distributed EMA, as the JAX function's `axis_name`: with `axis_name` set
+(`parallel.DATA_AXIS`) a training call averages the per-code counts and
+sums over the ranks of the process group in one all-reduce, between the
+assignment and the EMA (JAX `ops/vq.py:157-159`): both statistics averaged,
+not summed. The kernel's per-launch (and per-chunk) statistics are added up
+on each rank first; the ranks then share one codebook update.
+
 Layout: `vq_apply` takes features NHWC (B,H,W,C) like the JAX function, and
 returns raw 0-based ids (B,H,W) int32; the +1 offset is the encoder's.
 """
@@ -14,6 +21,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import pmean
 
 
 class VQState(NamedTuple):
@@ -86,9 +95,11 @@ def _ema(base, update, momentum):
 
 
 def quantize(state: VQState, x: torch.Tensor, assign, *, momentum: float,
-             eps: float, train: bool):
+             eps: float, train: bool, axis_name=None):
     """Shared body of `vq_apply` and `vq_apply_fused`. `assign(embed, flat)`
-    → (ids (N,), quantized rows (N,C), counts (K,), sums (K,C))."""
+    → (ids (N,), quantized rows (N,C), counts (K,), sums (K,C)); with
+    `axis_name`, a training call's counts and sums are averaged over the
+    ranks before the EMA."""
     k, c = state.embed.shape
     b, h, w, cc = x.shape
     if cc != c:
@@ -103,6 +114,8 @@ def quantize(state: VQState, x: torch.Tensor, assign, *, momentum: float,
     quantized_st = straight_through(quantized, x)
     if not train:
         return quantized_st, commit_loss, ids, state
+    if axis_name is not None:
+        counts, sums = pmean([counts, sums])
 
     # EMA of counts/sums, Laplace-smoothed normalization (`vq_module.py:182-200`)
     cluster_size = _ema(state.cluster_size, counts, momentum)
@@ -122,13 +135,14 @@ def vq_apply(
     eps: float = 1e-5,
     train: bool = True,
     backend: str = "xla",
+    axis_name=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, VQState]:
     """Quantize x (B,H,W,C) → (quantized_st, commit_loss, ids (B,H,W), state').
 
     `backend` "pallas"/"faiss" runs the fused CUDA kernel on CUDA tensors,
     "xla"/"torch" its plain PyTorch version. With `train=True` the EMA
     codebook update is applied to the returned state (the input state is not
-    modified).
+    modified); with `axis_name` its statistics are averaged over the ranks.
     """
     from .vq_fused import vq_assign_fused, vq_assign_fused_reference
 
@@ -138,4 +152,5 @@ def vq_apply(
         assign = vq_assign_fused_reference
     else:
         raise ValueError(f"unknown knn_backend {backend!r}")
-    return quantize(state, x, assign, momentum=momentum, eps=eps, train=train)
+    return quantize(state, x, assign, momentum=momentum, eps=eps, train=train,
+                    axis_name=axis_name)

@@ -23,6 +23,16 @@ here the step updates the state's modules, optimizers and codebook in
 place, and takes each view's random draws (`ops/augment.py`), then each
 decode's DropBlock draws (`models.unet_decoder.sample_dropblock_draws`),
 from the state's generator, or as data.
+
+Data parallel, as the JAX step's `axis_name` (`first_stage.py:105-106,
+235-237, 261-262`): a step built with `axis_name=parallel.DATA_AXIS` runs
+on each rank's own rows with the encoder and decoder built with the same
+`axis_name` (the VQ statistics and the SPADE BatchNorms synced), draws from
+`state.py::per_rank_generator` of the replicated generator, averages the
+encoder's gradients and then the decoder's over the ranks (one all-reduce
+each) before the two Adams, and returns the metrics averaged over the ranks.
+`init_codebook_step` of such an encoder gathers every rank's features for
+the k-means.
 """
 
 from typing import NamedTuple
@@ -35,8 +45,9 @@ from ..ops.augment import cross_view_transform, random_transform, sample_view_dr
 from ..ops.losses import embedding_loss, focal_frequency_loss
 from ..ops.onehot import one_hot
 from ..ops.windowing import denorm, norm
+from ..parallel.mesh import pmean, world
 from ..utils.device import resolve_device
-from .state import TrainState
+from .state import TrainState, per_rank_generator
 
 
 class FirstStageLossConfig(NamedTuple):
@@ -90,6 +101,26 @@ def adam_step(opt: torch.optim.Optimizer) -> None:
     opt.step()
 
 
+def pmean_gradients(opt: torch.optim.Optimizer) -> None:
+    """Average the gradients of `opt`'s parameters over the ranks in one
+    all-reduce (a missing gradient counts as zero, as in `adam_step`)."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    for p, g in zip(params, pmean([p.grad for p in params])):
+        p.grad = g
+
+
+def step_generator(generator: torch.Generator, axis_name) -> torch.Generator:
+    """The generator a step draws from: with `axis_name` under more than
+    one rank, this rank's `per_rank_generator`; else `generator` itself."""
+    rank, size = world()
+    if axis_name is None or size == 1:
+        return generator
+    return per_rank_generator(generator, rank)
+
+
 def view_dropblock_draws(generator, decoder, batch: int, height: int, width: int):
     """The two decodes' DropBlock draws (None each without `use_dropblock`)."""
     return tuple(sample_dropblock_draws(generator, decoder, batch, height, width)
@@ -118,7 +149,7 @@ def make_first_stage_forward(encoder, decoder, *, loss_cfg: FirstStageLossConfig
     def encode(x, vq_state):
         return encode_quantize(encoder, vq_state, x.to(compute_dtype),
                                momentum=encoder.momentum, eps=encoder.eps, train=True,
-                               backend=encoder.knn_backend)
+                               backend=encoder.knn_backend, axis_name=encoder.axis_name)
 
     def decode(q, drop_prob, dropblock_draws):
         out = decoder(q.permute(0, 3, 1, 2), drop_prob, dropblock_draws)
@@ -184,7 +215,7 @@ def make_first_stage_forward(encoder, decoder, *, loss_cfg: FirstStageLossConfig
 
 def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, aug_cfg,
                           dict_size: int, compute_dtype=torch.float32, device="cuda",
-                          perceptual_fn=None, recon_loss_fn=None):
+                          perceptual_fn=None, recon_loss_fn=None, axis_name=None):
     """Build the first-stage step.
 
     encoder: models.unet_encoder.EncoderWithVQ; decoder: models.UNetDecoder;
@@ -195,8 +226,11 @@ def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, a
     dropblock_draws=None) → (state, metrics): `draws` is a pair of views'
     draws (`ops.augment.sample_view_draws`), `dropblock_draws` the pair of
     decodes' DropBlock draws (`view_dropblock_draws`); by default the step
-    draws them from `state.generator`, in that order. Metrics are 0-d
-    tensors on the device."""
+    draws them from `state.generator` (`step_generator`), in that order.
+    Metrics are 0-d tensors on the device. With `axis_name` (the encoder
+    and decoder built with it too) the step is data parallel: this rank's
+    rows of the batch in `image`, gradients and metrics averaged over the
+    ranks."""
     dev = resolve_device(device)
     forward = make_first_stage_forward(encoder, decoder, loss_cfg=loss_cfg, aug_cfg=aug_cfg,
                                        dict_size=dict_size, compute_dtype=compute_dtype,
@@ -206,11 +240,13 @@ def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, a
     def step_fn(state: TrainState, image, draws=None, drop_prob=0.0, dropblock_draws=None):
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         b, h, w, c = image.shape
+        if draws is None or (dropblock_draws is None and decoder.use_dropblock):
+            gen = step_generator(state.generator, axis_name)
         if draws is None:
-            draws = tuple(sample_view_draws(state.generator, aug_cfg, b, h, w, c)
-                          for _ in range(2))
+            draws = tuple(sample_view_draws(gen, aug_cfg, b, h, w, c) for _ in range(2))
         if dropblock_draws is None:
-            dropblock_draws = view_dropblock_draws(state.generator, decoder, b, h, w)
+            dropblock_draws = (view_dropblock_draws(gen, decoder, b, h, w)
+                               if decoder.use_dropblock else (None, None))
         metrics, vq_2, _, _ = forward(state, image, draws, drop_prob, dropblock_draws)
         total = sum(metrics.values())
 
@@ -218,11 +254,15 @@ def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, a
             opt.zero_grad()
         total.backward()
         for opt in (state.enc_opt, state.dec_opt):
+            if axis_name is not None:
+                pmean_gradients(opt)
             adam_step(opt)
 
         encoder.vq.set_state(vq_2)
         state.step += 1
         metrics = {"total": total.detach(), **{k: v.detach() for k, v in metrics.items()}}
+        if axis_name is not None:
+            metrics = dict(zip(metrics, pmean(list(metrics.values()))))
         return state, metrics
 
     return step_fn
@@ -231,9 +271,12 @@ def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, a
 def init_codebook_step(encoder, *, num_iters: int = 50):
     """Codebook initialisation, run once before training: k-means on the
     encoder's eval-mode features of one batch (reference: the in-forward
-    trigger of `unet_encoder.py:66-91`). Returns init_fn(state, image
-    (B,H,W,C), init_idx=None) → state; the K initial rows are `init_idx`,
-    or drawn from `state.generator`."""
+    trigger of `unet_encoder.py:66-91`); for an encoder built with
+    `axis_name`, on every rank's batch gathered in rank order (JAX passes
+    the same axis to its `init_codebook_step`). Returns init_fn(state,
+    image (B,H,W,C), init_idx=None) → state; the K initial rows (of the
+    gathered rows) are `init_idx`, or drawn from `state.generator`, the
+    ranks' replicated stream."""
 
     def init_fn(state: TrainState, image, init_idx=None):
         dev = encoder.vq.embed.device
@@ -244,7 +287,8 @@ def init_codebook_step(encoder, *, num_iters: int = 50):
             feats = encoder(image.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
             new_vq = init_codebook_from_batch(feats, encoder.vq.state(),
                                               num_iters=num_iters, init_idx=init_idx,
-                                              generator=state.generator)
+                                              generator=state.generator,
+                                              axis_name=encoder.axis_name)
         encoder.vq.set_state(new_vq)
         encoder.train(training)
         return state

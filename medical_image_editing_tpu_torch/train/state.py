@@ -18,8 +18,15 @@ and its Adam, and no encoder (`encoder` and `enc_opt` are None; the JAX
 state's `enc_vars` are empty). `state_dict`/`load_state_dict` cover all
 of it, for `utils/checkpoint.py`; a first-stage state and its checkpoints
 carry no discriminator.
+
+Under a process group the state is replicated: every rank holds the same
+modules, optimizers and generator (`replicate_state`), and
+`per_rank_generator` gives each rank its own draws for a step from that
+shared generator, as JAX's `per_device_keys` folds the device index into
+the replicated key.
 """
 
+import hashlib
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
@@ -27,6 +34,7 @@ import torch
 from torch import nn
 
 from ..ops.vq import VQState
+from ..parallel.mesh import digest, replicate
 from ..utils.config import getattr_else_none as g
 
 
@@ -123,3 +131,40 @@ def create_train_state(encoder: Optional[nn.Module], decoder: nn.Module, enc_opt
     gen = torch.Generator(device=device).manual_seed(seed)
     return TrainState(encoder, decoder, enc_opt, dec_opt, gen,
                       discriminator=discriminator, dis_opt=dis_opt)
+
+
+def per_rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:
+    """A generator for one rank's draws of one step, on `generator`'s
+    device: seeded from `generator`'s state (the ranks' replicated stream)
+    and `rank`, as JAX's `per_device_keys` folds the device index into the
+    replicated key. `generator` then moves on by one draw, alike on every
+    rank, so that it stays replicated, and a checkpoint of rank 0's state
+    resumes every rank. Reads the state on the host: no device sync."""
+    key = generator.get_state().cpu().numpy().tobytes()
+    torch.rand((), generator=generator, device=generator.device)
+    seed = hashlib.blake2b(key + int(rank).to_bytes(4, "little"), digest_size=8).digest()
+    return torch.Generator(device=generator.device).manual_seed(
+        int.from_bytes(seed, "little") >> 1)
+
+
+def replicate_state(state: TrainState) -> TrainState:
+    """Make every rank hold rank 0's state (JAX `replicate`): the modules'
+    parameters and buffers and the optimizers' moments broadcast from rank
+    0; step, epoch, the Adam step counts and the generator's state checked
+    equal on every rank (they are: the same seeds, or one checkpoint).
+    Nothing without a process group."""
+    modules = [m for m in (state.encoder, state.decoder, state.discriminator) if m is not None]
+    opts = [o for o in (state.enc_opt, state.dec_opt, state.dis_opt) if o is not None]
+    tensors = [t for m in modules for t in (*m.parameters(), *m.buffers())]
+    steps = []
+    for opt in opts:
+        for group in opt.param_groups:
+            for p in group["params"]:
+                for k, v in opt.state.get(p, {}).items():
+                    if k == "step":
+                        steps.append(int(v))
+                    elif isinstance(v, torch.Tensor):
+                        tensors.append(v)
+    replicate(tensors, [state.step, state.epoch, len(steps), sum(steps),
+                        digest(state.generator.get_state())], device=state.device)
+    return state

@@ -61,6 +61,20 @@ the discriminator in every training mode:
     PNG/NIfTI export; in the multi-window flavour the HU-denormalized
     per-slice NIfTI export (`evaluate.multi_window_test_export`).
 
+Data parallel (ROADMAP 15(i)), under a process group (`torchrun`, see
+`cli/run_vqwnet.py`): the trainer takes its rank and world size from the
+group and its device as the rank's card; the encoder and decoder are built
+with `parallel.DATA_AXIS` (synced SPADE BatchNorms and VQ statistics), the
+state is replicated from rank 0 after any resume, the k-means gathers every
+rank's first batch, the first-stage step averages gradients and metrics
+over the ranks (so every rank takes the same divergence decision), each
+rank loads `dataset.batch_size` rows of its shard a step, and validation,
+snapshots, checkpoints, the profiler trace and `log.csv` come from rank 0
+alone, each followed by a barrier. `-m test` runs each rank on its strided
+shard of the test set and rank 0 writes, as in JAX. Under more than one
+rank the second stage, the multi-window trainer and the VQGAN trainer are
+refused (item 15(ii)).
+
 Not ported yet, and refused rather than run without its part: projection
 discrimination (`model.dis.n_classes > 0`, item 21).
 """
@@ -82,9 +96,9 @@ from ..models.vqgan import VQGAN
 from ..ops._build import KernelError
 from ..ops.dropblock import dropblock_schedule
 from ..ops.windowing import denormalize, t_normalize
+from ..parallel.mesh import DATA_AXIS, barrier, is_active, rank_device, world
 from ..utils.checkpoint import CheckpointManager, restore_fields, restore_state
 from ..utils.config import getattr_else_none as g
-from ..utils.device import resolve_device
 from ..utils.logging import Logger, is_main_process
 from . import evaluate
 from .first_stage import init_codebook_step, loss_config_from_json, make_first_stage_step
@@ -94,7 +108,7 @@ from .multi_window import (
     make_multi_window_second_stage_step,
 )
 from .second_stage import make_second_stage_step, second_stage_config_from_json
-from .state import create_train_state, make_optimizer_from_config
+from .state import create_train_state, make_optimizer_from_config, replicate_state
 from .vqgan_stage import make_vqgan_step
 
 TRAINING_MODES = ("first_step", "second_step")
@@ -119,8 +133,24 @@ def _not_ported(what: str, item: str):
         "use the JAX package's trainer for it")
 
 
+def refuse_unsynced(world_size: int, training_mode: str, use_multi_window: bool,
+                     use_vqgan: bool) -> None:
+    """Raise ValueError for a trainer whose step is not data parallel yet,
+    under more than one rank (ROADMAP item 15(ii))."""
+    if world_size == 1:
+        return
+    what = ("the multi-window trainer (-w)" if use_multi_window
+            else "the VQGAN trainer (-v)" if use_vqgan
+            else "the second stage (run.training_mode 'second_step')"
+            if training_mode == "second_step" else None)
+    if what is not None:
+        raise ValueError(f"{what} under {world_size} ranks: data parallelism of the GAN "
+                         "trainers is ROADMAP item 15(ii) and not ported; run it on one rank")
+
+
 class Trainer:
-    """Models + step + loaders for one config, on one device."""
+    """Models + step + loaders for one config, on one device (this rank's,
+    under a process group)."""
 
     def __init__(self, config, logger: Optional[Logger] = None, uploader=None,
                  use_multi_window: bool = False, use_vqgan: bool = False,
@@ -130,9 +160,13 @@ class Trainer:
         self.uploader = uploader
         self.use_multi_window = bool(use_multi_window)
         self.use_vqgan = bool(use_vqgan)
-        self.device = resolve_device(device)
+        self.rank, self.world_size = world()
+        self.axis_name = DATA_AXIS if is_active() else None
+        self.device = rank_device(device)
         self.seed = int(seed)
         self.training_mode = str(config.run.training_mode)
+        refuse_unsynced(self.world_size, self.training_mode, self.use_multi_window,
+                         self.use_vqgan)
         self._configure_models()
         self._configure_losses()
         self._step = None  # (models, step_fn) of the last state trained
@@ -155,7 +189,8 @@ class Trainer:
             in_channels=int(gen.in_channels), filters=tuple(gen.enc_filters),
             dict_size=self.dict_size, momentum=float(gen.momentum),
             use_styled_up_block=bool(g(gen, "enc_use_styled_up_block", False)),
-            knn_backend=str(g(gen, "knn_backend", "xla") or "xla"), dtype=self.compute_dtype)
+            knn_backend=str(g(gen, "knn_backend", "xla") or "xla"), dtype=self.compute_dtype,
+            axis_name=self.axis_name)
         self._dec_kw = dict(
             in_channels=int(gen.enc_filters[0]), out_channels=int(gen.in_channels),
             filters=tuple(gen.dec_filters),
@@ -163,7 +198,7 @@ class Trainer:
             block_size=int(g(gen, "block_size", 30) or 30),
             dropped_skip_layers=tuple(gen.dropped_skip_layers or ()),
             use_pixel_shuffle=bool(g(gen, "use_pixel_shuffle", True)),
-            dtype=self.compute_dtype)
+            dtype=self.compute_dtype, axis_name=self.axis_name)
         # DropBlock's schedule (reference `base.py:185-187`)
         self._db = (float(g(gen, "start_value", 0.0) or 0.0),
                     float(g(gen, "stop_value", 0.0) or 0.0),
@@ -276,7 +311,7 @@ class Trainer:
                 state.encoder, state.decoder, state.discriminator,
                 loss_cfg=self.second_cfg, dis_type=self.dis_type, device=self.device, **percep)
         return make_first_stage_step(state.encoder, state.decoder, loss_cfg=self.first_cfg,
-                                     **first)
+                                     axis_name=self.axis_name, **first)
 
     def drop_prob(self, epoch: int) -> float:
         """DropBlock's drop_prob in `epoch` (the schedule; JAX
@@ -429,9 +464,12 @@ class Trainer:
         if g(run, "resume_checkpoint", None):
             restore_state(str(run.resume_checkpoint), state)
             print(f"Resumed from {run.resume_checkpoint}")
+        if self.axis_name is not None:
+            replicate_state(state)
 
         # codebook k-means on the first batch (reference: in the first
-        # forward); the VQGAN's codebook starts random, as in JAX
+        # forward; under a group, every rank's first batch gathered); the
+        # VQGAN's codebook starts random, as in JAX
         if (not self.use_vqgan and bool(g(cfg.model.vqmodel, "use_init_embed", False))
                 and state.step == 0):
             first = next(iter(loader))
@@ -442,7 +480,7 @@ class Trainer:
         # the validation grids show the discriminator's maps in the GAN modes
         dis = state.discriminator if self.training_mode in GAN_MODES else None
         if self.logger is not None and bool(g(run, "use_validation_sanity_check", False)):
-            self._validate(eval_forward, epoch=-1, dis=dis)
+            self._on_rank0(self._validate, eval_forward, epoch=-1, dis=dis)
         if self.perceptual_fallback:
             print("WARNING: use_perceptual_loss is ON but no pretrained weights are loaded "
                   "(MEDIMG_VGG19_NPZ / MEDIMG_LPIPS_NPZ unset) — training against the seeded "
@@ -453,7 +491,7 @@ class Trainer:
         # divergence guard: halt on a non-finite total instead of training
         # on a poisoned state; `run.halt_on_non_finite: false` disables
         halt_on_non_finite = bool(g(run, "halt_on_non_finite", True))
-        profile_dir = g(run, "profile_dir", None)
+        profile_dir = g(run, "profile_dir", None) if self.rank == 0 else None
         profile_start = int(g(run, "profile_start_step", 10) or 10)
         profile_num = int(g(run, "profile_num_steps", 5) or 5)
         profiler = None
@@ -495,7 +533,7 @@ class Trainer:
                         m["perceptual_fallback"] = 1.0
                     self.logger.log_metrics(m, step=global_step)
                     if global_step % SNAPSHOT_INTERVAL == 0:
-                        self._snapshot(eval_forward, batch, global_step)
+                        self._on_rank0(self._snapshot, eval_forward, batch, global_step)
                 saved_step = None
                 if saver is not None and save_every_n_steps \
                         and global_step % save_every_n_steps == 0:
@@ -515,10 +553,18 @@ class Trainer:
             if saver is not None:
                 saver.save(state, epoch)
             if self.logger is not None:
-                self._validate(eval_forward, epoch, dis=dis)
+                self._on_rank0(self._validate, eval_forward, epoch, dis=dis)
         if profiler is not None:  # fit ended inside the capture window
             self._stop_profiler(profiler, str(profile_dir))
         return state
+
+    def _on_rank0(self, fn, *args, **kw):
+        """`fn` on rank 0 alone; every rank then waits at a barrier."""
+        try:
+            if self.rank == 0:
+                fn(*args, **kw)
+        finally:
+            barrier()
 
     def _eval_forward(self, state):
         """image → (recon, label map) of `state`'s models: through the whole

@@ -8,9 +8,11 @@ the step returns the new codebook state and the metrics.
 
 The JAX package's ('data', 'spatial') mesh, which shards volumes over
 batch and depth (`create_volumetric_mesh`, `mesh=`), is multi-card: ROADMAP
-item 15. A mesh is refused.
+item 15(iii). A mesh is refused, and so is a run under more than one rank
+(`refuse_ranks`), which would train unsynchronised copies.
 """
 
+import os
 from typing import Optional
 
 import torch
@@ -26,13 +28,24 @@ from ..utils.device import resolve_device
 from .state import make_optimizer
 
 MESH_REFUSAL = ("the volumetric depth sharding ('data', 'spatial' mesh) is multi-card, "
-                "ROADMAP item 15, and not ported: run on one device")
+                "ROADMAP item 15(iii), and not ported: run on one device")
 
 
 def refuse_mesh(mesh) -> None:
-    """Raise `ValueError` (naming ROADMAP item 15) for a non-None mesh."""
+    """Raise `ValueError` (naming ROADMAP item 15(iii)) for a non-None mesh."""
     if mesh is not None:
         raise ValueError(f"mesh {mesh!r}: {MESH_REFUSAL}")
+
+
+def refuse_ranks() -> None:
+    """Raise `ValueError` (naming ROADMAP item 15(iii)) under more than one
+    rank: torchrun's `WORLD_SIZE` or a process group."""
+    from ..parallel.mesh import world
+
+    size = max(world()[1], int(os.environ.get("WORLD_SIZE") or 1))
+    if size > 1:
+        raise ValueError(f"{size} ranks: the volumetric trainer is not data parallel; "
+                         f"{MESH_REFUSAL}")
 
 
 def init_volumetric(generator: torch.Generator, *, filters=(8, 16, 32, 64),

@@ -21,7 +21,9 @@ reference `src/utils/logger.py:79-91`, `src/trainers/base.py:85-114`,
 
 A checkpoint is written under a temporary name in the same directory and
 moved into place with `os.replace`, so no partial checkpoint is ever
-visible. Saves are synchronous (the JAX package's `use_async` overlaps
+visible. Under a process group the state is replicated: rank 0 alone makes
+the directory, writes and prunes, and every rank waits at a barrier after
+each save; a resume reads the checkpoint on every rank. Saves are synchronous (the JAX package's `use_async` overlaps
 Orbax writes with compute; here a save is one `torch.save`).
 
 The JAX package's Orbax checkpoint directories cannot be read here (no orbax
@@ -38,6 +40,8 @@ import shutil
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from ..parallel.mesh import barrier, world
 
 _CKPT_RE = re.compile(r"ckpt-epoch=(\d+)(?:-step=(\d+))?")
 STATE_FILE = "state.pt"
@@ -100,15 +104,20 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.limit_num = limit_num
         self.save_interval = save_interval
-        os.makedirs(self.directory, exist_ok=True)
+        if world()[0] == 0:
+            os.makedirs(self.directory, exist_ok=True)
 
     # -- save / prune ---------------------------------------------------------
     def save(self, state, epoch: int, step: Optional[int] = None) -> str:
         """Save `state` (anything with `state_dict()`). `step` marks a
-        mid-epoch save; epoch-end saves omit it. Returns the path."""
-        path = save_state_dir(os.path.join(self.directory, _ckpt_name(epoch, step)),
-                              state.state_dict())
-        self._prune()
+        mid-epoch save; epoch-end saves omit it. Returns the path. Under a
+        process group rank 0 writes and prunes, and every rank returns after
+        the barrier that follows."""
+        path = os.path.join(self.directory, _ckpt_name(epoch, step))
+        if world()[0] == 0:
+            save_state_dir(path, state.state_dict())
+            self._prune()
+        barrier()
         return path
 
     def _entries(self) -> Sequence[Tuple[int, Optional[int]]]:

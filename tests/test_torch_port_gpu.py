@@ -1053,3 +1053,44 @@ def test_int8_decode_goes_through_the_kernels(cuda, monkeypatch):
             want = edit(vq, ids)
         assert torch.equal(got, want)
         assert torch.isfinite(got).all()
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_group_is_bit_identical_to_no_group(cuda, monkeypatch):
+    """`initialize_distributed` from a one-rank torchrun environment makes
+    an NCCL group; `pmean` and the synced batch norm (forward, running
+    stats, input and parameter gradients) through it equal the same calls
+    with no group, bit for bit."""
+    import torch.distributed as dist
+
+    from medical_image_editing_tpu_torch.models.blocks import FlaxBatchNorm
+    from medical_image_editing_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(4)
+    a, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+            for s in ((3, 4), (7,)))
+    x = torch.from_numpy(rng.normal(size=(4, 6, 9, 9)).astype(np.float32)).to(cuda)
+
+    def run():
+        bn = FlaxBatchNorm(6, axis_name=mesh.DATA_AXIS).to(cuda)
+        xx = x.clone().requires_grad_()
+        y = bn(xx)
+        (y * y).mean().backward()
+        return [*mesh.pmean([a, b]), y.detach(), bn.running_mean, bn.running_var,
+                xx.grad, bn.weight.grad, bn.bias.grad]
+
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT="0").items():
+        monkeypatch.setenv(k, v)
+    assert mesh.initialize_distributed("cuda")
+    try:
+        assert dist.get_backend() == "nccl" and mesh.world() == (0, 1)
+        mesh.collectives.clear()
+        grouped = run()
+        torch.cuda.synchronize()
+        assert mesh.collectives["all_reduce"] == 3  # pmean, the norm forward and backward
+    finally:
+        mesh.destroy_distributed()
+    alone = run()
+    for got, want in zip(grouped, alone):
+        assert torch.equal(got, want)

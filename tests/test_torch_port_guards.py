@@ -68,7 +68,7 @@ def test_port_imports_no_jax():
             f"{PKG}.train.volumetric", f"{PKG}.cli.train_volumetric", f"{PKG}.cli.edit_volume",
             f"{PKG}.data.preprocess", f"{PKG}.ops.quantized_conv", f"{PKG}.utils.torch_export",
             f"{PKG}.utils.torch_import", f"{PKG}.cli.import_ckpt",
-            f"{PKG}.cli.export_ckpt"} <= set(modules)
+            f"{PKG}.cli.export_ckpt", f"{PKG}.parallel", f"{PKG}.parallel.mesh"} <= set(modules)
 
 
 @pytest.fixture
@@ -563,3 +563,44 @@ def test_chip_smoke_ckpt_crossing_phase_on_cpu(tmp_path, capsys):
            if line.startswith('{"phase": "ckpt_crossing"')][-1]
     assert rec["steps"] == 2 and rec["imported_tensors_equal_run"] and rec["counters_kept"]
     assert rec["decode_equals_trained_state"] == {"imported": True, "run": True}
+
+
+def test_chip_smoke_ddp_phase_on_cpu(tmp_path, capsys, monkeypatch):
+    """The ddp phase at tiny widths on the CPU: two spawned gloo ranks (the
+    Trainer's replicated state, the gathered k-means, 3 steps) bit for bit
+    equal after each step, in bf16 and f32 within the card's limits of one
+    process on the same rows after the first step, the planted fault above
+    them; the
+    one-rank group made by `run_vqwnet` from a torchrun environment bit
+    for bit the run without one; no kernel launch."""
+    smoke = _chip_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # the ranks import it by name
+    overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
+                                   "dec_filters": [32, 8, 8, 16, 16]},
+                 "dataset": {"batch_size": 2}}
+    # the card's limits, but for the f32 encoder: at these widths (a 2×2
+    # bottleneck) its gradient is ill-conditioned, 0.22 from one process
+    # here against the card's 0.037 at full widths (the planted fault: 1.18)
+    limits = {"bfloat16": smoke.DDP_GAP_LIMIT["bfloat16"],
+              "float32": {**smoke.DDP_GAP_LIMIT["float32"], "encoder_moments": 0.5}}
+    with smoke.conv_route("packed"):
+        launches = smoke.ddp_phase("cpu", tmp_path, size=32, rows=2, steps=3,
+                                   overrides=overrides, timed_steps=2, limits=limits)
+    assert launches == {}
+    rec = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith('{"phase": "ddp"')][-1]
+    assert sorted(rec["by_dtype"]) == ["bfloat16", "float32"]
+    for c in rec["by_dtype"].values():
+        assert c["ranks_bit_identical_each_step"] == [True] * 3 and c["generator_replicated"]
+        assert c["planted_fault_ranks_bit_identical"] == [False] * 3
+        limit = c["gap_limit"]
+        assert all(g[k][0] <= limit[k] for g in c["gap_to_one_process"] for k in limit)
+        assert c["planted_fault_gap"][1]["decoder_moments"][0] > limit["decoder_moments"]
+    assert rec["cli_bit_identical"] == {"log_csv": True, "state": True}
+    n_bn = 2 * 4  # two SPADE BatchNorms a decoder level
+    assert rec["collectives_per_step"]["all_reduce"] == 2 * 2 * n_bn + 2 + 2 + 1
+    group = rec["bare_step"]["group"]
+    assert group["backend"] == "gloo" and group["axis_name"] == "data"
+    assert group["collectives_per_step"]["all_reduce"] == 2 * 2 * n_bn + 2 + 2 + 1
+    assert rec["bare_step"]["alone"]["collectives_per_step"] == {}
+    assert os.environ.get("WORLD_SIZE") is None

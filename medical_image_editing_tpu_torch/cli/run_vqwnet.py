@@ -25,19 +25,24 @@ from `model.vqgan`); its `-m test` writes NMSE, SSIM, PSNR and the label
 entropy to `result.csv`, and `"training_mode": "inference"` exports the
 VQGAN's 0-based bottleneck label maps.
 
-Data parallel (ROADMAP 15(i)): under `torchrun` the first stage trains one
-replicated model on N ranks, one rank a card, each loading
+Data parallel (ROADMAP 15(i), 15(ii)): under `torchrun` every trainer
+trains one replicated model on N ranks, one rank a card, each loading
 `dataset.batch_size` rows a step:
 
     torchrun --nproc-per-node N -m medical_image_editing_tpu_torch.cli.run_vqwnet \
         -c configs/lung_first_stage.json -m train
+    torchrun --nproc-per-node N -m medical_image_editing_tpu_torch.cli.run_vqwnet \
+        -c configs/lung_second_stage.json -m train
+    torchrun --nproc-per-node N -m medical_image_editing_tpu_torch.cli.run_vqwnet \
+        -w -c configs/lung_multiwindow_joint.json -m train
+    torchrun --nproc-per-node N -m medical_image_editing_tpu_torch.cli.run_vqwnet \
+        -v -c configs/crc_vqgan.json -m train
 
 The CLI makes the process group from torchrun's environment (NCCL; gloo
 with `--device cpu`) and destroys it at exit; rank 0 alone writes the run
-directory (`config.json`, `log.csv`, checkpoints, grids, `result.csv`).
-Under more than one rank the second stage, `-w` and `-v` are refused
-(item 15(ii)). Without `WORLD_SIZE` in the environment nothing of this
-happens.
+directory (`config.json`, `log.csv`, checkpoints, grids, `result.csv`, the
+multi-window export). Without `WORLD_SIZE` in the environment nothing of
+this happens.
 """
 
 import argparse
@@ -118,16 +123,12 @@ def main(argv=None):
 
 
 def _run(args):
-    from ..parallel.mesh import world
-    from ..train.trainer import refuse_unsynced
     from ..utils.config import getattr_else_none as g
     from ..utils.config import load_dotenv, load_json, validate_config
     from ..utils.seed import init_seed
 
     load_dotenv()  # TOKEN / CHANNEL_ID etc.
     config = load_json(args.config)
-    refuse_unsynced(world()[1], str(g(config.run, "training_mode", "")),
-                    bool(args.multiwindow), bool(args.vqgan))
     for w in validate_config(config, multi_window=bool(args.multiwindow),
                              vqgan=bool(args.vqgan)):
         warnings.warn(w)

@@ -15,16 +15,24 @@ reference checkpoint stores the folded values under `loc`, `scale` and
 `initialized` only: loading one fills `data_loc` with 0 and `data_scale`
 with 1. `reverse` inverts the transform; `logdet` returns H·W·Σ log|scale|
 per sample beside the output. A 2-D input (N, C) is taken as (N, C, 1, 1).
+
+With `axis_name` (`parallel.DATA_AXIS`, as the JAX module's) the captured
+statistics are this rank's mean and this rank's std each averaged over the
+ranks (one all-reduce a train-mode forward, as JAX computes them on every
+one): not the std of the whole batch, as in JAX.
 """
 
 import torch
 from torch import nn
 
+from ..parallel.mesh import pmean
+
 
 class ActNorm(nn.Module):
-    def __init__(self, num_features: int, logdet: bool = False):
+    def __init__(self, num_features: int, logdet: bool = False, axis_name=None):
         super().__init__()
         self.logdet = logdet
+        self.axis_name = axis_name
         shape = (1, num_features, 1, 1)
         self.loc = nn.Parameter(torch.zeros(shape))
         self.scale = nn.Parameter(torch.ones(shape))
@@ -44,6 +52,8 @@ class ActNorm(nn.Module):
     def _capture(self, x):
         mean = x.mean((0, 2, 3), keepdim=True)
         std = x.std((0, 2, 3), correction=0, keepdim=True)
+        if self.axis_name is not None:
+            mean, std = pmean([mean, std])
         first = self.initialized == 0
         # new tensors, not in-place writes: an earlier forward's graph may
         # hold the old ones (several forwards share one backward)

@@ -16,7 +16,9 @@ carries `torch.nn.utils.spectral_norm`'s names (`weight_orig`, `weight_u`
 for those keys only and never read. The batchnorm is flax's
 (`blocks.FlaxBatchNorm`: batch statistics in training, the biased
 variance in the running stats); the actnorm is `models/actnorm.py`
-(initialised on the first train-mode forward).
+(initialised on the first train-mode forward). With `axis_name`
+(`parallel.DATA_AXIS`) both take their statistics over the ranks, as the
+JAX module passes its `axis_name` to `nn.BatchNorm` and `ActNorm`.
 """
 
 import torch
@@ -57,7 +59,7 @@ class NLayerDiscriminator(nn.Module):
 
     def __init__(self, out_channels: int = 1, n_filters: int = 64, n_layers: int = 3,
                  normalization: str = "batchnorm", apply_spectral_norm: bool = False,
-                 in_channels: int = 1):
+                 in_channels: int = 1, axis_name=None):
         super().__init__()
         if normalization not in ("instancenorm", "batchnorm", "actnorm"):
             raise ValueError(f"unknown normalization {normalization!r}")
@@ -70,8 +72,9 @@ class NLayerDiscriminator(nn.Module):
 
         def norm(c):
             if normalization == "batchnorm":
-                return FlaxBatchNorm(c)
-            return ActNorm(c) if normalization == "actnorm" else InstanceNorm()
+                return FlaxBatchNorm(c, axis_name=axis_name)
+            return (ActNorm(c, axis_name=axis_name) if normalization == "actnorm"
+                    else InstanceNorm())
 
         layers = [conv(in_channels, n_filters, 2), nn.LeakyReLU(0.2)]
         cin = n_filters

@@ -26,7 +26,9 @@ assignment runs the fused CUDA kernel on CUDA tensors. The ids are raw and
 adds no +1. The JAX module keeps the codebook outside (`VQState`) and
 returns the EMA-updated state; here a train-mode forward writes it into
 the module's buffers. Dropout (`p_dropout` > 0) draws its masks from the
-`generator` passed to `forward`.
+`generator` passed to `forward`. With `axis_name` (`parallel.DATA_AXIS`,
+as the JAX module's) a train-mode forward averages the codebook's counts
+and sums over the ranks before the EMA (`ops/vq.py`).
 """
 
 import math
@@ -286,10 +288,12 @@ class VQGAN(nn.Module):
                  num_res_blocks: int = 2, enc_attn_resolutions: Sequence[int] = (),
                  dec_attn_resolutions: Sequence[int] = (16,), resolution: int = 512,
                  p_dropout: float = 0.0, resamp_with_conv: bool = True,
-                 vq_momentum: float = 0.99, vq_eps: float = 1e-5, knn_backend: str = "xla"):
+                 vq_momentum: float = 0.99, vq_eps: float = 1e-5, knn_backend: str = "xla",
+                 axis_name=None):
         super().__init__()
-        self.emb_dim, self.dict_size = emb_dim, dict_size
+        self.emb_dim, self.dict_size, self.p_dropout = emb_dim, dict_size, p_dropout
         self.momentum, self.eps, self.knn_backend = vq_momentum, vq_eps, knn_backend
+        self.axis_name = axis_name
         common = dict(mid_channels=mid_channels, num_res_blocks=num_res_blocks,
                       resolution=resolution, p_dropout=p_dropout,
                       resamp_with_conv=resamp_with_conv)
@@ -305,7 +309,7 @@ class VQGAN(nn.Module):
         z = self.encoder(x, generator).permute(0, 2, 3, 1)
         emb, commit, ids, new_vq = vq_apply(self.vq.state(), z, momentum=self.momentum,
                                             eps=self.eps, train=train,
-                                            backend=self.knn_backend)
+                                            backend=self.knn_backend, axis_name=self.axis_name)
         if train:
             self.vq.set_state(new_vq)
         emb = emb.permute(0, 3, 1, 2)

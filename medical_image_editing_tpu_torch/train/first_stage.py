@@ -112,6 +112,14 @@ def pmean_gradients(opt: torch.optim.Optimizer) -> None:
         p.grad = g
 
 
+def pmean_metrics(metrics: dict, axis_name) -> dict:
+    """The metrics averaged over the ranks in one all-reduce (with
+    `axis_name`; as given without)."""
+    if axis_name is None:
+        return metrics
+    return dict(zip(metrics, pmean(list(metrics.values()))))
+
+
 def step_generator(generator: torch.Generator, axis_name) -> torch.Generator:
     """The generator a step draws from: with `axis_name` under more than
     one rank, this rank's `per_rank_generator`; else `generator` itself."""
@@ -261,9 +269,7 @@ def make_first_stage_step(encoder, decoder, *, loss_cfg: FirstStageLossConfig, a
         encoder.vq.set_state(vq_2)
         state.step += 1
         metrics = {"total": total.detach(), **{k: v.detach() for k, v in metrics.items()}}
-        if axis_name is not None:
-            metrics = dict(zip(metrics, pmean(list(metrics.values()))))
-        return state, metrics
+        return state, pmean_metrics(metrics, axis_name)
 
     return step_fn
 

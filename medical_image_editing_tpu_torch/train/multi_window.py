@@ -51,6 +51,17 @@ views' augmentation draws (`ops.augment.sample_view_draws`), one (box,
 invert) per window (`train.second_stage.sample_cutmix_draws`), then each
 decode's DropBlock draws (`models.unet_decoder.sample_dropblock_draws`).
 DropBlock's `drop_prob` is an argument of every step.
+
+Data parallel, as the JAX steps' `axis_name` (`multi_window.py:128-144,
+251-252, 299-303, 366-367, 500-502, 570-574`): every step built with
+`axis_name=parallel.DATA_AXIS` draws from `state.py::per_rank_generator`
+(each rank its own views, CutMix boxes and DropBlock masks), averages the
+encoder's and the decoder's gradients over the ranks before their Adams
+(the VQ statistics and the SPADE BatchNorms sync inside the models, built
+with the same `axis_name`), and returns the metrics averaged. The
+discriminator's gradients, summed over the windows by the per-window
+backward, are averaged once, after the last window, before its Adam; then
+its buffers (`second_stage.pmean_buffers`).
 """
 
 import contextlib
@@ -71,9 +82,17 @@ from .first_stage import (
     adam_step,
     make_first_stage_forward,
     make_first_stage_step,
+    pmean_gradients,
+    pmean_metrics,
+    step_generator,
     view_dropblock_draws,
 )
-from .second_stage import SecondStageLossConfig, sample_cutmix_draws, unet_perceptual_loss
+from .second_stage import (
+    SecondStageLossConfig,
+    pmean_buffers,
+    sample_cutmix_draws,
+    unet_perceptual_loss,
+)
 from .state import TrainState
 
 
@@ -202,13 +221,15 @@ def generator_terms(dis, apply_dis, fns, views, use_unet_perceptual: bool):
 
 
 def discriminator_update(dis, apply_dis, fns, views, cut_draws, cfg: SecondStageLossConfig,
-                          opt, per_window_backward: bool):
+                          opt, per_window_backward: bool, axis_name=None):
     """One discriminator update over every window × view pair: per window
     the forwards on the clear views, the (detached) reconstructions, then
     the CutMix composites of each view under the window's box (inverted at
     random); hinge on map and bottleneck, the CutMix hinge, the consistency
     MSE; each window's loss (weighted, over the windows' count)
-    backpropagated when its forwards are done, or the summed loss once.
+    backpropagated when its forwards are done, or the summed loss once;
+    with `axis_name` the summed gradients averaged over the ranks once,
+    then the Adam step, then the buffers averaged (`pmean_buffers`).
     Returns the weighted metrics dis_total, dis, cutmix, consistency."""
     h, w = views[0][0].shape[1:3]
     n = float(len(fns))
@@ -240,7 +261,11 @@ def discriminator_update(dis, apply_dis, fns, views, cut_draws, cfg: SecondStage
         sums = sums + terms.detach()
     if deferred:
         sum(deferred).backward()
+    if axis_name is not None:
+        pmean_gradients(opt)
     adam_step(opt)
+    if axis_name is not None:
+        pmean_buffers(dis)
     return {"dis_total": sums.sum(), "dis": sums[0], "cutmix": sums[1], "consistency": sums[2]}
 
 
@@ -249,14 +274,17 @@ def make_multi_window_first_stage_step(encoder, decoder, *, loss_cfg: FirstStage
                                        recon_weights=(1.0, 1.0, 1.0),
                                        freq_weights=(1.0, 1.0, 1.0),
                                        percep_weights=(1.0, 1.0, 1.0), perceptual_fn=None,
-                                       compute_dtype=torch.float32, device="cuda"):
-    """The first-stage step (`first_stage.make_first_stage_step`) with the
-    per-window reconstruction terms; same signature of the step."""
+                                       compute_dtype=torch.float32, device="cuda",
+                                       axis_name=None):
+    """The first-stage step (`first_stage.make_first_stage_step`, data
+    parallel with `axis_name`) with the per-window reconstruction terms;
+    same signature of the step."""
     recon_loss_fn = make_multiwindow_recon_loss(loss_cfg, dataset_window, recon_weights,
                                                 freq_weights, percep_weights, perceptual_fn)
     return make_first_stage_step(encoder, decoder, loss_cfg=loss_cfg, aug_cfg=aug_cfg,
                                  dict_size=dict_size, compute_dtype=compute_dtype,
-                                 device=device, recon_loss_fn=recon_loss_fn)
+                                 device=device, recon_loss_fn=recon_loss_fn,
+                                 axis_name=axis_name)
 
 
 def make_multi_window_second_stage_step(encoder, decoder, dis, *,
@@ -265,7 +293,8 @@ def make_multi_window_second_stage_step(encoder, decoder, dis, *,
                                         freq_weights=(1.0, 1.0, 1.0),
                                         percep_weights=(1.0, 1.0, 1.0), perceptual_fn=None,
                                         use_remat: bool = False,
-                                        per_window_backward: bool = True, device="cuda"):
+                                        per_window_backward: bool = True, device="cuda",
+                                        axis_name=None):
     """The GAN step over three windows (U-Net discriminator, hinge). Models
     on `device`; the decoder's and the discriminator's Adams in the
     `TrainState` the step gets. Returns step_fn(state, image (B,H,W,C) in
@@ -273,7 +302,8 @@ def make_multi_window_second_stage_step(encoder, decoder, dis, *,
     metrics): `draws` is one (box, invert) per window
     (`sample_cutmix_draws(generator, 3, H, W)`), `dropblock_draws` the
     decode's, from `state.generator` in that order by default. Metrics are
-    0-d tensors on the device."""
+    0-d tensors on the device. With `axis_name` the step is data parallel
+    (see the module docstring)."""
     if loss_cfg.dis_loss_type != "hinge_d_loss":
         raise ValueError(f"dis_loss_type {loss_cfg.dis_loss_type!r}: the multi-window "
                          "second stage trains with 'hinge_d_loss'")
@@ -289,10 +319,13 @@ def make_multi_window_second_stage_step(encoder, decoder, dis, *,
                 dropblock_draws=None):
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         b, h, w, _ = image.shape
+        if draws is None or (dropblock_draws is None and decoder.use_dropblock):
+            gen = step_generator(state.generator, axis_name)
         if draws is None:
-            draws = sample_cutmix_draws(state.generator, len(fns), h, w)
+            draws = sample_cutmix_draws(gen, len(fns), h, w)
         if dropblock_draws is None:
-            dropblock_draws = sample_dropblock_draws(state.generator, decoder, b, h, w)
+            dropblock_draws = (sample_dropblock_draws(gen, decoder, b, h, w)
+                               if decoder.use_dropblock else None)
 
         # frozen encoder, eval mode: no VQ EMA update, no gradient
         encoder.eval()
@@ -319,15 +352,18 @@ def make_multi_window_second_stage_step(encoder, decoder, dis, *,
             gen_total = sum(gen_metrics.values())
             state.dec_opt.zero_grad()
             gen_total.backward()
+        if axis_name is not None:
+            pmean_gradients(state.dec_opt)
         adam_step(state.dec_opt)
 
         # ---- one discriminator update, on the pre-update reconstruction
         dis_metrics = discriminator_update(dis, apply_dis, fns, [(recon.detach(), image)],
-                                            draws, cfg, state.dis_opt, per_window_backward)
+                                            draws, cfg, state.dis_opt, per_window_backward,
+                                            axis_name)
         state.step += 1
         metrics = {"gen_total": gen_total, **gen_metrics, **dis_metrics,
                    "total": gen_total + dis_metrics["dis_total"]}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, pmean_metrics({k: v.detach() for k, v in metrics.items()}, axis_name)
 
     return step_fn
 
@@ -337,7 +373,7 @@ def make_joint_step(encoder, decoder, dis, *, first_cfg: FirstStageLossConfig,
                     recon_weights=(1.0, 1.0, 1.0), freq_weights=(1.0, 1.0, 1.0),
                     percep_weights=(1.0, 1.0, 1.0), perceptual_fn=None,
                     use_remat: bool = False, per_window_backward: bool = True,
-                    compute_dtype=torch.float32, device="cuda"):
+                    compute_dtype=torch.float32, device="cuda", axis_name=None):
     """The joint step: encoder, decoder and U-Net discriminator in one step.
     Models on `device`, their three Adams in the `TrainState` the step gets.
     Returns step_fn(state, image (B,H,W,C) in [-1,1], draws=None,
@@ -345,7 +381,8 @@ def make_joint_step(encoder, decoder, dis, *, first_cfg: FirstStageLossConfig,
     (view 1's draws, view 2's draws, [one (box, invert) per window]),
     `dropblock_draws` the two decodes' (`view_dropblock_draws`), from
     `state.generator` in that order by default. Metrics are 0-d tensors on
-    the device."""
+    the device. With `axis_name` (the encoder and decoder built with it
+    too) the step is data parallel (see the module docstring)."""
     _require_unet(dis)
     dev = resolve_device(device)
     fns = window_fns(dataset_window)
@@ -359,11 +396,14 @@ def make_joint_step(encoder, decoder, dis, *, first_cfg: FirstStageLossConfig,
     def step_fn(state: TrainState, image, draws=None, drop_prob=0.0, dropblock_draws=None):
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         b, h, w, c = image.shape
+        if draws is None or (dropblock_draws is None and decoder.use_dropblock):
+            gen = step_generator(state.generator, axis_name)
         if draws is None:
-            views = [sample_view_draws(state.generator, aug_cfg, b, h, w, c) for _ in range(2)]
-            draws = (*views, sample_cutmix_draws(state.generator, len(fns), h, w))
+            views = [sample_view_draws(gen, aug_cfg, b, h, w, c) for _ in range(2)]
+            draws = (*views, sample_cutmix_draws(gen, len(fns), h, w))
         if dropblock_draws is None:
-            dropblock_draws = view_dropblock_draws(state.generator, decoder, b, h, w)
+            dropblock_draws = (view_dropblock_draws(gen, decoder, b, h, w)
+                               if decoder.use_dropblock else (None, None))
         dis.train()
 
         # ---- generator pass: the first stage's terms, then the adversarial
@@ -381,16 +421,18 @@ def make_joint_step(encoder, decoder, dis, *, first_cfg: FirstStageLossConfig,
                 opt.zero_grad()
             gen_total.backward()
         for opt in (state.enc_opt, state.dec_opt):
+            if axis_name is not None:
+                pmean_gradients(opt)
             adam_step(opt)
         encoder.vq.set_state(vq_2)
 
         # ---- one discriminator update, on the pre-update reconstructions
         views = [(r.detach(), t) for r, t in views]
         dis_metrics = discriminator_update(dis, apply_dis, fns, views, draws[2], second_cfg,
-                                            state.dis_opt, per_window_backward)
+                                            state.dis_opt, per_window_backward, axis_name)
         state.step += 1
         out = {"gen_total": gen_total, **metrics, **dis_metrics,
                "total": gen_total + dis_metrics["dis_total"]}
-        return state, {k: v.detach() for k, v in out.items()}
+        return state, pmean_metrics({k: v.detach() for k, v in out.items()}, axis_name)
 
     return step_fn

@@ -34,6 +34,19 @@ The JAX step is a pure function of (state, image) that splits its PRNG
 key; here the step updates the state's modules and optimizers in place
 and takes each iteration's CutMix draw (box, invert), then the decode's
 DropBlock draws, from the state's generator, or as data.
+
+Data parallel, as the JAX step's `axis_name` (`second_stage.py:149,
+219-220, 286-287, 296-300, 308-309`): a step built with
+`axis_name=parallel.DATA_AXIS` runs on each rank's own rows with the
+decoder built with the same `axis_name` (its SPADE BatchNorms synced),
+draws from `state.py::per_rank_generator` of the replicated generator (one
+CutMix box a rank and iteration), averages the decoder's gradients before
+its Adam and each inner iteration's discriminator gradients before the
+discriminator's, then, after the inner loop, the discriminator's
+floating-point buffers (spectral-norm vectors, BatchNorm running
+statistics, ActNorm's captured statistics: `pmean_buffers`), and returns
+the metrics averaged over the ranks. The frozen encoder needs no
+collective: it updates no EMA.
 """
 
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -44,8 +57,9 @@ from ..models.unet_decoder import sample_dropblock_draws
 from ..models.unet_encoder import encode_quantize
 from ..ops.cutmix import Box, cutmix_coordinates, cutmix_mask, mask_src_tgt
 from ..ops.losses import focal_frequency_loss, hinge_d_loss
+from ..parallel.mesh import pmean
 from ..utils.device import resolve_device
-from .first_stage import adam_step
+from .first_stage import adam_step, pmean_gradients, pmean_metrics, step_generator
 from .state import TrainState
 
 DIS_TYPES = ("UNetDiscriminator", "NLayerDiscriminator")
@@ -116,8 +130,32 @@ def sample_cutmix_draws(generator: torch.Generator, n_inner_loops: int, height: 
     return draws
 
 
+def pmean_buffers(module) -> None:
+    """Average `module`'s floating-point buffers over the ranks in one
+    all-reduce, as JAX `pmean`s a module's mutable collections; the
+    averages are written into the buffers. The integer buffers (BatchNorm's
+    count, ActNorm's flag) move alike on every rank and are left. The
+    ranks' weights are replicated, so the average changes nothing in exact
+    arithmetic: `module.buffer_drift` keeps the number of elements it did
+    change on this rank (a 0-d tensor on the device, read by the caller:
+    no host sync here). Nothing without a process group."""
+    bufs = [b for b in module.buffers() if b.is_floating_point()]
+    if not bufs:  # a PatchGAN with instance norm and no spectral norm
+        return
+    local = torch.cat([b.detach().reshape(-1) for b in bufs])
+    (avg,) = pmean([local])
+    if avg is local:
+        return
+    module.buffer_drift = (avg != local).sum()
+    with torch.no_grad():
+        i = 0
+        for b in bufs:
+            b.copy_(avg[i:i + b.numel()].view(b.shape))
+            i += b.numel()
+
+
 def discriminator_inner_loop(dis, x, recon, draws, cfg: SecondStageLossConfig, opt,
-                             is_unet: bool = True):
+                             is_unet: bool = True, axis_name=None):
     """`cfg.n_inner_loops` discriminator updates on the real batch `x` and
     the detached reconstruction `recon` (both NCHW, f32): per iteration the
     real, then the fake forward, hinge losses on map and bottleneck; for
@@ -126,8 +164,10 @@ def discriminator_inner_loop(dis, x, recon, draws, cfg: SecondStageLossConfig, o
     and on its bottleneck, and the consistency MSE between its map and the
     maps of real and fake mixed by the same box; then one Adam step of
     `opt`. The PatchGAN's scalar logits have no CutMix: its `cutmix` and
-    `consistency` are 0. Returns the last iteration's (total, {dis,
-    cutmix, consistency})."""
+    `consistency` are 0. With `axis_name` each iteration's gradients are
+    averaged over the ranks before the Adam step, and the discriminator's
+    buffers after the loop (`pmean_buffers`). Returns the last iteration's
+    (total, {dis, cutmix, consistency})."""
     dev = x.device
     h, w = x.shape[-2:]
     zero = torch.zeros((), device=dev)
@@ -153,13 +193,17 @@ def discriminator_inner_loop(dis, x, recon, draws, cfg: SecondStageLossConfig, o
         dis_total = sum(dis_metrics.values())
         opt.zero_grad()
         dis_total.backward()
+        if axis_name is not None:
+            pmean_gradients(opt)
         adam_step(opt)
+    if axis_name is not None:
+        pmean_buffers(dis)
     return dis_total, dis_metrics
 
 
 def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossConfig,
                            dis_type: str = "UNetDiscriminator", perceptual_fn=None,
-                           device="cuda"):
+                           device="cuda", axis_name=None):
     """Build the second-stage step.
 
     encoder: models.unet_encoder.EncoderWithVQ (frozen); decoder:
@@ -172,8 +216,11 @@ def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossCo
     metrics): `draws` holds one (box, invert) per inner iteration
     (`sample_cutmix_draws`; the PatchGAN path draws none),
     `dropblock_draws` the decode's (`sample_dropblock_draws`), drawn from
-    `state.generator` in that order by default. Metrics are 0-d tensors on
-    the device."""
+    `state.generator` in that order by default (`step_generator`). Metrics
+    are 0-d tensors on the device. With `axis_name` (the decoder and a
+    PatchGAN built with it too) the step is data parallel: this rank's rows
+    of the batch in `image`, gradients, the discriminator's buffers and the
+    metrics averaged over the ranks."""
     if loss_cfg.dis_loss_type != "hinge_d_loss":
         raise ValueError(f"dis_loss_type {loss_cfg.dis_loss_type!r}: the second stage "
                          "trains with 'hinge_d_loss'")
@@ -202,10 +249,13 @@ def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossCo
                 dropblock_draws=None):
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         b, h, w, _ = image.shape
+        if (is_unet and draws is None) or (dropblock_draws is None and decoder.use_dropblock):
+            gen = step_generator(state.generator, axis_name)
         if is_unet and draws is None:
-            draws = sample_cutmix_draws(state.generator, cfg.n_inner_loops, h, w)
+            draws = sample_cutmix_draws(gen, cfg.n_inner_loops, h, w)
         if dropblock_draws is None:
-            dropblock_draws = sample_dropblock_draws(state.generator, decoder, b, h, w)
+            dropblock_draws = (sample_dropblock_draws(gen, decoder, b, h, w)
+                               if decoder.use_dropblock else None)
         x = image.permute(0, 3, 1, 2)
         zero = torch.zeros((), device=dev)
 
@@ -244,14 +294,16 @@ def make_second_stage_step(encoder, decoder, dis, *, loss_cfg: SecondStageLossCo
         # still moves the moments)
         for p, g in zip(dec_params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        if axis_name is not None:
+            pmean_gradients(state.dec_opt)
         state.dec_opt.step()
         recon = recon.detach()  # the pre-update reconstruction, as the reference
 
         dis_total, dis_metrics = discriminator_inner_loop(dis, x, recon, draws, cfg,
-                                                          state.dis_opt, is_unet)
+                                                          state.dis_opt, is_unet, axis_name)
         state.step += 1
         metrics = {"gen_total": gen_total, **gen_metrics, "dis_total": dis_total,
                    **dis_metrics, "total": gen_total + dis_total}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, pmean_metrics({k: v.detach() for k, v in metrics.items()}, axis_name)
 
     return step_fn

@@ -61,19 +61,21 @@ the discriminator in every training mode:
     PNG/NIfTI export; in the multi-window flavour the HU-denormalized
     per-slice NIfTI export (`evaluate.multi_window_test_export`).
 
-Data parallel (ROADMAP 15(i)), under a process group (`torchrun`, see
-`cli/run_vqwnet.py`): the trainer takes its rank and world size from the
-group and its device as the rank's card; the encoder and decoder are built
-with `parallel.DATA_AXIS` (synced SPADE BatchNorms and VQ statistics), the
-state is replicated from rank 0 after any resume, the k-means gathers every
-rank's first batch, the first-stage step averages gradients and metrics
-over the ranks (so every rank takes the same divergence decision), each
-rank loads `dataset.batch_size` rows of its shard a step, and validation,
-snapshots, checkpoints, the profiler trace and `log.csv` come from rank 0
-alone, each followed by a barrier. `-m test` runs each rank on its strided
-shard of the test set and rank 0 writes, as in JAX. Under more than one
-rank the second stage, the multi-window trainer and the VQGAN trainer are
-refused (item 15(ii)).
+Data parallel (ROADMAP 15(i), 15(ii)), under a process group (`torchrun`,
+see `cli/run_vqwnet.py`): the trainer takes its rank and world size from
+the group and its device as the rank's card; the encoder, the decoder, the
+VQGAN and the PatchGAN are built with `parallel.DATA_AXIS` (synced SPADE
+and PatchGAN BatchNorms, ActNorm's data init and the VQ statistics), as
+are the steps of every mode (the JAX trainer's `axis_name`,
+`trainer.py:123-176,227`), the state (the discriminator and its Adam
+included) is replicated from rank 0 after any resume, the k-means gathers
+every rank's first batch (a staged codebook's too), every step averages
+gradients, the discriminator's buffers and metrics over the ranks (so
+every rank takes the same divergence decision), each rank loads
+`dataset.batch_size` rows of its shard a step, and validation, snapshots,
+checkpoints, the profiler trace and `log.csv` come from rank 0 alone, each
+followed by a barrier. `-m test` and the multi-window export run each rank
+on its strided shard of the test set and rank 0 writes, as in JAX.
 
 Not ported yet, and refused rather than run without its part: projection
 discrimination (`model.dis.n_classes > 0`, item 21).
@@ -133,21 +135,6 @@ def _not_ported(what: str, item: str):
         "use the JAX package's trainer for it")
 
 
-def refuse_unsynced(world_size: int, training_mode: str, use_multi_window: bool,
-                     use_vqgan: bool) -> None:
-    """Raise ValueError for a trainer whose step is not data parallel yet,
-    under more than one rank (ROADMAP item 15(ii))."""
-    if world_size == 1:
-        return
-    what = ("the multi-window trainer (-w)" if use_multi_window
-            else "the VQGAN trainer (-v)" if use_vqgan
-            else "the second stage (run.training_mode 'second_step')"
-            if training_mode == "second_step" else None)
-    if what is not None:
-        raise ValueError(f"{what} under {world_size} ranks: data parallelism of the GAN "
-                         "trainers is ROADMAP item 15(ii) and not ported; run it on one rank")
-
-
 class Trainer:
     """Models + step + loaders for one config, on one device (this rank's,
     under a process group)."""
@@ -165,8 +152,6 @@ class Trainer:
         self.device = rank_device(device)
         self.seed = int(seed)
         self.training_mode = str(config.run.training_mode)
-        refuse_unsynced(self.world_size, self.training_mode, self.use_multi_window,
-                         self.use_vqgan)
         self._configure_models()
         self._configure_losses()
         self._step = None  # (models, step_fn) of the last state trained
@@ -216,7 +201,7 @@ class Trainer:
                 dec_attn_resolutions=tuple(v.dec_attn_resolutions or ()),
                 resolution=int(v.resolution), p_dropout=float(g(v, "p_dropout", 0.0) or 0.0),
                 resamp_with_conv=bool(g(v, "resamp_with_conv", True)),
-                knn_backend=str(g(gen, "knn_backend", "xla") or "xla"))
+                knn_backend=str(g(gen, "knn_backend", "xla") or "xla"), axis_name=self.axis_name)
         self._configure_discriminator()
 
     def _configure_discriminator(self, build: Optional[bool] = None):
@@ -243,7 +228,7 @@ class Trainer:
                                 n_layers=int(dis.n_layers),
                                 normalization=str(dis.normalization),
                                 apply_spectral_norm=bool(g(dis, "apply_spectral_norm", False)),
-                                in_channels=in_ch)
+                                in_channels=in_ch, axis_name=self.axis_name)
         else:
             raise ValueError(f"model.dis.model_name {self.dis_type!r} is not "
                              "'UNetDiscriminator' or 'NLayerDiscriminator'")
@@ -280,14 +265,14 @@ class Trainer:
 
     def _make_step(self, state):
         """The training mode's step on `state`'s models."""
-        percep = dict(perceptual_fn=self.perceptual_fn)
+        every = dict(perceptual_fn=self.perceptual_fn, axis_name=self.axis_name)
         if self.use_vqgan:
             return make_vqgan_step(state.decoder, state.discriminator, loss_cfg=self.second_cfg,
                                    w_commit=self.first_cfg.w_commit, device=self.device,
-                                   **percep)
+                                   **every)
         dtype = self.compute_dtype or torch.float32
         first = dict(aug_cfg=self.aug_cfg, dict_size=self.dict_size, compute_dtype=dtype,
-                     device=self.device, **percep)
+                     device=self.device, **every)
         if self.use_multi_window:
             loss = self.config.loss
             mw = dict(dataset_window=self.dataset_window,
@@ -302,16 +287,16 @@ class Trainer:
                 return make_multi_window_second_stage_step(
                     state.encoder, state.decoder, state.discriminator,
                     loss_cfg=self.second_cfg, use_remat=use_remat, device=self.device,
-                    **percep, **mw)
+                    **every, **mw)
             return make_joint_step(
                 state.encoder, state.decoder, state.discriminator, first_cfg=self.first_cfg,
                 second_cfg=self.second_cfg, use_remat=use_remat, **first, **mw)
         if self.training_mode == "second_step":
             return make_second_stage_step(
                 state.encoder, state.decoder, state.discriminator,
-                loss_cfg=self.second_cfg, dis_type=self.dis_type, device=self.device, **percep)
+                loss_cfg=self.second_cfg, dis_type=self.dis_type, device=self.device, **every)
         return make_first_stage_step(state.encoder, state.decoder, loss_cfg=self.first_cfg,
-                                     axis_name=self.axis_name, **first)
+                                     **first)
 
     def drop_prob(self, epoch: int) -> float:
         """DropBlock's drop_prob in `epoch` (the schedule; JAX

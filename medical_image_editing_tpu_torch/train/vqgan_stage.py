@@ -31,6 +31,16 @@ discriminator graphs, are alive at a time. The CutMix (box, invert) draws
 come from the state's generator or as data (`sample_cutmix_draws`). The
 VQGAN has no DropBlock: the step takes `drop_prob` and ignores it, as the
 JAX step does.
+
+Data parallel, as the JAX step's `axis_name` (`vqgan_stage.py:55,
+133-134, 178-179, 188-191, 195-196`): a step built with
+`axis_name=parallel.DATA_AXIS` runs on each rank's own rows with the VQGAN
+built with the same `axis_name` (its codebook's counts and sums averaged
+before the EMA), draws its CutMix boxes and dropout masks from
+`state.py::per_rank_generator`, averages the VQGAN's gradients before its
+Adam, runs the second stage's inner loop with its averages
+(`second_stage.discriminator_inner_loop`), and returns the metrics
+averaged over the ranks.
 """
 
 from typing import Optional
@@ -39,6 +49,7 @@ import torch
 
 from ..ops.losses import focal_frequency_loss
 from ..utils.device import resolve_device
+from .first_stage import pmean_gradients, pmean_metrics, step_generator
 from .multi_window import _require_unet, frozen
 from .second_stage import (
     SecondStageLossConfig,
@@ -50,14 +61,16 @@ from .state import TrainState
 
 
 def make_vqgan_step(vqgan, dis, *, loss_cfg: SecondStageLossConfig, w_commit: float = 1.0,
-                    perceptual_fn=None, device="cuda"):
+                    perceptual_fn=None, device="cuda", axis_name=None):
     """Build the VQGAN step. vqgan: models.VQGAN; dis: models.
     UNetDiscriminator (f32); both on `device`, their Adams in the
     `TrainState` (`dec_opt`, `dis_opt`); `perceptual_fn` (pred, target
     NCHW) → scalar (`ops/perceptual.py`). Returns step_fn(state, image
     (B,H,W,C) in [-1,1], draws=None, drop_prob=0.0) → (state, metrics):
     `draws` holds one (box, invert) per inner iteration, drawn from
-    `state.generator` by default. Metrics are 0-d tensors on the device."""
+    `state.generator` (`step_generator`) by default, then the dropout
+    masks. Metrics are 0-d tensors on the device. With `axis_name` the step
+    is data parallel (see the module docstring)."""
     if loss_cfg.dis_loss_type != "hinge_d_loss":
         raise ValueError(f"dis_loss_type {loss_cfg.dis_loss_type!r}: the VQGAN trains with "
                          "'hinge_d_loss'")
@@ -70,15 +83,18 @@ def make_vqgan_step(vqgan, dis, *, loss_cfg: SecondStageLossConfig, w_commit: fl
         del drop_prob  # no DropBlock in the VQGAN
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         _, h, w, _ = image.shape
+        gen = state.generator
+        if draws is None or vqgan.p_dropout > 0:
+            gen = step_generator(state.generator, axis_name)
         if draws is None:
-            draws = sample_cutmix_draws(state.generator, cfg.n_inner_loops, h, w)
+            draws = sample_cutmix_draws(gen, cfg.n_inner_loops, h, w)
         x = image.permute(0, 3, 1, 2)
         zero = torch.zeros((), device=dev)
 
         # ---- the VQGAN (generator) update
         vqgan.train()
         dis.train()
-        recon, commit, _, _ = vqgan(x, train=True, generator=state.generator)
+        recon, commit, _, _ = vqgan(x, train=True, generator=gen)
         recon = recon.float()
         l_recon = ((recon - x) ** 2).mean() if cfg.use_recon_loss else zero
         l_freq = (focal_frequency_loss(recon.permute(0, 2, 3, 1), image)
@@ -106,6 +122,8 @@ def make_vqgan_step(vqgan, dis, *, loss_cfg: SecondStageLossConfig, w_commit: fl
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
         del grads, f_map, f_bottle, f_feats
+        if axis_name is not None:
+            pmean_gradients(state.dec_opt)
         state.dec_opt.step()
         recon = recon.detach()  # the pre-update reconstruction, as the reference
         gen_metrics = {k: v.detach() for k, v in gen_metrics.items()}
@@ -113,10 +131,10 @@ def make_vqgan_step(vqgan, dis, *, loss_cfg: SecondStageLossConfig, w_commit: fl
 
         # ---- discriminator inner loop
         dis_total, dis_metrics = discriminator_inner_loop(dis, x, recon, draws, cfg,
-                                                          state.dis_opt)
+                                                          state.dis_opt, axis_name=axis_name)
         state.step += 1
         metrics = {"gen_total": gen_total, **gen_metrics, "dis_total": dis_total,
                    **dis_metrics, "total": gen_total + dis_total}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, pmean_metrics({k: v.detach() for k, v in metrics.items()}, axis_name)
 
     return step_fn

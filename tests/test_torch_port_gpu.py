@@ -436,11 +436,12 @@ def test_cuda_generator_checkpoint_round_trip(cuda, tmp_path):
                        torch.rand(1000, generator=fresh.generator, device=cuda))
 
 
-def _second_stage_state(device, seed=0, dtype=None):
+def _second_stage_state(device, seed=0, dtype=None, axis_name=None):
     """A small second-stage state: encoder (4, 32, 8, 16, 16) (3 routed
     convs at 32²), decoder (32, 8, 8, 16, 16) (10), f32 (or the compute
     `dtype`), the U-Net discriminator (f32) at D_ch 4 and resolution 128,
-    the lung config's Adams."""
+    the lung config's Adams; the encoder and decoder built with
+    `axis_name`."""
     from medical_image_editing_tpu_torch.models import UNetDecoder, UNetDiscriminator
     from medical_image_editing_tpu_torch.models.blocks import seeded_init
     from medical_image_editing_tpu_torch.models.unet_encoder import EncoderWithVQ
@@ -448,9 +449,10 @@ def _second_stage_state(device, seed=0, dtype=None):
 
     gen = torch.Generator().manual_seed(seed)
     enc = seeded_init(EncoderWithVQ(1, (4, 32, 8, 16, 16), 6, knn_backend="pallas",
-                                    dtype=dtype), gen)
+                                    dtype=dtype, axis_name=axis_name), gen)
     dec = seeded_init(UNetDecoder(4, 1, (32, 8, 8, 16, 16), dropped_skip_layers=(),
-                                  use_pixel_shuffle=False, dtype=dtype), gen)
+                                  use_pixel_shuffle=False, dtype=dtype,
+                                  axis_name=axis_name), gen)
     dis = UNetDiscriminator(D_ch=4, D_attn="0", resolution=128).init_weights(gen)
     enc, dec, dis = enc.to(device), dec.to(device), dis.to(device)
     return tstate.create_train_state(
@@ -1094,3 +1096,69 @@ def test_one_rank_nccl_group_is_bit_identical_to_no_group(cuda, monkeypatch):
     alone = run()
     for got, want in zip(grouped, alone):
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_group_second_stage_step_is_bit_identical(cuda, monkeypatch):
+    """The data-parallel second stage (ROADMAP 15(ii)): the k-means and one
+    step (f32, the packed route; the SPADE BatchNorms synced, the decoder's
+    and the discriminator's gradients, the discriminator's buffers and the
+    metrics averaged) under a one-rank NCCL group equal the same with no
+    group, bit for bit: state, Adam states, generator and metrics. cuDNN
+    runs its deterministic algorithms, without which two runs of one f32
+    step differ on the card at all."""
+    import torch.distributed as dist
+
+    from medical_image_editing_tpu_torch.parallel import mesh
+    from medical_image_editing_tpu_torch.train import first_stage as tfs
+    from medical_image_editing_tpu_torch.train import second_stage as tss
+
+    monkeypatch.setenv("MEDIMG_CONV_IMPL", "packed")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    x = np.random.default_rng(8).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
+    draws = [(tuple(tuple(v.to(cuda) for v in p) for p in box), inv.to(cuda))
+             for box, inv in tss.sample_cutmix_draws(torch.Generator().manual_seed(3), 1,
+                                                     32, 32)]
+
+    def run():
+        state = _second_stage_state(cuda, axis_name=mesh.DATA_AXIS)
+        tfs.init_codebook_step(state.encoder)(state, x)
+        step = tss.make_second_stage_step(
+            state.encoder, state.decoder, state.discriminator,
+            loss_cfg=tss.SecondStageLossConfig(w_recon=10.0, w_unet_perceptual=1.0),
+            device=cuda, axis_name=mesh.DATA_AXIS)
+        mesh.collectives.clear()
+        state, metrics = step(state, x, draws=draws)
+        torch.cuda.synchronize()
+        return state.state_dict(), metrics, dict(mesh.collectives)
+
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT="0").items():
+        monkeypatch.setenv(k, v)
+    assert mesh.initialize_distributed("cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        grouped = run()
+    finally:
+        mesh.destroy_distributed()
+    alone = run()
+    # 8 SPADE BatchNorms forward and backward, the decoder's gradients, one
+    # inner iteration's, the discriminator's buffers, the metrics
+    assert grouped[2]["all_reduce"] == 2 * 8 + 4 and alone[2] == {}
+
+    def equal(a, b, path=""):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), path
+            for k in a:
+                equal(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, (list, tuple)):
+            for i, (u, v) in enumerate(zip(a, b)):
+                equal(u, v, f"{path}/{i}")
+        elif isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), path
+        else:
+            assert a == b, path
+
+    equal(grouped[0], alone[0])
+    equal(grouped[1], alone[1])

@@ -335,25 +335,32 @@ def test_chip_smoke_second_stage_phase_on_cpu(tmp_path, capsys):
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
 
 
-def test_chip_smoke_multi_window_phase_on_cpu(tmp_path, capsys):
+def test_chip_smoke_multi_window_phase_on_cpu(tmp_path, capsys, monkeypatch):
     """The multi_window phase end to end at tiny size on the CPU, over a
     seeded tree of 2 × 5 slices (5 steps an epoch, as on the card): (a) the
     bare joint steps, the discriminator's operations counted on the meta
     device, the first and second steps; (c) the card-vs-CPU comparison
     (here CPU against CPU: exact); (b) runs A and B, the resume held, the
     validation maps, the HU export, the painted decode, the planted faulty
-    resume that the check catches; no kernel launch."""
+    resume that the check catches; no kernel launch, and TF32 left off."""
     import numpy as np
 
+    monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
     smoke = _chip_smoke()
     smoke.write_lung_tree(tmp_path / "data", np.random.default_rng(0), patients=2, slices=5,
                           size=32)
     overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
                                    "dec_filters": [32, 8, 8, 16, 16]},
                  "dataset": {"batch_size": 2}, "model.dis": {"D_ch": 4, "resolution": 128}}
-    with smoke.conv_route("packed"):
-        launches = smoke.multi_window_phase("cpu", tmp_path, size=32, batch=2, steps=2,
-                                            ref_size=32, overrides=overrides)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with smoke.conv_route("packed"):
+            launches = smoke.multi_window_phase("cpu", tmp_path, size=32, batch=2, steps=2,
+                                                ref_size=32, overrides=overrides)
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     assert launches == {}
     recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
             if line.startswith('{"phase": "multi_window"')]
@@ -572,7 +579,12 @@ def test_chip_smoke_ddp_phase_on_cpu(tmp_path, capsys, monkeypatch):
     process on the same rows after the first step, the planted fault above
     them; the
     one-rank group made by `run_vqwnet` from a torchrun environment bit
-    for bit the run without one; no kernel launch."""
+    for bit the run without one; then the GAN trainers (second stage,
+    joint step, VQGAN) on the same ranks, bit for bit equal, within the
+    card's limits of the serial reference, the planted fault (rank 1's
+    discriminator gradients unaveraged) above them, the collectives a step
+    as derived, and each through `run_vqwnet` under a one-rank group; no
+    kernel launch."""
     smoke = _chip_smoke()
     monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # the ranks import it by name
     overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
@@ -583,12 +595,39 @@ def test_chip_smoke_ddp_phase_on_cpu(tmp_path, capsys, monkeypatch):
     # here against the card's 0.037 at full widths (the planted fault: 1.18)
     limits = {"bfloat16": smoke.DDP_GAP_LIMIT["bfloat16"],
               "float32": {**smoke.DDP_GAP_LIMIT["float32"], "encoder_moments": 0.5}}
+    small = {"model.vqmodel": overrides["model.vqmodel"],
+             "model.dis": {"D_ch": 4, "resolution": 128}}
+    gan_overrides = {"second_stage": small, "joint": small, "vqgan": {
+        "model.vqgan": {"mid_channels": 4, "emb_dim": 8, "dict_size": 6,
+                        "enc_ch_multiplier": [1, 2, 4], "dec_ch_multiplier": [1, 2, 4],
+                        "num_res_blocks": 1, "dec_attn_resolutions": [8], "resolution": 32},
+        "model.dis": {"D_ch": 4, "resolution": 128}}}
     with smoke.conv_route("packed"):
         launches = smoke.ddp_phase("cpu", tmp_path, size=32, rows=2, steps=3,
-                                   overrides=overrides, timed_steps=2, limits=limits)
+                                   overrides=overrides, timed_steps=2, limits=limits,
+                                   gan={k: {"rows": 2, "size": 32} for k in gan_overrides},
+                                   gan_overrides=gan_overrides, gan_steps=2, gan_timed_steps=1)
     assert launches == {}
-    rec = [json.loads(line) for line in capsys.readouterr().out.splitlines()
-           if line.startswith('{"phase": "ddp"')][-1]
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith('{"phase": "ddp"')]
+    rec = next(r for r in recs if r["part"] == "two_ranks_one_card")
+    gan = {r["trainer"]: r for r in recs if r["part"] == "gan_two_ranks_one_card"}
+    assert sorted(gan) == ["joint", "second_stage", "vqgan"]
+    for kind, c in gan.items():
+        assert c["ranks_bit_identical_each_step"] == [True, True] and c["generator_replicated"]
+        assert c["buffer_drift_per_rank"] == [[0, 0], [0, 0]]
+        limit = c["gap_limit"]
+        assert all(g[k] <= limit[k] for g in c["gap_to_serial"] for k in limit)
+        assert c["planted_fault_gap"][1]["discriminator_moments"] > limit["discriminator_moments"]
+        assert c["planted_fault_gap"][0] == c["gap_to_serial"][0]  # rank 0 kept the average
+        # 8 SPADE BatchNorms a decode, forward and backward; the VQ statistics
+        # a training encode; each optimizer's gradients; the buffers; metrics
+        assert c["collectives_per_step"][0]["all_reduce"] == {
+            "second_stage": 2 * 8 + 4, "joint": 2 * 2 * 8 + 2 + 2 + 3, "vqgan": 1 + 4}[kind]
+        assert c["collectives_as_expected"]
+    one = next(r for r in recs if r["part"] == "gan_one_rank_group")["trainers"]
+    assert all(len(r["logged_total"]) == 2 and r["bare_step"]["group"]["backend"] == "gloo"
+               for r in one.values())
     assert sorted(rec["by_dtype"]) == ["bfloat16", "float32"]
     for c in rec["by_dtype"].values():
         assert c["ranks_bit_identical_each_step"] == [True] * 3 and c["generator_replicated"]

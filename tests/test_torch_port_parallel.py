@@ -41,8 +41,11 @@ Tolerances, float32:
 Port only: a one-rank group (made from a torchrun-style environment by
 `initialize_distributed`) trains bit for bit as no group; the loader gives
 every rank as many full batches (fault C.5); `run_vqwnet.main` on two ranks
-writes one run directory from rank 0, resumes bit for bit, tests; and the
-trainers not yet data parallel refuse two ranks (items 15(ii), 15(iii)).
+writes one run directory from rank 0, resumes bit for bit, tests, and
+does the same for the three GAN trainers (item 15(ii): the second stage,
+staged from a first stage, whose step-0 k-means gathers both ranks' rows;
+`-w` in `joint_step`; `-v`); and the volumetric CLIs, not data parallel
+yet, refuse two ranks (item 15(iii)).
 """
 
 import json
@@ -79,6 +82,11 @@ from test_torch_port_augment import jax_view_draws, to_torch_draws
 from test_torch_port_train import _disagreement, _step_mismatch
 
 TIMEOUT = 120  # seconds from a spawn's start to its ranks' exit
+GAN_CLI_TIMEOUT = 400  # the three GAN trainers' runs on two ranks
+GAN_CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
+GAN_CLI = {"second_step": ("lung_second_stage.json", []),
+           "multi_window": ("lung_multiwindow_joint.json", ["-w"]),
+           "vqgan": ("crc_vqgan.json", ["-v"])}
 WORLD = 2
 B, SIZE = 2, 32  # rows a rank, side
 ENC, DEC, DICT = worker.ENC, worker.DEC, worker.DICT
@@ -87,14 +95,14 @@ ENC, DEC, DICT = worker.ENC, worker.DEC, worker.DICT
 class Ranks:
     """The `world` rank processes of one task of `torch_parallel_worker`."""
 
-    def __init__(self, task, world, workdir, init):
+    def __init__(self, task, world, workdir, init, timeout=TIMEOUT):
         ctx = torch.multiprocessing.get_context("spawn")
-        self.task, self.workdir = task, workdir
+        self.task, self.workdir, self.timeout = task, workdir, timeout
         self.procs = [ctx.Process(target=worker.run, args=(r, world, init, task, str(workdir)))
                       for r in range(world)]
         for p in self.procs:
             p.start()
-        self.deadline = time.monotonic() + TIMEOUT
+        self.deadline = time.monotonic() + timeout
         self._out = None
 
     def kill(self):
@@ -110,12 +118,58 @@ class Ranks:
                 p.join(max(0.0, self.deadline - time.monotonic()))
             hung = [i for i, p in enumerate(self.procs) if p.is_alive()]
             self.kill()
-            assert not hung, f"{self.task}: ranks {hung} still running after {TIMEOUT} s"
+            assert not hung, f"{self.task}: ranks {hung} still running after {self.timeout} s"
             codes = [p.exitcode for p in self.procs]
             assert codes == [0] * len(codes), f"{self.task}: exit codes {codes}"
             self._out = [torch.load(os.path.join(self.workdir, f"{self.task}-{r}.pt"),
                                     weights_only=True) for r in range(len(self.procs))]
         return self._out
+
+
+def crc_tree(root, n_patients=2, n_slices=5, size=SIZE, seed=0):
+    """`root/patNN/slice_SSSS.npy`: smooth 0-255 slices with a blob, as the
+    VQGAN trainer tests write them."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    for p in range(n_patients):
+        d = root / f"pat{p:02d}"
+        d.mkdir(parents=True)
+        for s in range(n_slices):
+            img = 60 + 80 * yy + 100 * np.exp(
+                -((yy - rng.uniform(0.3, 0.7)) ** 2 + (xx - rng.uniform(0.3, 0.7)) ** 2) / 0.02)
+            np.save(d / f"slice_{s:04d}.npy",
+                    np.clip(img + rng.normal(0, 10, img.shape), 0, 255).astype(np.float32))
+
+
+def write_gan_cli(root):
+    """The GAN trainers' configs at test widths over seeded slice trees (2
+    patients × 5 slices: a rank's shard holds 2 batches of 2 an epoch), the
+    first stage the second stage stages, and `gan_cli.json`."""
+    worker.lung_tree(str(root / "lung"))
+    crc_tree(root / "crc")
+    stage = worker.cli_config(str(root), n_epochs=1)
+    stage["dataset"]["root_dir_path"] = str(root / "lung")
+    stage["save"]["study_name"] = "stage"
+    json.dump(stage, open(root / "stage.json", "w"))
+    for name, (config, flags) in GAN_CLI.items():
+        cfg = json.load(open(os.path.join(GAN_CONFIGS, config)))
+        cfg["dataset"].update(root_dir_path=str(root / ("crc" if name == "vqgan" else "lung")),
+                              batch_size=2, num_workers=0, image_size=[SIZE, SIZE])
+        cfg["model"]["vqmodel"].update(stage["model"]["vqmodel"])
+        cfg["model"]["dis"].update(D_ch=2, resolution=128)
+        if name == "vqgan":
+            cfg["model"]["vqmodel"]["model_name"] = "VQGAN"
+            cfg["model"]["vqgan"].update(
+                mid_channels=4, emb_dim=8, dict_size=6, enc_ch_multiplier=[1, 2, 4],
+                dec_ch_multiplier=[1, 2, 4], num_res_blocks=1, dec_attn_resolutions=[8],
+                resolution=SIZE)
+        cfg["save"].update(save_dir=str(root / "results"), study_name=name, n_save_images=2)
+        cfg["run"].update(n_epochs=2, first_stage_ckpt_path=str(
+            root / "results" / "stage" / "version_0" / "ckpt") if name == "second_step"
+            else None)
+        json.dump(cfg, open(root / f"{name}.json", "w"))
+    json.dump({name: flags for name, (_, flags) in GAN_CLI.items()},
+              open(root / "gan_cli.json", "w"))
 
 
 def _pieces_inputs(rng):
@@ -245,6 +299,10 @@ def ranks(tmp_path_factory):
         cli_dir = root / "cli"
         worker.lung_tree(str(cli_dir / "data"))
         started.append(Ranks("cli", WORLD, cli_dir, str(root / "cli.init")))
+        gan_dir = root / "gan_cli"
+        write_gan_cli(gan_dir)
+        started.append(Ranks("gan_cli", WORLD, gan_dir, str(root / "gan_cli.init"),
+                             timeout=GAN_CLI_TIMEOUT))
 
         work = root / "main"
         work.mkdir()
@@ -280,9 +338,9 @@ def ranks(tmp_path_factory):
         for r in started:
             r.kill()
         raise
-    cli, main, one = started
-    return SimpleNamespace(cli=cli, main=main, one=one, pieces=pieces, jax=jax_pieces,
-                           steps=jax_steps, s0=_np(s0))
+    cli, gan_cli, main, one = started
+    return SimpleNamespace(cli=cli, gan_cli=gan_cli, main=main, one=one, pieces=pieces,
+                           jax=jax_pieces, steps=jax_steps, s0=_np(s0))
 
 
 # ---------------------------------------------------------------------------
@@ -520,10 +578,52 @@ def test_cli_on_two_ranks_writes_from_rank_0_and_resumes_bit_for_bit(ranks):
     assert json.load(open(os.path.join(straight, "config.json")))["seed_list"] == [42]
 
 
-@pytest.mark.parametrize("what,item", [("second_step", "15(ii)"), ("multi_window", "15(ii)"),
-                                       ("vqgan", "15(ii)"), ("train_volumetric", "15(iii)"),
-                                       ("edit_volume_spatial", "15(iii)")])
-def test_unsynced_trainers_refuse_two_ranks(ranks, what, item):
+@pytest.mark.parametrize("what", ["train_volumetric", "edit_volume_spatial"])
+def test_unsynced_trainers_refuse_two_ranks(ranks, what):
     for out in ranks.cli.results():
         msg = out["refused"][what]
-        assert msg is not None and f"ROADMAP item {item}" in msg, msg
+        assert msg is not None and "ROADMAP item 15(iii)" in msg, msg
+
+
+@pytest.mark.parametrize("what", sorted(GAN_CLI))
+def test_gan_trainers_train_on_two_ranks_and_resume_bit_for_bit(ranks, what):
+    """`run_vqwnet` trains each GAN trainer on two ranks (ROADMAP 15(ii)):
+    one run directory a run, from rank 0 alone; 1 step and a resume to 2
+    log and save what 2 steps straight do, bit for bit. The second stage
+    stages a first stage and its step-0 k-means re-clusters the staged
+    codebook over both ranks' first batches: the same codebook on both.
+    `-w -m test` exports rank 0's shard of the test set from rank 0."""
+    outs = ranks.gan_cli.results()
+    run = outs[0][what]
+    assert outs[1][what] == run
+    runs = 4 if what == "multi_window" else 3  # `-m test` logs to a fourth
+    assert sorted(os.listdir(run)) == [f"version_{i}" for i in range(runs)]
+    straight, split, resumed = (os.path.join(run, f"version_{i}") for i in range(3))
+    a = _csv(os.path.join(straight, "log.csv"))
+    b = _csv(os.path.join(split, "log.csv")) + _csv(os.path.join(resumed, "log.csv"))
+    assert [float(r["iteration"]) for r in a] == [1, 2]
+    assert a == b and all(np.isfinite(float(r["total"])) for r in a)
+    final = "ckpt-epoch=0000-step=00000002"
+    sa, sb = (torch.load(os.path.join(p, "ckpt", final, "state.pt"), weights_only=True)
+              for p in (straight, resumed))
+    _equal_trees(sa, sb)
+    assert "discriminator" in sa and sa["step"] == 2
+    kmeans = [out["kmeans"][what] for out in outs]
+    if what == "vqgan":  # the VQGAN's codebook starts random, as in JAX
+        assert kmeans == [[], []]
+    else:
+        assert [len(k) for k in kmeans] == [1, 1]
+        assert torch.equal(kmeans[0][0], kmeans[1][0])
+    if what == "multi_window":  # rank 0 exports its strided shard: 5 of the 10 slices
+        results = os.path.dirname(run)
+        files = [f for d in os.listdir(results) if d.startswith("pat")
+                 for f in os.listdir(os.path.join(results, d))]
+        assert {p: sum(f.startswith(p) for f in files)
+                for p in ("image_", "recon_", "label_")} == {"image_": 5, "recon_": 5,
+                                                             "label_": 5}
+    if what == "second_step":
+        staged = torch.load(os.path.join(os.path.dirname(run), "stage", "version_0", "ckpt",
+                                         "ckpt-epoch=0000-step=00000001", "state.pt"),
+                            weights_only=True)
+        assert not torch.equal(kmeans[0][0], staged["encoder"]["vq.embed"])
+        assert torch.equal(sa["encoder"]["vq.embed"], kmeans[0][0])  # frozen after

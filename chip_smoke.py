@@ -25,7 +25,8 @@ and no result line):
                every (Cin, Cout, H) the training step gives it, batch 8, f32
                (CUDA-core path) and bf16 (tensor-core path, mma.sync), plus a
                ragged shape; timed beside the plain version, cuDNN's
-               `F.conv2d` (`vs_library` = kernel / cuDNN) and its bound,
+               `F.conv2d` (`vs_library` = kernel / cuDNN; in f32 also
+               under TF32, `library_tf32_ms`) and its bound,
                with CUDA events around 50 calls (`ms`: what a caller waits,
                the wrapper's host work included) and with the profiler
                (`device_ms`: the kernel's own device time);
@@ -48,12 +49,13 @@ and no result line):
                requests that must get 400; (c) the file-watching loop
                (`cli/run_recon.py::serve`, inotify) answering three edits;
   6c. int8  — the int8 serving decode at the same widths, 512²: (a) the
-               three kernels of `csrc/conv_s8.cu` (channel absmax, s8
-               quantize, the s8×s8→s32 convolution) against their plain
-               versions bit for bit at every distinct convolution of the
-               decoder (batch 8, seeded inputs): maxima, codes, int32 sums,
-               outputs; each timed (`ms`, `device_ms`) beside its bound, its
-               plain version and its calls per decode; yardsticks at the
+               four kernels of `csrc/conv_s8.cu` (channel absmax, the weight
+               fold, s8 quantize, the s8×s8→s32 convolution on wgmma)
+               against their plain versions bit for bit at every distinct
+               convolution of the decoder (batch 8, seeded inputs): maxima,
+               weight codes and scales, codes, int32 sums, outputs; each
+               timed (`ms`, `device_ms`) beside its bound, its plain
+               version and its calls per decode; yardsticks at the
                32 → 32 3×3 convolution: `torch._int_mm` over an im2col of
                the same codes (with and without the im2col), cuDNN's bf16
                `F.conv2d` and the packed bf16 kernel; (b)
@@ -63,8 +65,10 @@ and no result line):
                bit for bit the same decode through the plain versions on
                the card, the error against f32 framed as the JAX package's
                contract (int8 ≤ 4× bf16), 8 slices timed in f32, bf16
-               cuDNN, bf16 packed and int8 with peak memory, the int8
-               decode profiled; (c) `edit_batch.main --dtype int8` over
+               cuDNN, bf16 packed and int8 with peak memory, 32 with
+               `microbatch=8` in f32, bf16 packed and int8, both int8
+               decodes profiled (idle share also against the unprofiled
+               time); (c) `edit_batch.main --dtype int8` over
                the painted NIfTIs, held to the same decode; (d) after all
                phases, 0 int8 launches on every other path;
   7. train   — the first-stage training step at the same widths, with the
@@ -230,7 +234,13 @@ just before it and reads them just after.
 `--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
 result line: run from two checkouts in one call (this script copied into
 the other), it holds two versions of the kernel to each other by time and,
-through the hashes, bit for bit.
+through the hashes, bit for bit. `--int8-kernels` likewise runs phases 1-2
+for `csrc/conv_s8.cu` and the int8 phase's (a) alone: the four kernels
+bit for bit their plain versions and timed at the decoder's 25 shapes (a
+checkout without the weight kernel folds with its plain version). A
+`timing` line after the kernels line gives each phase's seconds; the
+card-vs-CPU parts of second_stage, multi_window and vqgan run their CPU
+side in a background process and are joined after ckpt_crossing.
 The last line is `{"ok": true, "device": {...}}`. There is no CPU fallback:
 without a CUDA device the script fails at once.
 """
@@ -243,6 +253,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -729,6 +740,10 @@ def conv_kernel_phase(device, points=CONV_POINTS, batch=8, seed=0, iters=50):
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "roofline_share": bound_ms / ms,
                 }
+                if dt == torch.float32:  # cuDNN's f32 as the CLIs' default runs it
+                    with conv_precision("tf32"):
+                        rec[name]["library_tf32_ms"] = cuda_ms(
+                            lambda: F.conv2d(xx, ww, padding=1), iters=iters)
         emit(rec)
         if not all(checks.values()):
             raise RuntimeError(f"conv3x3_packed disagrees with its plain version at "
@@ -1838,16 +1853,20 @@ def dis_step_flops(dis, batch, size, n_inner):
 
 
 def second_stage_phase(device, workdir, *, size=256, batch=8, steps=5, seed=0, overrides=None,
-                       ref_size=64):
+                       ref_size=64, defer=None):
     """The second (adversarial) stage at the lung second-stage config's
     widths (`overrides` shrinks it for a CPU rehearsal): (a) the bare step,
-    one step held to the CPU path on a small input, (b) the run through
+    one step held to the CPU path on a small input (its CPU side in a
+    process of its own, joined after (b), or by the caller when `defer` is
+    a list: the part's handle is appended to it), (b) the run through
     `run_vqwnet.main` staged from the trainer phase's run-A first stage in
     `workdir`. Returns the launches of (a) and (b)."""
     launches = second_stage_step_part(device, overrides, size=size, batch=batch, steps=steps,
                                       seed=seed)
-    second_stage_reference_part(overrides, size=ref_size, seed=seed + 1, card=device)
+    ref = start_reference("second_stage", overrides, size=ref_size, batch=2, seed=seed + 1,
+                          card=device)
     run = second_stage_run_part(device, workdir, overrides, seed=seed)
+    finish_or_defer(ref, defer)
     return {k: launches.get(k, 0) + run.get(k, 0) for k in set(launches) | set(run)}
 
 
@@ -2121,20 +2140,114 @@ def first_moments(state, parts):
                           for p in getattr(state, m).parameters()]) for m, o in parts}
 
 
-def witness_gaps(out, witness_fn, parts):
+def ids_key(vq_ids):
+    """A digest of one run's sequence of VQ ids (its witness's key)."""
+    return hashlib.sha1(b"".join(t.numpy().tobytes() for t in vq_ids)).hexdigest()
+
+
+def witness_gaps(out, witness_fn, parts, known=None):
     """Each run's distance from the float64 witness of its own ids (one
     witness per distinct sequence of ids): {run: {module: relative
     Frobenius norm of its Adam first moment's difference}}, and the number
-    of witnesses computed. `out[run]` has `grads` and `vq_ids`."""
-    witness, gaps = {}, {}
+    of witnesses used. `out[run]` has `grads` and `vq_ids`; `known` holds
+    witnesses already computed ({`ids_key`: moments}), and `witness_fn`
+    computes any other."""
+    witness, used, gaps = dict(known or {}), set(), {}
     for name, o in out.items():
-        key = hashlib.sha1(b"".join(t.numpy().tobytes() for t in o.vq_ids)).hexdigest()
+        key = ids_key(o.vq_ids)
         if key not in witness:
             witness[key] = witness_fn(o.vq_ids)
+        used.add(key)
         w = witness[key]
         gaps[name] = {m: float((o.grads[m].double() - w[m]).norm() / w[m].norm())
                       for m, _ in parts}
-    return gaps, len(witness)
+    return gaps, len(used)
+
+
+# The card-vs-CPU parts of the second_stage, multi_window and vqgan phases
+# run their CPU side (the two float32 CPU steps and the float64 witnesses of
+# their ids) in a spawned process of REFERENCE_THREADS torch threads, while
+# the card goes on with the next parts; `finish_reference` joins it before
+# the checks. A CPU rehearsal gives the process the caller's thread count,
+# so that its steps equal the caller's bit for bit.
+REFERENCE_THREADS = 4
+REFERENCE_TIMEOUT_S = 1200
+
+
+def reference_cpu_side(kind, args, setup_file, out_file, threads):
+    """The CPU side of a card-vs-CPU part, in a process of its own: the
+    part's CPU runs from the caller's setup (the same start, draws and
+    images), and the float64 witness of each distinct sequence of their
+    ids; saved to `out_file`."""
+    import torch
+
+    torch.set_num_threads(threads)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ctx = REFERENCE_KINDS[kind](*args, setup=torch.load(setup_file, weights_only=False))
+    out = {name: ctx.run(name, "cpu", *flags) for name, flags in ctx.cpu_runs}
+    witnesses = {}
+    for o in out.values():
+        key = ids_key(o.vq_ids)
+        if key not in witnesses:
+            witnesses[key] = ctx.witness(o.vq_ids)
+    torch.save({"out": out, "witnesses": witnesses, "seconds": time.perf_counter() - t0,
+                "threads": threads}, out_file)
+
+
+def start_reference(kind, overrides, *, size, batch, seed, card):
+    """Set up a card-vs-CPU part on the CPU (seeded weights, k-means,
+    draws), start its CPU side in a spawned process, and run its card side
+    here. Returns the handle `finish_reference` takes."""
+    import torch
+
+    tf32_off()  # held to the CPU at full f32
+    t0 = time.perf_counter()
+    args = (overrides, size, batch, seed)
+    ctx = REFERENCE_KINDS[kind](*args)
+    tmp = Path(tempfile.mkdtemp(prefix=f"reference-{kind}-"))
+    torch.save(ctx.setup, tmp / "setup.pt")
+    threads = (torch.get_num_threads() if torch.device(card).type == "cpu"
+               else REFERENCE_THREADS)
+    proc = torch.multiprocessing.get_context("spawn").Process(
+        target=reference_cpu_side,
+        args=(kind, args, str(tmp / "setup.pt"), str(tmp / "cpu_side.pt"), threads))
+    proc.start()
+    try:
+        out = {name: ctx.run(name, card, *flags) for name, flags in ctx.card_runs(card)}
+    except BaseException:
+        proc.kill()
+        proc.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return SimpleNamespace(kind=kind, ctx=ctx, proc=proc, tmp=tmp, out=out, card=card,
+                           size=size, batch=batch, seconds=time.perf_counter() - t0)
+
+
+def finish_reference(handle):
+    """Join the CPU side of a part started by `start_reference`, then hold
+    the card to it (the part's checks)."""
+    import torch
+
+    t0 = time.perf_counter()
+    handle.proc.join(REFERENCE_TIMEOUT_S)
+    try:
+        if handle.proc.is_alive():
+            handle.proc.kill()
+            handle.proc.join()
+            raise RuntimeError(f"{handle.kind} reference: the CPU side ran past "
+                               f"{REFERENCE_TIMEOUT_S} s")
+        if handle.proc.exitcode != 0:
+            raise RuntimeError(f"{handle.kind} reference: the CPU side exited with "
+                               f"{handle.proc.exitcode}")
+        side = torch.load(handle.tmp / "cpu_side.pt", weights_only=False)
+    finally:
+        shutil.rmtree(handle.tmp, ignore_errors=True)
+    handle.out = {**side["out"], **handle.out}
+    handle.timing = {"card_side_s": handle.seconds, "cpu_side_s": side["seconds"],
+                     "cpu_side_threads": side["threads"],
+                     "join_wait_s": time.perf_counter() - t0}
+    REFERENCE_CHECKS[handle.kind](handle, side["witnesses"])
 
 
 # The card's gradients against the float64 witness (fault C.6): within 5×
@@ -2164,38 +2277,38 @@ def witness_limits(gaps, phase):
                    for m, f in floor.items()}
 
 
-def second_stage_reference_part(overrides, *, size=64, batch=2, seed=1, card="cuda"):
-    """One second-stage step on the card vs the same step on the port's CPU
-    path, at the config's widths in f32 (TF32 off) on a small input, packed
-    route: the same weights, codebook (k-means on the CPU) and CutMix draws
-    on both. Held: the ids where the top-2 score gap is clear of rounding,
-    every loss (rtol 1e-3), and the gradients of decoder and discriminator
-    read from Adam's first moment against a witness that does not depend
-    on the card (fault C.6): the same step in float64 on the CPU from each
-    run's own ids (`float64_step`). The card's distance from it (relative
-    Frobenius norm) is held within 5× the larger of the two CPU float32
-    steps' (oneDNN's convolutions, PyTorch's native ones), or 1e-4, and at
-    most WITNESS_CAP. The card's other conv route and the card without
-    cuDNN are readouts, and
-    so is the card's distance from the CPU's float32 step. `card` is the
-    device held to the CPU ("cpu" rehearses the comparison)."""
+def second_stage_reference_context(overrides, size, batch, seed, setup=None):
+    """The card-vs-CPU part of the second_stage phase: one second-stage step
+    on the card vs the same step on the port's CPU path, at the config's
+    widths in f32 (TF32 off) on a small input, packed route: the same
+    weights, codebook (k-means on the CPU) and CutMix draws on both
+    (`setup`, made here when None). Held (`second_stage_reference_check`):
+    the ids where the top-2 score gap is clear of rounding, every loss
+    (rtol 1e-3), and the gradients of decoder and discriminator read from
+    Adam's first moment against a witness that does not depend on the card
+    (fault C.6): the same step in float64 on the CPU from each run's own
+    ids (`float64_step`). The card's distance from it (relative Frobenius
+    norm) is held within 5× the larger of the two CPU float32 steps'
+    (oneDNN's convolutions, PyTorch's native ones), or 1e-4, and at most
+    WITNESS_CAP. The card's other conv route and the card without cuDNN
+    are readouts, and so is the card's distance from the CPU's float32
+    step. A card of "cpu" rehearses the comparison."""
     import torch
 
     from medical_image_editing_tpu_torch.models.unet_encoder import encode_quantize
-    from medical_image_editing_tpu_torch.ops.vq import vq_scores
     from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
     from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
 
-    tf32_off()  # held to the CPU at full f32
-    t0 = time.perf_counter()
     cfg = second_config(overrides, **{"model.vqmodel": {"compute_dtype": "float32"}})
     images = make_slices(np.random.default_rng(seed), batch, size)
-    trainer, state = second_state(cfg, "cpu", seed)
-    init_codebook_step(state.encoder)(state, images)
-    start = {m: copy.deepcopy(getattr(state, m).state_dict())
-             for m in ("encoder", "decoder", "discriminator")}
-    draws = sample_cutmix_draws(torch.Generator().manual_seed(seed),
-                                trainer.second_cfg.n_inner_loops, size, size)
+    if setup is None:
+        trainer, state = second_state(cfg, "cpu", seed)
+        init_codebook_step(state.encoder)(state, images)
+        setup = {"start": {m: copy.deepcopy(getattr(state, m).state_dict())
+                           for m in ("encoder", "decoder", "discriminator")},
+                 "draws": sample_cutmix_draws(torch.Generator().manual_seed(seed),
+                                              trainer.second_cfg.n_inner_loops, size, size)}
+    start, draws = setup["start"], setup["draws"]
     parts = (("decoder", "dec_opt"), ("discriminator", "dis_opt"))
 
     def fresh(device):
@@ -2213,13 +2326,7 @@ def second_stage_reference_part(overrides, *, size=64, batch=2, seed=1, card="cu
             second_step_fn(trainer, state, "cpu")(state, images, draws=on)
         return first_moments(state, parts)
 
-    out = {}
-    runs = [("cpu", "cpu", "packed", True, True), ("cpu_native", "cpu", "packed", True, False),
-            ("card", card, "packed", True, True)]
-    if card == "cuda":  # the card again without the conv kernel, and without cuDNN
-        runs += [("card_xla", card, "xla", True, True),
-                 ("card_no_cudnn", card, "xla", False, True)]
-    for name, device, route, use_cudnn, use_mkldnn in runs:
+    def run(name, device, route, use_cudnn, use_mkldnn):
         trainer, state, on = fresh(device)
         with torch.no_grad():
             x = torch.as_tensor(images, device=device)
@@ -2234,16 +2341,35 @@ def second_stage_reference_part(overrides, *, size=64, batch=2, seed=1, card="cu
                 _, metrics = second_step_fn(trainer, state, device)(state, images, draws=on)
         finally:
             torch.backends.cudnn.enabled = prev_cudnn
-        out[name] = SimpleNamespace(feats=feats.cpu(), ids=ids.cpu(), vq_ids=seen,
-                                    m={k: float(v) for k, v in metrics.items()},
-                                    grads=first_moments(state, parts))
+        return SimpleNamespace(feats=feats.cpu(), ids=ids.cpu(), vq_ids=seen,
+                               m={k: float(v) for k, v in metrics.items()},
+                               grads=first_moments(state, parts))
+
+    def card_runs(card):
+        runs = [("card", ("packed", True, True))]
+        if torch.device(card).type == "cuda":  # without the conv kernel, and without cuDNN
+            runs += [("card_xla", ("xla", True, True)), ("card_no_cudnn", ("xla", False, True))]
+        return runs
+
+    return SimpleNamespace(setup=setup, start=start, parts=parts, witness=witness, run=run,
+                           cpu_runs=[("cpu", ("packed", True, True)),
+                                     ("cpu_native", ("packed", True, False))],
+                           card_runs=card_runs)
+
+
+def second_stage_reference_check(handle, witnesses):
+    """The second_stage part's checks and record (see
+    `second_stage_reference_context`)."""
+    from medical_image_editing_tpu_torch.ops.vq import vq_scores
+
+    ctx, out, parts = handle.ctx, handle.out, handle.ctx.parts
     cpu, c = out["cpu"], out["card"]
-    top2 = vq_scores(start["encoder"]["vq.embed"],
+    top2 = vq_scores(ctx.start["encoder"]["vq.embed"],
                      cpu.feats.reshape(-1, cpu.feats.shape[-1])).topk(2, dim=1).values
     clear = ((top2[:, 0] - top2[:, 1]) > 1e-4 * top2.abs().max()).reshape(cpu.ids.shape)
     id_mismatch = int(((c.ids != cpu.ids) & clear).sum())
     loss_err = {k: abs(c.m[k] - v) / max(abs(v), 1e-6) for k, v in cpu.m.items()}
-    gaps, n_witness = witness_gaps(out, witness, parts)
+    gaps, n_witness = witness_gaps(out, ctx.witness, parts, witnesses)
     floor, grad_limit = witness_limits(gaps, "second_stage")
     grad_err = gaps["card"]
     readouts = {name: {m: float((o.grads[m] - cpu.grads[m]).norm() / cpu.grads[m].norm())
@@ -2254,13 +2380,13 @@ def second_stage_reference_part(overrides, *, size=64, batch=2, seed=1, card="cu
         route_floor = {m: float((out["card_xla"].grads[m] - g).norm() / g.norm())
                        for m, g in c.grads.items()}
 
-    rec = {"phase": "second_stage", "part": "reference", "card": card, "size": size,
-           "batch": batch,
+    rec = {"phase": "second_stage", "part": "reference", "card": handle.card,
+           "size": handle.size, "batch": handle.batch,
            "id_mismatches_clear": id_mismatch, "clear_share": float(clear.float().mean()),
            "loss_rel_err": loss_err, "grad_rel_err_vs_f64": gaps, "grad_floor": floor,
            "grad_limit": grad_limit, "witnesses": n_witness,
            "readout_grad_rel_err_vs_cpu": readouts, "readout_card_route_floor": route_floor,
-           "losses_cpu": cpu.m, "losses_card": c.m, "seconds": time.perf_counter() - t0,
+           "losses_cpu": cpu.m, "losses_card": c.m, **handle.timing,
            "tolerance": "ids equal where the top-2 score gap > 1e-4·max|score|; losses rtol "
                         "1e-3; gradients (Adam's first moment): the card's distance from a "
                         "float64 CPU step on its own ids within 5x the larger of the CPU's "
@@ -2577,17 +2703,20 @@ def joint_draws(trainer, generator, batch, size):
 
 
 def multi_window_phase(device, workdir, *, size=256, batch=8, steps=5, mode_steps=2, seed=0,
-                       overrides=None, ref_size=64):
+                       overrides=None, ref_size=64, defer=None):
     """The multi-window trainer at the widths of
     `configs/lung_multiwindow_joint.json` (`overrides` shrinks it for a CPU
     rehearsal): (a) the bare joint step, and the multi-window first and
-    second steps; (c) one joint step held to the CPU path on a small input;
-    (b) the run through `run_vqwnet.main -w` over the trainer phase's tree
-    in `workdir`. Returns the launches of (a) and (b)."""
+    second steps; (c) one joint step held to the CPU path on a small input
+    (its CPU side in a process of its own, joined as `second_stage_phase`
+    says); (b) the run through `run_vqwnet.main -w` over the trainer
+    phase's tree in `workdir`. Returns the launches of (a) and (b)."""
     launches = multi_window_step_part(device, overrides, size=size, batch=batch, steps=steps,
                                       mode_steps=mode_steps, seed=seed)
-    multi_window_reference_part(overrides, size=ref_size, seed=seed + 1, card=device)
+    ref = start_reference("multi_window", overrides, size=ref_size, batch=2, seed=seed + 1,
+                          card=device)
     run = multi_window_run_part(device, workdir, overrides, seed=seed)
+    finish_or_defer(ref, defer)
     return {k: launches.get(k, 0) + run.get(k, 0) for k in set(launches) | set(run)}
 
 
@@ -2741,39 +2870,38 @@ def multi_window_step_part(device, overrides, *, size, batch, steps, mode_steps,
     return launches
 
 
-def multi_window_reference_part(overrides, *, size=64, batch=2, seed=1, card="cuda"):
-    """One joint step on the card vs the same step on the port's CPU path,
-    at the joint config's widths in f32 (TF32 off) on a small input, packed
-    route: the same weights, codebook (k-means on the CPU) and draws on
-    both. Held: the ids where the top-2 score gap is clear of rounding, the
-    losses (rtol 1e-3; 1e-2 for the first stage's terms that an id flipped
-    at a near tie inside the step moves: cross, dist, recon, freq and the
-    totals), and the gradients of encoder, decoder and discriminator read
-    from Adam's first moment against a witness that does not depend on the
-    card (fault C.6): the same step in float64 on the CPU from each run's
-    own ids (`float64_step`; the augmented views and the cross-view id
-    warps in float32, as the CPU step computes them). The card's distance
-    from it is held within 5× the larger of the two CPU float32 steps'
-    (oneDNN's convolutions, PyTorch's native ones), or 5e-4, and at most
-    WITNESS_CAP. The card's other conv route is a readout, and so is its
-    distance from the CPU's
-    float32 step. `card` is the device held to the CPU ("cpu" rehearses
-    the comparison)."""
+def multi_window_reference_context(overrides, size, batch, seed, setup=None):
+    """The card-vs-CPU part of the multi_window phase: one joint step on the
+    card vs the same step on the port's CPU path, at the joint config's
+    widths in f32 (TF32 off) on a small input, packed route: the same
+    weights, codebook (k-means on the CPU) and draws on both (`setup`, made
+    here when None). Held (`multi_window_reference_check`): the ids where
+    the top-2 score gap is clear of rounding, every loss (rtol 1e-3; 1e-2
+    for cross, dist, recon, freq and the totals), and the gradients of
+    encoder, decoder and discriminator read from Adam's first moment
+    against the float64 witness of each run's own ids (fault C.6;
+    `float64_step`: the augmented views and the cross-view id warps in
+    float32, as the CPU step computes them): the card within 5× the larger
+    of the two CPU float32 steps' distances (oneDNN's convolutions,
+    PyTorch's native ones), or 5e-4, at most WITNESS_CAP. The card's other
+    conv route and its distance from the CPU's float32 step are readouts.
+    The 1e-2 terms are those an id flipped at a near tie inside the step
+    moves. A card of "cpu" rehearses the comparison."""
     import torch
 
     from medical_image_editing_tpu_torch.models.unet_encoder import encode_quantize
-    from medical_image_editing_tpu_torch.ops.vq import vq_scores
     from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
 
-    tf32_off()  # held to the CPU at full f32
-    t0 = time.perf_counter()
     cfg = mw_config(overrides, **{"model.vqmodel": {"compute_dtype": "float32"}})
     images = make_slices(np.random.default_rng(seed), batch, size)
-    trainer, state = second_state(cfg, "cpu", seed, multi_window=True)
-    init_codebook_step(state.encoder)(state, images)
-    start = {m: copy.deepcopy(getattr(state, m).state_dict())
-             for m in ("encoder", "decoder", "discriminator")}
-    draws = joint_draws(trainer, torch.Generator().manual_seed(seed), batch, size)
+    if setup is None:
+        trainer, state = second_state(cfg, "cpu", seed, multi_window=True)
+        init_codebook_step(state.encoder)(state, images)
+        setup = {"start": {m: copy.deepcopy(getattr(state, m).state_dict())
+                           for m in ("encoder", "decoder", "discriminator")},
+                 "draws": joint_draws(trainer, torch.Generator().manual_seed(seed), batch,
+                                      size)}
+    start, draws = setup["start"], setup["draws"]
     parts = (("encoder", "enc_opt"), ("decoder", "dec_opt"), ("discriminator", "dis_opt"))
 
     def fresh(device):
@@ -2790,12 +2918,7 @@ def multi_window_reference_part(overrides, *, size=64, batch=2, seed=1, card="cu
             trainer.train_step(state, images, draws_to(draws, "cpu"))
         return first_moments(state, parts)
 
-    out = {}
-    runs = [("cpu", "cpu", "packed", True), ("cpu_native", "cpu", "packed", False),
-            ("card", card, "packed", True)]
-    if card == "cuda":
-        runs.append(("card_xla", card, "xla", True))
-    for name, device, route, use_mkldnn in runs:
+    def run(name, device, route, use_mkldnn):
         trainer, state = fresh(device)
         with torch.no_grad():
             x = torch.as_tensor(images, device=device)
@@ -2805,19 +2928,36 @@ def multi_window_reference_part(overrides, *, size=64, batch=2, seed=1, card="cu
         with conv_route(route), recorded_vq_ids() as seen, \
                 torch.backends.mkldnn.flags(enabled=use_mkldnn):
             _, metrics = trainer.train_step(state, images, draws_to(draws, device))
-        out[name] = SimpleNamespace(feats=feats.cpu(), ids=ids.cpu(), vq_ids=seen,
-                                    m={k: float(v) for k, v in metrics.items()},
-                                    grads=first_moments(state, parts))
-        del state
+        return SimpleNamespace(feats=feats.cpu(), ids=ids.cpu(), vq_ids=seen,
+                               m={k: float(v) for k, v in metrics.items()},
+                               grads=first_moments(state, parts))
+
+    def card_runs(card):
+        runs = [("card", ("packed", True))]
+        if torch.device(card).type == "cuda":
+            runs.append(("card_xla", ("xla", True)))
+        return runs
+
+    return SimpleNamespace(setup=setup, start=start, parts=parts, witness=witness, run=run,
+                           cpu_runs=[("cpu", ("packed", True)), ("cpu_native", ("packed", False))],
+                           card_runs=card_runs)
+
+
+def multi_window_reference_check(handle, witnesses):
+    """The multi_window part's checks and record (see
+    `multi_window_reference_context`)."""
+    from medical_image_editing_tpu_torch.ops.vq import vq_scores
+
+    ctx, out, parts = handle.ctx, handle.out, handle.ctx.parts
     cpu, c = out["cpu"], out["card"]
-    top2 = vq_scores(start["encoder"]["vq.embed"],
+    top2 = vq_scores(ctx.start["encoder"]["vq.embed"],
                      cpu.feats.reshape(-1, cpu.feats.shape[-1])).topk(2, dim=1).values
     clear = ((top2[:, 0] - top2[:, 1]) > 1e-4 * top2.abs().max()).reshape(cpu.ids.shape)
     id_mismatch = int(((c.ids != cpu.ids) & clear).sum())
     loss_err = {k: abs(c.m[k] - v) / max(abs(v), 1e-6) for k, v in cpu.m.items()}
     rtol = {k: 1e-2 if k in ("cross", "dist", "recon", "freq", "total", "gen_total") else 1e-3
             for k in loss_err}
-    gaps, n_witness = witness_gaps(out, witness, parts)
+    gaps, n_witness = witness_gaps(out, ctx.witness, parts, witnesses)
     floor, grad_limit = witness_limits(gaps, "multi_window")
     grad_err = gaps["card"]
     readouts = {name: {m: float((o.grads[m] - cpu.grads[m]).norm() / cpu.grads[m].norm())
@@ -2827,13 +2967,13 @@ def multi_window_reference_part(overrides, *, size=64, batch=2, seed=1, card="cu
     if "card_xla" in out:
         route_floor = {m: float((out["card_xla"].grads[m] - g).norm() / g.norm())
                        for m, g in c.grads.items()}
-    rec = {"phase": "multi_window", "part": "reference", "card": card, "size": size,
-           "batch": batch, "id_mismatches_clear": id_mismatch,
+    rec = {"phase": "multi_window", "part": "reference", "card": handle.card,
+           "size": handle.size, "batch": handle.batch, "id_mismatches_clear": id_mismatch,
            "clear_share": float(clear.float().mean()), "loss_rel_err": loss_err,
            "grad_rel_err_vs_f64": gaps, "grad_floor": floor, "grad_limit": grad_limit,
            "witnesses": n_witness, "readout_grad_rel_err_vs_cpu": readouts,
            "readout_card_route_floor": route_floor,
-           "losses_cpu": cpu.m, "losses_card": c.m, "seconds": time.perf_counter() - t0,
+           "losses_cpu": cpu.m, "losses_card": c.m, **handle.timing,
            "tolerance": f"ids equal where the top-2 score gap > 1e-4·max|score|; losses rtol "
                         f"{rtol}; gradients (Adam's first moment): the card's distance from "
                         "a float64 CPU step on its own ids within 5x the larger of the CPU's "
@@ -3077,17 +3217,20 @@ def vqgan_flops(vqgan, batch, size):
 
 
 def vqgan_phase(device, workdir, *, size=512, batch=8, steps=5, seed=0, overrides=None,
-                ref_size=128, patients=2, slices=20):
+                ref_size=128, patients=2, slices=20, defer=None):
     """The VQGAN trainer at the widths of `configs/crc_vqgan.json`
     (`overrides` shrinks it for a CPU rehearsal): (a) the bare step and a
-    painted decode, (c) one step held to the CPU path on a small input,
-    (b) the run through `run_vqwnet.main -v` over a seeded CRC tree in
-    `workdir`. Returns the launches of (a) and (b)."""
+    painted decode, (c) one step held to the CPU path on a small input (its
+    CPU side in a process of its own, joined as `second_stage_phase`
+    says), (b) the run through `run_vqwnet.main -v` over a seeded CRC tree
+    in `workdir`. Returns the launches of (a) and (b)."""
     launches = vqgan_step_part(device, overrides, size=size, batch=batch, steps=steps,
                                seed=seed)
-    vqgan_reference_part(overrides, size=ref_size, seed=seed + 1, card=device)
+    ref = start_reference("vqgan", overrides, size=ref_size, batch=2, seed=seed + 1,
+                          card=device)
     run = vqgan_run_part(device, workdir, overrides, size=size, patients=patients,
                          slices=slices, seed=seed)
+    finish_or_defer(ref, defer)
     return {k: launches.get(k, 0) + run.get(k, 0) for k in set(launches) | set(run)}
 
 
@@ -3244,40 +3387,38 @@ def vqgan_step_part(device, overrides, *, size, batch, steps, seed):
     return launches
 
 
-def vqgan_reference_part(overrides, *, size=128, batch=2, seed=1, card="cuda"):
-    """One VQGAN step on the card vs the same step on the port's CPU path,
-    at the config's widths in f32 (TF32 off) on a small input (128², the
-    512 discriminator's smallest), the same weights and CutMix draws on
-    both. Held: the ids where the top-2 score gap is clear of rounding, every
-    loss (rtol 1e-3), the codebook after the step (rtol 1e-3), and the
-    gradients of the VQGAN and the discriminator read from Adam's first
-    moment against a witness that does not depend on the card (fault C.6):
-    the same step in float64 on the CPU from each run's own ids
-    (`float64_step`). The card's distance from it is held within 5× the
-    larger of the two CPU float32 steps' (oneDNN's convolutions, PyTorch's
-    native ones), or 1e-4, and at most WITNESS_CAP. Two perturbations of
-    the card's step at the
-    rounding level are readouts: cuDNN off, and the quantized features
-    moved by one ulp up or down at random (`ulp_nudged_quantization`: at
-    random init every id is one code, the decoder's input is constant over
-    space, and its GroupNorm divides rounding noise by √eps); so is the
-    card's distance from the CPU's float32 step. `card` is the device held
-    to the CPU ("cpu" rehearses the comparison)."""
+def vqgan_reference_context(overrides, size, batch, seed, setup=None):
+    """The card-vs-CPU part of the vqgan phase: one VQGAN step on the card vs
+    the same step on the port's CPU path, at the config's widths in f32
+    (TF32 off) on a small input (128², the 512 discriminator's smallest):
+    the same weights and CutMix draws on both (`setup`, made here when
+    None). Held (`vqgan_reference_check`): the ids
+    where the top-2 score gap is clear of rounding, every loss and the
+    codebook (rtol 1e-3), and the gradients of the VQGAN and the
+    discriminator read from Adam's first moment against the float64
+    witness of each run's own ids (fault C.6): the card within 5× the
+    larger of the two CPU float32 steps' distances (oneDNN's convolutions,
+    PyTorch's native ones), or 1e-4, and at most WITNESS_CAP. Two
+    perturbations of the card's step at the rounding level are readouts:
+    cuDNN off, and the quantized features moved by one ulp up or down at
+    random (`ulp_nudged_quantization`: at random init every id is one
+    code, the decoder's input is constant over space, and its GroupNorm
+    divides rounding noise by √eps); so is the card's distance from the
+    CPU's float32 step. A card of "cpu" rehearses the comparison."""
     import torch
 
-    from medical_image_editing_tpu_torch.ops.vq import vq_scores
     from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
 
-    tf32_off()  # held to the CPU at full f32
-    t0 = time.perf_counter()
     cfg = vqgan_config(overrides)
     images = make_slices(np.random.default_rng(seed), batch, size)
-    trainer, state = vqgan_state(cfg, "cpu", seed)
-    start = {m: copy.deepcopy(getattr(state, m).state_dict())
-             for m in ("decoder", "discriminator")}
-    draws = sample_cutmix_draws(torch.Generator().manual_seed(seed),
-                                trainer.second_cfg.n_inner_loops, size, size)
-    del state
+    if setup is None:
+        trainer, state = vqgan_state(cfg, "cpu", seed)
+        setup = {"start": {m: copy.deepcopy(getattr(state, m).state_dict())
+                           for m in ("decoder", "discriminator")},
+                 "draws": sample_cutmix_draws(torch.Generator().manual_seed(seed),
+                                              trainer.second_cfg.n_inner_loops, size, size)}
+        del state
+    start, draws = setup["start"], setup["draws"]
     parts = (("decoder", "dec_opt"), ("discriminator", "dis_opt"))
 
     def fresh(device):
@@ -3295,13 +3436,7 @@ def vqgan_reference_part(overrides, *, size=128, batch=2, seed=1, card="cuda"):
             trainer.train_step(state, images, draws=on)
         return first_moments(state, parts)
 
-    out = {}
-    runs = [("cpu", "cpu", True, False, True), ("cpu_native", "cpu", True, False, False),
-            ("card", card, True, False, True)]
-    if card == "cuda":
-        runs += [("card_no_cudnn", card, False, False, True),
-                 ("card_ulp", card, True, True, True)]
-    for name, device, use_cudnn, nudge, use_mkldnn in runs:
+    def run(name, device, use_cudnn, nudge, use_mkldnn):
         trainer, state, on = fresh(device)
         with torch.no_grad():
             x = torch.as_tensor(images, device=device).permute(0, 3, 1, 2)
@@ -3316,13 +3451,30 @@ def vqgan_reference_part(overrides, *, size=128, batch=2, seed=1, card="cuda"):
                 _, metrics = trainer.train_step(state, images, draws=on)
         finally:
             torch.backends.cudnn.enabled = prev_cudnn
-        out[name] = SimpleNamespace(feats=feats.cpu(), ids=ids.cpu(), vq_ids=seen,
-                                    m={k: float(v) for k, v in metrics.items()},
-                                    grads=first_moments(state, parts),
-                                    vq=[t.cpu() for t in state.vq])
-        del state, trainer
+        return SimpleNamespace(feats=feats.cpu(), ids=ids.cpu(), vq_ids=seen,
+                               m={k: float(v) for k, v in metrics.items()},
+                               grads=first_moments(state, parts),
+                               vq=[t.cpu() for t in state.vq])
+
+    def card_runs(card):
+        runs = [("card", (True, False, True))]
+        if torch.device(card).type == "cuda":
+            runs += [("card_no_cudnn", (False, False, True)), ("card_ulp", (True, True, True))]
+        return runs
+
+    return SimpleNamespace(setup=setup, start=start, parts=parts, witness=witness, run=run,
+                           cpu_runs=[("cpu", (True, False, True)),
+                                     ("cpu_native", (True, False, False))],
+                           card_runs=card_runs)
+
+
+def vqgan_reference_check(handle, witnesses):
+    """The vqgan part's checks and record (see `vqgan_reference_context`)."""
+    from medical_image_editing_tpu_torch.ops.vq import vq_scores
+
+    ctx, out, parts = handle.ctx, handle.out, handle.ctx.parts
     cpu, c = out["cpu"], out["card"]
-    top2 = vq_scores(start["decoder"]["vq.embed"],
+    top2 = vq_scores(ctx.start["decoder"]["vq.embed"],
                      cpu.feats.reshape(-1, cpu.feats.shape[-1])).topk(2, dim=1).values
     clear = ((top2[:, 0] - top2[:, 1]) > 1e-4 * top2.abs().max()).reshape(cpu.ids.shape)
     id_mismatch = int(((c.ids != cpu.ids) & clear).sum())
@@ -3332,7 +3484,7 @@ def vqgan_reference_part(overrides, *, size=128, batch=2, seed=1, card="cuda"):
     # the one-ulp run's step is another function (its features moved): a
     # readout against the card only
     gaps, n_witness = witness_gaps({k: v for k, v in out.items() if k != "card_ulp"},
-                                   witness, parts)
+                                   ctx.witness, parts, witnesses)
     floor, grad_limit = witness_limits(gaps, "vqgan")
     grad_err = gaps["card"]
     readouts = {name: {m: float((o.grads[m] - cpu.grads[m]).norm() / cpu.grads[m].norm())
@@ -3341,13 +3493,14 @@ def vqgan_reference_part(overrides, *, size=128, batch=2, seed=1, card="cuda"):
     variants = {name: {m: float((o.grads[m] - g).norm() / g.norm())
                        for m, g in c.grads.items()}
                 for name, o in out.items() if name.startswith("card_")}
-    rec = {"phase": "vqgan", "part": "reference", "card": card, "size": size, "batch": batch,
+    rec = {"phase": "vqgan", "part": "reference", "card": handle.card, "size": handle.size,
+           "batch": handle.batch,
            "id_mismatches_clear": id_mismatch, "clear_share": float(clear.float().mean()),
            "loss_rel_err": loss_err, "grad_rel_err_vs_f64": gaps, "grad_floor": floor,
            "grad_limit": grad_limit, "witnesses": n_witness,
            "readout_grad_rel_err_vs_cpu": readouts, "readout_card_variants": variants,
            "codebook_rel_err": codebook_err, "losses_cpu": cpu.m, "losses_card": c.m,
-           "seconds": time.perf_counter() - t0,
+           **handle.timing,
            "tolerance": "ids equal where the top-2 score gap > 1e-4·max|score|; losses and "
                         "the codebook rtol 1e-3; gradients (Adam's first moment): the card's "
                         "distance from a float64 CPU step on its own ids within 5x the larger "
@@ -3360,6 +3513,23 @@ def vqgan_reference_part(overrides, *, size=128, batch=2, seed=1, card="cuda"):
         raise RuntimeError(f"card vs CPU VQGAN step: {id_mismatch} clear id mismatches, loss "
                            f"errors {loss_err}, codebook {codebook_err}, gradient errors "
                            f"against float64 {gaps} (limits {grad_limit})")
+
+
+REFERENCE_KINDS = {"second_stage": second_stage_reference_context,
+                   "multi_window": multi_window_reference_context,
+                   "vqgan": vqgan_reference_context}
+REFERENCE_CHECKS = {"second_stage": second_stage_reference_check,
+                    "multi_window": multi_window_reference_check,
+                    "vqgan": vqgan_reference_check}
+
+
+def finish_or_defer(handle, defer):
+    """`finish_reference(handle)` now, or, when `defer` is a list, append
+    the handle to it for the caller to finish."""
+    if defer is None:
+        finish_reference(handle)
+    else:
+        defer.append(handle)
 
 
 @contextlib.contextmanager
@@ -4673,6 +4843,17 @@ def s8_conv_bound(b, h, w, cin, cout, kh, kw, out_bytes, bias):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def s8_weights_bound(cout, cin, kh, kw):
+    """Least time (ms) of one weight fold: the f32 weight and the maxima
+    read once, the s8 codes (Cin padded to 32), k_scale and x_scale written
+    once; five f32 operations a weight element (two products, a max, a
+    division, a rounding)."""
+    cp = -(-cin // 32) * 32
+    nbytes = 4 * cout * cin * kh * kw + kh * kw * cout * cp + 4 * (2 * cin + cout)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 5 * cout * cin * kh * kw / PEAK_F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def s8_pass_bound(b, c, h, w, in_bytes, out_bytes):
     """Least time (ms) of an activation pass: the input read once, the
     output (a (C,) vector, or the s8 codes) written once, one f32 operation
@@ -4721,21 +4902,25 @@ def decoder_conv_calls(decoder, embed):
     return calls
 
 
-S8_KERNELS = ("conv_s8", "conv_s8_absmax", "conv_s8_quantize")
+S8_KERNELS = ("conv_s8", "conv_s8_absmax", "conv_s8_quantize", "conv_s8_weights")
 
 
 def int8_kernel_part(device, calls, batch, seed, iters=50):
     """(a) Each kernel of the int8 convolution against its plain version,
     bit for bit, at every distinct convolution of the decode (seeded
-    inputs at the decode's shapes): channel maxima, s8 codes, raw int32
-    sums, the dequantized f32 output. Each timed (`ms`, CUDA events around
-    `iters` calls; `device_ms`, profiler) beside its bound, its plain
-    version and its launches per decode. Returns the records."""
+    inputs at the decode's shapes): channel maxima, the weight fold (codes,
+    k_scale, x_scale), s8 codes, raw int32 sums, the dequantized f32
+    output. Each timed (`ms`, CUDA events around `iters` calls;
+    `device_ms`, profiler) beside its bound, its plain version and its
+    launches per decode; `conv_s8` with the instance that took the shape.
+    A checkout without the weight kernel folds with its plain version and
+    times the other three. Returns the records."""
     import torch
 
     from medical_image_editing_tpu_torch.ops import quantized_conv as qc
 
     cuda = torch.device(device).type == "cuda"
+    fold_kernel = hasattr(qc, "conv_s8_weights")
     gen = torch.Generator(device=device).manual_seed(seed)
     per_decode = {}
     for c in calls:
@@ -4747,14 +4932,24 @@ def int8_kernel_part(device, calls, batch, seed, iters=50):
         b = torch.randn(cout, generator=gen, device=device) if bias else None
         geo = dict(kernel_size=(k, k), dilation=(d, d), padding=(pad, pad))
         amax = qc.channel_absmax(x)
-        scale = qc.symmetric_scale(amax)
+        weight_checks = {}
+        if fold_kernel:
+            wq, k_scale, scale = qc.conv_s8_weights(wt, amax)
+            plain_fold = qc.conv_s8_weights_reference(wt, amax)
+            weight_checks = {"weights": all(bool(torch.equal(a, p)) for a, p in
+                                            zip((wq, k_scale, scale), plain_fold))}
+            weights_err = max(float((a.float() - p.float()).abs().max()) for a, p in
+                              zip((wq, k_scale, scale), plain_fold))
+        else:
+            scale = qc.symmetric_scale(amax)
+            wq, k_scale = qc.weight_codes(wt, scale)
         xq = qc.quantize_s8(x, scale)
-        wq, k_scale = qc.weight_codes(wt, scale)
         acc = qc.conv_s8(xq, wq, None, None, out_dtype=torch.int32, **geo)
         out = qc.conv_s8(xq, wq, k_scale, b, **geo)
         acc_ref = qc.conv_s8_reference(xq, wq, None, None, out_dtype=torch.int32, **geo)
         checks = {
             "absmax": bool(torch.equal(amax, qc.channel_absmax_reference(x))),
+            **weight_checks,
             "codes": bool(torch.equal(xq, qc.quantize_s8_reference(x, scale))),
             "int32_sums": bool(torch.equal(acc, acc_ref)),
             "output": bool(torch.equal(out, qc.conv_s8_reference(xq, wq, k_scale, b, **geo))),
@@ -4765,6 +4960,10 @@ def int8_kernel_part(device, calls, batch, seed, iters=50):
                "max_abs_err": float((out - qc.conv_s8_reference(
                    xq, wq, k_scale, b, **geo)).abs().max()),
                "int32_abs_max": int(acc_ref.abs().max())}
+        if fold_kernel:
+            rec["weights_max_abs_err"] = weights_err
+        if hasattr(qc, "conv_s8_instance"):
+            rec["conv_s8_instance"] = list(qc.conv_s8_instance(cout, xq.shape[-1], k, k, d, w))
         if cuda:
             timed = {
                 "conv_s8": (lambda: qc.conv_s8(xq, wq, k_scale, b, **geo),
@@ -4780,6 +4979,11 @@ def int8_kernel_part(device, calls, batch, seed, iters=50):
                                      s8_pass_bound(batch, cin, h, w, 4, batch * h * w * cin),
                                      "quantize_s8_kernel"),
             }
+            if fold_kernel:
+                timed["conv_s8_weights"] = (lambda: qc.conv_s8_weights(wt, amax),
+                                            lambda: qc.conv_s8_weights_reference(wt, amax),
+                                            s8_weights_bound(cout, cin, k, k),
+                                            "conv_s8_weights_kernel")
             for name, (fn, plain, (bound_ms, bound_by), sym) in timed.items():
                 ms = cuda_ms(fn, iters=iters)
                 rec[name] = {"ms": ms, "device_ms": device_ms(fn, sym),
@@ -4854,8 +5058,9 @@ def int8_phase(device, model, painted, workdir, *, seed=0, microbatch=8, big_bat
     to the decoder's `Conv` count, each decode bit for bit the same decode
     through the plain versions on the card; the error against f32 framed as
     the JAX package's contract (int8 ≤ 4× bf16), timed beside f32 and bf16
-    packed with peak memory; (c) `edit_batch.main --dtype int8` over
-    painted NIfTIs. Returns the launch counts of (b) and (c)."""
+    packed with peak memory, the batch and the microbatched big batch, both
+    int8 decodes profiled; (c) `edit_batch.main --dtype int8` over painted
+    NIfTIs. Returns the launch counts of (b) and (c)."""
     import torch
 
     from medical_image_editing_tpu_torch.cli import edit_batch
@@ -4911,8 +5116,20 @@ def int8_phase(device, model, painted, workdir, *, seed=0, microbatch=8, big_bat
     same = {"batch": bool(torch.equal(out8, plain8)), "microbatch": bool(torch.equal(out8m,
                                                                                      plain8m))}
 
-    # the error against f32, framed as JAX's contract, and the times
-    times, outs, peaks = {}, {}, {}
+    # the error against f32, framed as JAX's contract, and the times: the
+    # batch on every route, the big batch with `microbatch` beside f32 and
+    # bf16 packed
+    times, times_micro, outs, peaks = {}, {}, {}, {}
+
+    def timed_runs(edit, maps):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            edit(vq_state, maps)
+            sync()
+            runs.append(time.perf_counter() - t0)
+        return runs
+
     routes = (("f32", None, "xla", None), ("bf16_cudnn", "bfloat16", "xla", None),
               ("bf16_packed", "bfloat16", "packed", None), ("int8", None, "xla", "int8"))
     for name, dtype, impl, quantize in routes:
@@ -4925,21 +5142,29 @@ def int8_phase(device, model, painted, workdir, *, seed=0, microbatch=8, big_bat
             outs[name] = edit(vq_state, painted).float().cpu().numpy()
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
-            runs = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                edit(vq_state, painted)
-                sync()
-                runs.append(time.perf_counter() - t0)
-            times[name] = runs
+            times[name] = timed_runs(edit, painted)
             peaks[name] = torch.cuda.max_memory_allocated() if cuda else None
+            if name != "bf16_cudnn":
+                editm = make_batched_edit_fn(dec, is_lung=True, dataset_window=window,
+                                             quantize=quantize, microbatch=microbatch,
+                                             device=device)
+                editm(vq_state, big)
+                times_micro[name] = timed_runs(editm, big)
+    # the int8 decodes profiled; the profiler's own host work lengthens its
+    # window, so the idle share is also taken against the unprofiled median
     profiled = {}
     if cuda:
-        wall, prof = profile_window(lambda: edit8(vq_state, painted))
-        profiled = kernel_breakdown(wall, prof)
-        profiled["s8_kernels_device_s"] = {
-            sym: sum(device_us(e) for e in prof if sym in e.key) / 1e6
-            for sym in ("conv_s8_kernel", "channel_absmax_kernel", "quantize_s8_kernel")}
+        for key, fn, runs in (("batch", lambda: edit8(vq_state, painted), times["int8"]),
+                              ("microbatch", lambda: edit8m(vq_state, big),
+                               times_micro["int8"])):
+            wall, prof = profile_window(fn)
+            profiled[key] = kernel_breakdown(wall, prof)
+            profiled[key]["s8_kernels_device_s"] = {
+                sym: sum(device_us(e) for e in prof if sym in e.key) / 1e6
+                for sym in ("conv_s8_kernel", "channel_absmax_kernel", "quantize_s8_kernel",
+                            "conv_s8_weights_kernel")}
+            profiled[key]["idle_share_of_unprofiled"] = (
+                1.0 - profiled[key]["device_busy_s"] / float(np.median(runs)))
     e16 = np.abs(outs["bf16_cudnn"] - outs["f32"])
     e8 = np.abs(outs["int8"] - outs["f32"])
     contract = {
@@ -4954,7 +5179,7 @@ def int8_phase(device, model, painted, workdir, *, seed=0, microbatch=8, big_bat
            "launches": launches, "launches_one_batch": one,
            "kernel_equals_plain_on_card": same, "vs_f32": decode_gap(outs["int8"], outs["f32"]),
            "bf16_vs_f32": decode_gap(outs["bf16_cudnn"], outs["f32"]),
-           "jax_contract": contract, "decode_s": times,
+           "jax_contract": contract, "decode_s": times, "microbatch_decode_s": times_micro,
            "max_memory_allocated_bytes": peaks, "profile": profiled,
            "card": nvidia_smi() if cuda else None}
     emit(rec)
@@ -5003,6 +5228,20 @@ def int8_phase(device, model, painted, workdir, *, seed=0, microbatch=8, big_bat
     for k, v in cli_launches.items():
         launches[k] = launches.get(k, 0) + v
     return launches, {"kernels": kernels, "yardsticks": yard, "decode": rec}
+
+
+def int8_kernels_phase(device, model, *, size=512, batch=8, seed=0):
+    """The int8 phase's (a) alone (`--int8-kernels`): the kernels of
+    `csrc/conv_s8.cu` at every distinct convolution of the `model`-width
+    decoder at `size`², batch `batch`, bit for bit their plain versions
+    and timed."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli.run_recon import load_model
+
+    _, decoder, _ = load_model(lung_config(model), device="cpu", seed=seed)
+    calls = decoder_conv_calls(decoder, torch.zeros(1, int(model["enc_filters"][0]), size, size))
+    return int8_kernel_part(device, calls, batch, seed)
 
 
 def ckpt_crossing_phase(device, workdir, *, size=256, patients=2, slices=8, seed=0,
@@ -6118,11 +6357,14 @@ S8_REPLACES = {
                       "_quantize_sym; no Pallas kernel)",
     "conv_s8_quantize": "medical_image_editing_tpu/ops/quantized_conv.py:60 (XLA's divide, "
                         "round, clip and convert in _quantize_sym; no Pallas kernel)",
+    "conv_s8_weights": "medical_image_editing_tpu/ops/quantized_conv.py:86-87 with :56-61 "
+                       "(XLA's fold of the activation scales into the kernel and its "
+                       "_quantize_sym; no Pallas kernel)",
 }
 
 
 def s8_kernel_lines(int8, int8_launches, others):
-    """The `kernels` line's entries of the three int8 kernels: the numbers
+    """The `kernels` line's entries of the four int8 kernels: the numbers
     of the full-resolution 3×3 convolution (the yardsticks' shape), every
     shape of the decode as points, launches on the int8 path and 0
     elsewhere."""
@@ -6137,7 +6379,8 @@ def s8_kernel_lines(int8, int8_launches, others):
                 "replaces": S8_REPLACES[name], "launches": int8_launches.get(name, 0),
                 "launches_by_path": {"int8": int8_launches.get(name, 0),
                                      **{p: n.get(name, 0) for p, n in others.items()}},
-                "max_abs_err": main["max_abs_err"],
+                "max_abs_err": (main["weights_max_abs_err"] if name == "conv_s8_weights"
+                                else main["max_abs_err"]),
                 "shape": {k: main[k] for k in ("b", "cin", "cout", "kernel", "dilation", "h",
                                                "w")},
                 **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
@@ -6155,6 +6398,10 @@ def s8_kernel_lines(int8, int8_launches, others):
                 "conv_s8_int32_ms")}
         elif name == "conv_s8_absmax":
             line["library_note"] = "torch.linalg.vector_norm(x, inf, dim=(0, 2, 3))"
+        elif name == "conv_s8_weights":
+            line["library_note"] = ("none: no single PyTorch call folds and quantizes the "
+                                    "weight; its yardstick is its plain version on the card "
+                                    "(`weight_codes`, plain_ms)")
         else:
             line["library_note"] = ("none: no PyTorch call writes per-channel s8 codes "
                                     "channels-innermost")
@@ -6169,6 +6416,10 @@ def main(argv=None):
                         help="build the VQ kernel and run only the device and kernel "
                              "phases, with no result line: for holding two checkouts' "
                              "VQ kernels to each other in one call")
+    parser.add_argument("--int8-kernels", action="store_true",
+                        help="build csrc/conv_s8.cu and run only the device phase and the "
+                             "int8 phase's (a), with no result line: for holding two "
+                             "checkouts' int8 kernels to each other in one call")
     args = parser.parse_args(argv)
 
     import torch
@@ -6178,43 +6429,81 @@ def main(argv=None):
               file=sys.stderr)
         return 1
 
-    info = device_phase()
+    timing, t_start = {}, time.perf_counter()
+
+    @contextlib.contextmanager
+    def timed(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            timing[name] = time.perf_counter() - t0
+
+    with timed("device"):
+        info = device_phase()
     if args.kernel_only:
         build_phase(["vq_fused"])
         kernel_phase("cuda", seed=args.seed)
         return 0
-    build_phase()
-    vq_points = kernel_phase("cuda", seed=args.seed)
-    vq = vq_points[0]
-    conv = conv_kernel_phase("cuda", seed=args.seed)
     model = json.loads(MODEL_CONFIG.read_text())["model"]["vqmodel"]
-    with tempfile.TemporaryDirectory() as tmp:
+    if args.int8_kernels:
+        build_phase(["conv_s8"])
+        int8_kernels_phase("cuda", model, seed=args.seed)
+        return 0
+    with timed("build"):
+        build_phase()
+    with timed("kernel"):
+        vq_points = kernel_phase("cuda", seed=args.seed)
+    vq = vq_points[0]
+    with timed("conv"):
+        conv = conv_kernel_phase("cuda", seed=args.seed)
+    with timed("serve"), tempfile.TemporaryDirectory() as tmp:
         serve_launches, served = serve_phase("cuda", model, tmp, seed=args.seed)
-    profile_phase(served)
+        profile_phase(served)
     painted = served.painted
     del served
-    with tempfile.TemporaryDirectory() as tmp:
+    with timed("serve_runtime"), tempfile.TemporaryDirectory() as tmp:
         runtime_launches = serve_runtime_phase("cuda", model, painted, tmp, seed=args.seed)
-    with tempfile.TemporaryDirectory() as tmp:
+    with timed("int8"), tempfile.TemporaryDirectory() as tmp:
         int8_launches, int8 = int8_phase("cuda", model, painted, tmp, seed=args.seed)
     cfg = load_config()
-    with conv_route("packed"):
-        train_launches, trained = train_phase("cuda", cfg, seed=args.seed)
-        train_profile_phase(trained)
-        bare_step_s = trained.warm_s
-        del trained
-        train_reference_phase(cfg, seed=args.seed + 1)
-        with tempfile.TemporaryDirectory() as tmp:
-            trainer_launches = trainer_phase("cuda", tmp, seed=args.seed,
-                                             bare_step_s=bare_step_s)
-            second_launches = second_stage_phase("cuda", tmp, seed=args.seed)
-            mw_launches = multi_window_phase("cuda", tmp, seed=args.seed)
-            vqgan_launches = vqgan_phase("cuda", tmp, seed=args.seed)
-            losses_launches = losses_phase("cuda", tmp, seed=args.seed)
-            vol_launches = volumetric_phase("cuda", tmp, seed=args.seed)
-            ddp_launches = ddp_phase("cuda", tmp, seed=args.seed)
-    with tempfile.TemporaryDirectory() as tmp:
-        crossing_launches = ckpt_crossing_phase("cuda", tmp, seed=args.seed)
+    pending = []  # card-vs-CPU parts whose CPU side runs in the background
+    try:
+        with conv_route("packed"):
+            with timed("train"):
+                train_launches, trained = train_phase("cuda", cfg, seed=args.seed)
+                train_profile_phase(trained)
+                bare_step_s = trained.warm_s
+                del trained
+                train_reference_phase(cfg, seed=args.seed + 1)
+            with tempfile.TemporaryDirectory() as tmp:
+                with timed("trainer"):
+                    trainer_launches = trainer_phase("cuda", tmp, seed=args.seed,
+                                                     bare_step_s=bare_step_s)
+                with timed("second_stage"):
+                    second_launches = second_stage_phase("cuda", tmp, seed=args.seed,
+                                                         defer=pending)
+                with timed("multi_window"):
+                    mw_launches = multi_window_phase("cuda", tmp, seed=args.seed,
+                                                     defer=pending)
+                with timed("vqgan"):
+                    vqgan_launches = vqgan_phase("cuda", tmp, seed=args.seed, defer=pending)
+                with timed("losses"):
+                    losses_launches = losses_phase("cuda", tmp, seed=args.seed)
+                with timed("volumetric"):
+                    vol_launches = volumetric_phase("cuda", tmp, seed=args.seed)
+                with timed("ddp"):
+                    ddp_launches = ddp_phase("cuda", tmp, seed=args.seed)
+        with timed("ckpt_crossing"), tempfile.TemporaryDirectory() as tmp:
+            crossing_launches = ckpt_crossing_phase("cuda", tmp, seed=args.seed)
+        with timed("reference_join"):
+            while pending:
+                finish_reference(pending.pop(0))
+    finally:
+        for handle in pending:  # a phase failed: stop the CPU sides still running
+            handle.proc.kill()
+            handle.proc.join()
+            shutil.rmtree(handle.tmp, ignore_errors=True)
     # (d) no other path launches an int8 kernel
     others = {"serve": serve_launches, "serve_bf16_packed": runtime_launches,
               "train": train_launches, "trainer": trainer_launches,
@@ -6293,9 +6582,12 @@ def main(argv=None):
         "points": [{"dtype": r["dtype"], "path": r["path"], "dir": d, "b": r["b"],
                     "cin": r[d]["cin"], "cout": r[d]["cout"], "h": r["h"],
                     **{k: r[d][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                            "vs_library", "device_ms", "library_device_ms")}}
+                                            "vs_library", "device_ms", "library_device_ms")},
+                    "library_tf32_ms": r[d].get("library_tf32_ms")}
                    for r in conv if "forward" in r for d in ("forward", "dx")],
     }, *s8_kernel_lines(int8, int8_launches, others)]})
+    timing["total"] = time.perf_counter() - t_start
+    emit({"phase": "timing", "seconds": timing})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

@@ -16,17 +16,18 @@ f32 weight and bias (the same checkpoint serves f32, bf16 and int8):
   * acc = Σ xq·kq in int32, then out = f32(acc) · k_scale[o] + bias[o] in
     two roundings, cast to the module's compute dtype (f32 when none).
 
-On CUDA tensors the two activation passes and the convolution are the
-hand-written kernels of `csrc/conv_s8.cu` (`channel_absmax`, `quantize_s8`,
-`conv_s8`); a build or launch failure raises `KernelError`, with no
-fallback. The weight fold stays plain torch ops on the device (at most
-3·3·512·512 values). PyTorch has no int8 convolution on CUDA (`F.conv2d`
-refuses `torch.int8`), and the JAX package leaves this one to XLA, not to a
-Pallas kernel. On CPU tensors the plain versions run (`*_reference`): the
-activation passes as torch ops and the int32 sums exactly, as `F.conv2d` in
-float64 on the integer-valued codes (|acc| ≤ 127²·9·512 < 2⁵³), rounded to
-int32. `int8_conv_reference` is the whole call in plain torch on any device;
-the tests and `chip_smoke.py` hold the kernels to it.
+On CUDA tensors `int8_conv` is four launches of the hand-written kernels of
+`csrc/conv_s8.cu`: `channel_absmax`, `conv_s8_weights` (the scales and the
+weight fold in one kernel), `quantize_s8` and `conv_s8` (an implicit GEMM on
+`wgmma`; `conv_s8_instance` picks its tile); a build or launch failure
+raises `KernelError`, with no fallback. PyTorch has no int8 convolution on
+CUDA (`F.conv2d` refuses `torch.int8`), and the JAX package leaves this one
+to XLA, not to a Pallas kernel. On CPU tensors the plain versions run
+(`*_reference`, `weight_codes`): the activation passes and the fold as torch
+ops and the int32 sums exactly, as `F.conv2d` in float64 on the
+integer-valued codes (|acc| ≤ 127²·9·512 < 2⁵³), rounded to int32.
+`int8_conv_reference` is the whole call in plain torch on any device; the
+tests and `chip_smoke.py` hold the kernels to it.
 
 Every scale is divided by a tensor, never by a Python number: on CUDA,
 PyTorch divides by a scalar as a multiply by its reciprocal, which can move
@@ -50,6 +51,7 @@ from . import _build
 KERNEL = "conv_s8"                 # the convolution's launch count, and the source
 ABSMAX = "conv_s8_absmax"          # the activation passes' launch counts
 QUANTIZE = "conv_s8_quantize"
+WEIGHTS = "conv_s8_weights"        # the weight fold's launch count
 MODES = ("int8",)
 K_STEP = 32  # the kernel's channels per K-step: codes are padded to a multiple
 _MAX_GRID_YZ = 65535
@@ -89,8 +91,10 @@ def _kernel_lib() -> ctypes.CDLL:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.conv_s8_absmax_launch.argtypes = [vp, vp, i, i, i, ll, vp]
         lib.conv_s8_quantize_launch.argtypes = [vp, vp, vp, i, i, i, i, ll, vp]
-        lib.conv_s8_launch.argtypes = [vp] * 5 + [i] * 14 + [vp]
-        for fn in (lib.conv_s8_absmax_launch, lib.conv_s8_quantize_launch, lib.conv_s8_launch):
+        lib.conv_s8_weights_launch.argtypes = [vp] * 5 + [i] * 4 + [vp]
+        lib.conv_s8_launch.argtypes = [vp] * 5 + [i] * 19 + [vp]
+        for fn in (lib.conv_s8_absmax_launch, lib.conv_s8_quantize_launch,
+                   lib.conv_s8_weights_launch, lib.conv_s8_launch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -220,10 +224,82 @@ def weight_codes(weight: torch.Tensor, x_scale: torch.Tensor):
     return codes, k_scale
 
 
+def conv_s8_weights_reference(weight: torch.Tensor, amax: torch.Tensor):
+    """Plain version of `conv_s8_weights`: `symmetric_scale` of the
+    activation maxima, then `weight_codes`."""
+    x_scale = symmetric_scale(amax)
+    codes, k_scale = weight_codes(weight, x_scale)
+    return codes, k_scale, x_scale
+
+
+def conv_s8_weights(weight: torch.Tensor, amax: torch.Tensor):
+    """The activation scales and the weight fold from the OIHW f32 weight
+    and the activation maxima (Cin,) → (codes (kh·kw, Cout, Cp) int8, k_scale
+    (Cout,) f32, x_scale (Cin,) f32): one launch of the kernel on CUDA
+    tensors, the plain version on CPU ones. Bit for bit either way."""
+    if weight.dim() != 4 or amax.shape != (weight.shape[1],):
+        raise ValueError(f"conv_s8_weights takes an OIHW weight and ({weight.shape[1]},) "
+                         f"maxima, got {tuple(weight.shape)} and {tuple(amax.shape)}")
+    if _plain(weight, amax):
+        return conv_s8_weights_reference(weight, amax)
+    if weight.device.type != "cuda" or amax.device != weight.device:
+        raise ValueError(f"conv_s8_weights: no kernel for a weight on {weight.device}, "
+                         f"maxima on {amax.device}")
+    w = weight.float().contiguous()
+    amax = amax.float().contiguous()
+    cout, cin, kh, kw = w.shape
+    cp = padded_channels(cin)
+    codes = torch.empty(kh * kw, cout, cp, dtype=torch.int8, device=w.device)
+    k_scale = torch.empty(cout, dtype=torch.float32, device=w.device)
+    x_scale = torch.empty(cin, dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _kernel_lib().conv_s8_weights_launch(
+            w.data_ptr(), amax.data_ptr(), codes.data_ptr(), k_scale.data_ptr(),
+            x_scale.data_ptr(), cout, cin, cp, kh * kw, _stream(w.device))
+    _check_launch(WEIGHTS, err)
+    return codes, k_scale, x_scale
+
+
 # ---- the convolution ----------------------------------------------------------
 
 def _output_size(size: int, k: int, d: int, p: int) -> int:
     return size + 2 * p - d * (k - 1)
+
+
+ROW_PIXELS = 64  # the row kernel's pixels a warpgroup (csrc/conv_s8.cu's kRowM)
+_SMEM_LIMIT = 232448
+
+
+def row_kernel_smem(bn: int, kys: int, stages: int, cp: int, kh: int, dw: int) -> int:
+    """Dynamic shared memory of a `conv_s8_kernel_rows` launch, as
+    `csrc/conv_s8.cu::row_smem` reckons it: the ring (no more slots than
+    steps) or the staged epilogue, and the alignment."""
+    seg = ROW_PIXELS + 2 * dw
+    slots = min(stages, kh // kys * (cp // K_STEP))
+    return max(slots * kys * (2 * seg + 3 * bn) * K_STEP, bn * 132 * 4) + 128
+
+
+def conv_s8_instance(cout: int, cp: int, kh: int, kw: int, dw: int, wo: int):
+    """The `conv_s8` kernel and instance that take a convolution of `cout`
+    output channels, `cp` padded input channels, a kh × kw kernel of
+    dilation `dw` along the width and output width `wo`: (kernel, BN, KC,
+    STAGES, PREFETCH), one of `csrc/conv_s8.cu`'s CONV_S8_INSTANCES.
+
+    Kernel 1, `conv_s8_kernel_rows`, three kernel rows a step, when each
+    warpgroup's 64 pixels are one run of an output row (wo % 64 == 0), the
+    kernel is 3 × 3 (the taps of a kernel row share a row segment of 64 +
+    2·dw pixels, at most 128), Cin is past 32 channels and the ring fits in
+    shared memory; else kernel 0, `conv_s8_kernel`, two 32-byte chunks a
+    stage. BN 32 and 64 for the bytes-bound Cout ≤ 64 convolutions, 128
+    past them. The choice is `tools/conv_s8_sweep.py`'s at the lung
+    decoder's shapes on an H100: at 32 channels in, the gather kernel's
+    nine 4 KB tap tiles beat the row kernel's segments."""
+    bn = 32 if cout <= 32 else 64 if cout <= 64 else 128
+    rows = (1, bn, 3, 2, 1)
+    if (kh == 3 and kw == 3 and wo % ROW_PIXELS == 0 and ROW_PIXELS + 2 * dw <= 2 * ROW_PIXELS
+            and cp > K_STEP and row_kernel_smem(bn, *rows[2:4], cp, kh, dw) <= _SMEM_LIMIT):
+        return rows
+    return 0, bn, 2, 4, 2
 
 
 def conv_s8_reference(xq: torch.Tensor, wq: torch.Tensor, k_scale: Optional[torch.Tensor],
@@ -289,7 +365,7 @@ def conv_s8(xq: torch.Tensor, wq: torch.Tensor, k_scale: Optional[torch.Tensor],
             xq.data_ptr(), wq.data_ptr(), *(None if t is None else t.data_ptr()
                                             for t in (k_scale, bias)),
             y.data_ptr(), _OUT_DTYPES[out_dtype], n, h, w, cp, cout, ho, wo, kh, kw, dh, dw,
-            ph, pw, _stream(xq.device))
+            ph, pw, *conv_s8_instance(cout, cp, kh, kw, dw, wo), _stream(xq.device))
     _check_launch(KERNEL, err)
     return y
 
@@ -315,9 +391,8 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
     the module note's arithmetic → NCHW in `out_dtype`. CUDA tensors go
     through the kernels (or raise); CPU tensors through the plain versions."""
     args = _conv_args(weight, stride, padding, dilation, groups)
-    x_scale = symmetric_scale(channel_absmax(x))
+    wq, k_scale, x_scale = conv_s8_weights(weight, channel_absmax(x))
     xq = quantize_s8(x, x_scale)
-    wq, k_scale = weight_codes(weight, x_scale)
     return conv_s8(xq, wq, k_scale, bias, out_dtype=out_dtype, **args)
 
 

@@ -954,10 +954,15 @@ def test_volumetric_step_on_card_matches_cpu(cuda):
 
 
 # (b, cin, cout, h, w, kernel, dilation, bias, compute dtype): the lung
-# decoder's kinds of convolution at ragged sizes. H, W not multiples of the
-# 128-pixel tile, Cout 1 (conv1x1) and 40 (a ragged n8 tile), Cin 16 (the
-# codebook embedding) and 160 (the ASPP concat), dilation 18 on 32² (most
-# taps past the image), batch 33, and a bf16 compute dtype.
+# decoder's kinds of convolution at ragged sizes, through every instance
+# (`conv_s8_instance`): conv_s8_kernel with BN 32 (Cout 32 and 1), 64 (Cout
+# 40 and 64) and 128 (Cout 96 and 256), and conv_s8_kernel_rows (W a
+# multiple of 64, 3×3, Cin past 32) with BN 32, 64 and 128. H, W not
+# multiples of the 128-pixel tile, Cin 16 (the codebook embedding), 160
+# (the ASPP concat) and 256 (a Cin >= 128 shape), dilation 18 on 32² (most
+# taps past the image) and on 512-wide rows (the ASPP's; the row kernel's
+# segments of 100), batch 33, and a bf16 compute dtype (bf16 out) on three
+# instances.
 S8_SHAPES = [
     (2, 32, 32, 37, 45, 3, 1, True, torch.float32),
     (2, 16, 32, 33, 31, 1, 1, False, torch.float32),
@@ -967,6 +972,13 @@ S8_SHAPES = [
     (2, 32, 32, 32, 32, 3, 6, False, torch.float32),
     (33, 32, 32, 16, 16, 3, 2, False, torch.float32),
     (2, 64, 96, 17, 19, 3, 1, True, torch.bfloat16),
+    (2, 256, 256, 18, 18, 3, 1, True, torch.float32),
+    (3, 128, 64, 20, 24, 3, 1, False, torch.bfloat16),
+    (3, 160, 32, 7, 64, 3, 1, True, torch.float32),
+    (1, 32, 32, 20, 512, 3, 18, False, torch.float32),
+    (1, 64, 32, 6, 512, 3, 18, False, torch.float32),
+    (1, 64, 64, 9, 128, 3, 2, False, torch.bfloat16),
+    (2, 256, 256, 5, 64, 3, 1, True, torch.float32),
 ]
 
 
@@ -974,12 +986,15 @@ S8_SHAPES = [
 @pytest.mark.parametrize("shape", S8_SHAPES, ids=lambda s: "x".join(map(str, s[:7])) + (
     "-bias" if s[7] else "") + ("-bf16" if s[8] == torch.bfloat16 else ""))
 def test_conv_s8_kernels_match_plain(cuda, shape):
-    """Each of the three int8 kernels against its plain version on the
-    card, bit for bit: the channel maxima, the s8 codes (NHWC, zero-padded
-    to 32 channels), the raw int32 sums and the dequantized output (f32, or
-    bf16 from a bf16 input under a bf16 compute dtype); the whole call
-    against `int8_conv_reference`; each launch counted once."""
+    """Each of the four int8 kernels against its plain version on the
+    card, bit for bit: the channel maxima, the weight fold (codes, k_scale
+    and x_scale against the plain `weight_codes`), the s8 codes (NHWC,
+    zero-padded to 32 channels), the raw int32 sums and the dequantized
+    output (f32, or bf16 from a bf16 input under a bf16 compute dtype); the
+    whole call against `int8_conv_reference`; each launch counted."""
     b, cin, cout, h, w, k, d, use_bias, dtype = shape
+    inst = tqc.conv_s8_instance(cout, tqc.padded_channels(cin), k, k, d, w)
+    assert inst[0] == (1 if k == 3 and w % 64 == 0 and cin > 32 else 0)
     rng = np.random.default_rng(cin * 7 + cout)
     x = torch.from_numpy(rng.normal(size=(b, cin, h, w)).astype(np.float32)).to(cuda, dtype)
     wt = torch.from_numpy(rng.normal(size=(cout, cin, k, k)).astype(np.float32)).to(cuda)
@@ -990,10 +1005,13 @@ def test_conv_s8_kernels_match_plain(cuda, shape):
     _build.launches.clear()
     amax = tqc.channel_absmax(x)
     assert torch.equal(amax, tqc.channel_absmax_reference(x))
-    scale = tqc.symmetric_scale(amax)
+    wq, k_scale, scale = tqc.conv_s8_weights(wt, amax)
+    plain_scale = tqc.symmetric_scale(amax)
+    plain_wq, plain_k_scale = tqc.weight_codes(wt, plain_scale)
+    assert torch.equal(scale, plain_scale) and torch.equal(wq, plain_wq)
+    assert torch.equal(k_scale, plain_k_scale)
     xq = tqc.quantize_s8(x, scale)
     assert torch.equal(xq, tqc.quantize_s8_reference(x, scale))
-    wq, k_scale = tqc.weight_codes(wt, scale)
     acc = tqc.conv_s8(xq, wq, None, None, out_dtype=torch.int32, **geo)
     assert torch.equal(acc, tqc.conv_s8_reference(xq, wq, None, None, out_dtype=torch.int32,
                                                   **geo))
@@ -1004,7 +1022,8 @@ def test_conv_s8_kernels_match_plain(cuda, shape):
     torch.cuda.synchronize()
     assert torch.equal(whole, tqc.int8_conv_reference(x, wt, bias, padding=pad, dilation=d,
                                                       out_dtype=dtype))
-    assert dict(_build.launches) == {tqc.ABSMAX: 2, tqc.QUANTIZE: 2, tqc.KERNEL: 3}
+    assert dict(_build.launches) == {tqc.ABSMAX: 2, tqc.WEIGHTS: 2, tqc.QUANTIZE: 2,
+                                     tqc.KERNEL: 3}
 
 
 @pytest.mark.gpu
@@ -1049,7 +1068,7 @@ def test_int8_decode_goes_through_the_kernels(cuda, monkeypatch):
         torch.cuda.synchronize()
         chunks = 1 if micro is None else 2
         assert dict(_build.launches) == {k: n_convs * chunks for k in
-                                         (tqc.KERNEL, tqc.ABSMAX, tqc.QUANTIZE)}
+                                         (tqc.KERNEL, tqc.ABSMAX, tqc.WEIGHTS, tqc.QUANTIZE)}
         with monkeypatch.context() as m:
             m.setattr(blocks, "int8_conv", tqc.int8_conv_reference)
             want = edit(vq, ids)

@@ -299,7 +299,7 @@ def test_chip_smoke_trainer_phase_on_cpu(tmp_path, capsys):
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
 
 
-def test_chip_smoke_second_stage_phase_on_cpu(tmp_path, capsys):
+def test_chip_smoke_second_stage_phase_on_cpu(tmp_path, capsys, monkeypatch):
     """The second_stage phase end to end at tiny size on the CPU, staged
     from the trainer phase's run-A first stage: (a) the bare steps, the
     discriminator's work, the TF32 step; the card-vs-CPU comparison (here
@@ -307,6 +307,7 @@ def test_chip_smoke_second_stage_phase_on_cpu(tmp_path, capsys):
     validation maps, test, export, the painted decode, the planted faulty
     resume that the check catches; no kernel launch."""
     smoke = _chip_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # its CPU side imports it
     overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
                                    "dec_filters": [32, 8, 8, 16, 16]},
                  "dataset": {"batch_size": 2}}
@@ -347,6 +348,7 @@ def test_chip_smoke_multi_window_phase_on_cpu(tmp_path, capsys, monkeypatch):
 
     monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
     smoke = _chip_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # its CPU side imports it
     smoke.write_lung_tree(tmp_path / "data", np.random.default_rng(0), patients=2, slices=5,
                           size=32)
     overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
@@ -383,7 +385,7 @@ def test_chip_smoke_multi_window_phase_on_cpu(tmp_path, capsys, monkeypatch):
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
 
 
-def test_chip_smoke_vqgan_phase_on_cpu(tmp_path, capsys):
+def test_chip_smoke_vqgan_phase_on_cpu(tmp_path, capsys, monkeypatch):
     """The vqgan phase end to end at tiny size on the CPU, over a seeded CRC
     tree of 2 × 5 slices of 32² (5 steps an epoch at batch 2, as on the
     card at batch 8): (a) the bare steps, the operations counted on the
@@ -393,6 +395,7 @@ def test_chip_smoke_vqgan_phase_on_cpu(tmp_path, capsys):
     buffers dropped) that the check catches; no kernel launch, under the
     packed conv route too."""
     smoke = _chip_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # its CPU side imports it
     overrides = {"model.vqgan": {"mid_channels": 4, "emb_dim": 8, "dict_size": 6,
                                  "enc_ch_multiplier": [1, 2, 4], "dec_ch_multiplier": [1, 2, 4],
                                  "num_res_blocks": 1, "dec_attn_resolutions": [8],

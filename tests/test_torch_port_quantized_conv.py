@@ -298,115 +298,333 @@ def test_edit_batch_main_int8(tmp_path, monkeypatch):
         assert not np.array_equal(got, tnifti.to_nifti_array(f32[i]))
 
 
-# -- csrc/conv_s8.cu's index and fragment arithmetic, emulated ----------------
+# -- csrc/conv_s8.cu's tile walk, swizzle, fragments and stores, emulated --
 
-def _mma_s8(acc, a, b0, b1, g, t):
-    """One m16n8k32 s8 mma of a warp, from its lanes' fragments, as the PTX
-    ISA lays them out (the layout in `csrc/conv_s8.cu::mma_s8`)."""
-    A = np.zeros((16, 32), np.int64)
-    B = np.zeros((32, 8), np.int64)
-    for i in range(4):
-        A[g, 4 * t + i] = a[0][:, i]
-        A[g + 8, 4 * t + i] = a[1][:, i]
-        A[g, 16 + 4 * t + i] = a[2][:, i]
-        A[g + 8, 16 + 4 * t + i] = a[3][:, i]
-        B[4 * t + i, g] = b0[:, i]
-        B[16 + 4 * t + i, g] = b1[:, i]
-    C = A @ B
-    acc[:, 0] += C[g, 2 * t]
-    acc[:, 1] += C[g, 2 * t + 1]
-    acc[:, 2] += C[g + 8, 2 * t]
-    acc[:, 3] += C[g + 8, 2 * t + 1]
+BM, EPI_PAD, THREADS = 128, 4, 256  # csrc/conv_s8.cu's kBM, kEpiPad, kConvThreads
 
 
-def _emulate_conv_s8(xq, wq, cout, kh, kw, dh, dw, ph, pw):
-    """conv_s8_kernel's loads, mma and stores, lane by lane in numpy."""
+def _swizzle(off, kb):
+    """`csrc/conv_s8.cu::swizzle<KB>`: 16-byte piece bits [4, 7) XOR row bits
+    [7, 10), as many bits as a KB-byte row has pieces."""
+    return off ^ (((off >> 7) & (kb // 16 - 1)) << 4)
+
+
+def _desc_rows(ring, written, start, rows, kb, stamp):
+    """The (rows, 32) bytes a K-major wgmma descriptor at `start` names: row
+    r at (r // 8)·8·KB (the stride offset) + (r % 8)·KB (the swizzle's row
+    pitch) + k, then swizzled on the address. Each byte read was written by
+    the copies of k-block `stamp`."""
+    r = np.arange(rows)[:, None]
+    addr = _swizzle(start + (r // 8) * 8 * kb + (r % 8) * kb + np.arange(32)[None, :], kb)
+    assert (written[addr] == stamp).all(), "a byte read that this k-block did not write"
+    return ring[addr].astype(np.int64)
+
+
+def _plain_desc_rows(ring, written, start, rows, lbo, stamp):
+    """The (rows, 32) bytes of a K-major wgmma descriptor without swizzle:
+    row r at r·16 (8-row groups 128 bytes apart), the k32 slice's second
+    16 bytes `lbo` further. Each byte read was written by step `stamp`."""
+    r = np.arange(rows)[:, None]
+    k = np.arange(32)[None, :]
+    addr = start + (r // 8) * 128 + (r % 8) * 16 + (k // 16) * lbo + k % 16
+    assert (written[addr] == stamp).all(), "a byte read that this step did not write"
+    return ring[addr].astype(np.int64)
+
+
+def _ring_pipeline(iters, stages, prefetch, load, multiply):
+    """The kernels' ring: PREFETCH steps loaded ahead, then each step k
+    loads step k + PREFETCH into its slot and multiplies slot k % STAGES
+    (a slot is refilled only after the batch that read it: PREFETCH plus
+    the batches left running, STAGES - 1 - PREFETCH, is below STAGES)."""
+    assert 0 <= stages - 1 - prefetch <= 1
+    for st in range(prefetch):
+        if st < iters:
+            load(st, st)
+    for k_block in range(iters):
+        nk = k_block + prefetch
+        if nk < iters:
+            load(nk % stages, nk)
+        multiply(k_block % stages, k_block)
+
+
+def _store_tile(y, d, bn, m0, co0, m_total, hwo, cout, out_dtype, k_scale, bias):
+    """`csrc/conv_s8.cu::store_tile`: warpgroup wg's D fragments (d[wg]:
+    its 64 rows × BN) dequantized and staged [channel][pixel], then stored
+    NCHW in 16-byte groups of pixels (when Ho·Wo is a multiple of the
+    group) or element by element."""
+    tid = np.arange(THREADS)
+    lane, warp, wg = tid & 31, (tid >> 5) & 3, tid >> 7
+    g, t = lane >> 2, lane & 3
+    kld = BM + EPI_PAD
+    group = 8 if out_dtype == torch.bfloat16 else 4  # 16 bytes of the output type
+    stage = np.full(bn * kld, np.nan)
+    for i in range(bn // 2):  # wgmma's D fragments → [channel][pixel]
+        col = 8 * (i >> 2) + 2 * t + (i & 1)
+        rr = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1)
+        acc = d[wg, 16 * warp + g + 8 * ((i >> 1) & 1), col]
+        if out_dtype == torch.int32:
+            v = acc.astype(np.float64)
+        else:
+            live = co0 + col < cout
+            v = acc.astype(np.float32) * k_scale[np.minimum(co0 + col, cout - 1)]
+            if bias is not None:
+                v = v + bias[np.minimum(co0 + col, cout - 1)]
+            v = np.where(live, v, 0).astype(np.float64)
+        stage[col * kld + rr] = v
+    for u in range(bn * (BM // group)):  # stores: `group` pixels of a channel
+        col, gi = divmod(u, BM // group)
+        co = co0 + col
+        if co >= cout:
+            continue
+        mg = m0 + gi * group
+        vals = stage[col * kld + gi * group:col * kld + (gi + 1) * group]
+        if hwo % group == 0:
+            if mg < m_total:
+                im = mg // hwo
+                dst = (im * cout + co) * hwo + mg - im * hwo
+                y[dst:dst + group] = vals
+        else:
+            for e in range(group):
+                if mg + e >= m_total:
+                    break
+                im = (mg + e) // hwo
+                y[(im * cout + co) * hwo + mg + e - im * hwo] = vals[e]
+
+
+def _emulate_conv_s8(xq, wq, cout, kh, kw, dh, dw, ph, pw, out_dtype=torch.int32,
+                     k_scale=None, bias=None):
+    """conv_s8's kernels block by block in numpy: the instance; the ring of
+    cp.async stages (gather addresses, zero-fill, the writes: swizzled for
+    conv_s8_kernel, plain row segments for conv_s8_kernel_rows); the wgmma
+    descriptors' reads (a tap's shift along the row segment) and products;
+    the accumulator fragments; the staged epilogue and its stores."""
     n, h, w, cp = xq.shape
     ho, wo = h + 2 * ph - dh * (kh - 1), w + 2 * pw - dw * (kw - 1)
+    kernel, bn, kc, stages, prefetch = tqc.conv_s8_instance(cout, cp, kh, kw, dw, wo)
     hwo, m_total = ho * wo, n * ho * wo
-    xf, wf = xq.reshape(-1).astype(np.int64), wq.reshape(-1).astype(np.int64)
-    y = np.full((n, cout, ho, wo), -(2**40), np.int64)
-    lane = np.arange(32)
-    g, t = lane >> 2, lane & 3
+    cpc = cp // 32
+    xf, wf = xq.reshape(-1), wq.reshape(-1)
+    y = np.full(n * cout * hwo, np.nan)
+    rng = np.random.default_rng(0)
 
-    def ld32(flat, off, valid):
-        out = np.zeros((32, 4), np.int64)
-        idx = off[valid][:, None] + np.arange(4)
-        assert (off[valid] % 4 == 0).all()
-        out[valid] = flat[idx]
-        return out
+    def copy(ring, written, dst, src, valid, flat, stamp):
+        """16-byte cp.async copies, zero-filled where not valid."""
+        for b in range(16):
+            ring[dst + b] = np.where(valid, flat[np.where(valid, src + b, 0)], 0)
+            written[dst + b] = stamp
 
-    for bx in range(-(-m_total // 128)):
-        for by in range(-(-cout // 32)):
-            co0 = by * 32
-            for warp in range(4):
-                m_warp = bx * 128 + warp * 32
-                oh, ow, base, live_m = {}, {}, {}, {}
-                for mt in range(2):
-                    for hf in range(2):
-                        m = m_warp + 16 * mt + 8 * hf + g
-                        ok = m < m_total
-                        img, r = m // hwo, m % hwo
-                        oh[mt, hf] = np.where(ok, r // wo, -(1 << 29))
-                        ow[mt, hf] = np.where(ok, r % wo, 0)
-                        base[mt, hf] = np.where(ok, img * h * w * cp, 0)
-                        live_m[mt, hf] = ok
-                n_live = sum(co0 + 8 * nt < cout for nt in range(4))
-                co_b = co0 + g
-                acc = np.zeros((2, 4, 32, 4), np.int64)
-                for tap in range(kh * kw):
-                    ky, kx = divmod(tap, kw)
-                    xp, inside = {}, {}
-                    for key in oh:
-                        ih = oh[key] - ph + ky * dh
-                        iw = ow[key] - pw + kx * dw
-                        inside[key] = (ih >= 0) & (ih < h) & (iw >= 0) & (iw < w)
-                        xp[key] = (base[key] + (np.where(inside[key], ih, 0) * w
-                                                + np.where(inside[key], iw, 0)) * cp + 4 * t)
-                    wp = (tap * cout + co_b) * cp + 4 * t
-                    for kc in range(cp // 32):
-                        k0 = kc * 32
-                        a = {mt: [ld32(xf, xp[mt, 0] + k0, inside[mt, 0]),
-                                  ld32(xf, xp[mt, 1] + k0, inside[mt, 1]),
-                                  ld32(xf, xp[mt, 0] + k0 + 16, inside[mt, 0]),
-                                  ld32(xf, xp[mt, 1] + k0 + 16, inside[mt, 1])]
-                             for mt in range(2)}
-                        for nt in range(n_live):
-                            live = co_b + 8 * nt < cout
-                            bp = wp + 8 * nt * cp + k0
-                            b0, b1 = ld32(wf, bp, live), ld32(wf, bp + 16, live)
-                            for mt in range(2):
-                                _mma_s8(acc[mt, nt], a[mt], b0, b1, g, t)
-                for mt in range(2):
-                    for hf in range(2):
-                        m = m_warp + 16 * mt + 8 * hf + g
-                        for nt in range(4):
-                            for e in range(2):
-                                co = co0 + 8 * nt + 2 * t + e
-                                ok = (m < m_total) & (co < cout)
-                                img, r = m[ok] // hwo, m[ok] % hwo
-                                y[img, co[ok], r // wo, r % wo] = acc[mt, nt][ok, 2 * hf + e]
-    assert (y > -(2**40)).all()  # every output written
-    return y
+    tid = np.arange(THREADS)
+    for bx in range(-(-m_total // BM)):
+        m0 = bx * BM
+        for by in range(-(-cout // bn)):
+            co0 = by * bn
+            d = np.zeros((2, 64, bn), np.int64)
+            if kernel == 0:  # conv_s8_kernel: chunks q = (tap, 32 channels)
+                kb = 32 * kc
+                q_total = kh * kw * cpc
+                a_bytes, stage_bytes = BM * kb, (BM + bn) * kb
+                row, half = tid >> 1, tid & 1
+                m = m0 + row
+                m_ok = m < m_total
+                img, r = m // hwo, m % hwo
+                oh, ow = r // wo, r % wo
+                ring = rng.integers(-128, 128, stages * stage_bytes).astype(np.int8)
+                written = np.full(ring.shape, -1)
+
+                def load(slot, k_block):
+                    base = slot * stage_bytes
+                    for j in range(kc):  # A: thread (row, half)
+                        q = k_block * kc + j
+                        tap, c32 = divmod(q, cpc)
+                        ky, kx = divmod(tap, kw)
+                        ih, iw = oh - ph + ky * dh, ow - pw + kx * dw
+                        valid = (m_ok & (q < q_total) & (ih >= 0) & (ih < h) & (iw >= 0)
+                                 & (iw < w))
+                        src = (img * h * w + ih * w + iw) * cp + c32 * 32 + 16 * half
+                        dst = base + _swizzle(row * kb + (2 * j + half) * 16, kb)
+                        copy(ring, written, dst, src, valid, xf, k_block)
+                    u = np.arange(bn * 2 * kc)  # B: 16-byte piece u, any thread
+                    j, rr = u // (2 * bn), u % (2 * bn)
+                    nn, hh = rr >> 1, rr & 1
+                    q = k_block * kc + j
+                    valid = (q < q_total) & (co0 + nn < cout)
+                    src = ((q // cpc) * cout + co0 + nn) * cp + (q % cpc) * 32 + 16 * hh
+                    dst = base + a_bytes + _swizzle(nn * kb + (2 * j + hh) * 16, kb)
+                    assert len(np.unique(dst)) == len(dst)
+                    copy(ring, written, dst, src, valid, wf, k_block)
+
+                def multiply(slot, k_block):
+                    base = slot * stage_bytes
+                    for wg in range(2):
+                        for j in range(kc):
+                            a = _desc_rows(ring, written, base + wg * 64 * kb + 32 * j, 64, kb,
+                                           k_block)
+                            b = _desc_rows(ring, written, base + a_bytes + 32 * j, bn, kb,
+                                           k_block)
+                            d[wg] += a @ b.T
+
+                _ring_pipeline(-(-q_total // kc), stages, prefetch, load, multiply)
+            else:  # conv_s8_kernel_rows: steps (KYS kernel rows, 32 channels), row segments
+                kys = kc
+                steps = kh // kys * cpc
+                seg = tqc.ROW_PIXELS + (kw - 1) * dw
+                row_a = 2 * seg * 32
+                a_bytes = kys * row_a
+                stage_bytes = a_bytes + kys * kw * bn * 32
+                slots = min(stages, steps)  # the ring has no more slots than steps
+                assert tqc.row_kernel_smem(bn, kys, stages, cp, kh, dw) == max(
+                    slots * stage_bytes, bn * (BM + EPI_PAD) * 4) + 128
+                mg = m0 + 64 * np.arange(2)
+                ok = mg < m_total
+                img = np.where(ok, mg // hwo, 0)
+                r = np.where(ok, mg - img * hwo, 0)
+                oh, ow0 = r // wo, r % wo
+                assert (ow0 % 64 == 0).all()
+                ring = rng.integers(-128, 128, slots * stage_bytes).astype(np.int8)
+                written = np.full(ring.shape, -1)
+
+                def load(slot, step):
+                    base = slot * stage_bytes
+                    kyg, c32 = divmod(step, cpc)
+                    for kyl in range(kys):
+                        ky = kyg * kys + kyl
+                        u = np.arange(4 * seg)  # A: (segment, row, half)
+                        sg, rem = u // (2 * seg), u % (2 * seg)
+                        rr, hh = rem >> 1, rem & 1
+                        ih, iw = oh[sg] - ph + ky * dh, ow0[sg] - pw + rr
+                        valid = ok[sg] & (ih >= 0) & (ih < h) & (iw >= 0) & (iw < w)
+                        src = (img[sg] * h * w + ih * w + iw) * cp + c32 * 32 + 16 * hh
+                        dst = base + kyl * row_a + sg * seg * 32 + hh * seg * 16 + rr * 16
+                        assert len(np.unique(dst)) == len(dst)
+                        copy(ring, written, dst, src, valid, xf, step)
+                        u = np.arange(kw * 2 * bn)  # B: (tap, channel, half)
+                        kx, rem = u // (2 * bn), u % (2 * bn)
+                        nn, hh = rem >> 1, rem & 1
+                        valid = co0 + nn < cout
+                        src = ((ky * kw + kx) * cout + co0 + nn) * cp + c32 * 32 + 16 * hh
+                        dst = (base + a_bytes + (kyl * kw + kx) * bn * 32 + hh * bn * 16
+                               + nn * 16)
+                        copy(ring, written, dst, src, valid, wf, step)
+
+                def multiply(slot, step):
+                    base = slot * stage_bytes
+                    for wg in range(2):
+                        for kyl in range(kys):
+                            for kx in range(kw):
+                                a = _plain_desc_rows(ring, written, base + kyl * row_a
+                                                     + wg * seg * 32 + kx * dw * 16, 64,
+                                                     seg * 16, step)
+                                b = _plain_desc_rows(ring, written, base + a_bytes
+                                                     + (kyl * kw + kx) * bn * 32, bn, bn * 16,
+                                                     step)
+                                d[wg] += a @ b.T
+
+                _ring_pipeline(steps, stages, prefetch, load, multiply)
+            _store_tile(y, d, bn, m0, co0, m_total, hwo, cout, out_dtype, k_scale, bias)
+    assert not np.isnan(y).any()  # every output written
+    y = torch.from_numpy(y.reshape(n, cout, ho, wo))
+    if out_dtype == torch.int32:
+        return y.to(torch.int32)
+    return y.float().to(out_dtype)  # bf16 rounded once, at the store
 
 
-@pytest.mark.parametrize("n,cin,cout,h,w,k,d", [
-    (1, 40, 9, 5, 7, 3, 1),    # ragged Cin (two K-steps), ragged Cout, M < one block
-    (2, 16, 1, 9, 20, 1, 1),   # Cout 1, two blocks of pixels
-    (1, 8, 33, 12, 12, 3, 5),  # dilation past the image, two blocks of channels
-])
-def test_conv_s8_kernel_index_arithmetic_matches_plain(n, cin, cout, h, w, k, d):
-    """The kernel's pixel decomposition, tap offsets, masks, fragment loads
-    (m16n8k32 s8 layout), skipped n8 tiles and stores, emulated lane by
-    lane, give the plain version's int32 sums."""
-    rng = np.random.default_rng(n * 100 + cin)
+# (n, cin, cout, h, w, kernel, dilation, out dtype)
+EMULATED = [
+    (1, 40, 9, 5, 7, 3, 1, torch.int32),       # ragged Cin (two chunks a tap), ragged Cout,
+                                               # M < one tile, element stores
+    (2, 16, 1, 9, 20, 1, 1, torch.float32),    # Cout 1, two tiles of pixels, bias
+    (1, 8, 33, 12, 12, 3, 5, torch.int32),     # dilation past the image, Cout 33: BN 64
+    (1, 32, 64, 8, 8, 3, 2, torch.bfloat16),   # a full Cout-64 tile, bf16 out
+    (1, 136, 130, 5, 6, 3, 1, torch.float32),  # Cout 130: two BN-128 tiles, Cin 136 (five
+                                               # chunks a tap, stages across taps)
+    (3, 72, 32, 9, 11, 3, 1, torch.int32),     # M = 297: not a multiple of the tile, Cin 72
+    (2, 32, 96, 8, 12, 3, 1, torch.float32),   # M = 192, 16-byte stores, a part tile
+    # the row kernel (Wo a multiple of 64, 3×3, Cin past 32):
+    (1, 40, 9, 3, 64, 3, 1, torch.int32),      # M = 192: a half tile, two chunks of Cin
+    (1, 64, 64, 2, 128, 3, 5, torch.bfloat16),  # dilation 5 (segments of 74), BN 64, bf16 out
+    (2, 72, 130, 2, 64, 3, 2, torch.float32),  # Cout 130: two BN-128 tiles, Cin 72, bias
+    (1, 33, 32, 4, 64, 3, 18, torch.float32),  # dilation 18 (segments of 100), the ASPP's
+]
+
+
+@pytest.mark.parametrize("n,cin,cout,h,w,k,d,out_dtype", EMULATED,
+                         ids=["x".join(map(str, c[:7])) + "-" + str(c[7]).split(".")[-1]
+                              for c in EMULATED])
+def test_conv_s8_kernel_index_arithmetic_matches_plain(n, cin, cout, h, w, k, d, out_dtype):
+    """The kernels' tile walk, their cp.async gathers with zero-fill, the
+    shared-memory layouts (each byte read back where its step wrote it),
+    the wgmma descriptors and fragments and the staged epilogue, emulated
+    block by block, give the plain version's int32 sums or its dequantized
+    output bit for bit; the row shapes take the row kernel."""
+    rng = np.random.default_rng(n * 100 + cin + cout)
     x = torch.from_numpy(rng.normal(size=(n, cin, h, w)).astype(np.float32))
     wt = torch.from_numpy(rng.normal(size=(cout, cin, k, k)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=cout).astype(np.float32))
     scale = tqc.symmetric_scale(tqc.channel_absmax(x))
     xq = tqc.quantize_s8(x, scale)
-    wq, _ = tqc.weight_codes(wt, scale)
+    wq, k_scale = tqc.weight_codes(wt, scale)
     pad = d if k == 3 else 0
-    want = tqc.conv_s8_reference(xq, wq, None, None, kernel_size=(k, k), dilation=(d, d),
-                                 padding=(pad, pad), out_dtype=torch.int32)
-    got = _emulate_conv_s8(xq.numpy(), wq.numpy(), cout, k, k, d, d, pad, pad)
-    np.testing.assert_array_equal(got, want.numpy().astype(np.int64))
+    inst = tqc.conv_s8_instance(cout, tqc.padded_channels(cin), k, k, d, w)
+    assert inst[0] == (1 if k == 3 and w % 64 == 0 and cin > 32 else 0)
+    b = None if out_dtype == torch.int32 else bias
+    want = tqc.conv_s8_reference(xq, wq, k_scale, b, kernel_size=(k, k), dilation=(d, d),
+                                 padding=(pad, pad), out_dtype=out_dtype)
+    got = _emulate_conv_s8(xq.numpy(), wq.numpy(), cout, k, k, d, d, pad, pad, out_dtype,
+                           k_scale.numpy(), None if b is None else b.numpy())
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _emulate_conv_s8_weights(weight, amax, cp):
+    """conv_s8_weights_kernel in numpy float32 steps, with its index maps:
+    x_scale = max(amax, 1e-12) / 127, the block max of |W·x_scale|, k_scale,
+    and codes [tap][o][c] by rint (half to even), zero past Cin."""
+    cout, cin, kh, kw = weight.shape
+    taps = kh * kw
+    tiny, q = np.float32(1e-12), np.float32(127)
+    xs = np.maximum(amax, tiny) / q
+    codes = np.full((taps, cout, cp), 99, np.int8)
+    k_scale = np.empty(cout, np.float32)
+    for o in range(cout):
+        wo = weight[o].reshape(-1)
+        i = np.arange(cin * taps)
+        ks = np.maximum(np.abs(wo[i] * xs[i // taps]).max(), tiny) / q
+        k_scale[o] = ks
+        i = np.arange(taps * cp)
+        tap, c = i // cp, i % cp
+        live = c < cin
+        cc = np.minimum(c, cin - 1)
+        kf = wo[cc * taps + tap] * xs[cc]
+        codes[tap, o, c] = np.where(live, np.clip(np.rint(kf / ks), -127, 127), 0)
+    return codes, k_scale, xs
+
+
+@pytest.mark.parametrize("cin,cout,k", [(40, 9, 3), (16, 3, 1)])
+def test_conv_s8_weights_kernel_arithmetic_matches_jax(cin, cout, k):
+    """The weight kernel's float32 steps (emulated) and the plain
+    `conv_s8_weights` / `weight_codes` give JAX's x_scale, k_fold scales and
+    codes (`_quantize_sym`) bit for bit: Cin 40 padded to 64, an input
+    channel whose maxima are 0 (the 1e-12 floor) and an output channel of
+    zero weights."""
+    rng = np.random.default_rng(cin + cout)
+    x = rng.normal(size=(2, 6, 6, cin)).astype(np.float32)
+    x[..., 3] = 0.0
+    kernel = rng.normal(size=(k, k, cin, cout)).astype(np.float32)
+    kernel[..., 1] = 0.0
+    _, jx_scale, jkq, _, jk_scale = _jax_codes(x, kernel)
+    w = torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy())
+    amax = tqc.channel_absmax(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert amax[3] == 0
+    codes, k_scale, x_scale = tqc.conv_s8_weights(w, amax)
+    cp = tqc.padded_channels(cin)
+    assert codes.shape == (k * k, cout, cp) and not codes[..., cin:].any()
+    ecodes, ek_scale, ex_scale = _emulate_conv_s8_weights(w.numpy(), amax.numpy(), cp)
+    np.testing.assert_array_equal(x_scale.numpy(), jx_scale)
+    np.testing.assert_array_equal(ex_scale, jx_scale)
+    np.testing.assert_array_equal(k_scale.numpy(), jk_scale)
+    np.testing.assert_array_equal(ek_scale, jk_scale)
+    assert k_scale[1] == np.float32(1e-12) / np.float32(127)
+    jcodes = jkq.reshape(k * k, cin, cout).transpose(0, 2, 1)  # HWIO → (tap, O, I)
+    np.testing.assert_array_equal(codes[..., :cin].numpy(), jcodes)
+    np.testing.assert_array_equal(ecodes, codes.numpy())
+    plain = tqc.weight_codes(w, x_scale)
+    assert torch.equal(plain[0], codes) and torch.equal(plain[1], k_scale)

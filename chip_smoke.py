@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`medical_image_editing_tpu_torch`) on
 one CUDA card: the quickest proof that the port starts on the GPU.
 
-    python3 chip_smoke.py [--seed 0] [--kernel-only]
+    python3 chip_smoke.py [--seed 0] [--only vq|conv|int8]
 
 Phases, each printing one JSON line and raising on failure (exit code != 0,
 and no result line):
@@ -20,16 +20,24 @@ and no result line):
                (`device_ms`, the cross-block reduce included) beside the
                plain version and its bound; the instance that ran (`path`)
                and hashes of its ids and quantized rows;
-  4. conv    — the 3×3 conv kernel, forward and input gradient, against its
-               plain version (and dx against autograd through `F.conv2d`) at
-               every (Cin, Cout, H) the training step gives it, batch 8, f32
-               (CUDA-core path) and bf16 (tensor-core path, mma.sync), plus a
-               ragged shape; timed beside the plain version, cuDNN's
-               `F.conv2d` (`vs_library` = kernel / cuDNN; in f32 also
-               under TF32, `library_tf32_ms`) and its bound,
-               with CUDA events around 50 calls (`ms`: what a caller waits,
-               the wrapper's host work included) and with the profiler
-               (`device_ms`: the kernel's own device time);
+  4. conv    — the 3×3 conv kernel's three instances, forward and input
+               gradient (dx held to autograd through the plain forward,
+               not to the flipped weights the kernel runs on), each
+               against its plain version at every (Cin,
+               Cout, H) the training step gives it, batch 8, plus a ragged
+               shape: bf16 (`conv3x3_mma_kernel`, mma.sync) and f32
+               (`conv3x3_f32_kernel`, CUDA cores, true f32) under the run's
+               `ieee`, and f32 under `conv_precision("tf32")`
+               (`conv3x3_tf32_kernel`, TF32 mma.sync; also held to the
+               unrounded f32 convolution); two runs bit for bit, NHWC equal
+               to NCHW, only the instance the precision picks counted;
+               timed beside the plain version, cuDNN's `F.conv2d` in the
+               same precision (`vs_library` = kernel / cuDNN; f32 instances
+               also beside cuDNN in the other precision) and the bound at
+               the instance's rate, with CUDA events around 50 calls (`ms`:
+               what a caller waits, the wrapper's host work included) and
+               with the profiler (`device_ms`: the kernel's own device
+               time, `kernel`: the template instance that ran);
   5. serve   — the editing service at the lung model's full widths (from
                `configs/lung_first_stage.json`), seeded weights, f32, 512²:
                encode synthetic slices through `make_eval_forward` (the fused
@@ -79,6 +87,14 @@ and no result line):
                held to the counts derived from the model; one warm step under
                the profiler; one step on the card held to the port's CPU path
                on a small input;
+  7b. f32_step — the f32 readout of the conv's two f32 instances: the
+               lung first stage at its config's widths in float32, 256²,
+               batch 8, one k-means-initialised state forked four times:
+               1 + 3 steps on each of {ieee, tf32} × {packed, xla} (step
+               times, a profiled warm step with each instance's device
+               time, launches by instance held to the derived counts, the
+               first step's loss gap packed − xla in each precision); the
+               main path of the f32 instances;
   8. trainer — the first-stage training run as a user runs it,
                `run_vqwnet.main` in-process with `MEDIMG_CONV_IMPL=packed`
                on the lung config (widths, losses, bf16, batch 8, 256²)
@@ -223,21 +239,27 @@ and no result line):
                each rank's peak memory; (b) each through `run_vqwnet`
                under a one-rank NCCL group, 2 steps, and its bare step
                timed with and without the group;
-  9. kernels — one line listing every hand-written kernel of the paths.
+  9. kernels — one line listing every hand-written kernel of the paths
+               (the conv kernel's bf16 instance under `conv3x3_packed`, its
+               f32 instances as `conv3x3_packed_f32` and
+               `conv3x3_packed_tf32`, each with its launches by main path,
+               counted under `conv_pack.LAUNCH_KEYS`).
 The serve, serve_runtime (its packed route), int8 (b) and (c), train,
-trainer, second_stage (a) and (b), multi_window (a) (each mode) and (b),
+f32_step (each variant), trainer, second_stage (a) and (b), multi_window (a) (each mode) and (b),
 vqgan (a) and (b), losses (a), (b), (c) and (e), volumetric (a) (each
 mode) and (b), ddp (a) (each rank and trainer, counted in its process) and
 (b) (each run), and
 ckpt_crossing phases are the main paths: each zeroes the launch counts
 just before it and reads them just after.
-`--kernel-only` runs phases 1-3 for the VQ kernel alone and prints no
-result line: run from two checkouts in one call (this script copied into
-the other), it holds two versions of the kernel to each other by time and,
-through the hashes, bit for bit. `--int8-kernels` likewise runs phases 1-2
-for `csrc/conv_s8.cu` and the int8 phase's (a) alone: the four kernels
-bit for bit their plain versions and timed at the decoder's 25 shapes (a
-checkout without the weight kernel folds with its plain version). A
+`--only KERNEL` builds one source and runs the device phase and that
+kernel's phase alone, with no result line, for holding two checkouts'
+versions of a kernel to each other in one call (this script copied into
+the other checkout, run from both): `vq`, phase 3 (times and output
+hashes); `conv`, hashes of `csrc/conv3x3_packed.cu`'s f32 (`ieee`) and bf16
+outputs at the conv points, forward and dx; `int8`, the int8 phase's (a)
+(`csrc/conv_s8.cu`'s four kernels bit for bit their plain versions and
+timed at the decoder's 25 shapes; a checkout without the weight kernel
+folds with its plain version). A
 `timing` line after the kernels line gives each phase's seconds; the
 card-vs-CPU parts of second_stage, multi_window and vqgan run their CPU
 side in a background process and are joined after ckpt_crossing.
@@ -318,10 +340,11 @@ VQGAN_RESUME_GAP_LIMIT = {
 }
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
-# tensor cores, bf16 and int8 on the dense tensor cores
+# tensor cores, bf16, TF32 and int8 on the dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_INT8_OPS_PER_S = 1979e12
 
 # (N, C, K): the serve encode (8 slices at 512², C=16, K=10) first, then the
@@ -350,9 +373,11 @@ CONV_SERVE_POINTS = [(1, 32, 32, 512), (8, 32, 32, 512)]
 CONV_RAGGED = (3, 20, 40, 37, 45)  # B, Cin, Cout, H, W
 CONV_SOURCE = "medical_image_editing_tpu_torch/csrc/conv3x3_packed.cu"
 CONV_REPLACES = "medical_image_editing_tpu/ops/conv_pack.py:66"
-# the source's kernel for each dtype, as the profiler names them
-CONV_PATHS = {"float32": ("conv3x3_kernel", "cuda-core f32"),
-              "bfloat16": ("conv3x3_mma_kernel", "mma.sync bf16")}
+# the source's kernel for each instance (`conv_pack.instance`), as the
+# profiler names them (each is a template: its instances share the prefix)
+CONV_PATHS = {"f32": ("conv3x3_f32_kernel", "cuda-core f32 (ieee)"),
+              "tf32": ("conv3x3_tf32_kernel", "mma.sync tf32"),
+              "bf16": ("conv3x3_mma_kernel", "mma.sync bf16")}
 
 
 def emit(obj):
@@ -395,16 +420,16 @@ def vq_bound(n, c, k):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def conv_bound(b, h, w, cin, cout, dtype):
+def conv_bound(b, h, w, cin, cout, instance):
     """Least time (ms) for a 3×3 SAME conv on the card, and what bounds it:
-    x, the weights and y each moved once; 2·B·H·W·9·Cin·Cout operations at
-    the f32 CUDA-core rate, or the dense bf16 tensor-core rate."""
-    import torch
-
-    size = torch.finfo(dtype).bits // 8
+    x, the weights and y each moved once (4 bytes an element in f32 and
+    TF32, 2 in bf16); 2·B·H·W·9·Cin·Cout operations at the instance's rate:
+    f32 on the CUDA cores, or the dense TF32 or bf16 tensor-core rate."""
+    size = 2 if instance == "bf16" else 4
     nbytes = size * (b * h * w * cin + 9 * cin * cout + b * h * w * cout)
     ops = 2 * b * h * w * 9 * cin * cout
-    rate = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
+    rate = {"f32": PEAK_F32_FLOP_PER_S, "tf32": PEAK_TF32_FLOP_PER_S,
+            "bf16": PEAK_BF16_FLOP_PER_S}[instance]
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -467,14 +492,15 @@ def device_ms(fn, match=None, iters=20, tries=3, names=None):
     under torch.profiler (only those whose name holds `match`, if given),
     over `iters`. Unlike `cuda_ms`, it leaves out the card's idle time while
     the host prepares the next call. A window in which the profiler reports
-    no such kernel is taken again; None ("not measured") after `tries`.
+    fewer such kernel launches than calls (it has dropped events) is taken
+    again; None ("not measured") after `tries`.
     The names of the kernels counted are added to the list `names`."""
     fn()
     for _ in range(tries):
         _, kernels = profile_window(lambda: [fn() for _ in range(iters)])
         found = [e for e in kernels if match is None or match in e.key]
         us = [device_us(e) for e in found]
-        if us and sum(us) > 0:
+        if us and sum(us) > 0 and sum(e.count for e in found) >= iters:
             if names is not None:
                 names.extend(e.key for e in found)
             return sum(us) / 1e3 / iters
@@ -671,85 +697,155 @@ def kernel_phase(device, points=VQ_POINTS, seed=0, iters=50):
 
 
 def conv_kernel_phase(device, points=CONV_POINTS, batch=8, seed=0, iters=50):
-    """The 3×3 conv kernel vs its plain version, forward and dx, at each
-    point in f32 and bf16 and at a ragged shape; returns the records."""
+    """The 3×3 conv kernel's three instances, forward and dx, each against
+    its plain version at each point and at a ragged shape: bf16 and f32
+    (ieee) under the run's `ieee`, the TF32 instance under
+    `conv_precision("tf32")`; the bf16 serve points. Returns the records."""
     import torch
     import torch.nn.functional as F
 
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.ops import conv_pack as tcp
     from medical_image_editing_tpu_torch.ops.conv_pack import (
         conv3x3_packed,
         conv3x3_packed_nchw,
         conv3x3_packed_reference_nchw,
+        conv3x3_tf32_reference_nchw,
         flip_transpose,
     )
 
     gen = torch.Generator(device=device).manual_seed(seed)
     b0, cin0, cout0, h0, w0 = CONV_RAGGED
-    cases = [(batch, cin, cout, h, h, dt) for cin, cout, h in points
-             for dt in (torch.bfloat16, torch.float32)]
-    cases += [(b, cin, cout, h, h, torch.bfloat16) for b, cin, cout, h in CONV_SERVE_POINTS]
-    cases += [(b0, cin0, cout0, h0, w0, dt) for dt in (torch.bfloat16, torch.float32)]
+    cases = [(batch, cin, cout, h, h, inst) for cin, cout, h in points
+             for inst in ("bf16", "f32", "tf32")]
+    cases += [(b, cin, cout, h, h, "bf16") for b, cin, cout, h in CONV_SERVE_POINTS]
+    cases += [(b0, cin0, cout0, h0, w0, inst) for inst in ("bf16", "f32", "tf32")]
     records = []
-    for b, cin, cout, h, w, dt in cases:
+    for b, cin, cout, h, w, inst in cases:
+        precision = "tf32" if inst == "tf32" else "ieee"
+        dt = torch.bfloat16 if inst == "bf16" else torch.float32
         x = torch.randn(b, cin, h, w, generator=gen, device=device).to(dt)
         wt = ((torch.rand(cout, cin, 3, 3, generator=gen, device=device) * 2 - 1)
               / (9 * cin) ** 0.5).to(dt)
         dy = torch.randn(b, cout, h, w, generator=gen, device=device).to(dt)
         wdx = flip_transpose(wt).contiguous()
-        got = conv3x3_packed_nchw(x, wt)
-        again = conv3x3_packed_nchw(x, wt)
-        dx = conv3x3_packed_nchw(dy, wdx)
-        nhwc = conv3x3_packed(x.permute(0, 2, 3, 1).contiguous(),
-                              wt.permute(2, 3, 1, 0).contiguous())
-        # f32 references on the same (rounded) values; dx through autograd
-        xr = x.float().requires_grad_()
-        ref = F.conv2d(xr, wt.float(), padding=1)
-        ref.backward(dy.float())
+        with conv_precision(precision):
+            if tcp.instance(dt) != inst:
+                raise RuntimeError(f"conv3x3_packed: {precision} picks "
+                                   f"{tcp.instance(dt)}, not {inst}")
+            before = _build.launches.copy()
+            got = conv3x3_packed_nchw(x, wt)
+            again = conv3x3_packed_nchw(x, wt)
+            dx = conv3x3_packed_nchw(dy, wdx)
+            nhwc = conv3x3_packed(x.permute(0, 2, 3, 1).contiguous(),
+                                  wt.permute(2, 3, 1, 0).contiguous())
+            torch.cuda.synchronize()
+            counted = dict(_build.launches - before)
+        # the plain versions on the same (rounded) values, TF32 off (the run's
+        # ieee); dx through autograd of the forward, not through flip_transpose:
+        # for TF32 the gradient of the convolution of x and w rounded to TF32,
+        # taken at dy rounded to TF32 (what dx's instance rounds)
+        tf32_off()
+        rnd = tcp.tf32_round if inst == "tf32" else (lambda t: t)
+        xr = rnd(x.float()).requires_grad_()
+        ref = F.conv2d(xr, rnd(wt.float()), padding=1)
+        ref.backward(rnd(dy.float()))
+        ref, ref_dx = ref.detach(), xr.grad
         torch.cuda.synchronize()
-        # f32: sums in another order; bf16: one rounding of the f32 sum
-        rel = 2.0**-8 if dt == torch.bfloat16 else 0.0
-        fwd_err = float((got.float() - ref.detach()).abs().max())
-        dx_err = float((dx.float() - xr.grad).abs().max())
+        # bf16: one rounding of the f32 sum; f32: sums in another order; TF32:
+        # the same rounding, sums in another order (and 2^-10 of the
+        # |x|·|w| convolution from the unrounded f32 one)
+        rel = {"bf16": 2.0**-8, "f32": 0.0, "tf32": 2.0**-18}[inst]
+        fwd_err = float((got.float() - ref).abs().max())
+        dx_err = float((dx.float() - ref_dx).abs().max())
         checks = {
-            "forward": bool(((got.float() - ref.detach()).abs()
-                             <= rel * ref.detach().abs() + 1e-4).all()),
-            "dx": bool(((dx.float() - xr.grad).abs() <= rel * xr.grad.abs() + 1e-4).all()),
+            "forward": bool(((got.float() - ref).abs() <= rel * ref.abs() + 1e-4).all()),
+            "dx": bool(((dx.float() - ref_dx).abs() <= rel * ref_dx.abs() + 1e-4).all()),
             "deterministic": bool(torch.equal(got, again)),
             "nhwc_entry": bool(torch.equal(nhwc.permute(0, 3, 1, 2), got)),
+            "instance_launches": counted == {tcp.KERNEL: 4, tcp.LAUNCH_KEYS[inst]: 4},
         }
-        dtype = str(dt).split(".")[-1]
-        rec = {"phase": "conv", "name": "conv3x3_packed", "dtype": dtype,
-               "path": CONV_PATHS[dtype][1], "b": b, "cin": cin, "cout": cout, "h": h,
-               "w": w, "checks": checks,
-               "forward_max_abs_err": fwd_err, "dx_max_abs_err": dx_err,
-               "tolerance": f"|err| <= {rel}*|ref| + 1e-4"}
+        rec = {"phase": "conv", "name": "conv3x3_packed", "instance": inst,
+               "dtype": str(dt).split(".")[-1], "precision": precision,
+               "path": CONV_PATHS[inst][1], "b": b, "cin": cin, "cout": cout, "h": h,
+               "w": w, "forward_max_abs_err": fwd_err, "dx_max_abs_err": dx_err,
+               "tolerance": f"|err| <= {rel}*|plain| + 1e-4"}
+        if inst == "tf32":  # against the unrounded f32 convolution
+            rec["vs_f32_max_abs_err"] = {}
+            for name, y, (xx, ww) in (("forward", got, (x, wt)), ("dx", dx, (dy, wdx))):
+                err = (y - F.conv2d(xx, ww, padding=1)).abs()
+                tol = (2.0**-10 + 2.0**-22) * F.conv2d(xx.abs(), ww.abs(), padding=1) + 1e-4
+                checks[f"{name}_vs_f32"] = bool((err <= tol).all())
+                rec["vs_f32_max_abs_err"][name] = float(err.max())
+            rec["vs_f32_tolerance"] = "(2^-10 + 2^-22) * conv(|x|, |w|) + 1e-4"
+        rec["checks"] = checks
         if (b, h, w) != (b0, h0, w0):
             for name, (xx, ww) in (("forward", (x, wt)), ("dx", (dy, wdx))):
                 ci, co = ww.shape[1], ww.shape[0]
-                bound_ms, bound_by = conv_bound(b, h, w, ci, co, dt)
-                ms = cuda_ms(lambda: conv3x3_packed_nchw(xx, ww), iters=iters)
-                library_ms = cuda_ms(lambda: F.conv2d(xx, ww, padding=1), iters=iters)
+                bound_ms, bound_by = conv_bound(b, h, w, ci, co, inst)
+                seen = []
+                with conv_precision(precision):
+                    ms = cuda_ms(lambda: conv3x3_packed_nchw(xx, ww), iters=iters)
+                    library_ms = cuda_ms(lambda: F.conv2d(xx, ww, padding=1), iters=iters)
+                    dev_ms = device_ms(lambda: conv3x3_packed_nchw(xx, ww),
+                                       CONV_PATHS[inst][0], names=seen)
+                    library_dev_ms = device_ms(lambda: F.conv2d(xx, ww, padding=1))
+                plain = (conv3x3_tf32_reference_nchw if inst == "tf32"
+                         else conv3x3_packed_reference_nchw)
                 rec[name] = {
-                    "cin": ci, "cout": co, "ms": ms,
-                    "plain_ms": cuda_ms(lambda: conv3x3_packed_reference_nchw(xx, ww),
-                                        iters=iters),
+                    "cin": ci, "cout": co, "ms": ms, "device_ms": dev_ms,
+                    "kernel": sorted(set(seen)),
+                    "plain_ms": cuda_ms(lambda: plain(xx, ww), iters=iters),
                     "library_ms": library_ms, "vs_library": ms / library_ms,
-                    "device_ms": device_ms(lambda: conv3x3_packed_nchw(xx, ww),
-                                           CONV_PATHS[dtype][0]),
-                    "library_device_ms": device_ms(lambda: F.conv2d(xx, ww, padding=1)),
+                    "library_device_ms": library_dev_ms,
+                    "vs_library_device": (None if not (dev_ms and library_dev_ms)
+                                          else dev_ms / library_dev_ms),
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "roofline_share": bound_ms / ms,
+                    "roofline_share_device": None if not dev_ms else bound_ms / dev_ms,
                 }
-                if dt == torch.float32:  # cuDNN's f32 as the CLIs' default runs it
-                    with conv_precision("tf32"):
-                        rec[name]["library_tf32_ms"] = cuda_ms(
+                if inst != "bf16":  # cuDNN's f32 in the other precision too
+                    other = "ieee" if inst == "tf32" else "tf32"
+                    with conv_precision(other):
+                        rec[name][f"library_{other}_ms"] = cuda_ms(
                             lambda: F.conv2d(xx, ww, padding=1), iters=iters)
+        tf32_off()
         emit(rec)
         if not all(checks.values()):
-            raise RuntimeError(f"conv3x3_packed disagrees with its plain version at "
-                               f"{(b, cin, cout, h, w, dt)}: {checks}")
+            raise RuntimeError(f"conv3x3_packed ({inst}) disagrees with its plain version at "
+                               f"{(b, cin, cout, h, w)}: {checks}")
         records.append(rec)
     return records
+
+
+def conv_hash_phase(device, points=CONV_POINTS, batch=8, seed=0):
+    """The conv kernel's outputs, forward and dx, at each point and the
+    ragged shape, in f32 (under the run's `ieee`: the CUDA-core kernel) and
+    bf16, as sha256 prefixes of seeded inputs' outputs. Only the wrapper's
+    entries that every version of the port has are called, so this script,
+    copied into an older checkout and run from both in one call, holds two
+    versions of the kernel to each other: equal hashes, bit-identical
+    outputs."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops.conv_pack import conv3x3_packed_nchw, flip_transpose
+
+    tf32_off()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = [(batch, cin, cout, h, h) for cin, cout, h in points] + [CONV_RAGGED]
+    for b, cin, cout, h, w in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, cin, h, w, generator=gen, device=device).to(dt)
+            wt = ((torch.rand(cout, cin, 3, 3, generator=gen, device=device) * 2 - 1)
+                  / (9 * cin) ** 0.5).to(dt)
+            dy = torch.randn(b, cout, h, w, generator=gen, device=device).to(dt)
+            ys = {"forward": conv3x3_packed_nchw(x, wt),
+                  "dx": conv3x3_packed_nchw(dy, flip_transpose(wt).contiguous())}
+            torch.cuda.synchronize()
+            emit({"phase": "conv_hash", "dtype": str(dt).split(".")[-1], "b": b, "cin": cin,
+                  "cout": cout, "h": h, "w": w,
+                  "sha256": {k: hashlib.sha256(v.float().cpu().numpy().tobytes()).hexdigest()[:16]
+                             for k, v in ys.items()}})
 
 
 def make_slices(rng, n, size):
@@ -1388,6 +1484,92 @@ def train_profile_phase(trained):
     rec["warm_step_s"] = min(trained.warm_s)
     rec["device_idle_share_of_warm_step"] = 1.0 - rec["device_busy_s"] / rec["warm_step_s"]
     emit(rec)
+
+
+def f32_step_phase(device, cfg, *, size=256, batch=8, steps=3, seed=0):
+    """The f32 readout of the packed conv's two f32 instances: the lung
+    first stage at its config's widths (`configs/lung_first_stage.json`)
+    with `compute_dtype` float32, 256², batch 8. One state, its codebook
+    from k-means (cuDNN route, `ieee`), forked four times; on each of
+    {ieee, tf32} × {packed, xla}, 1 + `steps` steps from the fork (the same
+    weights, codebook and draws): step times (median of the warm ones), one
+    profiled warm step on the card (device busy, each conv instance's
+    device time, top kernels), launches (the total and each instance's
+    under `conv_pack.LAUNCH_KEYS`; the counts zeroed
+    just before the steps and read just after: on the card under `ieee` the
+    packed route must launch only the CUDA-core instance, under `tf32` only
+    the TF32 one, `xla` none; on the CPU nothing launches), and the first
+    step's losses, packed − xla in each precision. Returns the launch
+    counts by variant, the conv kernel's by instance among them."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.ops import conv_pack as tcp
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    model = cfg.model.vqmodel
+    enc, dec = train_models(model, torch.float32, device, seed)
+    base = train_state(cfg, enc, dec, device, seed)
+    images = make_slices(np.random.default_rng(seed), batch, size)
+    with conv_route("packed"):
+        n_enc = routed_convs(enc, torch.zeros(1, int(model.in_channels), size, size))
+        n_dec = routed_convs(dec, torch.zeros(1, enc.emb_dim, size, size))
+    with conv_route("xla"), conv_precision("ieee"):
+        init_codebook_step(enc)(base, images)
+    sync()
+    runs, launches = {}, {}
+    for precision in ("ieee", "tf32"):
+        inst = "tf32" if precision == "tf32" else "f32"
+        for route in ("packed", "xla"):
+            name = f"{precision}_{route}"
+            state = fork_first_state(cfg, base, device)
+            step = train_step_fn(cfg, state.encoder, state.decoder, torch.float32, device)
+            n = (1 + steps) * 4 * (n_enc + n_dec) if cuda and route == "packed" else 0
+            want = {tcp.KERNEL: n, **{key: n if i == inst else 0
+                                      for i, key in tcp.LAUNCH_KEYS.items()}}
+            with conv_precision(precision), conv_route(route):
+                _build.launches.clear()
+                # -- main path of the f32 instances: the steps
+                step_s, losses = [], []
+                for _ in range(1 + steps):
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, images)
+                    sync()
+                    step_s.append(time.perf_counter() - t0)
+                    losses.append({k: float(v) for k, v in metrics.items()})
+                launches[name] = dict(_build.launches)
+                counted = {k: launches[name].get(k, 0) for k in want}
+                if cuda:
+                    wall, kernels = profile_window(lambda: step(state, images))
+            runs[name] = {
+                "step_s": step_s, "warm_step_s_median": float(np.median(step_s[1:])),
+                "launches": counted, "launches_expected": want, "losses_first": losses[0],
+            }
+            if cuda:
+                tf32_off()
+                runs[name]["instance_device_s"] = {
+                    i: sum(device_us(e) for e in kernels if CONV_PATHS[i][0] in e.key) / 1e6
+                    for i in ("f32", "tf32")}
+                runs[name].update(kernel_breakdown(wall, kernels, 6))
+            if counted != want or not all(np.isfinite(v) for m in losses for v in m.values()):
+                raise RuntimeError(f"f32 step {name}: launches {counted}, derived {want}, "
+                                   f"losses {losses}")
+            del state, step
+    gaps = {p: {k: runs[f"{p}_packed"]["losses_first"][k] - v
+                for k, v in runs[f"{p}_xla"]["losses_first"].items()}
+            for p in ("ieee", "tf32")}
+    emit({"phase": "f32_step", "device": str(device), "size": size, "batch": batch,
+          "steps": steps, "compute_dtype": "float32", "enc_filters": list(model.enc_filters),
+          "dec_filters": list(model.dec_filters),
+          "routed_convs": {"encoder": n_enc, "decoder": n_dec}, "runs": runs,
+          "loss_gap_packed_minus_xla": gaps, "card": nvidia_smi() if cuda else None})
+    return launches
 
 
 def train_reference_phase(cfg, *, size=64, batch=2, seed=1):
@@ -5231,7 +5413,7 @@ def int8_phase(device, model, painted, workdir, *, seed=0, microbatch=8, big_bat
 
 
 def int8_kernels_phase(device, model, *, size=512, batch=8, seed=0):
-    """The int8 phase's (a) alone (`--int8-kernels`): the kernels of
+    """The int8 phase's (a) alone (`--only int8`): the kernels of
     `csrc/conv_s8.cu` at every distinct convolution of the `model`-width
     decoder at `size`², batch `batch`, bit for bit their plain versions
     and timed."""
@@ -6412,14 +6594,10 @@ def s8_kernel_lines(int8, int8_launches, others):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--kernel-only", action="store_true",
-                        help="build the VQ kernel and run only the device and kernel "
-                             "phases, with no result line: for holding two checkouts' "
-                             "VQ kernels to each other in one call")
-    parser.add_argument("--int8-kernels", action="store_true",
-                        help="build csrc/conv_s8.cu and run only the device phase and the "
-                             "int8 phase's (a), with no result line: for holding two "
-                             "checkouts' int8 kernels to each other in one call")
+    parser.add_argument("--only", choices=("vq", "conv", "int8"),
+                        help="build one kernel's source and run only the device phase and "
+                             "that kernel's phase, with no result line: for holding two "
+                             "checkouts' versions of the kernel to each other in one call")
     args = parser.parse_args(argv)
 
     import torch
@@ -6441,15 +6619,18 @@ def main(argv=None):
 
     with timed("device"):
         info = device_phase()
-    if args.kernel_only:
-        build_phase(["vq_fused"])
-        kernel_phase("cuda", seed=args.seed)
-        return 0
     model = json.loads(MODEL_CONFIG.read_text())["model"]["vqmodel"]
-    if args.int8_kernels:
-        build_phase(["conv_s8"])
-        int8_kernels_phase("cuda", model, seed=args.seed)
+    if args.only:
+        build_phase([{"vq": "vq_fused", "conv": "conv3x3_packed", "int8": "conv_s8"}[args.only]])
+        if args.only == "vq":
+            kernel_phase("cuda", seed=args.seed)
+        elif args.only == "conv":
+            conv_hash_phase("cuda", seed=args.seed)
+        else:
+            int8_kernels_phase("cuda", model, seed=args.seed)
         return 0
+    from medical_image_editing_tpu_torch.ops.conv_pack import LAUNCH_KEYS
+
     with timed("build"):
         build_phase()
     with timed("kernel"):
@@ -6476,6 +6657,8 @@ def main(argv=None):
                 bare_step_s = trained.warm_s
                 del trained
                 train_reference_phase(cfg, seed=args.seed + 1)
+            with timed("f32_step"):
+                f32_launches = f32_step_phase("cuda", cfg, seed=args.seed)
             with tempfile.TemporaryDirectory() as tmp:
                 with timed("trainer"):
                     trainer_launches = trainer_phase("cuda", tmp, seed=args.seed,
@@ -6506,7 +6689,8 @@ def main(argv=None):
             shutil.rmtree(handle.tmp, ignore_errors=True)
     # (d) no other path launches an int8 kernel
     others = {"serve": serve_launches, "serve_bf16_packed": runtime_launches,
-              "train": train_launches, "trainer": trainer_launches,
+              "train": train_launches, "f32_step": f32_launches["ieee_packed"],
+              "f32_step_tf32": f32_launches["tf32_packed"], "trainer": trainer_launches,
               "second_stage": second_launches, "multi_window": mw_launches,
               "vqgan": vqgan_launches, "losses": losses_launches, "volumetric": vol_launches,
               "ddp": ddp_launches, "ckpt_crossing": crossing_launches}
@@ -6516,8 +6700,17 @@ def main(argv=None):
     if stray:
         raise RuntimeError(f"int8 kernels launched off the int8 path: {stray}")
 
-    main_conv = next(r for r in conv if r["dtype"] == "bfloat16" and "forward" in r
-                     and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
+    main_conv = {inst: next(r for r in conv if r["instance"] == inst and "forward" in r
+                            and (r["cin"], r["cout"], r["h"]) == CONV_POINTS[0])
+                 for inst in ("bf16", "f32", "tf32")}
+    # each conv instance's launches on the main paths that launched it, from
+    # each path's own counts (zeroed just before it, read just after)
+    paths = {**others, "int8": int8_launches}
+    instance_paths = {inst: {name: n[key] for name, n in paths.items() if n.get(key)}
+                      for inst, key in LAUNCH_KEYS.items()}
+    missing = [inst for inst, by_path in instance_paths.items() if not by_path]
+    if missing:
+        raise RuntimeError(f"no main path launched the conv kernel's {missing} instances")
     emit({"kernels": [{
         "name": "vq_fused", "route": "cuda", "source": VQ_SOURCE,
         "replaces": VQ_REPLACES,
@@ -6550,42 +6743,45 @@ def main(argv=None):
     }, {
         "name": "conv3x3_packed", "route": "cuda", "source": CONV_SOURCE,
         "replaces": CONV_REPLACES,
-        "launches": (train_launches.get("conv3x3_packed", 0)
-                     + runtime_launches.get("conv3x3_packed", 0)
-                     + trainer_launches.get("conv3x3_packed", 0)
-                     + second_launches.get("conv3x3_packed", 0)
-                     + mw_launches.get("conv3x3_packed", 0)
-                     + vqgan_launches.get("conv3x3_packed", 0)
-                     + losses_launches.get("conv3x3_packed", 0)
-                     + vol_launches.get("conv3x3_packed", 0)
-                     + crossing_launches.get("conv3x3_packed", 0)
-                     + ddp_launches.get("conv3x3_packed", 0)),
-        "launches_by_path": {"serve": serve_launches.get("conv3x3_packed", 0),
-                             "serve_bf16_packed": runtime_launches.get("conv3x3_packed", 0),
-                             "train": train_launches.get("conv3x3_packed", 0),
-                             "trainer": trainer_launches.get("conv3x3_packed", 0),
-                             "second_stage": second_launches.get("conv3x3_packed", 0),
-                             "multi_window": mw_launches.get("conv3x3_packed", 0),
-                             "vqgan": vqgan_launches.get("conv3x3_packed", 0),
-                             "losses": losses_launches.get("conv3x3_packed", 0),
-                             "volumetric": vol_launches.get("conv3x3_packed", 0),
-                             "int8": int8_launches.get("conv3x3_packed", 0),
-                             "ckpt_crossing": crossing_launches.get("conv3x3_packed", 0),
-                             "ddp": ddp_launches.get("conv3x3_packed", 0)},
-        "max_abs_err": main_conv["forward_max_abs_err"],
-        "shape": {"b": main_conv["b"], "cin": main_conv["cin"], "cout": main_conv["cout"],
-                  "h": main_conv["h"], "w": main_conv["w"], "dtype": "bfloat16",
-                  "direction": "forward"},
-        **{k: main_conv["forward"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms")},
+        "launches": sum(instance_paths["bf16"].values()),
+        "launches_by_path": instance_paths["bf16"],
+        "instance": "bf16",
+        "max_abs_err": main_conv["bf16"]["forward_max_abs_err"],
+        "shape": {"b": main_conv["bf16"]["b"], "cin": main_conv["bf16"]["cin"],
+                  "cout": main_conv["bf16"]["cout"], "h": main_conv["bf16"]["h"],
+                  "w": main_conv["bf16"]["w"], "dtype": "bfloat16", "direction": "forward"},
+        **{k: main_conv["bf16"]["forward"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms")},
         "library_note": "F.conv2d (cuDNN) at the same shape and dtype",
-        "points": [{"dtype": r["dtype"], "path": r["path"], "dir": d, "b": r["b"],
+        "points": [{"instance": r["instance"], "path": r["path"], "dir": d, "b": r["b"],
                     "cin": r[d]["cin"], "cout": r[d]["cout"], "h": r["h"],
                     **{k: r[d][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                            "vs_library", "device_ms", "library_device_ms")},
-                    "library_tf32_ms": r[d].get("library_tf32_ms")}
-                   for r in conv if "forward" in r for d in ("forward", "dx")],
-    }, *s8_kernel_lines(int8, int8_launches, others)]})
+                                            "vs_library", "device_ms", "library_device_ms")}}
+                   for r in conv if "forward" in r and r["instance"] == "bf16"
+                   for d in ("forward", "dx")],
+    }, *[{
+        "name": f"conv3x3_packed_{inst}", "route": "cuda", "source": CONV_SOURCE,
+        "replaces": CONV_REPLACES, "instance": inst, "kernel": CONV_PATHS[inst][0],
+        "precision": main_conv[inst]["precision"],
+        "launches": sum(instance_paths[inst].values()),
+        "launches_by_path": instance_paths[inst],
+        "max_abs_err": main_conv[inst]["forward_max_abs_err"],
+        "shape": {k: main_conv[inst][k] for k in ("b", "cin", "cout", "h", "w")}
+        | {"dtype": "float32", "direction": "forward"},
+        **{k: main_conv[inst]["forward"][k] for k in ("ms", "device_ms", "plain_ms",
+                                                      "bound_ms", "bound_by", "library_ms")},
+        "library_note": (f"F.conv2d (cuDNN) at the same shape, f32 under "
+                         f"{main_conv[inst]['precision']}"),
+        "points": [{"dir": d, "b": r["b"], "cin": r[d]["cin"], "cout": r[d]["cout"],
+                    "h": r["h"],
+                    **{k: r[d].get(k) for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                                "library_ieee_ms", "library_tf32_ms",
+                                                "bound_ms", "vs_library",
+                                                "vs_library_device", "library_device_ms",
+                                                "kernel")}}
+                   for r in conv if "forward" in r and r["instance"] == inst
+                   for d in ("forward", "dx")],
+    } for inst in ("f32", "tf32")], *s8_kernel_lines(int8, int8_launches, others)]})
     timing["total"] = time.perf_counter() - t_start
     emit({"phase": "timing", "seconds": timing})
     print(info["nvidia_smi"], flush=True)

@@ -9,7 +9,8 @@ is kept beside each library; `ptxas_report` returns it.
 
 `launches` counts kernel launches by name: each wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show that its main path
-went through the kernels.
+went through the kernels. A source built in several instances also counts
+each launch under `name:instance`, so one window's counts give both.
 
 `KernelError` is what the build, the loading and the wrappers' launches
 raise: a failure of the card or of its toolchain, after which a serving loop

@@ -12,10 +12,18 @@ The function is an f32-accumulated convolution without bias whose output
 is in the input's dtype; the TPU kernel's four-pixel lane packing is a
 layout trick of the TPU and is not part of it.
 
-The source holds one kernel for each dtype behind one launch: bf16 runs on
-the tensor cores (an implicit GEMM of `mma.sync.m16n8k16`, bf16 products
-summed in f32), f32 on the CUDA cores (f32 FMAs, no TF32). Both round the
-f32 sum once to the output dtype.
+The source holds three kernels behind one launch, one for each instance
+(`instance`): bf16 runs on the tensor cores (an implicit GEMM of
+`mma.sync.m16n8k16`, bf16 products summed in f32); f32 follows
+`torch.backends.cudnn.allow_tf32`, the flag that cuDNN's own f32
+convolutions follow and that `utils/device.py::apply_conv_precision` sets
+from `MEDIMG_CONV_PRECISION`: off ("ieee"), true f32 FMAs on the CUDA cores;
+on ("tf32"), x and w rounded to TF32 and multiplied on the tensor cores
+(`mma.sync.m16n8k8`), summed in f32. Each rounds the f32 sum once to the
+output dtype. The TF32 instance's plain version is
+`conv3x3_tf32_reference_nchw`. CPU and meta tensors ignore the flag: the
+CPU's convolutions have no TF32, so they take the f32 plain version under
+either setting.
 
 Two layouts reach the same kernel, which reads activations through their
 strides: the JAX package's public one (`conv3x3_packed`, NHWC activations,
@@ -36,6 +44,7 @@ Cout 32 for a 32 → 64 convolution, or a 32 → 16 one) never fall to a slow
 path; a shape or dtype it cannot take raises.
 """
 
+import contextlib
 import ctypes
 import math
 
@@ -45,9 +54,15 @@ import torch.nn.functional as F
 from . import _build
 
 KERNEL = "conv3x3_packed"
-# the kernel's grid: (column tiles × channel tiles, H / 8, B)
+# the kernels' grids: (column tiles × channel tiles, H / tile rows, B); the
+# f32 tiles are 4 rows at least
 _MAX_GRID_YZ = 65535
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MIN_TILE_ROWS = 4
+# the C entry's modes, by instance: f32 on the CUDA cores (ieee), bf16 on the
+# tensor cores, f32 rounded to TF32 on the tensor cores
+MODES = {"f32": 0, "bf16": 1, "tf32": 2}
+# the `_build.launches` key of each instance's launches; `KERNEL` counts them all
+LAUNCH_KEYS = {inst: f"{KERNEL}:{inst}" for inst in MODES}
 
 _lib = None
 
@@ -91,14 +106,24 @@ def _check(x: torch.Tensor, w_hwio: torch.Tensor):
         raise TypeError(f"conv3x3_packed: x is {x.dtype}, the kernel {w_hwio.dtype}")
 
 
+def instance(dtype: torch.dtype) -> str:
+    """The kernel instance a CUDA call in `dtype` launches now: "bf16" for
+    bfloat16; for float32 "tf32" while `torch.backends.cudnn.allow_tf32` is
+    set, else "f32"."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    if dtype != torch.float32:
+        raise TypeError(f"conv3x3_packed takes float32 or bfloat16, got {dtype}")
+    return "tf32" if torch.backends.cudnn.allow_tf32 else "f32"
+
+
 def _launch(x: torch.Tensor, w_hwio: torch.Tensor, channels_last: bool) -> torch.Tensor:
     """The kernel on x (NHWC if `channels_last`, else NCHW; any strides) and
     a (3,3,Cin,Cout) weight → y in the same layout, contiguous."""
     if x.device.type != "cuda" or w_hwio.device != x.device:
         raise ValueError(f"conv3x3_packed: no kernel for x on {x.device}, "
                          f"weights on {w_hwio.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"conv3x3_packed takes float32 or bfloat16, got {x.dtype}")
+    inst = instance(x.dtype)
     if channels_last:
         b, h, wd, cin = x.shape
         sb, sh, sw, sc = x.stride()
@@ -112,7 +137,7 @@ def _launch(x: torch.Tensor, w_hwio: torch.Tensor, channels_last: bool) -> torch
     if min(b, h, wd, cin, cout) < 1:
         raise ValueError(f"conv3x3_packed: empty shape x {tuple(x.shape)}, "
                          f"kernel {tuple(w_hwio.shape)}")
-    if b > _MAX_GRID_YZ or -(-h // 8) > _MAX_GRID_YZ:
+    if b > _MAX_GRID_YZ or -(-h // _MIN_TILE_ROWS) > _MAX_GRID_YZ:
         raise ValueError(f"conv3x3_packed: batch {b} or height {h} past the grid limit")
     if max(x.numel(), b * h * wd * cout) >= 2**31:
         raise ValueError("conv3x3_packed: tensors of 2**31 elements or more")
@@ -124,15 +149,20 @@ def _launch(x: torch.Tensor, w_hwio: torch.Tensor, channels_last: bool) -> torch
         y = torch.empty(b, cout, h, wd, dtype=x.dtype, device=x.device)
         ysb, ysc, ysh, ysw = y.stride()
     lib = _kernel_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev = x.device
+    guard = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+             else torch.cuda.device(dev))
+    with guard:
+        # the raw handle: torch.cuda.current_stream() builds a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
         err = lib.conv3x3_packed_launch(
-            x.data_ptr(), w_hwio.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
+            x.data_ptr(), w_hwio.data_ptr(), y.data_ptr(), MODES[inst],
             b, h, wd, cin, cout, sb, sc, sh, sw, ysb, ysc, ysh, ysw, stream,
         )
     if err != 0:
         raise _build.KernelError(f"conv3x3_packed launch failed: cudaError {err}")
     _build.launches[KERNEL] += 1
+    _build.launches[LAUNCH_KEYS[inst]] += 1
     return y
 
 
@@ -141,9 +171,38 @@ def _plain(x: torch.Tensor, w: torch.Tensor) -> bool:
 
 
 def conv3x3_packed_reference_nchw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version, NCHW x and OIHW w: the convolution summed in
-    f32, output in x.dtype."""
+    """Plain PyTorch version of the f32 (ieee) and bf16 instances, NCHW x
+    and OIHW w: the convolution summed in f32, output in x.dtype. On the
+    card it follows cuDNN's TF32 flag: hold the f32 instance to it with the
+    flag off."""
     return F.conv2d(x.float(), w.float(), padding=1).to(x.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to TF32 as `cvt.rna.tf32.f32` rounds it: to the
+    nearest value with 10 explicit mantissa bits, ties away from zero, by
+    integer operations on the bits (the low 13 come out zero); inf and nan
+    kept, finite values past TF32's largest become inf."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    rounded = (bits + 0x1000) & -0x2000  # in magnitude: sign apart, no wrap for finite values
+    finite = (bits & 0x7F800000) != 0x7F800000
+    return torch.where(finite, rounded, bits).view(torch.float32)
+
+
+def conv3x3_tf32_reference_nchw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the TF32 instance, NCHW x and OIHW w in float32: x
+    and w rounded to TF32 (`tf32_round`), then convolved in f32 with TF32
+    off, so cuDNN does not round them again; the products of TF32 values
+    are exact in f32, so this differs from the kernel only by the order of
+    the f32 sums."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return F.conv2d(tf32_round(x.float()), tf32_round(w.float()), padding=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def conv3x3_packed_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,7 @@ JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -250,6 +251,123 @@ def test_conv_kernel_refuses_what_it_cannot_take(cuda):
         tcp.conv3x3_packed_nchw(x, wt.cpu())
 
 
+# The two f32 instances (`conv_pack.instance`): cuDNN's TF32 flag off runs
+# conv3x3_f32_kernel (ieee), on runs conv3x3_tf32_kernel. Shapes: scaled-down
+# copies of chip_smoke.py's CONV_POINTS (32→32 at two sizes, 32→64 at two;
+# their dx 64→32 in the same call), the ragged shape, and Cout 64 and 96 (one
+# wide channel tile and a ragged second one); batch 2 or 3, and every grid
+# small enough that the half-height tiles are taken too (fewer blocks than
+# SMs at 16² and the ragged shape's narrow tiles).
+F32_SHAPES = [(2, 32, 32, 64, 64), (2, 32, 32, 32, 32), (2, 32, 64, 32, 32),
+              (2, 32, 64, 16, 16), (3, 20, 40, 37, 45), (2, 24, 64, 20, 36),
+              (2, 16, 96, 19, 40)]
+
+
+@contextlib.contextmanager
+def _cudnn_tf32(value):
+    """cuDNN's TF32 flag set to `value` inside the block (the `allow_tf32`
+    flag alone, as `utils/device.py` sets it), restored after."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = value
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _tf32_tolerance(x, w):
+    """|kernel - f32 conv| on unrounded x, w: each operand moves by 2^-11
+    relative in the rounding, so a product by 2^-10 (+ 2^-22): 2^-10 × the
+    convolution of |x| and |w| (f32, TF32 off), + 1e-4 for the f32 sums'
+    order."""
+    with _cudnn_tf32(False):
+        mag = torch.nn.functional.conv2d(x.abs().float(), w.abs().float(), padding=1)
+    return (2.0**-10 + 2.0**-22) * mag + 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tf32", [False, True], ids=["ieee", "tf32"])
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv_f32_instances_match_their_plain_versions(cuda, monkeypatch, tf32, shape):
+    """cuDNN's TF32 flag as stated by the `tf32` parameter (the fixture sets it
+    off). Forward and dx (through the autograd Function) of the instance the
+    flag picks, against its plain version on the same inputs: ieee against
+    `conv3x3_packed_reference_nchw` (f32 sums in another order: 1e-4
+    absolute), tf32 against `conv3x3_tf32_reference_nchw` (the same TF32
+    rounding, f32 sums in another order: 1e-4 absolute + 2^-18 relative) and
+    against the f32 convolution of the unrounded values (`_tf32_tolerance`).
+    Two runs bit for bit, the NHWC entry equal to NCHW, and only the picked
+    instance counted."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32)
+    inst = "tf32" if tf32 else "f32"
+    assert tcp.instance(torch.float32) == inst
+    b, cin, cout, h, w = shape
+    x, wt, dy = _conv_inputs(b, cin, cout, h, w, torch.float32, cuda, seed=17)
+    before = _build.launches.copy()
+    xk = x.clone().requires_grad_()
+    y = tcp.conv3x3_packed_trainable_nchw(xk, wt)
+    y.backward(dy)
+    again = tcp.conv3x3_packed_nchw(x, wt)
+    nhwc = tcp.conv3x3_packed(x.permute(0, 2, 3, 1), wt.permute(2, 3, 1, 0))
+    torch.cuda.synchronize()
+    # forward, dx, again, NHWC
+    assert _build.launches - before == {tcp.KERNEL: 4, tcp.LAUNCH_KEYS[inst]: 4}
+    assert torch.equal(y, again)  # no atomics: bit-identical reruns
+    assert torch.equal(nhwc.permute(0, 3, 1, 2), again)
+    wdx = tcp.flip_transpose(wt)
+    for got, (xx, ww) in ((y.detach(), (x, wt)), (xk.grad, (dy, wdx))):
+        if tf32:
+            want = tcp.conv3x3_tf32_reference_nchw(xx, ww)
+            assert ((got - want).abs() <= 2.0**-18 * want.abs() + 1e-4).all()
+            with _cudnn_tf32(False):
+                exact = torch.nn.functional.conv2d(xx, ww, padding=1)
+            assert ((got - exact).abs() <= _tf32_tolerance(xx, ww)).all()
+            assert not torch.equal(got, exact)  # the rounding shows
+        else:
+            want = tcp.conv3x3_packed_reference_nchw(xx, ww)
+            assert (got - want).abs().max() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tf32", [False, True], ids=["ieee", "tf32"])
+def test_conv_f32_instances_read_strided_input(cuda, monkeypatch, tf32):
+    """cuDNN's TF32 flag as the parameter says. A channel slice x[:, 1:]
+    (neither NCHW- nor NHWC-contiguous, with a storage offset: the element
+    route) and a column slice (rows 16-byte aligned, a short last piece) go
+    through each f32 instance by their strides, equal to their contiguous
+    copies bit for bit."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32)
+    x, wt, _ = _conv_inputs(2, 21, 40, 17, 40, torch.float32, cuda, seed=18)
+    plain = tcp.conv3x3_tf32_reference_nchw if tf32 else tcp.conv3x3_packed_reference_nchw
+    for xs, ws in ((x[:, 1:], wt[:, 1:]), (x[..., :37], wt)):
+        assert not xs.is_contiguous()
+        y = tcp.conv3x3_packed_nchw(xs, ws)
+        assert torch.equal(y, tcp.conv3x3_packed_nchw(xs.contiguous(), ws))
+        with _cudnn_tf32(False):
+            want = plain(xs, ws)
+        assert ((y - want).abs() <= 2.0**-18 * want.abs() + 1e-4).all()
+
+
+@pytest.mark.gpu
+def test_conv_tf32_flag_picks_the_instance(cuda, monkeypatch):
+    """cuDNN's TF32 flag off, then on, then off: each f32 call launches the
+    instance the flag names at the call (per-instance counts, the total
+    beside them), bf16 its own whatever the flag, and the CPU route none."""
+    x, wt, _ = _conv_inputs(1, 32, 32, 16, 32, torch.float32, cuda, seed=19)
+    counts, ys = [], []
+    for flag in (False, True, False):
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", flag)
+        before = _build.launches.copy()
+        ys.append(tcp.conv3x3_packed_nchw(x, wt))
+        tcp.conv3x3_packed_nchw(x.bfloat16(), wt.bfloat16())
+        tcp.conv3x3_packed_nchw(x.cpu(), wt.cpu())
+        torch.cuda.synchronize()
+        counts.append(_build.launches - before)
+    assert counts == [{tcp.KERNEL: 2, tcp.LAUNCH_KEYS[inst]: 1, tcp.LAUNCH_KEYS["bf16"]: 1}
+                      for inst in ("f32", "tf32", "f32")]
+    assert torch.equal(ys[0], ys[2]) and not torch.equal(ys[0], ys[1])
+
+
 @pytest.mark.gpu
 def test_train_step_goes_through_both_kernels(cuda, monkeypatch):
     from medical_image_editing_tpu_torch.models import UNetDecoder
@@ -280,7 +398,7 @@ def test_train_step_goes_through_both_kernels(cuda, monkeypatch):
     tfs.init_codebook_step(enc)(state, x)
     torch.cuda.synchronize()
     # encoder: 32→32 at 16² twice and 32→8 at 8²; decoder: 10 convs
-    assert dict(_build.launches) == {tcp.KERNEL: 3}
+    assert dict(_build.launches) == {tcp.KERNEL: 3, tcp.LAUNCH_KEYS["bf16"]: 3}
     state, metrics = step(state, x)
     torch.cuda.synchronize()
     assert _build.launches[tvqf.KERNEL] == 2
@@ -499,7 +617,9 @@ def test_second_stage_step_on_card_matches_cpu(cuda, monkeypatch):
         _, metrics = _second_stage_step(state, device)(state, x, draws=on)
         if name == "card":
             torch.cuda.synchronize()
-            assert dict(_build.launches) == {tcp.KERNEL: 3 + 2 * 10, tvqf.KERNEL: 1}
+            assert dict(_build.launches) == {tcp.KERNEL: 3 + 2 * 10,
+                                             tcp.LAUNCH_KEYS["f32"]: 3 + 2 * 10,
+                                             tvqf.KERNEL: 1}
         grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
                                for p in getattr(state, m).parameters()])
                  for m, o in (("decoder", state.dec_opt), ("discriminator", state.dis_opt))}
@@ -654,7 +774,8 @@ def test_joint_step_on_card_matches_cpu(cuda, monkeypatch):
             torch.cuda.synchronize()
             n = _routed_convs(state.encoder, x) + _routed_convs(
                 state.decoder, np.zeros((2, size, size, 4), np.float32))
-            assert dict(_build.launches) == {tcp.KERNEL: 4 * n, tvqf.KERNEL: 2}
+            assert dict(_build.launches) == {tcp.KERNEL: 4 * n, tcp.LAUNCH_KEYS["f32"]: 4 * n,
+                                             tvqf.KERNEL: 2}
         grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
                                for p in getattr(state, m).parameters()])
                  for m, o in (("encoder", state.enc_opt), ("decoder", state.dec_opt),
@@ -693,7 +814,8 @@ def test_joint_step_goes_through_both_kernels(cuda, monkeypatch, use_remat):
     _build.launches.clear()
     state, metrics = step(state, x)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10), tvqf.KERNEL: 2}
+    assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10),
+                                     tcp.LAUNCH_KEYS["bf16"]: 4 * (3 + 10), tvqf.KERNEL: 2}
     assert all(torch.isfinite(v) for v in metrics.values())
 
 
@@ -894,7 +1016,8 @@ def test_first_stage_step_with_vgg_and_dropblock_on_card_matches_cpu(cuda, monke
             torch.backends.cudnn.enabled = prev
         if name == "card":
             torch.cuda.synchronize()
-            assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10), tvqf.KERNEL: 2}
+            assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10),
+                                             tcp.LAUNCH_KEYS["f32"]: 4 * (3 + 10), tvqf.KERNEL: 2}
         grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
                                for p in getattr(state, m).parameters()])
                  for m, o in (("encoder", state.enc_opt), ("decoder", state.dec_opt))}
@@ -925,7 +1048,8 @@ def test_switches_add_no_kernel_launch(cuda, monkeypatch, perceptual, dropblock)
     _build.launches.clear()
     _, metrics = step(state, x, drop_prob=0.5)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10), tvqf.KERNEL: 2}
+    assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10),
+                                     tcp.LAUNCH_KEYS["f32"]: 4 * (3 + 10), tvqf.KERNEL: 2}
     assert all(torch.isfinite(v) for v in metrics.values())
     assert (float(metrics["perceptual"]) > 0) == perceptual
 

@@ -646,3 +646,26 @@ def test_chip_smoke_ddp_phase_on_cpu(tmp_path, capsys, monkeypatch):
     assert group["collectives_per_step"]["all_reduce"] == 2 * 2 * n_bn + 2 + 2 + 1
     assert rec["bare_step"]["alone"]["collectives_per_step"] == {}
     assert os.environ.get("WORLD_SIZE") is None
+
+
+def test_chip_smoke_f32_step_phase_on_cpu(capsys):
+    """The f32 readout at tiny widths on the CPU: four forks of one state
+    through {ieee, tf32} × {packed, xla}, no kernel launch (CPU tensors take
+    the f32 plain version under either precision, so packed and xla agree
+    closely in both), the flags restored."""
+    import torch
+
+    smoke = _chip_smoke()
+    cfg = smoke.load_config()
+    cfg.model.vqmodel.enc_filters = [4, 8, 8, 16, 16]
+    cfg.model.vqmodel.dec_filters = [32, 8, 8, 16, 16]
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    launches = smoke.f32_step_phase("cpu", cfg, size=32, batch=2, steps=1)
+    assert set(launches) == {"ieee_packed", "ieee_xla", "tf32_packed", "tf32_xla"}
+    assert not any(launches.values())
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["phase"] == "f32_step" and rec["routed_convs"] == {"encoder": 0, "decoder": 10}
+    for gaps in rec["loss_gap_packed_minus_xla"].values():
+        assert max(abs(v) for v in gaps.values()) < 1e-3
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"

@@ -29,9 +29,10 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
+
+from sweep_build import build_variants, edited
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -64,21 +65,18 @@ def cout_class(cout):
     return 32 if cout <= 32 else 64 if cout <= 64 else 128
 
 
-# name: (text, replacement) applied to the source before the instances
+# name: [(text, replacement), ...] applied to the source before the instances
 SOURCE_VARIANTS = {
-    "shipped": None,
-    "no_proxy_fence": ('    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");'
-                       '  // visible to wgmma\n', ""),
+    "shipped": [],
+    "no_proxy_fence": [('    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");'
+                        '  // visible to wgmma\n', "")],
 }
 
 
-def sweep_source(src: str, variant=None) -> str:
+def sweep_source(src: str, edits=()) -> str:
     """conv_s8.cu with CANDIDATES as its instances and f32 output alone,
-    changed by `variant` ((text, replacement): every occurrence)."""
-    if variant is not None:
-        if variant[0] not in src:
-            raise SystemExit(f"{variant[0]!r} not found in conv_s8.cu")
-        src = src.replace(*variant)
+    changed by `edits` ((text, replacement): every occurrence)."""
+    src = edited(src, edits, "conv_s8")
     lines = "".join(f"  X({', '.join(map(str, c))}) \\\n" for c in CANDIDATES)
     out, n = re.subn(r"#define CONV_S8_INSTANCES\(X\) \\\n(?:  X\([^)]*\)[ \\]*\n)+",
                      "#define CONV_S8_INSTANCES(X) \\\n" + lines + "\n", src)
@@ -114,26 +112,13 @@ def main(argv=None):
     out = Path(args.out) if args.out else _build.BUILD_DIR / "conv_s8_sweep"
     out.mkdir(parents=True, exist_ok=True)
     src = (_build.CSRC_DIR / "conv_s8.cu").read_text()
-    builds = {}
-    for name in args.variants.split(","):  # one nvcc a variant, all at once
-        variant = SOURCE_VARIANTS[name]
-        cu, lib_path = out / f"conv_s8_{name}.cu", out / f"libconv_s8_{name}.so"
-        cu.write_text(sweep_source(src, variant))
-        builds[name] = (lib_path, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
+    libs = {name: lib for name, (lib, _, _) in build_variants(
+        {name: sweep_source(src, SOURCE_VARIANTS[name]) for name in args.variants.split(",")},
+        out, "conv_s8").items()}
     vp, i = ctypes.c_void_p, ctypes.c_int
-    for name, (lib_path, proc) in builds.items():
-        log, _ = proc.communicate()
-        (out / f"ptxas_{name}.txt").write_text(log)
-        if proc.returncode != 0:
-            print(log, file=sys.stderr)
-            return 1
-        lib = ctypes.CDLL(str(lib_path))
+    for lib in libs.values():
         lib.conv_s8_launch.argtypes = [vp] * 5 + [i] * 19 + [vp]
         lib.conv_s8_launch.restype = i
-        libs[name] = lib
 
     model = json.loads(chip_smoke.MODEL_CONFIG.read_text())["model"]["vqmodel"]
     _, decoder, _ = load_model(chip_smoke.lung_config(model), device="cpu", seed=args.seed)

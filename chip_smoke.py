@@ -218,11 +218,12 @@ and no result line):
                group (NCCL refuses two ranks on one device), 4 rows each:
                the Trainer's replicated state, the gathered k-means and 3
                steps, the ranks' states bit for bit equal after each step;
-               held to one process on the 8 rows with the same draws and
-               the VQ statistics averaged, after the first step, in bf16
-               and in f32 (DDP_GAP_LIMIT), and a planted fault (rank 1's
-               gradients skip the average) that must land above the
-               limits; launches per rank held to the derived
+               held to one process on the 8 rows with the same draws, the
+               VQ statistics averaged and the ranks' VQ ids replayed, after
+               the first step, in bf16 and in f32 (DDP_GAP_LIMIT), and a
+               planted fault (rank 1's gradients skip the average) that
+               must land above the decoder's limit (DDP_FAULT_KEYS);
+               launches per rank held to the derived
                counts, collectives and bytes a step; (b) `run_vqwnet -m
                train --max-steps 3` under a one-rank NCCL group made from
                a torchrun environment, bit for bit the run without one,
@@ -232,13 +233,30 @@ and no result line):
                and the joint step (4 rows of 256² a rank) and the VQGAN (2
                of 512²), the gathered k-means and 2 steps each, ranks bit
                for bit equal, the discriminator's buffer average exact,
-               held after the first step to the serial reference within
-               DDP_GAN_GAP_LIMIT and a planted fault (rank 1's
-               discriminator gradients unaveraged) above it, collectives
+               held after the first step to the serial reference (the
+               ranks' VQ ids replayed) within DDP_GAN_GAP_LIMIT and a
+               planted fault (rank 1's discriminator gradients
+               unaveraged) above the discriminator's limit, collectives
                and bytes a step and launches held to the derived counts,
                each rank's peak memory; (b) each through `run_vqwnet`
                under a one-rank NCCL group, 2 steps, and its bare step
                timed with and without the group;
+  8i. export — the edit decode exported with `torch.export`
+               (`cli/export_model.py`) at the lung model's full widths,
+               512²: the f32 decode on the xla route and the bf16 decode on
+               the packed route, each traced, saved (`.pt2`) and loaded in
+               a fresh process that imports torch and the loader (the
+               operator's registration, `ops/conv_pack.py`) and no model
+               module; the painted maps decoded there at batch 1 and 8, bit
+               for bit the eager `make_batched_edit_fn` on the same maps;
+               the packed graph's `medimg::conv3x3_packed` nodes one a
+               routed convolution and its `conv3x3_packed:bf16` launches
+               those of the eager decodes, none on the xla route; the
+               artifact's size, the export's and the load's time, and the
+               eager and the artifact's decode times at batch 8;
+  8j. doctor — `python -m medical_image_editing_tpu_torch.cli.doctor`
+               exits 0 with every check `ok` (started before ckpt_crossing,
+               it runs beside that phase and the reference join);
   9. kernels — one line listing every hand-written kernel of the paths
                (the conv kernel's bf16 instance under `conv3x3_packed`, its
                f32 instances as `conv3x3_packed_f32` and
@@ -248,9 +266,9 @@ The serve, serve_runtime (its packed route), int8 (b) and (c), train,
 f32_step (each variant), trainer, second_stage (a) and (b), multi_window (a) (each mode) and (b),
 vqgan (a) and (b), losses (a), (b), (c) and (e), volumetric (a) (each
 mode) and (b), ddp (a) (each rank and trainer, counted in its process) and
-(b) (each run), and
-ckpt_crossing phases are the main paths: each zeroes the launch counts
-just before it and reads them just after.
+(b) (each run), ckpt_crossing and export (in the process that serves the
+artifacts) phases are the main paths: each zeroes the launch counts just
+before it and reads them just after.
 `--only KERNEL` builds one source and runs the device phase and that
 kernel's phase alone, with no result line, for holding two checkouts'
 versions of a kernel to each other in one call (this script copied into
@@ -2200,152 +2218,6 @@ def second_stage_step_part(device, overrides, *, size, batch, steps, seed):
     return launches
 
 
-@contextlib.contextmanager
-def recorded_vq_ids():
-    """Inside the block every VQ assignment appends its ids (on the host,
-    one tensor a call) to the list the block gets."""
-    from medical_image_editing_tpu_torch.ops import vq_fused
-
-    seen, names, depth = [], ("vq_assign_fused", "vq_assign_fused_reference"), [0]
-    real = {n: getattr(vq_fused, n) for n in names}
-
-    def recording(fn):
-        def assign(embed, flat):
-            depth[0] += 1  # the kernel's wrapper calls its plain version on the CPU
-            try:
-                out = fn(embed, flat)
-            finally:
-                depth[0] -= 1
-            if not depth[0]:
-                seen.append(out[0].detach().cpu().clone())
-            return out
-        return assign
-
-    for n, fn in real.items():
-        setattr(vq_fused, n, recording(fn))
-    try:
-        yield seen
-    finally:
-        for n, fn in real.items():
-            setattr(vq_fused, n, fn)
-
-
-@contextlib.contextmanager
-def float64_step(ids_calls):
-    """Inside the block a port step on float64 modules computes in float64
-    on the CPU: `Tensor.float` gives float64 (the step's own f32 casts:
-    losses, norms, the reconstructions), `torch.as_tensor(..., float32)`
-    float64, and each VQ assignment returns the next of `ids_calls` (the
-    run's own ids, one entry a call, so a code at a near tie keeps the
-    run's choice) with its rows, counts and sums in float64. The
-    augmented views and the cross-view id warps, inputs rather than the
-    function held, are computed in float32 as the CPU step computes them.
-    The spectral-norm power step runs in float64 from the modules' own
-    vectors."""
-    import torch
-    import torch.nn.functional as F
-
-    from medical_image_editing_tpu_torch.ops import vq_fused
-    from medical_image_editing_tpu_torch.train import first_stage
-
-    calls = list(ids_calls)
-    real_float = torch.Tensor.float
-    own_float = "float" in torch.Tensor.__dict__
-    real_as_tensor = torch.as_tensor
-    names = ("vq_assign_fused", "vq_assign_fused_reference")
-    real_assign = {n: getattr(vq_fused, n) for n in names}
-    real_aug = {n: getattr(first_stage, n) for n in ("random_transform", "cross_view_transform")}
-
-    def as_float64(self, *args, **kw):
-        return self.double()
-
-    def as_tensor(data, dtype=None, device=None):
-        return real_as_tensor(data, dtype=torch.float64 if dtype == torch.float32 else dtype,
-                              device=device)
-
-    def replay(embed, flat):
-        ids = calls.pop(0).to(flat.device).long()
-        embed, flat = embed.double(), flat.double()
-        onehot = F.one_hot(ids, embed.shape[0]).double()
-        return ids.to(torch.int32), embed[ids], onehot.sum(0), onehot.t() @ flat
-
-    def in_float32(fn):
-        def run(*args):
-            torch.Tensor.float = real_float
-            try:
-                out = fn(*(a.float() if torch.is_tensor(a) and a.is_floating_point() else a
-                           for a in args))
-            finally:
-                torch.Tensor.float = as_float64
-            if torch.is_tensor(out):
-                return out.double()
-            return tuple(o.double() for o in out)
-        return run
-
-    torch.Tensor.float = as_float64
-    torch.as_tensor = as_tensor
-    for n in names:
-        setattr(vq_fused, n, replay)
-    for n, fn in real_aug.items():
-        setattr(first_stage, n, in_float32(fn))
-    try:
-        yield
-    finally:
-        if own_float:
-            torch.Tensor.float = real_float
-        else:
-            del torch.Tensor.float
-        torch.as_tensor = real_as_tensor
-        for n, fn in real_assign.items():
-            setattr(vq_fused, n, fn)
-        for n, fn in real_aug.items():
-            setattr(first_stage, n, fn)
-    if calls:
-        raise RuntimeError(f"{len(calls)} recorded VQ assignments not replayed")
-
-
-def to_float64(*modules):
-    """Each module in float64 in place, with no compute dtype: its
-    convolutions and its inputs in the promoted dtype."""
-    for m in modules:
-        for sub in m.double().modules():
-            if hasattr(sub, "compute_dtype"):
-                sub.compute_dtype = None
-
-
-def first_moments(state, parts):
-    """Adam's first moment of each of `parts` ((module, optimizer) field
-    names), flattened in `parameters()` order, on the host."""
-    import torch
-
-    return {m: torch.cat([getattr(state, o).state[p]["exp_avg"].flatten().cpu()
-                          for p in getattr(state, m).parameters()]) for m, o in parts}
-
-
-def ids_key(vq_ids):
-    """A digest of one run's sequence of VQ ids (its witness's key)."""
-    return hashlib.sha1(b"".join(t.numpy().tobytes() for t in vq_ids)).hexdigest()
-
-
-def witness_gaps(out, witness_fn, parts, known=None):
-    """Each run's distance from the float64 witness of its own ids (one
-    witness per distinct sequence of ids): {run: {module: relative
-    Frobenius norm of its Adam first moment's difference}}, and the number
-    of witnesses used. `out[run]` has `grads` and `vq_ids`; `known` holds
-    witnesses already computed ({`ids_key`: moments}), and `witness_fn`
-    computes any other."""
-    witness, used, gaps = dict(known or {}), set(), {}
-    for name, o in out.items():
-        key = ids_key(o.vq_ids)
-        if key not in witness:
-            witness[key] = witness_fn(o.vq_ids)
-        used.add(key)
-        w = witness[key]
-        gaps[name] = {m: float((o.grads[m].double() - w[m]).norm() / w[m].norm())
-                      for m, _ in parts}
-    return gaps, len(used)
-
-
 # The card-vs-CPU parts of the second_stage, multi_window and vqgan phases
 # run their CPU side (the two float32 CPU steps and the float64 witnesses of
 # their ids) in a spawned process of REFERENCE_THREADS torch threads, while
@@ -2362,6 +2234,8 @@ def reference_cpu_side(kind, args, setup_file, out_file, threads):
     images), and the float64 witness of each distinct sequence of their
     ids; saved to `out_file`."""
     import torch
+
+    from medical_image_editing_tpu_torch.utils.witness import ids_key
 
     torch.set_num_threads(threads)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -2450,15 +2324,6 @@ WITNESS_CAP = {
 }
 
 
-def witness_limits(gaps, phase):
-    """The card's limit against float64, per module: 5× the larger of the
-    two CPU float32 steps' distances (oneDNN's convolutions, PyTorch's
-    native ones), or the phase's minimum, at most its cap."""
-    floor = {m: max(gaps["cpu"][m], gaps["cpu_native"][m]) for m in gaps["cpu"]}
-    return floor, {m: min(max(5 * f, WITNESS_MINIMUM[phase]), WITNESS_CAP[phase][m])
-                   for m, f in floor.items()}
-
-
 def second_stage_reference_context(overrides, size, batch, seed, setup=None):
     """The card-vs-CPU part of the second_stage phase: one second-stage step
     on the card vs the same step on the port's CPU path, at the config's
@@ -2480,6 +2345,12 @@ def second_stage_reference_context(overrides, size, batch, seed, setup=None):
     from medical_image_editing_tpu_torch.models.unet_encoder import encode_quantize
     from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
     from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+    from medical_image_editing_tpu_torch.utils.witness import (
+        first_moments,
+        float64_step,
+        recorded_vq_ids,
+        to_float64,
+    )
 
     cfg = second_config(overrides, **{"model.vqmodel": {"compute_dtype": "float32"}})
     images = make_slices(np.random.default_rng(seed), batch, size)
@@ -2543,6 +2414,10 @@ def second_stage_reference_check(handle, witnesses):
     """The second_stage part's checks and record (see
     `second_stage_reference_context`)."""
     from medical_image_editing_tpu_torch.ops.vq import vq_scores
+    from medical_image_editing_tpu_torch.utils.witness import (
+        witness_gaps,
+        witness_limits,
+    )
 
     ctx, out, parts = handle.ctx, handle.out, handle.ctx.parts
     cpu, c = out["cpu"], out["card"]
@@ -2552,7 +2427,8 @@ def second_stage_reference_check(handle, witnesses):
     id_mismatch = int(((c.ids != cpu.ids) & clear).sum())
     loss_err = {k: abs(c.m[k] - v) / max(abs(v), 1e-6) for k, v in cpu.m.items()}
     gaps, n_witness = witness_gaps(out, ctx.witness, parts, witnesses)
-    floor, grad_limit = witness_limits(gaps, "second_stage")
+    floor, grad_limit = witness_limits(gaps, WITNESS_MINIMUM["second_stage"],
+                                       WITNESS_CAP["second_stage"])
     grad_err = gaps["card"]
     readouts = {name: {m: float((o.grads[m] - cpu.grads[m]).norm() / cpu.grads[m].norm())
                        for m, _ in parts}
@@ -3073,6 +2949,12 @@ def multi_window_reference_context(overrides, size, batch, seed, setup=None):
 
     from medical_image_editing_tpu_torch.models.unet_encoder import encode_quantize
     from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+    from medical_image_editing_tpu_torch.utils.witness import (
+        first_moments,
+        float64_step,
+        recorded_vq_ids,
+        to_float64,
+    )
 
     cfg = mw_config(overrides, **{"model.vqmodel": {"compute_dtype": "float32"}})
     images = make_slices(np.random.default_rng(seed), batch, size)
@@ -3129,6 +3011,10 @@ def multi_window_reference_check(handle, witnesses):
     """The multi_window part's checks and record (see
     `multi_window_reference_context`)."""
     from medical_image_editing_tpu_torch.ops.vq import vq_scores
+    from medical_image_editing_tpu_torch.utils.witness import (
+        witness_gaps,
+        witness_limits,
+    )
 
     ctx, out, parts = handle.ctx, handle.out, handle.ctx.parts
     cpu, c = out["cpu"], out["card"]
@@ -3140,7 +3026,8 @@ def multi_window_reference_check(handle, witnesses):
     rtol = {k: 1e-2 if k in ("cross", "dist", "recon", "freq", "total", "gen_total") else 1e-3
             for k in loss_err}
     gaps, n_witness = witness_gaps(out, ctx.witness, parts, witnesses)
-    floor, grad_limit = witness_limits(gaps, "multi_window")
+    floor, grad_limit = witness_limits(gaps, WITNESS_MINIMUM["multi_window"],
+                                       WITNESS_CAP["multi_window"])
     grad_err = gaps["card"]
     readouts = {name: {m: float((o.grads[m] - cpu.grads[m]).norm() / cpu.grads[m].norm())
                        for m, _ in parts}
@@ -3590,6 +3477,12 @@ def vqgan_reference_context(overrides, size, batch, seed, setup=None):
     import torch
 
     from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
+    from medical_image_editing_tpu_torch.utils.witness import (
+        first_moments,
+        float64_step,
+        recorded_vq_ids,
+        to_float64,
+    )
 
     cfg = vqgan_config(overrides)
     images = make_slices(np.random.default_rng(seed), batch, size)
@@ -3653,6 +3546,10 @@ def vqgan_reference_context(overrides, size, batch, seed, setup=None):
 def vqgan_reference_check(handle, witnesses):
     """The vqgan part's checks and record (see `vqgan_reference_context`)."""
     from medical_image_editing_tpu_torch.ops.vq import vq_scores
+    from medical_image_editing_tpu_torch.utils.witness import (
+        witness_gaps,
+        witness_limits,
+    )
 
     ctx, out, parts = handle.ctx, handle.out, handle.ctx.parts
     cpu, c = out["cpu"], out["card"]
@@ -3667,7 +3564,8 @@ def vqgan_reference_check(handle, witnesses):
     # readout against the card only
     gaps, n_witness = witness_gaps({k: v for k, v in out.items() if k != "card_ulp"},
                                    ctx.witness, parts, witnesses)
-    floor, grad_limit = witness_limits(gaps, "vqgan")
+    floor, grad_limit = witness_limits(gaps, WITNESS_MINIMUM["vqgan"],
+                                       WITNESS_CAP["vqgan"])
     grad_err = gaps["card"]
     readouts = {name: {m: float((o.grads[m] - cpu.grads[m]).norm() / cpu.grads[m].norm())
                        for m, _ in parts}
@@ -3716,10 +3614,12 @@ def finish_or_defer(handle, defer):
 
 @contextlib.contextmanager
 def ulp_nudged_quantization(seed=0):
-    """Inside the block the VQGAN's quantized features move by one ulp up
-    or down at random (the gradient still flows straight through)."""
+    """Inside the block the quantized features (the VQGAN's, and the
+    encoder's of the other models) move by one ulp up or down at random
+    (the gradient still flows straight through)."""
     import torch
 
+    from medical_image_editing_tpu_torch.models import unet_encoder as tenc
     from medical_image_editing_tpu_torch.models import vqgan as tvqgan
 
     real, gens = tvqgan.vq_apply, {}
@@ -3731,11 +3631,11 @@ def ulp_nudged_quantization(seed=0):
         moved = torch.where(up, torch.nextafter(q, q + 1), torch.nextafter(q, q - 1))
         return (q + (moved - q).detach(), *rest)
 
-    tvqgan.vq_apply = nudged
+    tvqgan.vq_apply = tenc.vq_apply = nudged
     try:
         yield
     finally:
-        tvqgan.vq_apply = real
+        tvqgan.vq_apply = tenc.vq_apply = real
 
 
 def write_crc_tree(root, rng, *, patients, slices, size):
@@ -5522,18 +5422,29 @@ def ckpt_crossing_phase(device, workdir, *, size=256, patients=2, slices=8, seed
 
 # Gaps of the ddp phase's ranks to one process on the same rows after the
 # first step (`ddp_gaps`), by compute dtype; measured on an NVIDIA H100
-# 80GB HBM3 at 700 W (bf16: Adam's first moments 0.357 encoder and 0.399
-# decoder, codebook 9.6e-4, total 2.5e-3; f32: 0.037, 0.0024, 6.6e-8,
-# 3.4e-6; rank 1's moments with the planted fault 0.72 and 0.71 in bf16,
-# 0.63 and 0.56 in f32). bf16 gradients of 4 + 4 rows and of 8 differ
-# that much: the convolutions' rounding at either batch (cuDNN takes other
-# algorithms) moves VQ ids at near-ties, and the cross loss's per-code
-# means weigh a moved pixel of a rare code heavily.
+# 80GB HBM3 at 700 W. bf16 (one reading, before the references replayed
+# the ranks' VQ ids): Adam's first moments 0.357
+# encoder and 0.399 decoder, codebook 9.6e-4, total 2.5e-3; rank 1's
+# moments with the planted fault 0.72 and 0.71. bf16 gradients of 4 + 4
+# rows and of 8 differ that much: the convolutions' rounding at either
+# batch (cuDNN takes other algorithms) moves VQ ids at near-ties, and the
+# cross loss's per-code means weigh a moved pixel of a rare code heavily.
+# f32 (fault C.8): each reference replays the ranks' VQ ids in its first
+# step (`ranks_vq_ids`), and each limit is 5× the largest gap of a spread,
+# rounded up to two digits (`tools/ddp_gap_spread.py`, one run on an NVIDIA
+# H100 80GB HBM3, 700.00 W): seeds 0, 1, 2, each reference as shipped and
+# changed at the rounding level (the xla conv route, cuDNN off, one-ulp
+# nudged features, the f32 kernel summing in cuDNN's order), both ranks, 30
+# readings a key. Largest gaps: encoder 0.140 (ulp, seed 2), decoder 2.77e-3
+# (shipped, seed 0), codebook 1.29e-7, total 3.35e-6. The planted fault is
+# checked against the decoder's limit (`DDP_FAULT_KEYS`): 0.315-0.56, 22.5×
+# the limit or more. Without the replay the decoder read up to 0.0176 (an
+# id moved at a near tie by the xla route's rounding).
 DDP_GAP_LIMIT = {
     "bfloat16": {"encoder_moments": 0.5, "decoder_moments": 0.5, "codebook": 2e-3,
                  "total": 5e-3},
-    "float32": {"encoder_moments": 0.1, "decoder_moments": 0.01, "codebook": 1e-5,
-                "total": 1e-4},
+    "float32": {"encoder_moments": 0.70, "decoder_moments": 0.014, "codebook": 6.5e-7,
+                "total": 1.7e-5},
 }
 
 
@@ -5608,7 +5519,9 @@ def adam_moments(state):
 def ddp_rank_run(rank, world, base, *, size, rows, steps, seed, device, fault):
     """k-means and `steps` steps of the Trainer's data-parallel first stage
     on this rank's rows; with `fault`, rank 1's gradients skip the average
-    (it takes part in the all-reduce and keeps its own gradients)."""
+    (it takes part in the all-reduce and keeps its own gradients). The VQ
+    ids of the first step are recorded (`vq_ids`, one tensor an
+    assignment) for the serial reference to replay."""
     import torch
 
     from medical_image_editing_tpu_torch.ops import _build
@@ -5617,6 +5530,7 @@ def ddp_rank_run(rank, world, base, *, size, rows, steps, seed, device, fault):
     from medical_image_editing_tpu_torch.train.state import replicate_state
     from medical_image_editing_tpu_torch.train.trainer import Trainer
     from medical_image_editing_tpu_torch.utils.config import to_config
+    from medical_image_editing_tpu_torch.utils.witness import recorded_vq_ids
 
     cuda = torch.device(device).type == "cuda"
     trainer = Trainer(to_config(base), device=device, seed=seed)
@@ -5640,13 +5554,16 @@ def ddp_rank_run(rank, world, base, *, size, rows, steps, seed, device, fault):
         first_stage.init_codebook_step(state.encoder)(state, image)
         vq_init = [t.detach().cpu().clone() for t in state.vq]
         gens, digests, losses, step_s, per_step, moments, embeds = [], [], [], [], [], [], []
-        for _ in range(steps):
+        for i in range(steps):
             gens.append(state.generator.get_state().clone())
             before = dict(mesh.collectives)
             if cuda:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, metrics = trainer.train_step(state, image)
+            with recorded_vq_ids() if i == 0 else contextlib.nullcontext() as seen:
+                state, metrics = trainer.train_step(state, image)
+            if i == 0:
+                vq_ids = seen
             if cuda:
                 torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
@@ -5660,7 +5577,7 @@ def ddp_rank_run(rank, world, base, *, size, rows, steps, seed, device, fault):
     finally:
         first_stage.pmean_gradients = synced
     return {"vq_init": vq_init, "gens": gens, "digests": digests, "losses": losses,
-            "step_s": step_s,
+            "step_s": step_s, "vq_ids": vq_ids,
             "collectives": per_step, "launches": launches, "moments": moments,
             "embed": embeds}
 
@@ -5699,6 +5616,36 @@ def ddp_rank(rank, world, init_file, workdir, base, size, rows, steps, seed, dev
     torch.save(out, Path(workdir) / f"ddp-{rank}.pt")
 
 
+def ddp_run_ranks(work, base, *, size, rows, steps, seed, device, dtypes, gan_args, world=2,
+                  timeout=600):
+    """`ddp_rank` on `world` spawned processes in `work` (made here), joined
+    within `timeout` seconds, any still alive killed → each rank's record
+    (rank order)."""
+    import torch
+
+    work.mkdir(parents=True)
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=ddp_rank, args=(r, world, str(work / "init"), str(work), base,
+                                                size, rows, steps, seed, device, list(dtypes),
+                                                gan_args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout)
+    finally:
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * world:
+        raise RuntimeError(f"ddp ranks: hung {hung}, exit codes {codes}")
+    return [torch.load(work / f"ddp-{r}.pt", weights_only=True) for r in range(world)]
+
+
 def with_dtype(base, dtype):
     """The config dict `base` with the model's compute dtype `dtype`."""
     cfg = copy.deepcopy(base)
@@ -5720,7 +5667,58 @@ def cat_draws(parts):
             for part in parts[0]}
 
 
-def ddp_reference(base, run, *, world, size, rows, steps, seed, device):
+def ranks_vq_ids(runs):
+    """The ranks' recorded VQ ids (`vq_ids` of each rank's record, in rank
+    order) as one process's on all their rows: each assignment's ids
+    concatenated in row order (a rank's rows are a contiguous block,
+    `mesh.shard_batch`, and an assignment's rows are (batch, h, w) in that
+    order)."""
+    import torch
+
+    return [torch.cat(calls) for calls in zip(*(run["vq_ids"] for run in runs))]
+
+
+@contextlib.contextmanager
+def averaged_statistics(world):
+    """Inside the block the VQ assignment's counts and sums are divided by
+    `world` (the ranks average theirs), and the embedding cross loss is the
+    mean of each rank's rows' (each rank's a mean over the (row, code)
+    pairs its rows hold, as in JAX's data-parallel step). The block gets
+    two lists, (queue, moved): ids put in `queue` are replayed, one tensor
+    an assignment (`utils/witness.py::assignment_of`), in place of the
+    assignment's own, and each replayed assignment appends to `moved` how
+    many of the given ids differ from those it would have chosen itself (a
+    readout of the near ties that the replay holds)."""
+    from medical_image_editing_tpu_torch.ops import vq_fused
+    from medical_image_editing_tpu_torch.train import first_stage
+    from medical_image_editing_tpu_torch.utils.witness import assignment_of
+
+    queue, moved = [], []
+    assign, loss = vq_fused.vq_assign_fused, first_stage.embedding_loss
+
+    def averaged(embed, flat):
+        ids, quant, counts, sums = assign(embed, flat)
+        if queue:
+            given = queue.pop(0)
+            moved.append(int((given.to(ids.device) != ids).sum()))
+            ids, quant, counts, sums = assignment_of(given, embed.float(), flat.float())
+        return ids, quant, counts / world, sums / world
+
+    def per_rank_loss(q1, oh1, q2, oh2, codebook, **kw):
+        parts = [loss(*(t.chunk(world)[r] for t in (q1, oh1, q2, oh2)), codebook, **kw)
+                 for r in range(world)]
+        return tuple(sum(p[i] for p in parts) / world for i in range(3))
+
+    vq_fused.vq_assign_fused = averaged
+    first_stage.embedding_loss = per_rank_loss
+    try:
+        yield queue, moved
+    finally:
+        vq_fused.vq_assign_fused = assign
+        first_stage.embedding_loss = loss
+
+
+def ddp_reference(base, run, *, world, size, rows, steps, seed, device, vq_ids):
     """One process, no group, on all `world`·`rows` rows with the ranks'
     draws (replayed from the replicated generator's state before each step
     of `run`, a rank's record), the function the ranks compute together:
@@ -5732,12 +5730,14 @@ def ddp_reference(base, run, *, world, size, rows, steps, seed, device):
     gap `kmeans`; the steps then start from the ranks' codebook, so that
     the first step starts from the ranks' state: bf16 features of 4 rows
     and of 8 differ in rounding (cuDNN takes other algorithms), which the
-    50 Lloyd iterations carry into the codebook."""
+    50 Lloyd iterations carry into the codebook. The first step replays the
+    ranks' VQ ids (`vq_ids`, `ranks_vq_ids`): the 4 rows a rank and the 8
+    here round apart, and a code at a near tie would otherwise move (fault
+    C.8); the ids that the replay held are counted (`ids_moved`)."""
     import torch
 
-    from medical_image_editing_tpu_torch.ops import augment, vq_fused
+    from medical_image_editing_tpu_torch.ops import augment
     from medical_image_editing_tpu_torch.ops.vq import VQState
-    from medical_image_editing_tpu_torch.train import first_stage
     from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
     from medical_image_editing_tpu_torch.train.state import per_rank_generator
     from medical_image_editing_tpu_torch.train.trainer import Trainer
@@ -5746,18 +5746,6 @@ def ddp_reference(base, run, *, world, size, rows, steps, seed, device):
     trainer = Trainer(to_config(base), device=device, seed=seed)
     state = trainer.init_state(load_staged=False)
     images = make_slices(np.random.default_rng(seed), world * rows, size)
-    assign = vq_fused.vq_assign_fused
-
-    loss = first_stage.embedding_loss
-
-    def averaged(embed, flat):
-        ids, quant, counts, sums = assign(embed, flat)
-        return ids, quant, counts / world, sums / world
-
-    def per_rank_loss(q1, oh1, q2, oh2, codebook, **kw):
-        parts = [loss(*(t.chunk(world)[r] for t in (q1, oh1, q2, oh2)), codebook, **kw)
-                 for r in range(world)]
-        return tuple(sum(p[i] for p in parts) / world for i in range(3))
 
     def draws(gen_state):
         views = []
@@ -5769,24 +5757,23 @@ def ddp_reference(base, run, *, world, size, rows, steps, seed, device):
                           for _ in range(2)])
         return tuple(cat_draws([v[i] for v in views]) for i in range(2))
 
-    vq_fused.vq_assign_fused = averaged
-    first_stage.embedding_loss = per_rank_loss
-    try:
+    with averaged_statistics(world) as (replay, moved):
         init_codebook_step(state.encoder)(state, images)
         ranks_vq = run["vq_init"]
         kmeans = float((state.vq.embed.cpu() - ranks_vq[0]).norm() / ranks_vq[0].norm())
         state.encoder.vq.set_state(VQState(*(t.to(state.device) for t in ranks_vq)))
         losses, moments, embeds = [], [], []
         for i in range(steps):
+            replay.extend(vq_ids if i == 0 else ())
             state, metrics = trainer.train_step(state, images, draws(run["gens"][i]))
+            if replay:
+                raise RuntimeError(f"{len(replay)} recorded VQ assignments not replayed")
             losses.append({k: float(v) for k, v in metrics.items()})
             if i in (0, steps - 1):
                 moments.append(adam_moments(state))
             embeds.append(state.vq.embed.detach().cpu().clone())
-    finally:
-        vq_fused.vq_assign_fused = assign
-        first_stage.embedding_loss = loss
-    return {"moments": moments, "losses": losses, "embed": embeds, "kmeans": kmeans}
+    return {"moments": moments, "losses": losses, "embed": embeds, "kmeans": kmeans,
+            "ids_moved": moved}
 
 
 def ddp_gaps(run, ref):
@@ -5811,6 +5798,12 @@ def ddp_gaps(run, ref):
                          for a, b in zip(run["embed"], ref["embed"])],
             "total": [abs(a["total"] - b["total"]) / abs(b["total"])
                       for a, b in zip(run["losses"], ref["losses"])]}
+
+
+def fault_margin(fault_gaps, limit, keys):
+    """How far the planted fault lands above the limits it is checked
+    against: for each of `keys`, the largest rank's gap over the limit."""
+    return {k: max(g[k] for g in fault_gaps) / limit[k] for k in keys}
 
 
 def ddp_nccl_part(device, workdir, base, *, size, seed, steps, timed_steps):
@@ -5899,22 +5892,37 @@ def ddp_nccl_part(device, workdir, base, *, size, seed, steps, timed_steps):
 
 # The data-parallel GAN trainers' gaps to the serial reference after the
 # first step (relative Frobenius norm of Adam's first moments, the codebook,
-# the total loss), f32 under `ieee`, two gloo ranks sharing the card, set
-# from their measurement on an NVIDIA H100 80GB HBM3 at 700 W: second stage
-# decoder 5.8e-4, discriminator 1.6e-5, total 0; joint step encoder 0.132,
-# decoder 2.4e-3, discriminator 1.2e-5, codebook 6.6e-8, total 7.1e-7;
-# VQGAN 2.0e-6, 5.6e-7, codebook 5e-13, total 7.5e-8. The 4 rows a rank and
-# the 8 of the reference round apart where cuDNN takes other algorithms;
-# the encoder's gradient at random init is ill-conditioned, as the first
-# stage's. Rank 1's discriminator moments with the planted fault: 0.231,
-# 0.079, 0.148.
+# the total loss), f32 under `ieee`, two gloo ranks sharing the card, the
+# ranks' VQ ids replayed in the reference. Each limit is 5× the largest gap
+# of the spread that sets DDP_GAP_LIMIT["float32"] (fault C.8; the same run,
+# the same five references), rounded up to two digits. Largest gaps: second
+# stage decoder 3.15e-3 (xla, seed 0), discriminator 2.03e-4 (ulp, seed 0;
+# as shipped 1.6e-5-4.5e-5), total 1.4e-7; joint step encoder 0.261 (ulp),
+# decoder 2.75e-3, discriminator 1.6e-5, codebook 1.29e-7, total 8.0e-7;
+# VQGAN decoder 2.84e-4 (cuDNN off, ulp), discriminator 9.1e-5, codebook
+# 2.6e-11, total 1.6e-7. Rank 1's discriminator moments with the planted
+# fault (`DDP_FAULT_KEYS`): second stage 0.060-0.231 (55× its limit or
+# more), joint 0.048-0.079 (605×), VQGAN 0.148-0.241 (321×).
 DDP_GAN_GAP_LIMIT = {
-    "second_stage": {"decoder_moments": 3e-3, "discriminator_moments": 2e-4, "total": 1e-5},
-    "joint": {"encoder_moments": 0.5, "decoder_moments": 1e-2,
-              "discriminator_moments": 2e-4, "codebook": 1e-6, "total": 1e-5},
-    "vqgan": {"decoder_moments": 2e-5, "discriminator_moments": 2e-5, "codebook": 1e-9,
-              "total": 1e-6},
+    "second_stage": {"decoder_moments": 0.016, "discriminator_moments": 1.1e-3,
+                     "total": 6.9e-7},
+    "joint": {"encoder_moments": 1.4, "decoder_moments": 0.014,
+              "discriminator_moments": 8.0e-5, "codebook": 6.5e-7, "total": 4.1e-6},
+    "vqgan": {"decoder_moments": 1.5e-3, "discriminator_moments": 4.6e-4, "codebook": 1.4e-10,
+              "total": 7.8e-7},
 }
+# The limits each trainer's planted fault is checked against (`fault_margin`).
+# The fault leaves gradients unaveraged, so it cannot reach the loss or the
+# codebook, which the step computes before the average. The first stage's
+# encoder is left out: its gradient at random init is ill-conditioned (the
+# card's step tests read 6-13% between a float32 step and its float64
+# witness on the same ids; the spread's encoder gaps reach 0.140 with the
+# ids replayed), so its limit (0.70) does not part a healthy run from a
+# faulty one (0.46-0.74).
+DDP_FAULT_KEYS = {"first_stage": ("decoder_moments",),
+                  "second_stage": ("discriminator_moments",),
+                  "joint": ("discriminator_moments",),
+                  "vqgan": ("discriminator_moments",)}
 # rows a rank and side of each GAN trainer's run on two ranks: two VQGAN
 # ranks of 4 rows at 512² do not fit one card beside two CUDA contexts
 DDP_GAN = {"second_stage": {"rows": 4, "size": 256}, "joint": {"rows": 4, "size": 256},
@@ -6047,12 +6055,13 @@ def ddp_gan_rank_run(rank, kind, trainer, state, image, *, steps, device, fault)
     """The gathered k-means (not the VQGAN's) and `steps` steps of the GAN
     trainer `kind` on this rank's rows `image`, the Trainer's own step
     under the group; with `fault`, rank 1's discriminator gradients skip
-    the average."""
+    the average. The first step's VQ ids are recorded (`vq_ids`)."""
     import torch
 
     from medical_image_editing_tpu_torch.ops import _build
     from medical_image_editing_tpu_torch.parallel import mesh
     from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+    from medical_image_editing_tpu_torch.utils.witness import first_moments, recorded_vq_ids
 
     cuda = torch.device(device).type == "cuda"
     parts = GAN_PARTS[kind]
@@ -6074,7 +6083,10 @@ def ddp_gan_rank_run(rank, kind, trainer, state, image, *, steps, device, fault)
             if cuda:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, metrics = trainer.train_step(state, image)
+            with recorded_vq_ids() if i == 0 else contextlib.nullcontext() as seen:
+                state, metrics = trainer.train_step(state, image)
+            if i == 0:
+                rec["vq_ids"] = seen
             if cuda:
                 torch.cuda.synchronize()
             rec["step_s"].append(time.perf_counter() - t0)
@@ -6116,24 +6128,25 @@ def per_rank_cutmix(masks):
         raise RuntimeError(f"{len(queue)} per-rank CutMix masks not taken")
 
 
-def ddp_gan_reference(kind, base, run, *, world, size, rows, seed, device):
+def ddp_gan_reference(kind, base, run, *, world, size, rows, seed, device, vq_ids):
     """One process, no group, the first step of the N-rank function of the
     GAN trainer `kind` computed serially on all `world`·`rows` rows: each
     rank's draws (replayed from the replicated generator's state before the
     step of `run`, a rank's record), its rows' CutMix composites under its
     own box (`per_rank_cutmix`), the VQ statistics divided by the world
     size and the embedding cross loss the mean of each rank's (as
-    `ddp_reference`), from the ranks' codebook after their k-means. Every
-    other term is a mean over equal rows a rank, and the synced BatchNorms
-    normalise over all the rows: the same either way. No collective."""
+    `ddp_reference`, the ranks' VQ ids `vq_ids` replayed), from the ranks'
+    codebook after their k-means. Every other term is a mean over equal
+    rows a rank, and the synced BatchNorms normalise over all the rows: the
+    same either way. No collective."""
     import torch
 
-    from medical_image_editing_tpu_torch.ops import augment, vq_fused
+    from medical_image_editing_tpu_torch.ops import augment
     from medical_image_editing_tpu_torch.ops.cutmix import cutmix_mask
     from medical_image_editing_tpu_torch.ops.vq import VQState
-    from medical_image_editing_tpu_torch.train import first_stage
     from medical_image_editing_tpu_torch.train.second_stage import sample_cutmix_draws
     from medical_image_editing_tpu_torch.train.state import per_rank_generator
+    from medical_image_editing_tpu_torch.utils.witness import first_moments
 
     trainer = gan_trainer(kind, base, device, seed)
     state = trainer.init_state(load_staged=False)
@@ -6162,28 +6175,14 @@ def ddp_gan_reference(kind, base, run, *, world, size, rows, seed, device):
     draws = nominal
     if kind == "joint":
         draws = (*(cat_draws([v[i] for v in views]) for i in range(2)), nominal)
-    assign, loss = vq_fused.vq_assign_fused, first_stage.embedding_loss
-
-    def averaged(embed, flat):
-        ids, quant, counts, sums = assign(embed, flat)
-        return ids, quant, counts / world, sums / world
-
-    def per_rank_loss(q1, oh1, q2, oh2, codebook, **kw):
-        parts = [loss(*(t.chunk(world)[r] for t in (q1, oh1, q2, oh2)), codebook, **kw)
-                 for r in range(world)]
-        return tuple(sum(p[i] for p in parts) / world for i in range(3))
-
-    vq_fused.vq_assign_fused = averaged
-    first_stage.embedding_loss = per_rank_loss
-    try:
-        with per_rank_cutmix(masks):
-            state, metrics = trainer.train_step(state, images, draws)
-    finally:
-        vq_fused.vq_assign_fused = assign
-        first_stage.embedding_loss = loss
+    with averaged_statistics(world) as (replay, moved), per_rank_cutmix(masks):
+        replay.extend(vq_ids)
+        state, metrics = trainer.train_step(state, images, draws)
+    if replay:
+        raise RuntimeError(f"{len(replay)} recorded VQ assignments not replayed")
     return {"moments": first_moments(state, GAN_PARTS[kind]),
             "embed": state.vq.embed.detach().cpu().clone(),
-            "losses": {k: float(v) for k, v in metrics.items()}}
+            "losses": {k: float(v) for k, v in metrics.items()}, "ids_moved": moved}
 
 
 def ddp_gan_gaps(kind, run, ref):
@@ -6230,12 +6229,13 @@ def ddp_gan_compare(kind, ranks, base, *, world, size, rows, steps, seed, device
     faulty = [r["gan"][kind][True] for r in ranks]
     t0 = time.perf_counter()
     ref = ddp_gan_reference(kind, base, healthy[0], world=world, size=size, rows=rows,
-                            seed=seed, device=device)
+                            seed=seed, device=device, vq_ids=ranks_vq_ids(healthy))
     ref_s = time.perf_counter() - t0
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     gaps = [ddp_gan_gaps(kind, run, ref) for run in healthy]
     fault_gaps = [ddp_gan_gaps(kind, run, ref) for run in faulty]
+    margin = fault_margin(fault_gaps, limit, DDP_FAULT_KEYS[kind])
     want = (ddp_gan_launches_expected(kind, base, size, steps, seed)
             if torch.device(device).type == "cuda" else {})
     return {
@@ -6245,11 +6245,13 @@ def ddp_gan_compare(kind, ranks, base, *, world, size, rows, steps, seed, device
         "generator_replicated": all(torch.equal(a, b) for a, b in
                                     zip(healthy[0]["gens"], healthy[1]["gens"])),
         "buffer_drift_per_rank": [run["buffer_drift"] for run in healthy],
-        "gap_to_serial": gaps, "gap_limit": limit, "planted_fault_gap": fault_gaps,
+        "gap_to_serial": gaps, "ids_moved_by_replay": ref["ids_moved"], "gap_limit": limit,
+        "planted_fault_gap": fault_gaps,
         "planted_fault_ranks_bit_identical": [a == b for a, b in
                                               zip(faulty[0]["digests"], faulty[1]["digests"])],
         "within_limits": all(g[k] <= limit[k] for g in gaps for k in limit),
-        "fault_caught": any(g[k] > limit[k] for g in fault_gaps for k in limit),
+        "fault_keys": DDP_FAULT_KEYS[kind], "fault_margin": margin,
+        "fault_caught": min(margin.values()) > 1.0,
         "collectives_per_step": healthy[0]["collectives"],
         "collectives_expected": healthy[0]["collectives_expected"],
         "collectives_as_expected": all(c == run["collectives_expected"] for run in healthy
@@ -6348,8 +6350,8 @@ def ddp_gan_nccl_part(device, workdir, bases, *, seed, steps, timed_steps):
 
 
 def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=None,
-              timed_steps=5, limits=DDP_GAP_LIMIT, gan=DDP_GAN, gan_overrides=None,
-              gan_steps=2, gan_limits=DDP_GAN_GAP_LIMIT, gan_timed_steps=2):
+              timed_steps=3, limits=DDP_GAP_LIMIT, gan=DDP_GAN, gan_overrides=None,
+              gan_steps=2, gan_limits=DDP_GAN_GAP_LIMIT, gan_timed_steps=1):
     """Data-parallel first-stage training (ROADMAP 15(i)) on the card.
 
     (a) Two ranks sharing the card (gloo on CUDA tensors: NCCL refuses two
@@ -6364,9 +6366,9 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
     `limits` of the dtype (DDP_GAP_LIMIT, the card's; later steps' gaps are
     printed: one step of
     Adam's ±lr updates sets two trajectories apart); then a planted fault,
-    rank 1's gradients skipping the average, must land above the limits
-    (f32 is there because bf16's own gap leaves the fault only ~1.8× above
-    it). The bf16 run's launches of both kernels, on each rank, are held to
+    rank 1's gradients skipping the average, must land above the limits of
+    `DDP_FAULT_KEYS` (f32 is there because bf16's own gap leaves the fault
+    only ~1.2× above it). The bf16 run's launches of both kernels, on each rank, are held to
     the counts derived from the model; collectives and bytes all-reduced a
     step, step times.
     (b) `ddp_nccl_part`: a one-rank group through `run_vqwnet` bit for bit
@@ -6379,9 +6381,9 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
     discriminator's buffer average changing no element; after the first
     step held to the serial reference (`ddp_gan_reference`) within
     `gan_limits`, and a planted fault (rank 1's discriminator gradients
-    left unaveraged) above them; collectives and bytes a step held to the
-    count derived from the models, launches to the derived counts, each
-    rank's peak memory; (b) `ddp_gan_nccl_part`: each through `run_vqwnet`
+    left unaveraged) above the discriminator's limit; collectives and
+    bytes a step held to the count derived from the models, launches to
+    the derived counts, each rank's peak memory; (b) `ddp_gan_nccl_part`: each through `run_vqwnet`
     under a one-rank NCCL group, 2 steps, and its bare step timed with and
     without the group.
     Returns the launches of (a)'s bf16 first stage and its GAN runs on
@@ -6397,29 +6399,10 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
                         g["size"]) for kind, g in gan.items()}
     world = 2
     work = Path(workdir) / "ddp"
-    work.mkdir(parents=True)
     t_phase = time.perf_counter()
-    ctx = torch.multiprocessing.get_context("spawn")
     gan_args = {kind: (cfg, n, side, gan_steps) for kind, (cfg, n, side) in gan_bases.items()}
-    procs = [ctx.Process(target=ddp_rank, args=(r, world, str(work / "init"), str(work), base,
-                                                size, rows, steps, seed, device, list(limits),
-                                                gan_args))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(600)
-    finally:
-        hung = [i for i, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
-    codes = [p.exitcode for p in procs]
-    if hung or codes != [0] * world:
-        raise RuntimeError(f"ddp ranks: hung {hung}, exit codes {codes}")
-    ranks = [torch.load(work / f"ddp-{r}.pt", weights_only=True) for r in range(world)]
+    ranks = ddp_run_ranks(work, base, size=size, rows=rows, steps=steps, seed=seed,
+                          device=device, dtypes=list(limits), gan_args=gan_args, world=world)
     ranks_s = time.perf_counter() - t_phase
 
     compare = {}
@@ -6427,20 +6410,25 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
         healthy = [r[dtype][False] for r in ranks]
         faulty = [r[dtype][True] for r in ranks]
         ref = ddp_reference(with_dtype(base, dtype), healthy[0], world=world, size=size,
-                            rows=rows, steps=steps, seed=seed, device=device)
+                            rows=rows, steps=steps, seed=seed, device=device,
+                            vq_ids=ranks_vq_ids(healthy))
         gaps = [ddp_gaps(run, ref) for run in healthy]
         fault_gaps = [ddp_gaps(run, ref) for run in faulty]
+        margin = fault_margin([{k: v[0] for k, v in g.items()} for g in fault_gaps], limit,
+                              DDP_FAULT_KEYS["first_stage"])
         compare[dtype] = {
             "ranks_bit_identical_each_step": [
                 a == b for a, b in zip(healthy[0]["digests"], healthy[1]["digests"])],
             "generator_replicated": all(torch.equal(a, b) for a, b in
                                         zip(healthy[0]["gens"], healthy[1]["gens"])),
             "kmeans_codebook_gap": ref["kmeans"], "gap_to_one_process": gaps,
+            "ids_moved_by_replay": ref["ids_moved"],
             "gap_limit": limit, "planted_fault_gap": fault_gaps,
             "planted_fault_ranks_bit_identical": [
                 a == b for a, b in zip(faulty[0]["digests"], faulty[1]["digests"])],
             "within_limits": all(g[k][0] <= limit[k] for g in gaps for k in limit),
-            "fault_caught": any(g[k][0] > limit[k] for g in fault_gaps for k in limit),
+            "fault_keys": DDP_FAULT_KEYS["first_stage"], "fault_margin": margin,
+            "fault_caught": min(margin.values()) > 1.0,
             "step_s_per_rank": [run["step_s"] for run in healthy],
             "losses_last": healthy[0]["losses"][-1],
             "reference_losses_last": ref["losses"][-1],
@@ -6529,6 +6517,204 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+# the export phase's variants: (name, compute dtype, conv route)
+EXPORT_VARIANTS = (("f32_xla", None, "xla"), ("bf16_packed", "bfloat16", "packed"))
+EXPORT_BATCHES = (1, 8)
+
+# The export phase's fresh process: torch and the artifact's loader (which
+# registers the conv kernel's operator), no model module. argv: the work
+# directory (painted.npy, edit_<name>.pt2), the variants, the batches, the
+# timed decodes, the device, the torch threads (the caller's: on the CPU the
+# thread count picks oneDNN's blocking, and with it the order of sums).
+# Writes artifact_<name>_<batch>.npy and prints one line: each variant's
+# load time, launches (of the checked decodes and of all), decode times at
+# the last batch; the package modules imported.
+ARTIFACT_SERVER = """
+import json, sys, time
+import numpy as np
+import torch
+from medical_image_editing_tpu_torch.cli.export_model import load_edit_artifact
+from medical_image_editing_tpu_torch.ops import _build
+from medical_image_editing_tpu_torch.utils.device import apply_conv_precision
+
+apply_conv_precision()
+work, names, batches, timed, device, threads = sys.argv[1:7]
+torch.set_num_threads(int(threads))
+batches, cuda = [int(b) for b in batches.split(",")], device != "cpu"
+painted = np.load(work + "/painted.npy")
+runs = {}
+for name in names.split(","):
+    t0 = time.perf_counter()
+    call = load_edit_artifact(f"{work}/edit_{name}.pt2", device=device)
+    load_s = time.perf_counter() - t0
+    _build.launches.clear()
+    for b in batches:
+        np.save(f"{work}/artifact_{name}_{b}.npy", call(painted[:b]).cpu().numpy())
+    checked = dict(_build.launches)
+    decode_s = []
+    for _ in range(int(timed)):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(painted[:batches[-1]])
+        if cuda:
+            torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+    runs[name] = {"load_s": load_s, "launches_checked": checked,
+                  "launches": dict(_build.launches), "decode_s": decode_s, "meta": call.meta}
+mods = sorted(m for m in sys.modules if m.startswith("medical_image_editing_tpu"))
+print("artifact-server:" + json.dumps({"runs": runs, "modules": mods}))
+"""
+
+
+def export_phase(device, model, painted, workdir, *, timed=3, seed=0):
+    """The edit decode exported and served from a fresh process (see the
+    module docstring, 8i). Returns the launches counted in that process (the
+    export path's)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
+    from medical_image_editing_tpu_torch.cli.export_model import (
+        export_edit_artifact,
+        save_edit_artifact,
+    )
+    from medical_image_editing_tpu_torch.cli.run_recon import load_model
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.ops.conv_pack import LAUNCH_KEYS
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    work = Path(workdir)
+    size, batches = painted.shape[-1], [b for b in EXPORT_BATCHES if b <= len(painted)]
+    np.save(work / "painted.npy", painted[:batches[-1]])
+    recs = {}
+    for name, dtype, impl in EXPORT_VARIANTS:
+        cfg = lung_config(model)
+        cfg.compute_dtype = dtype
+        _, dec, vq = load_model(cfg, device=device, seed=seed)
+        window = (cfg.window_width, cfg.window_center, cfg.window_scale)
+        with conv_route(impl):
+            n_dec = routed_convs(dec, torch.zeros(1, vq.embed.shape[1], size, size))
+            edit = make_batched_edit_fn(dec, is_lung=True, dataset_window=window, device=device)
+            _build.launches.clear()
+            eager = {b: edit(vq, painted[:b]).cpu().numpy() for b in batches}
+            sync()
+            eager_launches = dict(_build.launches)
+            eager_s = []
+            for _ in range(timed):
+                sync()
+                t0 = time.perf_counter()
+                edit(vq, painted[:batches[-1]])
+                sync()
+                eager_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            artifact = export_edit_artifact(dec, vq, image_size=size, is_lung=True,
+                                            dataset_window=window, device=device)
+            export_s = time.perf_counter() - t0
+        nodes = sum(1 for n in artifact.program.graph.nodes if n.op == "call_function"
+                    and str(n.target).startswith("medimg.conv3x3_packed"))
+        nbytes = save_edit_artifact(str(work / f"edit_{name}.pt2"), artifact)
+        recs[name] = {"route": impl, "compute_dtype": dtype or "float32",
+                      "routed_convs_per_decode": n_dec if impl == "packed" else 0,
+                      "op_nodes": nodes, "artifact_bytes": nbytes, "export_s": export_s,
+                      "eager_launches": eager_launches, "eager_decode_s": eager_s,
+                      "eager": eager}
+        del dec, artifact, edit
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # -- main path: the artifacts served by a process without the models
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", ARTIFACT_SERVER, str(work),
+                        ",".join(recs), ",".join(map(str, batches)), str(timed), device,
+                        str(torch.get_num_threads())],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"export: the artifact server failed:\n{r.stderr[-3000:]}")
+    served = json.loads(next(line for line in r.stdout.splitlines()
+                             if line.startswith("artifact-server:"))[len("artifact-server:"):])
+    server_s = time.perf_counter() - t0
+    imported_models = [m for m in served["modules"]
+                       if m.startswith("medical_image_editing_tpu_torch.models")
+                       or m.split(".")[0] == "medical_image_editing_tpu"]
+    launches, failures = {}, []
+    for name, rec in recs.items():
+        run = served["runs"][name]
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        gaps = {}
+        for b in batches:
+            got = np.load(work / f"artifact_{name}_{b}.npy")
+            want = rec["eager"][b]
+            gaps[b] = {"bit_equal": bool(got.dtype == want.dtype and got.shape == want.shape
+                                         and np.array_equal(got, want)),
+                       "max_abs_err": float(np.abs(got - want).max()),
+                       "finite_in_range": bool(np.isfinite(got).all() and got.min() >= -1
+                                               and got.max() <= 1)}
+        # the packed route's launches are the bf16 instance's; the xla
+        # route launches no instance
+        key = LAUNCH_KEYS["bf16"] if rec["route"] == "packed" else "conv3x3_packed"
+        rec.update(artifact_launches_checked=run["launches_checked"],
+                   artifact_launches=run["launches"], artifact_load_s=run["load_s"],
+                   artifact_decode_s=run["decode_s"], vs_eager=gaps, meta=run["meta"])
+        derived = len(batches) * rec["routed_convs_per_decode"] if cuda else 0
+        if not all(g["bit_equal"] and g["finite_in_range"] for g in gaps.values()):
+            failures.append(f"{name}: the artifact's decode is not the eager one's: {gaps}")
+        if rec["op_nodes"] != rec["routed_convs_per_decode"]:
+            failures.append(f"{name}: {rec['op_nodes']} operator nodes, "
+                            f"{rec['routed_convs_per_decode']} routed convolutions")
+        if (run["launches_checked"].get(key, 0), rec["eager_launches"].get(key, 0)) != (
+                derived, derived):
+            failures.append(f"{name}: {key} launches: artifact {run['launches_checked']}, "
+                            f"eager {rec['eager_launches']}, derived {derived}")
+        del rec["eager"]
+    out = {"phase": "export", "size": size, "batches": batches, "variants": recs,
+           "server_s": server_s, "server_imported_models": imported_models,
+           "server_modules": served["modules"],
+           "card": nvidia_smi() if cuda else None}
+    emit(out)
+    if imported_models:
+        failures.append(f"the artifact server imported {imported_models}")
+    if failures:
+        raise RuntimeError("export phase: " + "; ".join(failures))
+    return launches
+
+
+DOCTOR_CHECKS = ("versions", "env", "backend", "nvcc", "kernels", "native", "mesh")
+
+
+def start_doctor():
+    """`python -m medical_image_editing_tpu_torch.cli.doctor` started in the
+    background (it runs beside ckpt_crossing and the reference join, which
+    time nothing) → (the process, its start time), for `doctor_phase`."""
+    return subprocess.Popen([sys.executable, "-m", "medical_image_editing_tpu_torch.cli.doctor"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), time.perf_counter()
+
+
+def doctor_phase(started, timeout=900):
+    """The doctor started by `start_doctor`: exit 0, and every check `ok`.
+    Killed if it runs past `timeout` seconds from its start."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = [line for line in out.splitlines() if line.startswith("[")]
+    checks = {line[7:17].strip(): line[1:5].strip() for line in lines}
+    emit({"phase": "doctor", "exit_code": proc.returncode, "checks": checks, "lines": lines,
+          "seconds": time.perf_counter() - t0})
+    if proc.returncode != 0 or tuple(checks) != DOCTOR_CHECKS or set(checks.values()) != {"ok"}:
+        raise RuntimeError(f"doctor: exit {proc.returncode}, checks {checks}\n{err[-2000:]}")
 
 
 S8_SOURCE = "medical_image_editing_tpu_torch/csrc/conv_s8.cu"
@@ -6647,8 +6833,11 @@ def main(argv=None):
         runtime_launches = serve_runtime_phase("cuda", model, painted, tmp, seed=args.seed)
     with timed("int8"), tempfile.TemporaryDirectory() as tmp:
         int8_launches, int8 = int8_phase("cuda", model, painted, tmp, seed=args.seed)
+    with timed("export"), tempfile.TemporaryDirectory() as tmp:
+        export_launches = export_phase("cuda", model, painted, tmp, seed=args.seed)
     cfg = load_config()
     pending = []  # card-vs-CPU parts whose CPU side runs in the background
+    doctor = None  # the doctor's process, started before ckpt_crossing
     try:
         with conv_route("packed"):
             with timed("train"):
@@ -6677,18 +6866,25 @@ def main(argv=None):
                     vol_launches = volumetric_phase("cuda", tmp, seed=args.seed)
                 with timed("ddp"):
                     ddp_launches = ddp_phase("cuda", tmp, seed=args.seed)
+        doctor = start_doctor()
         with timed("ckpt_crossing"), tempfile.TemporaryDirectory() as tmp:
             crossing_launches = ckpt_crossing_phase("cuda", tmp, seed=args.seed)
         with timed("reference_join"):
             while pending:
                 finish_reference(pending.pop(0))
+        with timed("doctor_join"):
+            doctor_phase(doctor)
     finally:
         for handle in pending:  # a phase failed: stop the CPU sides still running
             handle.proc.kill()
             handle.proc.join()
             shutil.rmtree(handle.tmp, ignore_errors=True)
+        if doctor is not None and doctor[0].poll() is None:
+            doctor[0].kill()
+            doctor[0].communicate()
     # (d) no other path launches an int8 kernel
     others = {"serve": serve_launches, "serve_bf16_packed": runtime_launches,
+              "export": export_launches,
               "train": train_launches, "f32_step": f32_launches["ieee_packed"],
               "f32_step_tf32": f32_launches["tf32_packed"], "trainer": trainer_launches,
               "second_stage": second_launches, "multi_window": mw_launches,

@@ -10,7 +10,8 @@ The JAX version's `mesh`/`partition` (multi-chip, ROADMAP item 15) is not
 ported yet, so this signature has no such arguments and `main` no
 `--partition`.
 
-Painted labels are checked before the codebook lookup (`check_labels`): a
+Painted labels are checked before the codebook lookup (`check_labels`,
+from `utils/labels.py`, which the exported program's loader shares): a
 label past the codebook raises `ValueError`, where the JAX package's
 `jnp.take` fills NaN rows and decodes a NaN image, and where an unchecked
 torch index would trip a device assert that leaves the CUDA context
@@ -30,33 +31,7 @@ from ..ops.quantized_conv import quantize_convs
 from ..ops.vq import VQState
 from ..ops.windowing import LUNG_WINDOW, denormalize, normalize
 from ..utils.device import resolve_device
-
-
-def check_labels(id_maps, dict_size: int) -> None:
-    """Raise `ValueError` unless every painted label lies in
-    [1 − dict_size, dict_size]: 0 is background, 1..K are codebook rows, and
-    −K+1..−1 wrap to rows from the end as they do in the JAX package. A
-    numpy array or CPU tensor is checked on the host; a CUDA tensor with one
-    reduction and a sync."""
-    if isinstance(id_maps, torch.Tensor):
-        if id_maps.numel() == 0:
-            return
-        lo, hi = (int(v) for v in torch.stack(torch.aminmax(id_maps)).tolist())
-    else:
-        id_maps = np.asarray(id_maps)
-        if id_maps.size == 0:
-            return
-        lo, hi = int(id_maps.min()), int(id_maps.max())
-    if lo >= 1 - dict_size and hi <= dict_size:
-        return
-    if isinstance(id_maps, torch.Tensor):
-        id_maps = id_maps.cpu().numpy()
-    bad = np.unique(id_maps[(id_maps < 1 - dict_size) | (id_maps > dict_size)])
-    raise ValueError(
-        f"painted labels {bad[:8].tolist()}{' ...' if bad.size > 8 else ''} outside "
-        f"[{1 - dict_size}, {dict_size}]: 0 is background, 1..{dict_size} the "
-        "codebook's entries"
-    )
+from ..utils.labels import check_labels
 
 
 def to_checked_ids(id_maps, dict_size: int, device) -> torch.Tensor:

@@ -18,9 +18,10 @@ volumes — 0 = background, k = codebook id k−1 — or one such file. Outputs
 each input.
 
 `--ckpt` is the `volumetric_ckpt` directory the port's `train_volumetric`
-writes (`state.pt`). The JAX package's Orbax checkpoints cannot be read here
-(ROADMAP item 22a). The JAX CLI's `--partition spatial` (decoder depth
-sharded over cards) is ROADMAP item 15(iii) and is refused.
+writes (`state.pt`). The JAX package's Orbax checkpoints cannot be read
+here: `tools/volumetric_ckpt.py to-port` converts one (ROADMAP item 22a).
+The JAX CLI's `--partition spatial` (decoder depth sharded over cards) is
+ROADMAP item 15(iii) and is refused.
 """
 
 import argparse
@@ -84,9 +85,10 @@ def load_volumetric_checkpoint(path: str, *, filters, dict_size: int, out_channe
     if not os.path.isfile(os.path.join(path, STATE_FILE)):
         raise ValueError(
             f"{path} holds no {STATE_FILE}: not a volumetric checkpoint of the PyTorch "
-            "port's train_volumetric. An Orbax checkpoint of the JAX package cannot be "
-            "read here, and the Lightning .ckpt route does not cover this model: "
-            "crossing checkpoints is ROADMAP item 22a"
+            "port's train_volumetric. An Orbax checkpoint of the JAX package's "
+            "train_volumetric cannot be read here: convert it first with "
+            "`python tools/volumetric_ckpt.py to-port --src DIR --out PORT_DIR` (where "
+            "orbax is installed; the volumetric part of ROADMAP item 22a)"
         )
     sd = load_state_file(path)
     k, c = sd["vq"]["embed"].shape

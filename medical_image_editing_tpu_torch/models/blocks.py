@@ -12,7 +12,12 @@ JAX package's `utils/torch_export.py` writes.
   `_conv_dispatch` admits (3×3 SAME stride 1, undilated, one group,
   W % 4 == 0, gcd(H, 64) ≥ 8, Cin == 32, input dtype equal to weight dtype)
   go through `ops/conv_pack.py`'s kernel with its analytic backward, the
-  bias added afterwards; everything else goes to `F.conv2d`. Inside
+  bias added afterwards; everything else goes to `F.conv2d`. While
+  `torch.export` traces (`torch.compiler.is_exporting()`), a routed
+  convolution calls the kernel's operator `medimg::conv3x3_packed`
+  instead, which has no gradient: the exported program holds one node a
+  routed convolution, and the route, read from `MEDIMG_CONV_IMPL` at
+  trace time, is fixed in it. Inside
   `ops/quantized_conv.py::quantize_convs("int8")` every `Conv` (the
   `packable=False` ones too, as the JAX package intercepts every flax
   `nn.Conv`) runs `int8_conv` on its f32 weight and bias instead, its
@@ -46,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv_pack import conv3x3_packed_trainable_nchw, packed_eligible
+from ..ops.conv_pack import conv3x3_packed_op, conv3x3_packed_trainable_nchw, packed_eligible
 from ..ops.quantized_conv import int8_conv, quantize_mode
 from ..ops.vq import VQModule
 from ..parallel.mesh import pmean_differentiable
@@ -108,6 +113,9 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         if quantize_mode() == "int8":
+            if torch.compiler.is_exporting():
+                raise NotImplementedError("the int8 decode is not exported (neither is the "
+                                          "JAX package's)")
             if self.padding_mode != "zeros":
                 raise ValueError(f"int8_conv pads with zeros, not {self.padding_mode!r}")
             return int8_conv(x, self.weight, self.bias, stride=self.stride,
@@ -115,7 +123,10 @@ class Conv(nn.Conv2d):
                              out_dtype=self.compute_dtype or torch.float32)
         x, w, b = self._cast(x)
         if self._eligible(x, w):
-            y = conv3x3_packed_trainable_nchw(x, w)
+            if torch.compiler.is_exporting():
+                y = conv3x3_packed_op(x, w)
+            else:
+                y = conv3x3_packed_trainable_nchw(x, w)
             return y if b is None else y + b[:, None, None]
         return F.conv2d(x, w, b, self.stride, self.padding, self.dilation, self.groups)
 

@@ -37,6 +37,15 @@ channels transposed, and computes dw directly from x and dy
 package's `_c3p_bwd` does through `jax.vjp`. dw stays a library call, as
 it is an XLA convolution outside the TPU kernel.
 
+For `torch.export` the same kernel is also the operator
+`medimg::conv3x3_packed` (`conv3x3_packed_op`, NCHW x, OIHW w, no
+gradient): a ctypes call is opaque to the exporter's tracer, an operator
+is one node of the exported graph. Its CUDA implementation is `_launch`
+(the same instance choice, read at call time, and the same launch counts),
+its CPU implementation the plain version, and its fake implementation only
+the output's shape. Importing this module registers it, so a process that
+loads an exported program imports this module first.
+
 `packed_eligible` is the JAX package's static gate, unchanged: the modules
 route exactly the convolutions JAX routes. Unlike the TPU kernel, this one
 takes every Cin and Cout, so the backward's transposed shapes (Cin 64 →
@@ -230,6 +239,28 @@ def conv3x3_packed_nchw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _plain(x, w):
         return conv3x3_packed_reference_nchw(x, w)
     return _launch(x, w_hwio, channels_last=False)
+
+
+@torch.library.custom_op("medimg::conv3x3_packed", mutates_args=(), device_types="cpu")
+def conv3x3_packed_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`conv3x3_packed_nchw` as an operator the exporter traces (NCHW x,
+    OIHW w → NCHW y in x.dtype; no gradient): the plain version on the
+    CPU."""
+    _check(x, w.permute(2, 3, 1, 0))
+    return conv3x3_packed_reference_nchw(x, w)
+
+
+@conv3x3_packed_op.register_kernel("cuda")
+def _conv3x3_packed_op_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    w_hwio = w.permute(2, 3, 1, 0)
+    _check(x, w_hwio)
+    return _launch(x, w_hwio, channels_last=False)
+
+
+@conv3x3_packed_op.register_fake
+def _conv3x3_packed_op_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check(x, w.permute(2, 3, 1, 0))
+    return x.new_empty((x.shape[0], w.shape[0], x.shape[2], x.shape[3]))
 
 
 def flip_transpose(w: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,11 @@ export derives it), its ActNorms (`loc`, `scale`, `initialized`, and the
 (`from_jax_vqgan`: the taming layout, GroupNorm scale/bias, the attention's
 1×1 convs and its codebook), the perceptual networks' frozen weights
 (`from_jax_perceptual`), and the volumetric VQ-WNet (`from_jax_volumetric`:
-3-D kernels to (O, I, kd, kh, kw) under the flax paths). Inputs are nested dicts of arrays (numpy,
-or anything `np.asarray` takes); outputs are dicts of CPU tensors that the
-port's modules load with `load_state_dict(strict=True)`.
+3-D kernels to (O, I, kd, kh, kw) under the flax paths; its inverse,
+`to_jax_volumetric`, gives back the flax-shaped numpy tree, with numpy
+only). Inputs are nested dicts of arrays (numpy, or anything `np.asarray`
+takes); outputs are dicts of CPU tensors that the port's modules load with
+`load_state_dict(strict=True)`.
 
 `load_jax_train_state` loads a whole JAX `TrainState` into a port one (the
 tests start both sides from it). `load_lightning_state` reads a
@@ -329,6 +331,40 @@ def from_jax_volumetric(enc_vars: dict, dec_vars: dict, vq) -> Dict[str, StateDi
     return {"enc": from_jax_volumetric_params(enc_vars["params"]),
             "dec": from_jax_volumetric_params(dec_vars["params"]),
             "vq": from_jax_vq(vq, prefix="")}
+
+
+def to_jax_volumetric_params(state_dict: StateDict) -> dict:
+    """The inverse of `from_jax_volumetric_params`: a volumetric module's
+    state dict → its flax params as numpy arrays, nested on the keys' dots,
+    3-D weights (O, I, kd, kh, kw) → kernels (kd, kh, kw, I, O)."""
+    params: dict = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        node = params
+        for name in path:
+            node = node.setdefault(name, {})
+        a = value.detach().cpu().numpy()
+        if leaf == "weight":
+            node["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 4, 1, 0))
+        elif leaf == "bias":
+            node["bias"] = np.array(a)
+        else:
+            raise KeyError(f"{key}: a volumetric module holds weights and biases only")
+    return params
+
+
+def to_jax_volumetric(sds: Dict[str, StateDict]) -> dict:
+    """The inverse of `from_jax_volumetric`: the port's `train_volumetric`
+    checkpoint {"enc", "dec", "vq"} → the tree the JAX package's
+    `train_volumetric` saves with Orbax, in numpy: {"enc": {"params"},
+    "dec": {"params"}, "vq": {embed, cluster_size, embed_avg (K, C)}}."""
+    vq = sds["vq"]
+    return {"enc": {"params": to_jax_volumetric_params(sds["enc"])},
+            "dec": {"params": to_jax_volumetric_params(sds["dec"])},
+            "vq": {"embed": vq["embed"].detach().cpu().numpy().copy(),
+                   "cluster_size": vq["cluster_size"].detach().cpu().numpy().copy(),
+                   "embed_avg": np.ascontiguousarray(
+                       vq["embed_avg"].detach().cpu().numpy().T)}}
 
 
 def from_jax_discriminator(dis_vars: dict, *, D_attn: str = "0") -> StateDict:

@@ -10,6 +10,8 @@ JAX package, so it also runs where only PyTorch is installed:
 
 import contextlib
 import copy
+import json
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -20,6 +22,14 @@ from medical_image_editing_tpu_torch.ops import conv_pack as tcp
 from medical_image_editing_tpu_torch.ops import quantized_conv as tqc
 from medical_image_editing_tpu_torch.ops import vq as tvq
 from medical_image_editing_tpu_torch.ops import vq_fused as tvqf
+from medical_image_editing_tpu_torch.utils.witness import (
+    first_moments,
+    float64_step,
+    recorded_vq_ids,
+    to_float64,
+    witness_gaps,
+    witness_limits,
+)
 
 
 @pytest.fixture
@@ -158,6 +168,42 @@ def test_encode_goes_through_the_kernel(cuda):
     assert _build.launches[tvqf.KERNEL] == before + 1
     assert recon.shape == (2, 32, 32, 1) and torch.isfinite(recon).all()
     assert ids.dtype == torch.int32 and int(ids.min()) >= 1 and int(ids.max()) <= 6
+
+
+@pytest.mark.gpu
+def test_exported_bf16_packed_decode_on_card(cuda, monkeypatch, tmp_path):
+    """The bf16 edit decode exported on the card under the packed route
+    (`cli/export_model.py`), saved and loaded: 10 `medimg::conv3x3_packed`
+    nodes (the decoder's 32-channel convolutions at 32² and 16²); at batch 1
+    and 3 bit for bit the eager `make_batched_edit_fn`, with as many
+    `conv3x3_packed:bf16` launches (10 a decode) and no other."""
+    from medical_image_editing_tpu_torch.cli import export_model as tem
+    from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
+    from medical_image_editing_tpu_torch.cli.run_recon import LungConfig, load_model
+
+    monkeypatch.setenv("MEDIMG_CONV_IMPL", "packed")
+    cfg = LungConfig()
+    cfg.resume_checkpoint, cfg.compute_dtype = None, "bfloat16"
+    cfg.enc_filters, cfg.dec_filters, cfg.dict_size = (4, 8, 8, 16, 16), (32, 8, 8, 16, 16), 6
+    _, dec, vq = load_model(cfg, device=cuda)
+    ids = np.random.default_rng(3).integers(-5, 7, (3, 32, 32)).astype(np.int32)
+    ids[1] = 0
+    edit = make_batched_edit_fn(dec, is_lung=True, device=cuda)
+    artifact = tem.export_edit_artifact(dec, vq, image_size=32, is_lung=True, device=cuda)
+    assert sum(1 for n in artifact.program.graph.nodes
+               if str(n.target).startswith("medimg.conv3x3_packed")) == 10
+    tem.save_edit_artifact(str(tmp_path / "edit.pt2"), artifact)
+    call = tem.load_edit_artifact(str(tmp_path / "edit.pt2"), device=cuda)
+    for b in (1, 3):
+        counts = []
+        for fn in (lambda: edit(vq, ids[:b]), lambda: call(ids[:b])):
+            _build.launches.clear()
+            out = fn()
+            torch.cuda.synchronize()
+            counts.append((out, dict(_build.launches)))
+        (want, n_eager), (got, n_artifact) = counts
+        assert n_eager == n_artifact == {tcp.KERNEL: 10, tcp.LAUNCH_KEYS["bf16"]: 10}
+        assert got.device.type == "cuda" and torch.equal(got, want)
 
 
 def _conv_inputs(b, cin, cout, h, w, dtype, device, seed=6):
@@ -587,50 +633,154 @@ def _second_stage_step(state, device):
                                       loss_cfg=cfg, device=device)
 
 
-@pytest.mark.gpu
-def test_second_stage_step_on_card_matches_cpu(cuda, monkeypatch):
-    """One second-stage step (f32) on the CPU and on the card, on both
-    conv routes, from the same weights, codebook and CutMix draws: the
-    packed route's launches derived from the model (the frozen encoder's 3
-    routed convs forward, the decoder's 10 forward and dx; one
-    assignment), the losses (rtol 1e-3), and the gradients read from
-    Adam's first moment within 5× the card's own floor (its two routes
-    against each other) or 1e-4, as `chip_smoke.py`'s second-stage
-    reference part holds them."""
+# Fault C.8: the card's gradients in the step tests below are held to a
+# float64 CPU witness of the same step on the card's own ids
+# (`utils/witness.py`, as `chip_smoke.py`'s card-vs-CPU parts hold theirs):
+# within 5× the larger of the two CPU float32 steps' distances from it
+# (oneDNN's convolutions, PyTorch's native ones), or 1e-4 (the tests'
+# former minimum), and never above a cap. Each cap is 10× the largest of
+# those two CPU distances over seeds 0, 1 and 2 of the test's data
+# (`tools/witness_caps.py`, which builds the data with the `_*_case`
+# functions below; seed 0 is the test's own), rounded up to two digits:
+# twice the largest limit any seed gives, a fixed number that nothing in a
+# run moves. Largest readings (x86 CPU, PyTorch 2.13): second stage decoder
+# 2.34e-3, discriminator 2.21e-6; joint encoder 9.70e-2, decoder 4.63e-3,
+# discriminator 9.45e-5; VQGAN decoder 2.30e-6, discriminator 3.32e-6; first
+# stage with the VGG encoder 0.128, decoder 3.69e-3. The encoders' gradients
+# at random init are ill-conditioned: 6-13% between a float32 step and its
+# witness on the same ids. The card's other conv route and the card without
+# cuDNN stay, as readouts.
+WITNESS_MINIMUM = 1e-4
+WITNESS_CAP = {
+    "second_stage": {"decoder": 2.4e-2, "discriminator": 2.3e-5},
+    "joint": {"encoder": 0.97, "decoder": 4.7e-2, "discriminator": 9.5e-4},
+    "vqgan": {"decoder": 2.3e-5, "discriminator": 3.4e-5},
+    "first_stage": {"encoder": 1.3, "decoder": 3.7e-2},
+}
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def _recorded_step(state, parts, step):
+    """Run `step()` → (metrics, grads) with the run's VQ ids: the record
+    `_witness_failures` takes."""
+    with recorded_vq_ids() as seen:
+        _, metrics = step()
+    return SimpleNamespace(m={k: float(v) for k, v in metrics.items()},
+                           grads=first_moments(state, parts), vq_ids=seen)
+
+
+def _case(parts, fresh):
+    """A step test's case: `parts` ((module, optimizer) field names) and
+    `fresh(device, witness=False)` → (state, run), a new state and the
+    call that runs its step on the test's data (with `witness`, the
+    state's modules in float64, for the witness's step), and
+    `witness(ids_calls)`, the float64 CPU witness of that step on the
+    given ids (`utils/witness.py`: the conv route xla, the step inside
+    `float64_step`) → its first moments."""
+    def witness(ids_calls):
+        state, run = fresh("cpu", witness=True)
+        with pytest.MonkeyPatch.context() as mp, float64_step(ids_calls):
+            mp.setenv("MEDIMG_CONV_IMPL", "xla")
+            run()
+        return first_moments(state, parts)
+
+    return SimpleNamespace(parts=parts, fresh=fresh, witness=witness)
+
+
+def cpu_witness_gaps(case):
+    """The CPU's two float32 steps of `case` (oneDNN's convolutions and
+    PyTorch's native ones, the packed route, which the CPU takes as its
+    plain version), each against the float64 witness of its own ids →
+    {"cpu": {module: distance}, "cpu_native": {...}}: the floor of
+    `witness_limits`."""
+    out = {}
+    for name, mkldnn in (("cpu", True), ("cpu_native", False)):
+        with pytest.MonkeyPatch.context() as mp, torch.backends.mkldnn.flags(enabled=mkldnn):
+            mp.setenv("MEDIMG_CONV_IMPL", "packed")
+            state, run = case.fresh("cpu")
+            out[name] = _recorded_step(state, case.parts, run)
+    return witness_gaps(out, case.witness, case.parts)[0]
+
+
+def _witness_failures(test, out, case):
+    """The card's gradients against the float64 witness of its own ids
+    (fault C.8): the modules past their limit, as (module, distance,
+    limit). Prints the record: each run's distance from the witness, the
+    floor and limits, and as readouts the perturbed runs' distances from
+    the run they perturb (a `card_` run from the card's, `cpu_floor` from
+    the CPU's)."""
+    parts = case.parts
+    gaps, n = witness_gaps({k: out[k] for k in ("cpu", "cpu_native", "card")}, case.witness,
+                           parts)
+    floor, limit = witness_limits(gaps, WITNESS_MINIMUM, WITNESS_CAP[test])
+    readouts = {name: {m: _rel(o.grads[m], out["card" if name.startswith("card") else "cpu"]
+                                .grads[m]) for m, _ in parts}
+                for name, o in out.items() if name not in ("cpu", "cpu_native", "card")}
+    print(json.dumps({"test": test, "grad_rel_err_vs_f64": gaps, "grad_floor": floor,
+                      "grad_limit": limit, "witnesses": n, "readouts": readouts,
+                      "card_vs_cpu": {m: _rel(out["card"].grads[m], out["cpu"].grads[m])
+                                      for m, _ in parts}}))
+    return [(m, gaps["card"][m], limit[m]) for m in limit if gaps["card"][m] > limit[m]]
+
+
+def _second_stage_case(seed=0):
+    """The second-stage step test's data (seed 0; other seeds for
+    `tools/witness_caps.py`): 32², batch 2, the codebook from a CPU
+    k-means, one CutMix draw."""
     from medical_image_editing_tpu_torch.train import first_stage as tfs
     from medical_image_editing_tpu_torch.train import second_stage as tss
 
-    x = np.random.default_rng(8).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
-    draws = tss.sample_cutmix_draws(torch.Generator().manual_seed(3), 1, 32, 32)
-    out = {}
-    cpu_state = _second_stage_state("cpu")
+    x = np.random.default_rng(8 + seed).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
+    draws = tss.sample_cutmix_draws(torch.Generator().manual_seed(3 + seed), 1, 32, 32)
+    cpu_state = _second_stage_state("cpu", seed=seed)
     tfs.init_codebook_step(cpu_state.encoder)(cpu_state, x)
     codebook = {k: v.clone() for k, v in cpu_state.encoder.state_dict().items()}
-    for name, device, route in (("cpu", "cpu", "packed"), ("card", cuda, "packed"),
-                                ("card_xla", cuda, "xla")):
-        monkeypatch.setenv("MEDIMG_CONV_IMPL", route)
-        state = cpu_state if name == "cpu" else _second_stage_state(device)
+
+    def fresh(device, witness=False):
+        state = _second_stage_state(device, seed=seed)
         state.encoder.load_state_dict(codebook)
+        if witness:
+            to_float64(state.encoder, state.decoder, state.discriminator)
         on = [(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
               for box, inv in draws]
+        return state, lambda: _second_stage_step(state, device)(state, x, draws=on)
+
+    return _case((("decoder", "dec_opt"), ("discriminator", "dis_opt")), fresh)
+
+
+@pytest.mark.gpu
+def test_second_stage_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One second-stage step (f32) on the CPU and on the card, from the
+    same weights, codebook and CutMix draws, packed route: the launches
+    derived from the model (the frozen encoder's 3 routed convs forward,
+    the decoder's 10 forward and dx; one assignment), the losses (rtol
+    1e-3), and the gradients read from Adam's first moment against the
+    float64 witness of the card's own ids (fault C.8, `_witness_failures`).
+    The card on the xla route is a readout."""
+    case = _second_stage_case()
+    out = {}
+    for name, device, route, mkldnn in (("cpu", "cpu", "packed", True),
+                                        ("cpu_native", "cpu", "packed", False),
+                                        ("card", cuda, "packed", True),
+                                        ("card_xla", cuda, "xla", True)):
+        monkeypatch.setenv("MEDIMG_CONV_IMPL", route)
+        state, run = case.fresh(device)
         _build.launches.clear()
-        _, metrics = _second_stage_step(state, device)(state, x, draws=on)
+        with torch.backends.mkldnn.flags(enabled=mkldnn):
+            out[name] = _recorded_step(state, case.parts, run)
         if name == "card":
             torch.cuda.synchronize()
             assert dict(_build.launches) == {tcp.KERNEL: 3 + 2 * 10,
                                              tcp.LAUNCH_KEYS["f32"]: 3 + 2 * 10,
                                              tvqf.KERNEL: 1}
-        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
-                               for p in getattr(state, m).parameters()])
-                 for m, o in (("decoder", state.dec_opt), ("discriminator", state.dis_opt))}
-        out[name] = ({k: float(v) for k, v in metrics.items()}, grads)
-    (m_cpu, g_cpu), (m_card, g_card), (_, g_xla) = out["cpu"], out["card"], out["card_xla"]
+    m_cpu, m_card = out["cpu"].m, out["card"].m
     for k, v in m_cpu.items():
         assert abs(m_card[k] - v) <= 1e-3 * abs(v) + 1e-6, (k, m_card[k], v)
-    for m in g_cpu:
-        floor = float((g_xla[m] - g_card[m]).norm() / g_card[m].norm())
-        err = float((g_card[m] - g_cpu[m]).norm() / g_cpu[m].norm())
-        assert err <= max(5 * floor, 1e-4), (m, err, floor)
+    bad = _witness_failures("second_stage", out, case)
+    assert not bad, bad
 
 
 @pytest.mark.gpu
@@ -711,6 +861,45 @@ def _joint_step(state, device, dtype=torch.float32, use_remat=False):
                                compute_dtype=dtype, use_remat=use_remat, device=device), aug
 
 
+def _joint_case(seed=0):
+    """The joint step test's data (seed 0; other seeds for
+    `tools/witness_caps.py`): 64², batch 2, the codebook from a CPU
+    k-means, two views' draws and three CutMix draws."""
+    from medical_image_editing_tpu_torch.ops.augment import sample_view_draws
+    from medical_image_editing_tpu_torch.train import first_stage as tfs
+    from medical_image_editing_tpu_torch.train import second_stage as tss
+
+    size = 64
+    x = np.random.default_rng(8 + seed).uniform(-1, 1, size=(2, size, size, 1)).astype(np.float32)
+    cpu_state = _second_stage_state("cpu", seed=seed)
+    tfs.init_codebook_step(cpu_state.encoder)(cpu_state, x)
+    start = {m: {k: v.clone() for k, v in getattr(cpu_state, m).state_dict().items()}
+             for m in ("encoder", "decoder", "discriminator")}
+    _, aug = _joint_step(cpu_state, "cpu")
+    gen = torch.Generator().manual_seed(3 + seed)
+    views = [sample_view_draws(gen, aug, 2, size, size) for _ in range(2)]
+    cut = tss.sample_cutmix_draws(gen, 3, size, size)
+
+    def fresh(device, witness=False):
+        state = _second_stage_state(device, seed=seed)
+        for m, sd in start.items():
+            getattr(state, m).load_state_dict(sd)
+        on = [{part: [None if d is None else {k: None if v is None else v.to(device)
+                                              for k, v in d.items()} for d in ds]
+               for part, ds in view.items()} for view in views]
+        on.append([(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
+                   for box, inv in cut])
+        if witness:
+            to_float64(state.encoder, state.decoder, state.discriminator)
+        step, _ = _joint_step(state, device, dtype=torch.float64 if witness else torch.float32)
+        return state, lambda: step(state, x, draws=tuple(on))
+
+    case = _case((("encoder", "enc_opt"), ("decoder", "dec_opt"),
+                  ("discriminator", "dis_opt")), fresh)
+    case.x = x
+    return case
+
+
 @pytest.mark.gpu
 def test_joint_step_on_card_matches_cpu(cuda, monkeypatch):
     """One multi-window joint step (f32, 64², batch 2) on the CPU and on the
@@ -719,38 +908,28 @@ def test_joint_step_on_card_matches_cpu(cuda, monkeypatch):
     and decoder, forward and dx; one assignment per view); the ids each
     view quantizes to, equal on both; the losses (rtol 1e-3; 1e-2 for
     `ID_MOVED_LOSSES`); the gradients of encoder, decoder and discriminator
-    read from Adam's first moment within 5× the floor or 1e-4, the floor
-    the larger of the card's two conv routes against each other and the
-    CPU step against itself perturbed at the rounding level (native
-    convolutions, one-ulp noise on the quantized features, as the CPU tests
-    perturb it). An id that flips at a near tie inside the step moves the
-    gradients far more than rounding: at 128² one of 32,768 flipped and
-    moved the decoder's by 13% (measured), so the ids are held equal first
-    and the size is one at which none flips."""
-    from medical_image_editing_tpu_torch.ops.augment import sample_view_draws
+    read from Adam's first moment against the float64 witness of the
+    card's own ids (fault C.8, `_witness_failures`). Readouts: the card's other
+    conv route, and the CPU step perturbed at the rounding level (native
+    convolutions, one-ulp noise on the quantized features). An id that
+    flips at a near tie inside the step moves the gradients far more than
+    rounding: at 128² one of 32,768 flipped and moved the decoder's by 13%
+    (measured), so the ids are held equal first and the size is one at
+    which none flips."""
     from medical_image_editing_tpu_torch.train import first_stage as tfs
-    from medical_image_editing_tpu_torch.train import second_stage as tss
 
-    size = 64
-    x = np.random.default_rng(8).uniform(-1, 1, size=(2, size, size, 1)).astype(np.float32)
-    cpu_state = _second_stage_state("cpu")
-    tfs.init_codebook_step(cpu_state.encoder)(cpu_state, x)
-    start = {m: {k: v.clone() for k, v in getattr(cpu_state, m).state_dict().items()}
-             for m in ("encoder", "decoder", "discriminator")}
-    _, aug = _joint_step(cpu_state, "cpu")
-    gen = torch.Generator().manual_seed(3)
-    views = [sample_view_draws(gen, aug, 2, size, size) for _ in range(2)]
-    cut = tss.sample_cutmix_draws(gen, 3, size, size)
-    real = tfs.encode_quantize
-    out = {}
-    for name, device, route in (("cpu", "cpu", "packed"), ("cpu_floor", "cpu", "packed"),
-                                ("card", cuda, "packed"), ("card_xla", cuda, "xla")):
+    case = _joint_case()
+    x, real = case.x, tfs.encode_quantize
+    out, ids = {}, {}
+    for name, device, route in (("cpu", "cpu", "packed"), ("cpu_native", "cpu", "packed"),
+                                ("cpu_floor", "cpu", "packed"), ("card", cuda, "packed"),
+                                ("card_xla", cuda, "xla")):
         monkeypatch.setenv("MEDIMG_CONV_IMPL", route)
-        ids, noise = [], torch.Generator().manual_seed(0)
+        ids[name], noise = [], torch.Generator().manual_seed(0)
 
         def recorded(*args, **kw):
             q, commit, idx, vq = real(*args, **kw)
-            ids.append(idx.detach().cpu())
+            ids[name].append(idx.detach().cpu())
             if name == "cpu_floor":
                 up = torch.randint(0, 2, q.shape, generator=noise).bool()
                 moved = torch.where(up, torch.nextafter(q, q + 1), torch.nextafter(q, q - 1))
@@ -758,46 +937,25 @@ def test_joint_step_on_card_matches_cpu(cuda, monkeypatch):
             return q, commit, idx, vq
 
         monkeypatch.setattr(tfs, "encode_quantize", recorded)
-        state = _second_stage_state(device)
-        for m, sd in start.items():
-            getattr(state, m).load_state_dict(sd)
-        on = [{part: [None if d is None else {k: None if v is None else v.to(device)
-                                              for k, v in d.items()} for d in ds]
-               for part, ds in view.items()} for view in views]
-        on.append([(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
-                   for box, inv in cut])
+        state, run = case.fresh(device)
         _build.launches.clear()
-        step, _ = _joint_step(state, device)
-        with torch.backends.mkldnn.flags(enabled=name != "cpu_floor"):
-            _, metrics = step(state, x, draws=tuple(on))
+        with torch.backends.mkldnn.flags(enabled=name not in ("cpu_native", "cpu_floor")):
+            out[name] = _recorded_step(state, case.parts, run)
         if name == "card":
             torch.cuda.synchronize()
             n = _routed_convs(state.encoder, x) + _routed_convs(
-                state.decoder, np.zeros((2, size, size, 4), np.float32))
+                state.decoder, np.zeros((*x.shape[:3], 4), np.float32))
             assert dict(_build.launches) == {tcp.KERNEL: 4 * n, tcp.LAUNCH_KEYS["f32"]: 4 * n,
                                              tvqf.KERNEL: 2}
-        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
-                               for p in getattr(state, m).parameters()])
-                 for m, o in (("encoder", state.enc_opt), ("decoder", state.dec_opt),
-                              ("discriminator", state.dis_opt))}
-        out[name] = ({k: float(v) for k, v in metrics.items()}, grads, ids)
     monkeypatch.setattr(tfs, "encode_quantize", real)
-    (m_cpu, g_cpu, ids_cpu), (m_card, g_card, ids_card) = out["cpu"], out["card"]
-    assert [int((a != b).sum()) for a, b in zip(ids_card, ids_cpu)] == [0, 0]
-
-    def rel(a, b):
-        return float((a - b).norm() / b.norm())
-
+    assert [int((a != b).sum()) for a, b in zip(ids["card"], ids["cpu"])] == [0, 0]
+    m_cpu, m_card = out["cpu"].m, out["card"].m
     bad = []
     for k, v in m_cpu.items():
         rtol = 1e-2 if k in ID_MOVED_LOSSES else 1e-3
         if abs(m_card[k] - v) > rtol * abs(v) + 1e-6:
             bad.append((k, m_card[k], v))
-    for m in g_cpu:
-        floor = max(rel(out["card_xla"][1][m], g_card[m]), rel(out["cpu_floor"][1][m], g_cpu[m]))
-        err = rel(g_card[m], g_cpu[m])
-        if err > max(5 * floor, 1e-4):
-            bad.append((m, err, floor))
+    bad += _witness_failures("joint", out, case)
     assert not bad, bad
 
 
@@ -840,6 +998,29 @@ def _vqgan_state(device, seed=0):
         dis_opt=tstate.make_optimizer(dis.parameters(), 4e-4, b1=0.5))
 
 
+def _vqgan_case(seed=0):
+    """The VQGAN step test's data (seed 0; other seeds for
+    `tools/witness_caps.py`): 64², batch 2, one CutMix draw."""
+    from medical_image_editing_tpu_torch.train import second_stage as tss
+    from medical_image_editing_tpu_torch.train import vqgan_stage as tvs
+
+    x = np.random.default_rng(8 + seed).uniform(-1, 1, size=(2, 64, 64, 1)).astype(np.float32)
+    draws = tss.sample_cutmix_draws(torch.Generator().manual_seed(3 + seed), 1, 64, 64)
+    cfg = tss.SecondStageLossConfig(w_recon=10.0, w_unet_perceptual=1.0)
+
+    def fresh(device, witness=False):
+        state = _vqgan_state(device, seed=seed)
+        on = [(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
+              for box, inv in draws]
+        step = tvs.make_vqgan_step(state.decoder, state.discriminator, loss_cfg=cfg,
+                                   device=device)
+        if witness:
+            to_float64(state.decoder, state.discriminator)
+        return state, lambda: step(state, x, draws=on)
+
+    return _case((("decoder", "dec_opt"), ("discriminator", "dis_opt")), fresh)
+
+
 @pytest.mark.gpu
 def test_vqgan_step_on_card_matches_cpu(cuda, monkeypatch):
     """One VQGAN step (f32, 64², batch 2) on the CPU and on the card, from
@@ -847,45 +1028,34 @@ def test_vqgan_step_on_card_matches_cpu(cuda, monkeypatch):
     the card the VQ kernel's generic instance launches once and the conv
     kernel never (the VQGAN's and the discriminator's convolutions are
     cuDNN's); the losses (rtol 1e-3) and the codebook after the step (rtol
-    1e-3); the gradients read from Adam's first moment within 5× the
-    card's own floor (the card again without cuDNN) or 1e-4, as
-    `chip_smoke.py`'s VQGAN reference part holds them."""
-    from medical_image_editing_tpu_torch.train import second_stage as tss
-    from medical_image_editing_tpu_torch.train import vqgan_stage as tvs
-
+    1e-3); the gradients read from Adam's first moment against the float64
+    witness of the card's own ids (fault C.8, `_witness_failures`). The
+    card without cuDNN is a readout."""
     monkeypatch.setenv("MEDIMG_CONV_IMPL", "packed")
     assert tvqf.kernel_path(32, 12) == "generic"
-    x = np.random.default_rng(8).uniform(-1, 1, size=(2, 64, 64, 1)).astype(np.float32)
-    draws = tss.sample_cutmix_draws(torch.Generator().manual_seed(3), 1, 64, 64)
-    cfg = tss.SecondStageLossConfig(w_recon=10.0, w_unet_perceptual=1.0)
-    out = {}
-    for name, device, use_cudnn in (("cpu", "cpu", True), ("card", cuda, True),
-                                    ("card_no_cudnn", cuda, False)):
-        state = _vqgan_state(device)
-        on = [(tuple(tuple(v.to(device) for v in p) for p in box), inv.to(device))
-              for box, inv in draws]
-        step = tvs.make_vqgan_step(state.decoder, state.discriminator, loss_cfg=cfg,
-                                   device=device)
+    case = _vqgan_case()
+    out, vq = {}, {}
+    for name, device, use_cudnn, mkldnn in (("cpu", "cpu", True, True),
+                                            ("cpu_native", "cpu", True, False),
+                                            ("card", cuda, True, True),
+                                            ("card_no_cudnn", cuda, False, True)):
+        state, run = case.fresh(device)
         _build.launches.clear()
         monkeypatch.setattr(torch.backends.cudnn, "enabled", use_cudnn)
-        _, metrics = step(state, x, draws=on)
+        with torch.backends.mkldnn.flags(enabled=mkldnn):
+            out[name] = _recorded_step(state, case.parts, run)
         if name == "card":
             torch.cuda.synchronize()
             assert dict(_build.launches) == {tvqf.KERNEL: 1}
-        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
-                               for p in getattr(state, m).parameters()])
-                 for m, o in (("decoder", state.dec_opt), ("discriminator", state.dis_opt))}
-        out[name] = ({k: float(v) for k, v in metrics.items()}, grads,
-                     [t.cpu() for t in state.vq])
-    (m_cpu, g_cpu, vq_cpu), (m_card, g_card, vq_card) = out["cpu"], out["card"]
+        vq[name] = [t.cpu() for t in state.vq]
+    monkeypatch.setattr(torch.backends.cudnn, "enabled", True)
+    m_cpu, m_card = out["cpu"].m, out["card"].m
     for k, v in m_cpu.items():
         assert abs(m_card[k] - v) <= 1e-3 * abs(v) + 1e-6, (k, m_card[k], v)
-    for a, b in zip(vq_card, vq_cpu):
+    for a, b in zip(vq["card"], vq["cpu"]):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()) + 1e-6
-    for m in g_cpu:
-        floor = float((out["card_no_cudnn"][1][m] - g_card[m]).norm() / g_card[m].norm())
-        err = float((g_card[m] - g_cpu[m]).norm() / g_cpu[m].norm())
-        assert err <= max(5 * floor, 1e-4), (m, err, floor)
+    bad = _witness_failures("vqgan", out, case)
+    assert not bad, bad
 
 
 @pytest.mark.gpu
@@ -935,10 +1105,12 @@ def _moved(tree, device):
     return tree
 
 
-def _switched_first_stage(device, perceptual=True, dropblock=True, seed=0):
+def _switched_first_stage(device, perceptual=True, dropblock=True, seed=0, witness=False):
     """A small f32 first stage (encoder (4, 32, 8, 16, 16): 3 routed convs
     at 32²; decoder (32, 8, 8, 16, 16): 10) with DropBlock (block 7) and
-    its step with the VGG loss (the seeded fallback, weight 1)."""
+    its step with the VGG loss (the seeded fallback, weight 1); with
+    `witness`, the models and the VGG in float64 and the step computing in
+    float64 (the float64 witness's step, run inside `float64_step`)."""
     import warnings
 
     from medical_image_editing_tpu_torch.models import UNetDecoder
@@ -962,9 +1134,12 @@ def _switched_first_stage(device, perceptual=True, dropblock=True, seed=0):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             vgg = make_vgg_loss("22", device=device)
+    if witness:
+        to_float64(enc, dec, *([vgg] if vgg is not None else []))
     cfg = tfs.FirstStageLossConfig(w_recon=10.0, w_perceptual=1.0,
                                    use_perceptual_loss=perceptual)
     step = tfs.make_first_stage_step(enc, dec, loss_cfg=cfg, aug_cfg=_AUG, dict_size=6,
+                                     compute_dtype=torch.float64 if witness else torch.float32,
                                      device=device, perceptual_fn=vgg)
     return state, step
 
@@ -975,63 +1150,72 @@ _AUG = {"modules": ["RandomHorizontalFlip", "RandomAffine", "RandomGaussianNoise
         "RandomGaussianNoise": {"std": 0.05, "p": 0.5}}
 
 
-@pytest.mark.gpu
-def test_first_stage_step_with_vgg_and_dropblock_on_card_matches_cpu(cuda, monkeypatch):
-    """One first-stage step (f32, TF32 off) with the VGG loss and DropBlock
-    on the CPU and on the card, on both conv routes, from the same weights,
-    codebook, view draws, DropBlock draws and drop_prob 0.5: the packed
-    route's launches are those of the step without either part (3 + 10
-    routed convs forward and dx for both views, two assignments), the
-    losses rtol 1e-3 (1e-2 for cross, dist and total: an id at a near tie
-    moves the cross loss by ~1/(pixels of its code)), and the gradients
-    read from Adam's first moment within 5× the card's own floor or 1e-4:
-    the larger of its two routes against each other and of cuDNN against
-    the card's native convolutions (the VGG's f32 convolutions are
-    cuDNN's, FFT among them, on every route, and the decoder's own cuDNN
-    convolutions change algorithm with the library off)."""
+def _first_stage_case(seed=0):
+    """The first-stage step test's data (seed 0; other seeds for
+    `tools/witness_caps.py`): 32², batch 2, the codebook from a CPU
+    k-means, two views' draws, DropBlock's draws and drop_prob 0.5."""
     from medical_image_editing_tpu_torch.ops.augment import sample_view_draws
     from medical_image_editing_tpu_torch.train import first_stage as tfs
 
-    x = np.random.default_rng(9).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
-    cpu_state, _ = _switched_first_stage("cpu")
-    gen = torch.Generator().manual_seed(4)
+    x = np.random.default_rng(9 + seed).uniform(-1, 1, size=(2, 32, 32, 1)).astype(np.float32)
+    cpu_state, _ = _switched_first_stage("cpu", seed=seed)
+    gen = torch.Generator().manual_seed(4 + seed)
     views = tuple(sample_view_draws(gen, _AUG, 2, 32, 32) for _ in range(2))
     db = tfs.view_dropblock_draws(gen, cpu_state.decoder, 2, 32, 32)
     tfs.init_codebook_step(cpu_state.encoder)(cpu_state, x)
     start = {m: {k: v.clone() for k, v in getattr(cpu_state, m).state_dict().items()}
              for m in ("encoder", "decoder")}
-    out = {}
-    for name, device, route in (("cpu", "cpu", "packed"), ("card", cuda, "packed"),
-                                ("card_xla", cuda, "xla"), ("card_native", cuda, "packed")):
-        monkeypatch.setenv("MEDIMG_CONV_IMPL", route)
-        state, step = _switched_first_stage(device)
+
+    def fresh(device, witness=False):
+        state, step = _switched_first_stage(device, seed=seed, witness=witness)
         for m in start:
             getattr(state, m).load_state_dict(start[m])
+        return state, lambda: step(state, x, _moved(views, device), 0.5, _moved(db, device))
+
+    return _case((("encoder", "enc_opt"), ("decoder", "dec_opt")), fresh)
+
+
+@pytest.mark.gpu
+def test_first_stage_step_with_vgg_and_dropblock_on_card_matches_cpu(cuda, monkeypatch):
+    """One first-stage step (f32, TF32 off) with the VGG loss and DropBlock
+    on the CPU and on the card, from the same weights, codebook, view
+    draws, DropBlock draws and drop_prob 0.5, packed route: the launches
+    are those of the step without either part (3 + 10 routed convs forward
+    and dx for both views, two assignments), the losses rtol 1e-3 (1e-2
+    for cross, dist and total: an id at a near tie moves the cross loss by
+    ~1/(pixels of its code)), and the gradients read from Adam's first
+    moment against the float64 witness of the card's own ids (fault C.8,
+    `_witness_failures`; the VGG in float64 too). Readouts: the card's
+    other conv route and the card with cuDNN off (the VGG's f32
+    convolutions are cuDNN's, FFT among them, on every route)."""
+    case = _first_stage_case()
+    out = {}
+    for name, device, route, mkldnn in (("cpu", "cpu", "packed", True),
+                                        ("cpu_native", "cpu", "packed", False),
+                                        ("card", cuda, "packed", True),
+                                        ("card_xla", cuda, "xla", True),
+                                        ("card_native", cuda, "packed", True)):
+        monkeypatch.setenv("MEDIMG_CONV_IMPL", route)
+        state, run = case.fresh(device)
         _build.launches.clear()
         prev = torch.backends.cudnn.enabled
         torch.backends.cudnn.enabled = name != "card_native"
         try:
-            _, metrics = step(state, x, _moved(views, device), 0.5, _moved(db, device))
+            with torch.backends.mkldnn.flags(enabled=mkldnn):
+                out[name] = _recorded_step(state, case.parts, run)
         finally:
             torch.backends.cudnn.enabled = prev
         if name == "card":
             torch.cuda.synchronize()
             assert dict(_build.launches) == {tcp.KERNEL: 4 * (3 + 10),
                                              tcp.LAUNCH_KEYS["f32"]: 4 * (3 + 10), tvqf.KERNEL: 2}
-        grads = {m: torch.cat([o.state[p]["exp_avg"].flatten().cpu()
-                               for p in getattr(state, m).parameters()])
-                 for m, o in (("encoder", state.enc_opt), ("decoder", state.dec_opt))}
-        out[name] = ({k: float(v) for k, v in metrics.items()}, grads)
-    (m_cpu, g_cpu), (m_card, g_card) = out["cpu"], out["card"]
+    m_cpu, m_card = out["cpu"].m, out["card"].m
     assert m_cpu["perceptual"] > 0
     for k, v in m_cpu.items():
         rtol = 1e-2 if k in ("cross", "dist", "total") else 1e-3
         assert abs(m_card[k] - v) <= rtol * abs(v) + 1e-6, (k, m_card[k], v)
-    for m in g_cpu:
-        floor = max(float((out[other][1][m] - g_card[m]).norm() / g_card[m].norm())
-                    for other in ("card_xla", "card_native"))
-        err = float((g_card[m] - g_cpu[m]).norm() / g_cpu[m].norm())
-        assert err <= max(5 * floor, 1e-4), (m, err, floor)
+    bad = _witness_failures("first_stage", out, case)
+    assert not bad, bad
 
 
 @pytest.mark.gpu

@@ -68,7 +68,9 @@ def test_port_imports_no_jax():
             f"{PKG}.train.volumetric", f"{PKG}.cli.train_volumetric", f"{PKG}.cli.edit_volume",
             f"{PKG}.data.preprocess", f"{PKG}.ops.quantized_conv", f"{PKG}.utils.torch_export",
             f"{PKG}.utils.torch_import", f"{PKG}.cli.import_ckpt",
-            f"{PKG}.cli.export_ckpt", f"{PKG}.parallel", f"{PKG}.parallel.mesh"} <= set(modules)
+            f"{PKG}.cli.export_ckpt", f"{PKG}.parallel", f"{PKG}.parallel.mesh",
+            f"{PKG}.cli.export_model", f"{PKG}.cli.doctor", f"{PKG}.utils.witness",
+            f"{PKG}.utils.labels"} <= set(modules)
 
 
 @pytest.fixture
@@ -152,6 +154,7 @@ def test_entry_points_refuse_missing_card():
         edit_batch,
         edit_volume,
         export_ckpt,
+        export_model,
         import_ckpt,
         run_recon,
         run_vqwnet,
@@ -194,7 +197,8 @@ def test_entry_points_refuse_missing_card():
                  lambda: import_ckpt.main(["-c", str(ROOT / "configs" / "lung_first_stage.json"),
                                            "--ckpt", "missing.ckpt", "--out", "."]),
                  lambda: export_ckpt.main(["-c", str(ROOT / "configs" / "lung_first_stage.json"),
-                                           "--ckpt", "missing", "--out", "out.ckpt"])):
+                                           "--ckpt", "missing", "--out", "out.ckpt"]),
+                 lambda: export_model.main(["--out", "edit.pt2", "--allow-random-init"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -271,6 +275,33 @@ def test_chip_smoke_serve_runtime_phase_on_cpu(tmp_path, capsys):
     assert watch["recon_pngs"] == watch["label_pngs"] == watch["processed"] == 3
     assert watch["elapsed_s"] < 30 and watch["inotify_active"]
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+
+
+def test_chip_smoke_export_phase_on_cpu(tmp_path, capsys):
+    """The export phase end to end at tiny size on the CPU: both variants
+    exported, saved and served by a fresh process that imports no model
+    module, bit for bit the eager decode at batch 1 and 3, one operator
+    node a routed convolution (the decoder's 32-channel level at 32²); no
+    kernel launch."""
+    import numpy as np
+
+    smoke = _chip_smoke()
+    model = {**TINY_MODEL, "dec_filters": [32, 8, 8, 16, 16]}
+    rng = np.random.default_rng(0)
+    painted = smoke.paint(rng.integers(1, 7, (3, 32, 32)), rng, TINY_MODEL["dict_size"])
+    launches = smoke.export_phase("cpu", model, painted, tmp_path, timed=1)
+    assert launches == {}
+    rec = next(json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith('{"phase": "export"'))
+    assert rec["batches"] == [1] and rec["server_imported_models"] == []
+    assert "medical_image_editing_tpu_torch.ops.conv_pack" in rec["server_modules"]
+    v = rec["variants"]
+    assert sorted(v) == ["bf16_packed", "f32_xla"]
+    assert v["bf16_packed"]["op_nodes"] == v["bf16_packed"]["routed_convs_per_decode"] == 10
+    assert v["f32_xla"]["op_nodes"] == v["f32_xla"]["routed_convs_per_decode"] == 0
+    for r in v.values():
+        assert all(g["bit_equal"] for g in r["vs_eager"].values())
+        assert r["artifact_bytes"] > 0 and len(r["artifact_decode_s"]) == 1
 
 
 def test_chip_smoke_trainer_phase_on_cpu(tmp_path, capsys):
@@ -393,7 +424,8 @@ def test_chip_smoke_vqgan_phase_on_cpu(tmp_path, capsys, monkeypatch):
     CPU against CPU: exact); (b) runs A and B, the resume held, test, the
     0-based label maps, the planted faulty resume (the codebook's EMA
     buffers dropped) that the check catches; no kernel launch, under the
-    packed conv route too."""
+    packed conv route too; TF32 left off."""
+    monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
     smoke = _chip_smoke()
     monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # its CPU side imports it
     overrides = {"model.vqgan": {"mid_channels": 4, "emb_dim": 8, "dict_size": 6,
@@ -401,9 +433,15 @@ def test_chip_smoke_vqgan_phase_on_cpu(tmp_path, capsys, monkeypatch):
                                  "num_res_blocks": 1, "dec_attn_resolutions": [8],
                                  "resolution": 32},
                  "dataset": {"batch_size": 2}, "model.dis": {"D_ch": 4, "resolution": 128}}
-    with smoke.conv_route("packed"):
-        launches = smoke.vqgan_phase("cpu", tmp_path, size=32, batch=2, steps=2, ref_size=32,
-                                     overrides=overrides, slices=5)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with smoke.conv_route("packed"):
+            launches = smoke.vqgan_phase("cpu", tmp_path, size=32, batch=2, steps=2,
+                                         ref_size=32, overrides=overrides, slices=5)
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     assert launches == {}
     recs = {r["part"]: r for r in (json.loads(line) for line in capsys.readouterr().out
                                    .splitlines() if line.startswith('{"phase": "vqgan"'))}

@@ -290,6 +290,7 @@ import contextlib
 import copy
 import csv
 import hashlib
+import io
 import json
 import os
 import re
@@ -2760,7 +2761,7 @@ def joint_draws(trainer, generator, batch, size):
     return (*views, sample_cutmix_draws(generator, 3, size, size))
 
 
-def multi_window_phase(device, workdir, *, size=256, batch=8, steps=5, mode_steps=2, seed=0,
+def multi_window_phase(device, workdir, *, size=256, batch=8, steps=3, mode_steps=2, seed=0,
                        overrides=None, ref_size=64, defer=None):
     """The multi-window trainer at the widths of
     `configs/lung_multiwindow_joint.json` (`overrides` shrinks it for a CPU
@@ -3285,7 +3286,7 @@ def vqgan_flops(vqgan, batch, size):
     return fc.get_total_flops(), fwd
 
 
-def vqgan_phase(device, workdir, *, size=512, batch=8, steps=5, seed=0, overrides=None,
+def vqgan_phase(device, workdir, *, size=512, batch=8, steps=3, seed=0, overrides=None,
                 ref_size=128, patients=2, slices=20, defer=None):
     """The VQGAN trainer at the widths of `configs/crc_vqgan.json`
     (`overrides` shrinks it for a CPU rehearsal): (a) the bare step and a
@@ -4440,28 +4441,33 @@ def volumetric_flops(enc, dec, batch, size):
     return fc.get_total_flops(), fwd
 
 
-def volumetric_phase(device, workdir, *, size=128, batch=2, steps=5, filters=VOL_FILTERS,
-                     dict_size=VOL_DICT_SIZE, ref_size=32, cli_steps=6, n_synthetic=4,
-                     seed=0):
+def volumetric_phase(device, workdir, *, size=128, batch=2, steps=3, filters=VOL_FILTERS,
+                     dict_size=VOL_DICT_SIZE, ref_size=32, cli_steps=3, n_synthetic=4,
+                     shard_steps=3, seed=0):
     """The volumetric VQ-WNet at BASELINE config #5's widths (filters
     8,16,32,64, `dict_size` 10, 128³, batch 2): (a) bare steps in f32 and in
     bf16 with remat, (b) `train_volumetric.main` and `edit_volume.main`
-    in-process, (c) one step held to the CPU path at `ref_size`³, (d) both
-    kernels' launches held at 0 on (a) and (b), which are the main path.
+    in-process, (c) one step held to the CPU path at `ref_size`³, (e) the
+    depth-sharded step and decode (`volumetric_sharded_part`: VOL_MESH
+    gloo ranks sharing the card, `shard_steps` steps), (d) both kernels'
+    launches held at 0 on (a), (b) and (e), which are the main path.
     The synthetic volumes are made once: (a) trains on the first `batch`,
-    which are also the CLI's first (the same seeded draws). Returns the
-    launches of (a) and (b)."""
+    which are also the CLI's first (the same seeded draws), and its steps
+    are the one-process steps (e) is held to (the same seeded weights).
+    Returns the launches of (a), (b) and (e)."""
     from medical_image_editing_tpu_torch.cli.train_volumetric import _synthetic_volumes
 
     vols = _synthetic_volumes(batch, size, seed)
-    launches = volumetric_step_part(device, vols, steps=steps, filters=filters,
-                                    dict_size=dict_size, seed=seed)
+    launches, refs = volumetric_step_part(device, vols, steps=steps, filters=filters,
+                                          dict_size=dict_size, seed=seed)
     run = volumetric_cli_part(device, workdir, vols[:1], steps=cli_steps,
                               n_synthetic=n_synthetic, batch=batch, filters=filters,
                               dict_size=dict_size, seed=seed)
     volumetric_reference_part(size=ref_size, batch=batch, filters=filters,
                               dict_size=dict_size, seed=seed + 1, card=device, norm_size=size)
-    for k, v in run.items():
+    sharded = volumetric_sharded_part(device, workdir, size=size, batch=batch, steps=shard_steps,
+                                      filters=filters, dict_size=dict_size, seed=seed, refs=refs)
+    for k, v in [*run.items(), *sharded.items()]:
         launches[k] = launches.get(k, 0) + v
     if any(launches.values()):
         raise RuntimeError(f"the volumetric path launched hand-written kernels: {launches} "
@@ -4478,7 +4484,9 @@ def volumetric_step_part(device, vols, *, steps, filters, dict_size, seed):
     share, top kernels) and the rate against the operations counted from
     the model, and f32 steps timed under TF32 and `cudnn.benchmark`
     (`f32_step_variants`); the bf16 losses' gap to f32's after the same
-    steps."""
+    steps. Returns the launches and, by mode, each step's losses and
+    codebook and the first step's gradients (the one-process steps
+    `volumetric_sharded_part` holds the sharded ones to)."""
     import torch
 
     from medical_image_editing_tpu_torch.ops import _build
@@ -4490,7 +4498,7 @@ def volumetric_step_part(device, vols, *, steps, filters, dict_size, seed):
     cuda = torch.device(device).type == "cuda"
     batch, size = vols.shape[0], vols.shape[1]
     x = torch.as_tensor(vols, device=device)
-    launches, recs = {}, {}
+    launches, recs, refs = {}, {}, {}
     for name, dtype, remat in (("f32", None, False), ("bf16_remat", torch.bfloat16, True)):
         enc, dec, vq, eo, do = init_volumetric(
             torch.Generator().manual_seed(seed), filters=filters, dict_size=dict_size,
@@ -4502,14 +4510,19 @@ def volumetric_step_part(device, vols, *, steps, filters, dict_size, seed):
             torch.cuda.reset_peak_memory_stats()
         _build.launches.clear()
         # -- main path: the steps
-        step_s, losses = [], []
-        for _ in range(steps):
+        step_s, losses, codebooks = [], [], []
+        for n in range(steps):
             t0 = time.perf_counter()
             vq, m = step(vq, x)
             if cuda:
                 torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             losses.append({k: float(v) for k, v in m.items()})
+            codebooks.append({"cluster_size": vq.cluster_size.cpu(), "embed": vq.embed.cpu()})
+            if n == 0:
+                grads = {part: torch.cat([p.grad.flatten() for p in module.parameters()]).cpu()
+                         for part, module in (("enc", enc), ("dec", dec))}
+        refs[name] = {"losses": losses, "vq": codebooks, "grads": grads}
         for k, v in _build.launches.items():
             launches[k] = launches.get(k, 0) + v
         warm = float(np.median(step_s[1:] or step_s))
@@ -4549,10 +4562,10 @@ def volumetric_step_part(device, vols, *, steps, filters, dict_size, seed):
            if not all(np.isfinite(v) for v in r["losses_last"].values())}
     if bad:
         raise RuntimeError(f"volumetric steps: losses not finite {bad}")
-    return launches
+    return launches, refs
 
 
-def f32_step_variants(run_step, steps=3):
+def f32_step_variants(run_step, steps=2):
     """Time `steps` more f32 steps (`run_step` runs one; the model trains
     on) under cuDNN's TF32 (the CLIs' default precision) and, apart, under
     `cudnn.benchmark` (cuDNN times its algorithms on the first call of
@@ -4761,7 +4774,7 @@ def volumetric_grads_f64(enc, dec, embed, vols, ids):
     enc = copy.deepcopy(enc).cpu().double()
     dec = copy.deepcopy(dec).cpu().double()
     real = tvol.instance_norm_3d
-    tvol.instance_norm_3d = lambda x: F.instance_norm(x, eps=1e-5)
+    tvol.instance_norm_3d = lambda x, mesh=None: F.instance_norm(x, eps=1e-5)
     try:
         x = torch.as_tensor(np.asarray(vols), dtype=torch.float64).permute(0, 4, 1, 2, 3)
         feats = enc(x)
@@ -4906,6 +4919,463 @@ def volumetric_reference_part(*, size=32, batch=2, filters=VOL_FILTERS,
                            f"loss errors {loss_err}, codebook {codebook_err}, gradient "
                            f"errors against float64 {grad_vs_f64} (limits {grad_limit}), "
                            f"parameters {param_gap}, instance norm {in_err}")
+
+
+# --------------------------------------------------------------------------
+# volumetric depth sharding (`train_volumetric --mesh`, `edit_volume
+# --partition spatial`): gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+VOL_MESH = (2, 2)  # data × spatial: at 128³ and batch 2, one volume and 64 slabs a rank
+VOL_SHARD_MODES = {"f32": (None, False), "bf16_remat": ("bfloat16", True)}
+# Each limit, step by step, is VOL_SHARD_LIMIT_FACTOR × the largest gap of
+# a spread of readings taken in the same run: the one-process steps
+# perturbed at the rounding level (`volumetric_nudged`: the encoder's input
+# and the quantized features moved by one ulp of their dtype, at each seed
+# of VOL_SHARD_SPREAD) against the one-process steps, at least
+# VOL_SHARD_LIMIT_MIN. After the first step the states part (Adam's
+# first step is ±lr wherever |g| ≫ 1e-8, so elements whose gradient
+# differs at the rounding level turn), and the spread says how far. The
+# planted fault (the halo exchange returning zeros) must land
+# VOL_SHARD_FAULT_MARGIN × above the first step's limits of the decoder
+# gradient and of the total loss (on an NVIDIA H100 80GB HBM3 at 700 W, 128³:
+# 4.6× and 88×; the decoder gradient's limit is set by the ties of its max-pools,
+# which a one-ulp change breaks elsewhere: 0.9% in the spread, 0.5%
+# sharded, 21% with the fault).
+VOL_SHARD_SPREAD = (1, 2, 3)
+VOL_SHARD_LIMIT_FACTOR = 5.0
+VOL_SHARD_LIMIT_MIN = 1e-6
+VOL_SHARD_FAULT_MARGIN = 3.0
+VOL_SHARD_GAPS = ("total", "recon", "commit", "cluster_size", "embed", "enc_grad", "dec_grad")
+VOL_SHARD_GO_TIMEOUT_S = 600
+
+
+def ulp_nudge(x, generator, dtype=None):
+    """`x` moved by one ulp of `dtype` (x's own by default) up or down at
+    random, in x's dtype."""
+    import torch
+
+    y = x.to(dtype or x.dtype)
+    up = torch.randint(0, 2, y.shape, generator=generator, device=y.device).bool()
+    return torch.where(up, torch.nextafter(y, y + 1), torch.nextafter(y, y - 1)).to(x.dtype)
+
+
+@contextlib.contextmanager
+def volumetric_nudged(seed, encoder):
+    """Inside the block the volumetric step is perturbed at the rounding
+    level: the encoder's input moves by one ulp of its compute dtype, and
+    the quantized features by one ulp of theirs (the gradient still flows
+    straight through), each up or down at random."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models import volumetric as tvol
+
+    real, gens = tvol.vq_apply, {}
+
+    def gen(device):
+        return gens.setdefault(device, torch.Generator(device=device).manual_seed(seed))
+
+    def nudged(*args, **kw):
+        q, *rest = real(*args, **kw)
+        return (q + (ulp_nudge(q, gen(q.device)) - q).detach(), *rest)
+
+    hook = encoder.register_forward_pre_hook(
+        lambda m, args: (ulp_nudge(args[0], gen(args[0].device), m.compute_dtype),))
+    tvol.vq_apply = nudged
+    try:
+        yield
+    finally:
+        tvol.vq_apply = real
+        hook.remove()
+
+
+@contextlib.contextmanager
+def zero_halos():
+    """The planted fault: inside the block every depth halo exchange
+    returns zeros (forward and backward)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.parallel import spatial
+
+    real = spatial._exchange
+    spatial._exchange = lambda sends, group: {p: torch.zeros_like(t) for p, t in sends.items()}
+    try:
+        yield
+    finally:
+        spatial._exchange = real
+
+
+def vol_shard_steps(mesh, vols, *, mode, steps, filters, dict_size, seed, device, nudge=None):
+    """`steps` steps of `make_volumetric_train_step(mesh=mesh)` from the
+    seeded weights on this rank's block of `vols` (all of it without a
+    mesh), perturbed at the rounding level with `nudge` (a seed,
+    `volumetric_nudged`): each step's global losses and codebook, the first
+    step's summed gradients (each module's, flattened, on the host), each
+    step's collectives and bytes and its time on the host clock
+    (synchronised), the peak memory."""
+    import collections
+
+    import torch
+
+    from medical_image_editing_tpu_torch.parallel import mesh as pmesh
+    from medical_image_editing_tpu_torch.train.volumetric import (
+        init_volumetric,
+        make_volumetric_train_step,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+    dtype, remat = VOL_SHARD_MODES[mode]
+    enc, dec, vq, eo, do = init_volumetric(
+        torch.Generator().manual_seed(seed), filters=filters, dict_size=dict_size,
+        volume_shape=vols.shape, dtype=dtype and getattr(torch, dtype), use_remat=remat,
+        device=device)
+    step = make_volumetric_train_step(enc, dec, eo, do, mesh=mesh)
+    x = torch.as_tensor(vols if mesh is None else mesh.block(vols), device=device)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "vq": [], "step_s": [], "collectives": []}
+    with contextlib.nullcontext() if nudge is None else volumetric_nudged(nudge, enc):
+        for n in range(steps):
+            before = collections.Counter(pmesh.collectives)
+            t0 = time.perf_counter()
+            vq, m = step(vq, x)
+            if cuda:
+                torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["collectives"].append(dict(collections.Counter(pmesh.collectives) - before))
+            out["losses"].append({k: float(v) for k, v in m.items()})
+            out["vq"].append({"cluster_size": vq.cluster_size.cpu(), "embed": vq.embed.cpu()})
+            if n == 0:
+                out["grads"] = {part: torch.cat([p.grad.flatten() for p in module.parameters()]).cpu()
+                                for part, module in (("enc", enc), ("dec", dec))}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    out["block"] = list(x.shape)
+    return out
+
+
+def vol_shard_gaps(run, ref):
+    """Gaps of `run` to `ref` ({name: [per step]}; the gradients the first
+    step's only): the losses relative, the codebook's `cluster_size` and
+    `embed` as the largest difference over the largest value, the
+    gradients as relative Frobenius norms per module."""
+    gaps = {k: [] for k in VOL_SHARD_GAPS}
+    for m, r, v, w in zip(run["losses"], ref["losses"], run["vq"], ref["vq"]):
+        for k in ("total", "recon", "commit"):
+            gaps[k].append(abs(m[k] - r[k]) / max(abs(r[k]), 1e-12))
+        for k in ("cluster_size", "embed"):
+            gaps[k].append(float((v[k] - w[k]).abs().max() / w[k].abs().max().clamp_min(1e-12)))
+    for part in ("enc", "dec"):
+        g, w = run["grads"][part].double(), ref["grads"][part].double()
+        gaps[part + "_grad"].append(float((g - w).norm() / w.norm()))
+    return gaps
+
+
+def vol_shard_rank(rank, world, init_file, workdir, mesh_shape, steps, filters, dict_size,
+                   seed, device, edit_argv):
+    """One rank of the sharded part, in a process of its own: a gloo group
+    (NCCL refuses several ranks on one card) through `init_file`, the
+    `mesh_shape` mesh; once the parent writes `workdir/go`, `steps` steps
+    in each of VOL_SHARD_MODES and one f32 step with the planted fault;
+    then ranks 0 and 1 in a group of their own run `edit_volume --partition
+    spatial` (f32 and uint8). Saves its records to
+    `workdir/vol-shard-RANK.pt`."""
+    import torch
+    import torch.distributed as dist
+
+    from medical_image_editing_tpu_torch.cli import edit_volume
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.parallel import mesh as pmesh
+    from medical_image_editing_tpu_torch.utils.device import apply_conv_precision
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    else:  # several ranks' OpenMP pools on one host spin against each other
+        torch.set_num_threads(1)
+    os.environ["MEDIMG_CONV_PRECISION"] = "ieee"
+    apply_conv_precision()
+    vols = np.load(Path(workdir) / "vols.npy")
+    _build.launches.clear()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = pmesh.create_volumetric_mesh(*mesh_shape)
+        kw = dict(filters=filters, dict_size=dict_size, seed=seed, device=device)
+        out = {"coords": mesh.coords, "backend": dist.get_backend()}
+        go, t0 = Path(workdir) / "go", time.monotonic()
+        while not go.exists():  # the card is the parent's until it writes `go`
+            if time.monotonic() - t0 > VOL_SHARD_GO_TIMEOUT_S:
+                raise RuntimeError(f"no {go} after {VOL_SHARD_GO_TIMEOUT_S} s")
+            time.sleep(0.05)
+        for mode in VOL_SHARD_MODES:
+            out[mode] = vol_shard_steps(mesh, vols, mode=mode, steps=steps, **kw)
+        with zero_halos():
+            out["halo_fault"] = vol_shard_steps(mesh, vols, mode="f32", steps=1, **kw)
+    finally:
+        dist.destroy_process_group()
+    if rank < 2:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}.edit", rank=rank,
+                                world_size=2)
+        try:
+            out["edit_s"] = {}
+            for name, extra in (("f32", []), ("uint8", ["--uint8"])):
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = edit_volume.main(edit_argv + extra + [
+                        "--partition", "spatial", "--out", str(Path(workdir) / f"edit_{name}")])
+                if rc != 0:
+                    raise RuntimeError(f"edit_volume --partition spatial {name}: rc {rc}")
+                out["edit_s"][name] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    out["launches"] = dict(_build.launches)
+    torch.save(out, Path(workdir) / f"vol-shard-{rank}.pt")
+
+
+def vol_shard_start(work, args, world):
+    """`vol_shard_rank` on `world` spawned processes → the processes."""
+    import torch
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=vol_shard_rank, args=(r, world, str(work / "init"), str(work),
+                                                      *args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def vol_shard_join(work, procs, timeout):
+    """The ranks joined within `timeout` seconds, any still alive killed →
+    each rank's record."""
+    import torch
+
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * len(procs):
+        raise RuntimeError(f"volumetric sharded ranks: hung {hung}, exit codes {codes}")
+    return [torch.load(work / f"vol-shard-{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block (the card's f32
+    weight gradients are otherwise not reproducible), the flags restored
+    after."""
+    import torch
+
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+def vol_shard_one_rank_part(device, work, *, size, steps, filters, dict_size, seed):
+    """(iv) `train_volumetric --mesh 1,1` under a one-rank group that the
+    CLI makes from a torchrun environment (NCCL on the card, gloo on the
+    CPU), against the run without `--mesh` and without a group: the step
+    lines, the checkpoint and the panel bit for bit (cuDNN deterministic
+    in both)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli import train_volumetric
+    from medical_image_editing_tpu_torch.parallel import mesh as pmesh
+    from medical_image_editing_tpu_torch.utils.checkpoint import load_state_file
+
+    env = dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR="localhost",
+               MASTER_PORT=free_port())
+    dev_args = [] if torch.device(device).type == "cuda" else ["--device", "cpu"]
+    fl = ",".join(str(f) for f in filters)
+    lines, collectives = {}, {}
+    for name in ("alone", "group"):
+        buf = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(conv_precision("ieee"))
+            stack.enter_context(cudnn_deterministic())
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            extra = []
+            if name == "group":
+                stack.enter_context(torchrun_env(**env))
+                extra = ["--mesh", "1,1"]
+            pmesh.collectives.clear()
+            rc = train_volumetric.main(
+                ["--size", str(size), "--batch", "2", "--n-synthetic", "2", "--steps", str(steps),
+                 "--filters", fl, "--dict-size", str(dict_size), "--log-every", "1",
+                 "--seed", str(seed), "--out", str(work / f"one_rank_{name}"), *dev_args, *extra])
+            collectives[name] = dict(pmesh.collectives)
+        if rc != 0 or pmesh.is_active():
+            raise RuntimeError(f"train_volumetric {name}: rc {rc}, group left {pmesh.is_active()}")
+        lines[name] = [ln for ln in buf.getvalue().splitlines() if ln.startswith("step ")]
+    sds = [load_state_file(str(work / f"one_rank_{n}" / "volumetric_ckpt"))
+           for n in ("alone", "group")]
+    same_state = all(torch.equal(sds[0][p][k], sds[1][p][k]) for p in sds[0] for k in sds[0][p])
+    pngs = [(work / f"one_rank_{n}" / "recon_mid.png").read_bytes() for n in ("alone", "group")]
+    return {"step_lines": lines["group"], "same_step_lines": lines["alone"] == lines["group"],
+            "same_state": same_state, "same_png": pngs[0] == pngs[1],
+            "backend": "nccl" if dev_args == [] else "gloo",
+            "collectives": collectives["group"]}
+
+
+def volumetric_sharded_part(device, workdir, *, size, batch, steps, filters, dict_size, seed,
+                            mesh_shape=VOL_MESH, one_rank_steps=2, one_rank_size=64,
+                            refs=None, timeout=600):
+    """The depth-sharded step and decode: (i) `steps` steps in f32 and in
+    bf16 with remat on a `mesh_shape` mesh of gloo ranks sharing the card
+    (`vol_shard_rank`), from the same seeded weights and volumes as the
+    one-process steps on the card (`refs`, `volumetric_step_part`'s; taken
+    here when None), held to them in the losses, the codebook and the first
+    step's gradients within limits from a spread of one-process readings
+    (VOL_SHARD_SPREAD); collectives and bytes a step,
+    a rank's warm step time and peak memory; (ii) the planted fault (zero
+    halos) above the decoder gradient's limit; (iii) `edit_volume
+    --partition spatial` on two ranks against the unsharded CLI on the same
+    checkpoint and labels; (iv) `--mesh 1,1` under a one-rank group bit for
+    bit no group, at `one_rank_size`³ (full widths). Returns the ranks'
+    launches (the main path's)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli import edit_volume
+    from medical_image_editing_tpu_torch.cli.train_volumetric import _synthetic_volumes
+    from medical_image_editing_tpu_torch.ops.vq import VQModule
+    from medical_image_editing_tpu_torch.train.volumetric import init_volumetric
+    from medical_image_editing_tpu_torch.utils.checkpoint import save_state_dir
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir) / "volumetric_sharded"
+    work.mkdir()
+    vols = _synthetic_volumes(batch, size, seed)
+    np.save(work / "vols.npy", vols)
+    # (iii)'s inputs: the seeded weights as a checkpoint, painted id volumes
+    enc, dec, vq, _, _ = init_volumetric(torch.Generator().manual_seed(seed), filters=filters,
+                                         dict_size=dict_size, volume_shape=vols.shape,
+                                         device="cpu")
+    codebook = VQModule(*vq.embed.shape)
+    codebook.set_state(vq)
+    save_state_dir(str(work / "ckpt"), {"enc": enc.state_dict(), "dec": dec.state_dict(),
+                                        "vq": codebook.state_dict()})
+    del enc, dec
+    labels = work / "labels"
+    labels.mkdir()
+    rng = np.random.default_rng(seed)
+    for i in range(2):
+        ids = rng.integers(1, dict_size + 1, (size // 8,) * 3).repeat(8, 0).repeat(8, 1)
+        ids = ids.repeat(8, 2).astype(np.int32)
+        ids[:, : size // 4] = 0  # a background band
+        np.save(labels / f"vol_{i}.npy", ids)
+    fl = ",".join(str(f) for f in filters)
+    edit_argv = ["--ckpt", str(work / "ckpt"), "--labels", str(labels), "--filters", fl,
+                 "--dict-size", str(dict_size), "--batch", "2",
+                 *([] if cuda else ["--device", "cpu"])]
+    world = mesh_shape[0] * mesh_shape[1]
+    # the ranks start (imports, CUDA, the group) while this process takes
+    # the one-process steps on the card, plain (unless given) and perturbed
+    # (the spread); they step once it writes `go`
+    procs = vol_shard_start(work, (mesh_shape, steps, filters, dict_size, seed, device,
+                                   edit_argv), world)
+    try:
+        kw = dict(filters=filters, dict_size=dict_size, seed=seed, device=device)
+        with conv_precision("ieee"):
+            if refs is None:
+                refs = {mode: vol_shard_steps(None, vols, mode=mode, steps=steps, **kw)
+                        for mode in VOL_SHARD_MODES}
+            spread = {mode: [] for mode in VOL_SHARD_MODES}
+            for s in VOL_SHARD_SPREAD:
+                for mode in VOL_SHARD_MODES:
+                    spread[mode].append(vol_shard_gaps(
+                        vol_shard_steps(None, vols, mode=mode, steps=steps, nudge=s, **kw),
+                        refs[mode]))
+            tf32_off()
+        (work / "go").touch()
+        t0 = time.perf_counter()
+    finally:
+        ranks = vol_shard_join(work, procs, timeout)
+    ranks_s = time.perf_counter() - t0
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    limits = {mode: {k: [max(VOL_SHARD_LIMIT_MIN, VOL_SHARD_LIMIT_FACTOR * max(r))
+                         for r in zip(*(g[k] for g in spread[mode]))]
+                     for k in VOL_SHARD_GAPS} for mode in VOL_SHARD_MODES}
+    gaps = {mode: [vol_shard_gaps(r[mode], refs[mode]) for r in ranks]
+            for mode in VOL_SHARD_MODES}
+    fault = [vol_shard_gaps(r["halo_fault"], refs["f32"]) for r in ranks]
+    fault_margin = {k: max(g[k][0] for g in fault) / limits["f32"][k][0]
+                    for k in ("enc_grad", "dec_grad", "total")}
+    within = {mode: all(v <= lim for g in gaps[mode] for k in VOL_SHARD_GAPS
+                        for v, lim in zip(g[k], limits[mode][k])) for mode in VOL_SHARD_MODES}
+    same = {mode: all(ranks[0][mode]["losses"] == r[mode]["losses"]
+                      and all(torch.equal(ranks[0][mode]["grads"][p], r[mode]["grads"][p])
+                              for p in ("enc", "dec"))
+                      and all(torch.equal(a[k], b[k]) for a, b in zip(ranks[0][mode]["vq"],
+                                                                        r[mode]["vq"])
+                              for k in ("cluster_size", "embed"))
+                      for r in ranks[1:]) for mode in VOL_SHARD_MODES}
+
+    # (iii) the unsharded decode of the same checkpoint and labels
+    edit_gap = {}
+    with conv_precision("ieee"), contextlib.redirect_stdout(io.StringIO()):
+        for name, extra in (("f32", []), ("uint8", ["--uint8"])):
+            if edit_volume.main(edit_argv + extra + ["--out", str(work / f"alone_{name}")]):
+                raise RuntimeError(f"edit_volume {name} failed")
+            diffs = [np.abs(np.load(work / f"edit_{name}" / f).astype(np.float64)
+                            - np.load(work / f"alone_{name}" / f).astype(np.float64))
+                     for f in sorted(os.listdir(work / f"alone_{name}"))]
+            edit_gap[name] = {"files": len(diffs), "max_abs": max(float(d.max()) for d in diffs)}
+        tf32_off()
+    one_rank = vol_shard_one_rank_part(device, work, size=min(size, one_rank_size),
+                                       steps=one_rank_steps, filters=filters,
+                                       dict_size=dict_size, seed=seed)
+    r0 = ranks[0]
+    rec = {"phase": "volumetric", "part": "sharded", "device": str(device), "size": size,
+           "batch": batch, "filters": list(filters), "dict_size": dict_size, "steps": steps,
+           "mesh": list(mesh_shape), "backend": r0["backend"],
+           "coords": [r["coords"] for r in ranks], "block": r0["f32"]["block"],
+           "ranks_s": ranks_s, "launches": launches,
+           "ranks_bit_identical": same, "gaps_to_one_process": gaps, "limits": limits,
+           "spread": spread, "within_limits": within,
+           "halo_fault_gaps": fault, "halo_fault_margin": fault_margin,
+           "edit_partition_spatial_gap": edit_gap, "edit_s": r0["edit_s"],
+           "one_rank_group": one_rank,
+           "losses": {mode: {"sharded": r0[mode]["losses"], "one_process": refs[mode]["losses"]}
+                      for mode in VOL_SHARD_MODES},
+           "rank": {mode: {"step_s": r0[mode]["step_s"],
+                           "warm_step_s_median": float(np.median(r0[mode]["step_s"][1:]
+                                                                 or r0[mode]["step_s"])),
+                           "collectives_per_step": r0[mode]["collectives"][-1],
+                           "peak_bytes": r0[mode]["peak_bytes"]} for mode in VOL_SHARD_MODES},
+           "tolerance": "each step's gaps within VOL_SHARD_LIMIT_FACTOR x the largest of the "
+                        "one-process steps' ulp-nudged readings (VOL_SHARD_SPREAD), at least "
+                        "VOL_SHARD_LIMIT_MIN; the zero-halo fault's first-step decoder "
+                        "gradient and total-loss gaps at least VOL_SHARD_FAULT_MARGIN x their "
+                        "limits; the partitioned decode "
+                        "within 1e-4 (uint8: one level); --mesh 1,1 bit for bit"}
+    if cuda:
+        rec["card"] = nvidia_smi()
+    emit(rec)
+    checks = {"within": all(within.values()), "ranks": all(same.values()),
+              "fault": min(fault_margin["dec_grad"], fault_margin["total"])
+              >= VOL_SHARD_FAULT_MARGIN,
+              "edit_f32": edit_gap["f32"]["max_abs"] <= 1e-4 and edit_gap["f32"]["files"] == 2,
+              "edit_uint8": edit_gap["uint8"]["max_abs"] <= 1,
+              "one_rank": one_rank["same_step_lines"] and one_rank["same_state"]
+              and one_rank["same_png"] and len(one_rank["step_lines"]) == one_rank_steps}
+    if not all(checks.values()):
+        raise RuntimeError(f"volumetric sharding: {checks}; gaps {gaps}, limits {limits}, "
+                           f"fault margin {fault_margin}, edit {edit_gap}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -6692,8 +7162,10 @@ DOCTOR_CHECKS = ("versions", "env", "backend", "nvcc", "kernels", "native", "mes
 
 def start_doctor():
     """`python -m medical_image_editing_tpu_torch.cli.doctor` started in the
-    background (it runs beside ckpt_crossing and the reference join, which
-    time nothing) → (the process, its start time), for `doctor_phase`."""
+    background (it runs beside the ddp phase, whose checks time nothing;
+    the doctor's ~35 s are mostly process start-ups on the host, and the
+    ddp ranks' first step times are readouts) → (the process, its start
+    time), for `doctor_phase`."""
     return subprocess.Popen([sys.executable, "-m", "medical_image_editing_tpu_torch.cli.doctor"],
                             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True), time.perf_counter()
@@ -6837,7 +7309,7 @@ def main(argv=None):
         export_launches = export_phase("cuda", model, painted, tmp, seed=args.seed)
     cfg = load_config()
     pending = []  # card-vs-CPU parts whose CPU side runs in the background
-    doctor = None  # the doctor's process, started before ckpt_crossing
+    doctor = None  # the doctor's process, started before the ddp phase
     try:
         with conv_route("packed"):
             with timed("train"):
@@ -6864,9 +7336,9 @@ def main(argv=None):
                     losses_launches = losses_phase("cuda", tmp, seed=args.seed)
                 with timed("volumetric"):
                     vol_launches = volumetric_phase("cuda", tmp, seed=args.seed)
+                doctor = start_doctor()
                 with timed("ddp"):
                     ddp_launches = ddp_phase("cuda", tmp, seed=args.seed)
-        doctor = start_doctor()
         with timed("ckpt_crossing"), tempfile.TemporaryDirectory() as tmp:
             crossing_launches = ckpt_crossing_phase("cuda", tmp, seed=args.seed)
         with timed("reference_join"):

@@ -12,6 +12,9 @@ CLI:
         --ckpt out/volumetric_ckpt --labels labels/ --out edited/ \\
         [--filters 8,16,32,64] [--dict-size 10] [--uint8] [--device cpu]
 
+    torchrun --nproc-per-node N -m medical_image_editing_tpu_torch.cli.edit_volume \\
+        --partition spatial --ckpt ... --labels ... --out ...
+
 `--labels` is a directory of `.npy` (D,H,W) or `.nii/.nii.gz` (X,Y,Z) int id
 volumes — 0 = background, k = codebook id k−1 — or one such file. Outputs
 `edited_<name>` volumes in [-1, 1] (or 0-255 with --uint8), in the format of
@@ -20,11 +23,16 @@ each input.
 `--ckpt` is the `volumetric_ckpt` directory the port's `train_volumetric`
 writes (`state.pt`). The JAX package's Orbax checkpoints cannot be read
 here: `tools/volumetric_ckpt.py to-port` converts one (ROADMAP item 22a).
-The JAX CLI's `--partition spatial` (decoder depth sharded over cards) is
-ROADMAP item 15(iii) and is refused.
+
+`--partition spatial` shards the decode's depth over every rank of the
+`torchrun` group (JAX: a 'spatial' mesh over all local devices): each rank
+reads every label volume, decodes its depth block (halo-exchanged 3×3×3
+convolutions, instance norms over the whole depth, the rescale's mask count
+all-reduced), and rank 0 gathers the blocks and writes the files.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -33,12 +41,27 @@ import torch
 
 from ..models.unet_encoder import get_embed_from_ids
 from ..ops.vq import VQState
-from ..train.volumetric import refuse_mesh
+from ..parallel.mesh import VolumetricMesh
 from ..utils.device import resolve_device
+from ..utils.labels import check_labels
 from .edit_batch import to_checked_ids
 
-PARTITION_REFUSAL = ("--partition spatial shards the decode's depth over several cards: "
-                     "ROADMAP item 15(iii), not ported")
+
+def checked_block(id_vols, k, mesh, dev):
+    """`to_checked_ids` of this rank's block (numpy or tensor) → int32 on
+    `dev`, the check made on every rank of the mesh's row together: the
+    blocks' label ranges all-reduced first, so that all ranks raise or none
+    does (the rank whose block holds the labels names them)."""
+    if mesh.world_group is None:
+        return to_checked_ids(id_vols, k, dev)
+    ids = torch.as_tensor(id_vols)
+    lo, hi = (int(v) for v in torch.stack(torch.aminmax(ids)).tolist()) if ids.numel() else (1, 1)
+    (outside,) = mesh.psum([torch.tensor([max(1 - k - lo, 0), max(hi - k, 0)],
+                                         dtype=torch.int64, device=dev)], "spatial")
+    if bool(outside.any()):
+        check_labels(ids, k)  # raises where this rank's block holds them
+        raise ValueError(f"painted labels outside [{1 - k}, {k}] in another rank's depth block")
+    return ids.to(dev, torch.int32)
 
 
 def make_volumetric_edit_fn(decoder, *, mesh=None, output_dtype=None, device="cuda"):
@@ -48,23 +71,31 @@ def make_volumetric_edit_fn(decoder, *, mesh=None, output_dtype=None, device="cu
     The labels are checked (`check_labels`), the background (0) masked,
     the embedding looked up at ids − 1, zeroed under the mask and rescaled
     per volume by D·H·W / max(Σmask, 1), then decoded. output_dtype="uint8"
-    maps [-1, 1] → [0, 255] with a truncating cast. A `mesh` (depth
-    sharding, ROADMAP item 15(iii)) is refused."""
-    refuse_mesh(mesh)
+    maps [-1, 1] → [0, 255] with a truncating cast.
+
+    With a `mesh` (a `VolumetricMesh`; JAX: a mesh with a 'spatial' axis)
+    the decoder is set to it and `id_vols` and the result are this rank's
+    block (`mesh.block`); D is then the global depth, the mask count is
+    all-reduced over the rank's row, and the label check is made on the
+    row's ranks together (`checked_block`)."""
     if output_dtype not in (None, "uint8"):
         raise ValueError(f"output_dtype {output_dtype!r}: None or 'uint8'")
     dev = resolve_device(device)
     decoder.to(dev).eval()
+    if mesh is not None:
+        decoder.set_mesh(mesh)
+    mesh = mesh or VolumetricMesh(1, 1)
 
     @torch.inference_mode()
     def edit(vq_state, id_vols):
         vq_state = VQState(*(t.to(dev) for t in vq_state))
-        ids = to_checked_ids(id_vols, vq_state.embed.shape[0], dev)
+        ids = checked_block(id_vols, vq_state.embed.shape[0], mesh, dev)
         bg = ids == 0
         mask = 1.0 - bg.float()
         embed = get_embed_from_ids(vq_state, torch.where(bg, 1, ids) - 1)
         embed = embed * mask[..., None]
-        per_vol = mask[0].numel() / mask.sum((1, 2, 3)).clamp_min(1.0)
+        (counts,) = mesh.psum([mask.sum((1, 2, 3))], "spatial")
+        per_vol = mask[0].numel() * mesh.spatial / counts.clamp_min(1.0)
         embed = embed * per_vol[:, None, None, None, None]
         recon = decoder(embed.permute(0, 4, 1, 2, 3))[:, 0]
         if output_dtype == "uint8":
@@ -140,46 +171,54 @@ def main(argv=None):
     p.add_argument("--dict-size", type=int, default=10)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--partition", choices=["none", "spatial"], default="none",
-                   help="'spatial' (multi-card depth sharding, ROADMAP item 15(iii)) is "
-                        "refused")
+                   help="'spatial' shards volume depth over every rank of the torchrun "
+                        "group (halo-exchanged 3-D convs)")
     p.add_argument("--uint8", action="store_true")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.partition == "spatial":
-        raise SystemExit(PARTITION_REFUSAL)
-    device = resolve_device(args.device)
 
-    filters = tuple(int(f) for f in args.filters.split(","))
-    decoder, vq = load_volumetric_checkpoint(args.ckpt, filters=filters,
-                                             dict_size=args.dict_size, device=device)
-    edit = make_volumetric_edit_fn(decoder, output_dtype="uint8" if args.uint8 else None,
-                                   device=device)
+    from ..parallel.mesh import rank_device, torchrun_mesh
 
-    if os.path.isdir(args.labels):
-        files = sorted(
-            os.path.join(args.labels, f)
-            for f in os.listdir(args.labels)
-            if f.endswith(".npy") or ".nii" in f
-        )
-    else:
-        files = [args.labels]
-    if not files:
-        print(f"no .npy/.nii label volumes under {args.labels}", file=sys.stderr)
-        return 1
+    grid = (torchrun_mesh(1, None, args.device) if args.partition == "spatial"
+            else contextlib.nullcontext(VolumetricMesh(1, 1)))
+    with grid as mesh:
+        device = rank_device(args.device)
+        filters = tuple(int(f) for f in args.filters.split(","))
+        decoder, vq = load_volumetric_checkpoint(args.ckpt, filters=filters,
+                                                 dict_size=args.dict_size, device=device)
+        edit = make_volumetric_edit_fn(decoder, mesh=mesh,
+                                       output_dtype="uint8" if args.uint8 else None,
+                                       device=device)
+        writer = mesh.rank == 0
 
-    os.makedirs(args.out, exist_ok=True)
-    for start in range(0, len(files), args.batch):
-        chunk = files[start : start + args.batch]
-        batch = np.stack([_load_label_volume(f) for f in chunk])
-        pad = args.batch - len(chunk)
-        if pad:  # a full batch: repeat the last volume, trim after
-            batch = np.concatenate([batch, np.repeat(batch[-1:], pad, 0)])
-        recons = edit(vq, batch).cpu().numpy()[: len(chunk)]
-        for f, rec in zip(chunk, recons):
-            name = "edited_" + os.path.basename(f)
-            _save_volume(os.path.join(args.out, name), rec)
-            print(name)
-    return 0
+        if os.path.isdir(args.labels):
+            files = sorted(
+                os.path.join(args.labels, f)
+                for f in os.listdir(args.labels)
+                if f.endswith(".npy") or ".nii" in f
+            )
+        else:
+            files = [args.labels]
+        if not files:
+            print(f"no .npy/.nii label volumes under {args.labels}", file=sys.stderr)
+            return 1
+
+        if writer:
+            os.makedirs(args.out, exist_ok=True)
+        for start in range(0, len(files), args.batch):
+            chunk = files[start : start + args.batch]
+            batch = np.stack([_load_label_volume(f) for f in chunk])
+            pad = args.batch - len(chunk)
+            if pad:  # a full batch: repeat the last volume, trim after
+                batch = np.concatenate([batch, np.repeat(batch[-1:], pad, 0)])
+            recons = mesh.gather(edit(vq, mesh.block(batch))).cpu().numpy()[: len(chunk)]
+            if not writer:
+                continue
+            for f, rec in zip(chunk, recons):
+                name = "edited_" + os.path.basename(f)
+                _save_volume(os.path.join(args.out, name), rec)
+                print(name)
+        return 0
 
 
 if __name__ == "__main__":

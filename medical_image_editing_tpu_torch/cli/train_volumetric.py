@@ -10,6 +10,9 @@ train on the same volumes in the same order.
     python -m medical_image_editing_tpu_torch.cli.train_volumetric \\
         --size 128 --batch 2 --steps 200 --out volumetric_out [--device cpu]
 
+    torchrun --nproc-per-node 4 -m medical_image_editing_tpu_torch.cli.train_volumetric \\
+        --mesh 2,2 --size 128 --batch 2 --steps 200 --out volumetric_out
+
 Outputs under --out: `volumetric_ckpt/state.pt` = {"enc", "dec", "vq":
 {embed, cluster_size, embed_avg (C, K)}} (the modules' state dicts and the
 codebook as every checkpoint of the port holds it), written atomically
@@ -17,12 +20,16 @@ codebook as every checkpoint of the port holds it), written atomically
 `recon_mid.png`, the centre slices of the first batch and their
 reconstructions.
 
-The JAX CLI's `--mesh data,spatial` (volumes sharded over batch and depth
-across cards) is ROADMAP item 15(iii) and is refused, as is a run under
-more than one rank (`torchrun`).
+`--mesh data,spatial` shards every batch over a `data × spatial` grid of
+the `torchrun` group's ranks (`parallel/mesh.py::create_volumetric_mesh`,
+`train/volumetric.py`): every rank draws the same batch indices from the
+seed and takes its (batch block, depth block); rank 0 writes the
+checkpoint, and the panel's centre slices are gathered from the ranks
+that hold them. More than one rank without `--mesh` is refused.
 """
 
 import argparse
+import contextlib
 import glob
 import os
 
@@ -85,72 +92,88 @@ def main(argv=None):
     parser.add_argument("--dict-size", type=int, default=10)
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--mesh", default=None,
-                        help="multi-card depth sharding: ROADMAP item 15(iii), refused")
+                        help="'data,spatial' rank counts under torchrun, e.g. '2,2'")
     parser.add_argument("--out", default="volumetric_out")
     parser.add_argument("--log-every", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    from ..train.volumetric import MESH_REFUSAL, refuse_ranks
-
-    if args.mesh:
-        raise SystemExit(f"--mesh {args.mesh}: {MESH_REFUSAL}")
-    refuse_ranks()
-
     import numpy as np
     import torch
 
     from ..models.volumetric import volumetric_forward
     from ..ops.vq import VQModule
-    from ..train.volumetric import init_volumetric, make_volumetric_train_step
+    from ..parallel.mesh import VolumetricMesh, barrier, rank_device, torchrun_mesh
+    from ..train.volumetric import init_volumetric, make_volumetric_train_step, refuse_ranks
     from ..utils.checkpoint import save_state_dir
-    from ..utils.device import resolve_device
     from ..utils.imaging import save_image_grid
 
-    device = resolve_device(args.device)
-    if args.data_dir:
-        data = _load_volumes(args.data_dir, args.vmin, args.vmax)
+    if args.mesh:
+        md, ms = (int(x) for x in args.mesh.split(","))
+        grid = torchrun_mesh(md, ms, args.device)
     else:
-        data = _synthetic_volumes(args.n_synthetic, args.size, args.seed)
-    n, d, h, w, _ = data.shape
-    print(f"{n} volumes of {d}x{h}x{w}")
+        refuse_ranks()
+        grid = contextlib.nullcontext(VolumetricMesh(1, 1))
+    with grid as mesh:
+        device = rank_device(args.device)
+        writer = mesh.rank == 0
+        if args.data_dir:
+            data = _load_volumes(args.data_dir, args.vmin, args.vmax)
+        else:
+            data = _synthetic_volumes(args.n_synthetic, args.size, args.seed)
+        n, d, h, w, _ = data.shape
+        if writer:
+            print(f"{n} volumes of {d}x{h}x{w}")
+        if args.mesh and writer:
+            print(f"mesh: data={mesh.data} x spatial={mesh.spatial}")
 
-    filters = tuple(int(f) for f in args.filters.split(","))
-    enc, dec, vq, enc_opt, dec_opt = init_volumetric(
-        torch.Generator().manual_seed(args.seed), filters=filters,
-        dict_size=args.dict_size, volume_shape=(args.batch, d, h, w, 1), lr=args.lr,
-        device=device,
-    )
-    step = make_volumetric_train_step(enc, dec, enc_opt, dec_opt)
+        filters = tuple(int(f) for f in args.filters.split(","))
+        enc, dec, vq, enc_opt, dec_opt = init_volumetric(
+            torch.Generator().manual_seed(args.seed), filters=filters,
+            dict_size=args.dict_size, volume_shape=(args.batch, d, h, w, 1), lr=args.lr,
+            device=device,
+        )
+        step = make_volumetric_train_step(enc, dec, enc_opt, dec_opt, mesh=mesh)
 
-    rng = np.random.default_rng(args.seed)
-    for i in range(args.steps):
-        idx = rng.choice(n, args.batch, replace=n < args.batch)
-        vq, metrics = step(vq, data[idx])
-        if (i + 1) % args.log_every == 0 or i == 0 or i + 1 == args.steps:
-            print(f"step {i + 1}: total={float(metrics['total']):.4f} "
-                  f"recon={float(metrics['recon']):.4f} "
-                  f"commit={float(metrics['commit']):.4f}", flush=True)
+        rng = np.random.default_rng(args.seed)
+        for i in range(args.steps):
+            idx = rng.choice(n, args.batch, replace=n < args.batch)
+            vq, metrics = step(vq, mesh.block(data[idx]))
+            if writer and ((i + 1) % args.log_every == 0 or i == 0 or i + 1 == args.steps):
+                print(f"step {i + 1}: total={float(metrics['total']):.4f} "
+                      f"recon={float(metrics['recon']):.4f} "
+                      f"commit={float(metrics['commit']):.4f}", flush=True)
 
-    codebook = VQModule(*vq.embed.shape)
-    codebook.set_state(vq)
-    path = save_state_dir(os.path.join(args.out, "volumetric_ckpt"),
-                          {"enc": enc.state_dict(), "dec": dec.state_dict(),
-                           "vq": codebook.state_dict()})
-    print(f"checkpoint: {path}")
+        if writer:
+            codebook = VQModule(*vq.embed.shape)
+            codebook.set_state(vq)
+            path = save_state_dir(os.path.join(args.out, "volumetric_ckpt"),
+                                  {"enc": enc.state_dict(), "dec": dec.state_dict(),
+                                   "vq": codebook.state_dict()})
+            print(f"checkpoint: {path}")
 
-    # centre-slice recon panel: input | recon for the first batch
-    vol = data[: args.batch]
-    with torch.no_grad():
-        recon, _, _, _ = volumetric_forward(enc, dec, vq, torch.as_tensor(vol, device=device),
-                                            train=False)
-    mid = d // 2
-    panel = np.concatenate([vol[:, mid], recon[:, mid].cpu().numpy()])  # (2B, H, W, 1)
-    save_image_grid((panel + 1.0) / 2.0, os.path.join(args.out, "recon_mid.png"),
-                    nrow=args.batch)
-    print(f"recon panel: {os.path.join(args.out, 'recon_mid.png')}")
-    return 0
+        # centre-slice recon panel: input | recon for the first batch
+        vol = data[: args.batch]
+        with torch.no_grad():
+            recon, _, _, _ = volumetric_forward(enc, dec, vq,
+                                                torch.as_tensor(mesh.block(vol), device=device),
+                                                train=False, mesh=mesh)
+        # each batch block's centre slices, from the rank whose depth block holds them
+        mid = d // 2
+        centre = recon.new_zeros((args.batch,) + tuple(recon.shape[2:]))
+        rows, slabs = recon.shape[0], recon.shape[1]
+        row, col = mesh.coords
+        if mid // slabs == col:
+            centre[row * rows:(row + 1) * rows] = recon[:, mid % slabs]
+        (centre,) = mesh.psum([centre])
+        if writer:
+            panel = np.concatenate([vol[:, mid], centre.cpu().numpy()])  # (2B, H, W, 1)
+            save_image_grid((panel + 1.0) / 2.0, os.path.join(args.out, "recon_mid.png"),
+                            nrow=args.batch)
+            print(f"recon panel: {os.path.join(args.out, 'recon_mid.png')}")
+        barrier()
+        return 0
 
 
 if __name__ == "__main__":

@@ -13,6 +13,14 @@ assignment and the EMA (JAX `ops/vq.py:157-159`): both statistics averaged,
 not summed. The kernel's per-launch (and per-chunk) statistics are added up
 on each rank first; the ranks then share one codebook update.
 
+Global sums, as the volumetric step's depth sharding needs (`sum_group`, a
+process group, e.g. a `VolumetricMesh`'s `world_group`): JAX's volumetric
+step runs under GSPMD as one global computation and passes no
+`axis_name`, so its counts and sums are those of every voxel of the global
+batch. With `sum_group` a training call sums (does not average) them over
+the group's ranks; the commit loss stays this rank's mean (the caller
+weighs it into the global mean).
+
 Layout: `vq_apply` takes features NHWC (B,H,W,C) like the JAX function, and
 returns raw 0-based ids (B,H,W) int32; the +1 offset is the encoder's.
 """
@@ -22,7 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch import nn
 
-from ..parallel.mesh import pmean
+from ..parallel.mesh import pmean, psum
 
 
 class VQState(NamedTuple):
@@ -95,11 +103,14 @@ def _ema(base, update, momentum):
 
 
 def quantize(state: VQState, x: torch.Tensor, assign, *, momentum: float,
-             eps: float, train: bool, axis_name=None):
+             eps: float, train: bool, axis_name=None, sum_group=None):
     """Shared body of `vq_apply` and `vq_apply_fused`. `assign(embed, flat)`
     → (ids (N,), quantized rows (N,C), counts (K,), sums (K,C)); with
     `axis_name`, a training call's counts and sums are averaged over the
-    ranks before the EMA."""
+    ranks before the EMA; with `sum_group`, summed over that group's."""
+    if axis_name is not None and sum_group is not None:
+        raise ValueError("axis_name averages the statistics and sum_group sums them: "
+                         "give one")
     k, c = state.embed.shape
     b, h, w, cc = x.shape
     if cc != c:
@@ -116,6 +127,8 @@ def quantize(state: VQState, x: torch.Tensor, assign, *, momentum: float,
         return quantized_st, commit_loss, ids, state
     if axis_name is not None:
         counts, sums = pmean([counts, sums])
+    if sum_group is not None:
+        counts, sums = psum([counts, sums], sum_group)
 
     # EMA of counts/sums, Laplace-smoothed normalization (`vq_module.py:182-200`)
     cluster_size = _ema(state.cluster_size, counts, momentum)
@@ -136,13 +149,15 @@ def vq_apply(
     train: bool = True,
     backend: str = "xla",
     axis_name=None,
+    sum_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, VQState]:
     """Quantize x (B,H,W,C) → (quantized_st, commit_loss, ids (B,H,W), state').
 
     `backend` "pallas"/"faiss" runs the fused CUDA kernel on CUDA tensors,
     "xla"/"torch" its plain PyTorch version. With `train=True` the EMA
     codebook update is applied to the returned state (the input state is not
-    modified); with `axis_name` its statistics are averaged over the ranks.
+    modified); with `axis_name` its statistics are averaged over the ranks,
+    with `sum_group` summed over that group's.
     """
     from .vq_fused import vq_assign_fused, vq_assign_fused_reference
 
@@ -153,4 +168,4 @@ def vq_apply(
     else:
         raise ValueError(f"unknown knn_backend {backend!r}")
     return quantize(state, x, assign, momentum=momentum, eps=eps, train=train,
-                    axis_name=axis_name)
+                    axis_name=axis_name, sum_group=sum_group)

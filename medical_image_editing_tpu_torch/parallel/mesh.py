@@ -16,17 +16,25 @@ over the default process group:
 | `replicate(mesh, state)`                    | `replicate`: broadcast from rank 0 and a check |
 | `shard_batch(mesh, batch)`                  | `shard_batch`: this rank's row block   |
 | `jax.distributed.initialize`                | `initialize_distributed` (torchrun's environment) |
+| `create_volumetric_mesh(devices, d, s)`     | `create_volumetric_mesh(d, s)`: a grid of process groups |
+| GSPMD's sums over a sharded volume          | `psum`, `psum_differentiable` over a mesh's group |
 
 As in JAX, a module or step built with `axis_name=DATA_AXIS` averages over
 the ranks and one built with None stays local. With no process group the
 collectives are the identity (one rank), so a step built for the group runs
-unchanged, bit for bit, without one.
+unchanged, bit for bit, without one. Each collective takes a `group=`
+(None: the default group); the volumetric mesh's groups are its rows and
+columns.
 
-`collectives` counts the all-reduces and broadcasts issued and the bytes
-they carried, as `ops._build.launches` counts kernel launches.
+`collectives` counts the all-reduces, broadcasts and point-to-point
+messages issued and the bytes they carried, as `ops._build.launches`
+counts kernel launches. `collective_log`, when a list, also records each
+collective as (kind, group size, shape) in issue order, so that ranks can
+be held to issuing the same ones in the same order.
 """
 
 import collections
+import contextlib
 import os
 import zlib
 from typing import Iterable, List, Optional, Sequence, Tuple
@@ -39,6 +47,7 @@ from ..utils.device import resolve_device
 DATA_AXIS = "data"
 
 collectives: collections.Counter = collections.Counter()
+collective_log: Optional[list] = None
 
 
 def is_active() -> bool:
@@ -109,10 +118,23 @@ def barrier() -> None:
         dist.barrier()
 
 
-def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
-    collectives["all_reduce"] += 1
-    collectives["all_reduce_bytes"] += t.numel() * t.element_size()
-    dist.all_reduce(t, op)
+def group_size(group=None) -> int:
+    """Ranks in `group` (None: the default group); 1 without a group."""
+    return dist.get_world_size(group) if is_active() else 1
+
+
+def count(kind: str, t: torch.Tensor, group=None, log: bool = True) -> None:
+    """Add one `kind` collective of `t`'s bytes to `collectives` (and, with
+    `log`, to `collective_log` when it is a list)."""
+    collectives[kind] += 1
+    collectives[kind + "_bytes"] += t.numel() * t.element_size()
+    if log and collective_log is not None:
+        collective_log.append((kind, group_size(group), tuple(t.shape)))
+
+
+def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> None:
+    count("all_reduce", t, group)
+    dist.all_reduce(t, op, group=group)
 
 
 def _flatten(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -131,49 +153,74 @@ def _split(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tenso
     return out
 
 
-def pmean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """`lax.pmean` over the ranks: each tensor's mean over the ranks, from
-    one all-reduce (sum) of their concatenation divided by the world size.
-    The results are views of one new buffer; the inputs are not changed.
-    All tensors share one dtype and device. Without a group (or with no
-    tensors) the tensors come back as given. Outside autograd: see
-    `pmean_differentiable`."""
+def pmean(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """`lax.pmean` over the ranks of `group` (None: the default group): each
+    tensor's mean over the ranks, from one all-reduce (sum) of their
+    concatenation divided by the group's size. The results are views of one
+    new buffer; the inputs are not changed. All tensors share one dtype and
+    device. Without a group (or with no tensors) the tensors come back as
+    given. Outside autograd: see `pmean_differentiable`."""
     tensors = list(tensors)
     if not is_active() or not tensors:
         return tensors
     flat = _flatten([t.detach() for t in tensors])
-    _all_reduce(flat)
-    flat.div_(dist.get_world_size())
+    _all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
     return _split(flat, tensors)
 
 
-class _AllReduceMean(torch.autograd.Function):
-    """Mean over the ranks, forward and backward: the cotangent of a pmean
-    is the pmean of the ranks' cotangents (`lax.pmean`'s transpose in the
-    JAX package's `shard_map`), so each rank's gradient takes in the other
-    ranks' losses through the shared statistics."""
+def psum(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """`lax.psum` over the ranks of `group`: `pmean` without the division
+    (one all-reduce of the concatenation). Outside autograd."""
+    tensors = list(tensors)
+    if not is_active() or not tensors:
+        return tensors
+    flat = _flatten([t.detach() for t in tensors])
+    _all_reduce(flat, group=group)
+    return _split(flat, tensors)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum or mean over the ranks of a group, forward and backward: the
+    cotangent of a psum (pmean) is the psum (pmean) of the ranks'
+    cotangents (the transposes in the JAX package's `shard_map`), so each
+    rank's gradient takes in the other ranks' losses through the shared
+    statistics."""
 
     @staticmethod
-    def forward(ctx, flat):
+    def forward(ctx, flat, group, mean):
+        ctx.group, ctx.mean = group, mean
         out = flat.clone()
-        _all_reduce(out)
-        return out.div_(dist.get_world_size())
+        _all_reduce(out, group=group)
+        return out.div_(dist.get_world_size(group)) if mean else out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        _all_reduce(grad)
-        return grad.div_(dist.get_world_size())
+        _all_reduce(grad, group=ctx.group)
+        if ctx.mean:
+            grad.div_(dist.get_world_size(ctx.group))
+        return grad, None, None
 
 
-def pmean_differentiable(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def pmean_differentiable(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
     """`pmean` inside autograd: one all-reduce forward and one backward (a
     synced batch norm's mean and mean of squares). Without a group, the
     tensors as given."""
     tensors = list(tensors)
     if not is_active() or not tensors:
         return tensors
-    return _split(_AllReduceMean.apply(_flatten(tensors)), tensors)
+    return _split(_AllReduce.apply(_flatten(tensors), group, True), tensors)
+
+
+def psum_differentiable(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """`psum` inside autograd: one all-reduce (sum) forward, and one of the
+    cotangents backward (a sharded instance norm's sums). Without a group,
+    the tensors as given."""
+    tensors = list(tensors)
+    if not is_active() or not tensors:
+        return tensors
+    return _split(_AllReduce.apply(_flatten(tensors), group, False), tensors)
 
 
 def _check_same(values: Sequence[int], device, what: str) -> None:
@@ -215,8 +262,7 @@ def replicate(tensors: Iterable[torch.Tensor], fingerprint: Sequence[int] = (),
     tensors = list(tensors)
     with torch.no_grad():  # parameters are written in place
         for t in tensors:
-            collectives["broadcast"] += 1
-            collectives["broadcast_bytes"] += t.numel() * t.element_size()
+            count("broadcast", t)
             dist.broadcast(t, src=0)
     if device is None:
         device = tensors[0].device if tensors else "cpu"
@@ -241,3 +287,130 @@ def shard_batch(batch: torch.Tensor, rank: Optional[int] = None,
         raise ValueError(f"a batch of {n} rows does not split over {size} ranks")
     per = n // size
     return batch[rank * per:(rank + 1) * per]
+
+
+SPATIAL_AXIS = "spatial"
+
+
+class VolumetricMesh:
+    """A `data × spatial` grid of the ranks (JAX `train/volumetric.py`'s
+    `Mesh(devices.reshape(data, spatial), ('data', 'spatial'))`): rank r
+    sits at (r // spatial, r % spatial), so the ranks of one row share a
+    batch block and split its depth, and the ranks of one column share a
+    depth block. `world_group` is the default group, `spatial_group` this
+    rank's row, `data_group` its column (all None without a process group,
+    where the mesh is 1 × 1 and every collective the identity, even under a
+    process group made for something else).
+
+    The mesh is shared, never copied: `copy.deepcopy` of a module that
+    holds it keeps the same mesh."""
+
+    def __init__(self, data: int, spatial: int, rank: int = 0, world_group=None,
+                 data_group=None, spatial_group=None):
+        self.data, self.spatial = int(data), int(spatial)
+        self.size = self.data * self.spatial
+        self.rank = int(rank)
+        self.coords = (self.rank // self.spatial, self.rank % self.spatial)
+        self.world_group = world_group
+        self.data_group = data_group
+        self.spatial_group = spatial_group
+
+    def __repr__(self):
+        return (f"VolumetricMesh(data={self.data}, spatial={self.spatial}, rank={self.rank}, "
+                f"coords={self.coords})")
+
+    def __deepcopy__(self, memo):
+        return self
+
+    @property
+    def neighbours(self) -> Tuple[Optional[int], Optional[int]]:
+        """The global ranks holding the depth blocks before and after this
+        rank's in its row (None at the volume's ends)."""
+        s = self.coords[1]
+        return (self.rank - 1 if s > 0 else None,
+                self.rank + 1 if s < self.spatial - 1 else None)
+
+    def psum(self, tensors: Sequence[torch.Tensor], axis: str = "world") -> List[torch.Tensor]:
+        """`psum` over all the mesh's ranks ("world"), this rank's row
+        ("spatial") or its column ("data"); the tensors as given on a mesh
+        made without a process group, whatever group may exist."""
+        if self.world_group is None:
+            return list(tensors)
+        group = {"world": self.world_group, SPATIAL_AXIS: self.spatial_group,
+                 DATA_AXIS: self.data_group}[axis]
+        return psum(tensors, group)
+
+    def block(self, x, batch_axis: int = 0, depth_axis: int = 1):
+        """This rank's block of a global (B, D, ...) array or tensor: rows
+        [d·B/data, (d+1)·B/data) and slabs [s·D/spatial, (s+1)·D/spatial)
+        (JAX's `P('data', 'spatial')`). Both divide evenly (ValueError
+        where they do not)."""
+        d, s = self.coords
+        for axis, parts, what in ((batch_axis, self.data, "batch"),
+                                  (depth_axis, self.spatial, "depth")):
+            if x.shape[axis] % parts:
+                raise ValueError(f"a {what} of {x.shape[axis]} does not split over "
+                                 f"{parts} ranks of the mesh's {what} axis")
+        nb, nd = x.shape[batch_axis] // self.data, x.shape[depth_axis] // self.spatial
+        index = [slice(None)] * len(x.shape)
+        index[batch_axis] = slice(d * nb, (d + 1) * nb)
+        index[depth_axis] = slice(s * nd, (s + 1) * nd)
+        return x[tuple(index)]
+
+    def gather(self, local: torch.Tensor, batch_axis: int = 0,
+               depth_axis: int = 1) -> torch.Tensor:
+        """The global array from every rank's `block` (the inverse of
+        `block`), on every rank: one all-reduce (sum) over the world of a
+        zero buffer holding each rank's block in its place. Exact, as
+        `all_gather_rows` (gloo reduces CUDA tensors where it gathers
+        none). Without a group, `local`."""
+        if self.world_group is None or not is_active():
+            return local
+        shape = list(local.shape)
+        shape[batch_axis] *= self.data
+        shape[depth_axis] *= self.spatial
+        buf = local.new_zeros(shape)
+        d, s = self.coords
+        nb, nd = local.shape[batch_axis], local.shape[depth_axis]
+        index = [slice(None)] * len(shape)
+        index[batch_axis] = slice(d * nb, (d + 1) * nb)
+        index[depth_axis] = slice(s * nd, (s + 1) * nd)
+        buf[tuple(index)] = local
+        _all_reduce(buf, group=self.world_group)
+        return buf
+
+
+def create_volumetric_mesh(data: int, spatial: int) -> VolumetricMesh:
+    """The `data × spatial` mesh over the default group's ranks (JAX
+    `create_volumetric_mesh`): one new process group for each row (the
+    `spatial` axis) and each column (the `data` axis), made on every rank
+    in the same order. `data · spatial` must equal the world size
+    (ValueError); without a process group only 1 × 1 is possible, and it is
+    the identity."""
+    data, spatial = int(data), int(spatial)
+    if data < 1 or spatial < 1:
+        raise ValueError(f"mesh {data}x{spatial}: both axes need at least one rank")
+    rank, size = world()
+    if data * spatial != size:
+        raise ValueError(f"a data={data} x spatial={spatial} mesh needs {data * spatial} "
+                         f"ranks; the process group has {size}")
+    if not is_active():
+        return VolumetricMesh(1, 1)
+    rows = [dist.new_group([i * spatial + j for j in range(spatial)]) for i in range(data)]
+    cols = [dist.new_group([i * spatial + j for i in range(data)]) for j in range(spatial)]
+    return VolumetricMesh(data, spatial, rank, dist.group.WORLD, cols[rank % spatial],
+                          rows[rank // spatial])
+
+
+@contextlib.contextmanager
+def torchrun_mesh(data: int, spatial: Optional[int], device="cuda"):
+    """`create_volumetric_mesh(data, spatial)` over torchrun's process group,
+    made here from its environment (`initialize_distributed`) and destroyed
+    on exit unless it existed before; `spatial` None puts every rank on the
+    spatial axis."""
+    owned = initialize_distributed(device)
+    try:
+        yield create_volumetric_mesh(data, world()[1] if spatial is None else spatial)
+    finally:
+        if owned:
+            destroy_distributed()

@@ -1261,6 +1261,88 @@ def test_volumetric_step_on_card_matches_cpu(cuda):
     assert not any(_build.launches.values()), dict(_build.launches)
 
 
+def _chip_smoke():
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sys.modules["chip_smoke"] = smoke  # spawned ranks import it by name
+    return smoke
+
+
+@pytest.mark.gpu
+def test_volumetric_sharded_step_on_card_matches_one_process(cuda, tmp_path):
+    """Depth sharding on the card at a small size: two gloo ranks sharing
+    the card on a 1 × 2 mesh (filters 8,16,32,64, `dict_size` 10, 32³,
+    batch 2: 16 slabs a rank), two steps in f32 and in bf16 with remat,
+    held to the one-process steps on the card as `chip_smoke.py`'s
+    sharded part holds them (`volumetric_sharded_part`, which raises on a
+    fault): each step's losses, codebook and the first step's gradients
+    within 5× a spread of ulp-nudged one-process readings, the ranks bit
+    for bit, the zero-halo fault above the decoder gradient's limit,
+    `edit_volume --partition spatial` within 1e-4 of the unsharded decode,
+    and `--mesh 1,1` under a one-rank NCCL group bit for bit. No
+    hand-written kernel launches."""
+    smoke = _chip_smoke()
+    _build.launches.clear()
+    launches = smoke.volumetric_sharded_part("cuda", tmp_path, size=32, batch=2, steps=2,
+                                             filters=(8, 16, 32, 64), dict_size=10, seed=3,
+                                             mesh_shape=(1, 2), timeout=300)
+    assert not any(launches.values()) and not any(_build.launches.values())
+
+
+@pytest.mark.gpu
+def test_halo_exchange_on_cuda_tensors(cuda, tmp_path):
+    """`parallel/spatial.py::depth_halo` on CUDA tensors under gloo (staged
+    through host memory) on three ranks: each rank's output holds its
+    neighbours' boundary slabs (zeros at the volume's ends) and its own
+    block bit for bit, on the card; its input gradient is its cotangent
+    plus each neighbour's cotangent for the slab it sent."""
+    import os
+    import sys
+    import time
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_spatial_worker as worker
+
+    world = 3
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=worker.run, args=(r, world, str(tmp_path / "init"), "halo_cuda",
+                                                  str(tmp_path))) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 120
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    assert not any(alive) and [p.exitcode for p in procs] == [0] * world
+    outs = [torch.load(tmp_path / f"halo_cuda-{r}.pt") for r in range(world)]
+    x = torch.arange(2 * 3 * 4 * world * 5 * 6, dtype=torch.float32).reshape(2, 3, 4 * world, 5, 6)
+    for r, o in enumerate(outs):
+        # one message a neighbour forward and one backward
+        assert o["device"].startswith("cuda") and o["sent"] == (2 if r in (0, world - 1) else 4)
+        lo, hi = 4 * r, 4 * r + 4
+        want = torch.cat([x[:, :, lo - 1:lo] if r else torch.zeros_like(x[:, :, :1]),
+                          x[:, :, lo:hi],
+                          x[:, :, hi:hi + 1] if r < world - 1 else torch.zeros_like(x[:, :, :1])],
+                         2)
+        assert torch.equal(o["y"], want)
+        dx = torch.full((2, 3, 4, 5, 6), r + 1.0)
+        if r:
+            dx[:, :, 0] += r  # rank r − 1's cotangent, r, for the slab it received
+        if r < world - 1:
+            dx[:, :, -1] += r + 2
+        assert torch.equal(o["dx"], dx)
+
+
 # (b, cin, cout, h, w, kernel, dilation, bias, compute dtype): the lung
 # decoder's kinds of convolution at ragged sizes, through every instance
 # (`conv_s8_instance`): conv_s8_kernel with BN 32 (Cout 32 and 1), 64 (Cout

@@ -70,7 +70,22 @@ def test_port_imports_no_jax():
             f"{PKG}.utils.torch_import", f"{PKG}.cli.import_ckpt",
             f"{PKG}.cli.export_ckpt", f"{PKG}.parallel", f"{PKG}.parallel.mesh",
             f"{PKG}.cli.export_model", f"{PKG}.cli.doctor", f"{PKG}.utils.witness",
-            f"{PKG}.utils.labels"} <= set(modules)
+            f"{PKG}.utils.labels", f"{PKG}.parallel.spatial"} <= set(modules)
+
+
+def test_spatial_module_imports_torch_and_the_port_only():
+    """`parallel/spatial.py` (the halo exchange standing in for GSPMD)
+    imports torch and modules of the port, nothing of the JAX package."""
+    import ast
+
+    tree = ast.parse((ROOT / PKG / "parallel" / "spatial.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add("." if node.level else node.module.split(".")[0])
+    assert roots == {"typing", "torch", "."}, roots
 
 
 @pytest.fixture
@@ -191,6 +206,9 @@ def test_entry_points_refuse_missing_card():
                  lambda: edit_volume.make_volumetric_edit_fn(torch.nn.Identity()),
                  lambda: train_volumetric.main(["--steps", "1"]),
                  lambda: edit_volume.main(["--ckpt", ".", "--labels", ".", "--out", "."]),
+                 lambda: train_volumetric.main(["--steps", "1", "--mesh", "1,1"]),
+                 lambda: edit_volume.main(["--ckpt", ".", "--labels", ".", "--out", ".",
+                                           "--partition", "spatial"]),
                  lambda: make_batched_edit_fn(torch.nn.Identity(), quantize="int8"),
                  lambda: edit_batch.main(["--label-dir", ".", "--out-dir", ".",
                                           "--dtype", "int8"]),
@@ -533,15 +551,21 @@ def test_chip_smoke_volumetric_phase_on_cpu(tmp_path, capsys, monkeypatch):
     `edit_volume.main` in-process (the step lines, the checkpoint, the PNG,
     the painted decode from .npy, .nii.gz and as uint8, the out-of-range
     label refused); (c) the card-vs-CPU comparison (here CPU against CPU:
-    exact); no kernel launch, and TF32 left off."""
+    exact); (e) the depth-sharded part on four spawned gloo ranks (a 2 × 2
+    mesh: 8 slabs a rank), held to the one-process steps within the limits
+    from the spread, the ranks bit for bit, the zero-halo fault above the
+    decoder gradient's limit, `edit_volume --partition spatial` on two
+    ranks, `--mesh 1,1` under a one-rank group bit for bit; no kernel
+    launch, and TF32 left off."""
     monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
     smoke = _chip_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # the ranks import it by name
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         launches = smoke.volumetric_phase("cpu", tmp_path, size=16, batch=2, steps=2,
                                           filters=(4, 8, 16), dict_size=5, ref_size=16,
-                                          cli_steps=3)
+                                          cli_steps=3, shard_steps=2)
         assert not torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
@@ -565,6 +589,18 @@ def test_chip_smoke_volumetric_phase_on_cpu(tmp_path, capsys, monkeypatch):
     assert ref["id_mismatches_clear"] == 0 and max(ref["loss_rel_err"].values()) == 0.0
     assert ref["instance_norm_size"] == 16 and ref["witnesses"] == 1
     assert ref["grad_rel_err_vs_f64"]["card"] == ref["grad_rel_err_vs_f64"]["cpu"]
+    shard = next(r for r in recs if r["part"] == "sharded")
+    assert shard["mesh"] == [2, 2] and shard["block"] == [1, 8, 16, 16, 1]
+    assert shard["coords"] == [[0, 0], [0, 1], [1, 0], [1, 1]] and shard["backend"] == "gloo"
+    assert shard["within_limits"] == shard["ranks_bit_identical"] == {"f32": True,
+                                                                       "bf16_remat": True}
+    assert shard["halo_fault_margin"]["dec_grad"] >= smoke.VOL_SHARD_FAULT_MARGIN
+    assert shard["edit_partition_spatial_gap"]["f32"]["max_abs"] <= 1e-4
+    one = shard["one_rank_group"]
+    assert one["same_state"] and one["same_png"] and one["same_step_lines"]
+    assert one["backend"] == "gloo" and len(one["step_lines"]) == 2
+    collectives = shard["rank"]["f32"]["collectives_per_step"]
+    assert collectives["send"] == collectives["recv"] > 0 and collectives["all_reduce"] > 0
 
 
 def test_chip_smoke_int8_phase_on_cpu(tmp_path, capsys):

@@ -44,8 +44,8 @@ every rank as many full batches (fault C.5); `run_vqwnet.main` on two ranks
 writes one run directory from rank 0, resumes bit for bit, tests, and
 does the same for the three GAN trainers (item 15(ii): the second stage,
 staged from a first stage, whose step-0 k-means gathers both ranks' rows;
-`-w` in `joint_step`; `-v`); and the volumetric CLIs, not data parallel
-yet, refuse two ranks (item 15(iii)).
+`-w` in `joint_step`; `-v`). The volumetric CLIs on two ranks (item
+15(iii)) are held in `tests/test_torch_port_volumetric_spatial.py`.
 """
 
 import json
@@ -576,13 +576,6 @@ def test_cli_on_two_ranks_writes_from_rank_0_and_resumes_bit_for_bit(ranks):
     _equal_trees(sa, sb)
     assert {"config.json", "result.csv"} <= set(os.listdir(tested))
     assert json.load(open(os.path.join(straight, "config.json")))["seed_list"] == [42]
-
-
-@pytest.mark.parametrize("what", ["train_volumetric", "edit_volume_spatial"])
-def test_unsynced_trainers_refuse_two_ranks(ranks, what):
-    for out in ranks.cli.results():
-        msg = out["refused"][what]
-        assert msg is not None and "ROADMAP item 15(iii)" in msg, msg
 
 
 @pytest.mark.parametrize("what", sorted(GAN_CLI))

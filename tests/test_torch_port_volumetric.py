@@ -496,12 +496,6 @@ def test_bf16_remat_step_matches_jax(ji_cube):
                                    atol=BF16_CODEBOOK_RTOL * float(w.abs().max()))
 
 
-def test_step_refuses_a_mesh(ji_cube):
-    p = _port(ji_cube)
-    with pytest.raises(ValueError, match="ROADMAP item 15"):
-        tvt.make_volumetric_train_step(p.enc, p.dec, p.eo, p.do, mesh=object())
-
-
 # -- editing ------------------------------------------------------------------
 
 
@@ -577,11 +571,6 @@ def test_edit_labels_checked_and_negative_wrap(ji_cube):
                                                                  jnp.asarray(ids)))
     assert np.isfinite(want).all()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-
-
-def test_edit_fn_refuses_a_mesh():
-    with pytest.raises(ValueError, match="ROADMAP item 15"):
-        tedit.make_volumetric_edit_fn(_IdentityDecoder(), mesh=object(), device="cpu")
 
 
 # -- the CLIs -----------------------------------------------------------------
@@ -680,11 +669,6 @@ def test_cli_train_then_edit(tmp_path, capsys):
 
 
 def test_cli_refusals(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP item 15"):
-        ttrain.main(["--mesh", "2,4", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="ROADMAP item 15"):
-        tedit.main(["--ckpt", str(tmp_path), "--labels", str(tmp_path), "--out",
-                    str(tmp_path), "--partition", "spatial", "--device", "cpu"])
     # an Orbax directory (no state.pt) of the JAX package
     orbax = tmp_path / "volumetric_ckpt"
     orbax.mkdir()

@@ -183,18 +183,10 @@ def task_one_rank(rank, world, workdir):
     return out
 
 
-def _refusal(fn):
-    try:
-        fn()
-    except (ValueError, SystemExit) as e:
-        return f"{type(e).__name__}: {e}"
-    return None
-
-
 def task_cli(rank, world, workdir):
     """`run_vqwnet.main` on this rank: 4 steps straight, 2 and a resume to
-    4, `-m test`; then the volumetric CLIs, which must refuse two ranks."""
-    from medical_image_editing_tpu_torch.cli import edit_volume, run_vqwnet, train_volumetric
+    4, `-m test`."""
+    from medical_image_editing_tpu_torch.cli import run_vqwnet
 
     def cli(name, argv, **run):
         path = os.path.join(workdir, f"{name}.json")
@@ -212,13 +204,6 @@ def task_cli(rank, world, workdir):
         resume_checkpoint=os.path.join(run, "version_1", "ckpt"))
     cli("test", ["-m", "test"], resume_checkpoint=os.path.join(run, "version_0", "ckpt"))
     out["save_dir"] = run
-    out["refused"] = {
-        "train_volumetric": _refusal(lambda: train_volumetric.main(
-            ["--steps", "1", "--size", "8", "--device", "cpu"])),
-        "edit_volume_spatial": _refusal(lambda: edit_volume.main(
-            ["--ckpt", ".", "--labels", ".", "--out", ".", "--partition", "spatial",
-             "--device", "cpu"])),
-    }
     return out
 
 

@@ -56,6 +56,16 @@ and no result line):
                local port: healthz, edits, a padded batch, a PNG and three
                requests that must get 400; (c) the file-watching loop
                (`cli/run_recon.py::serve`, inotify) answering three edits;
+               (d) `edit_partition`: the painted batch decoded partitioned
+               (`make_batched_edit_fn(mesh=, partition=)`) on gloo ranks
+               sharing the card: "data" on 2 ranks, "spatial" on 1 × 2 and
+               2 × 2 (row halos, sharded instance norms), f32 on the xla
+               route, bf16 on the packed kernel, int8 on 1 × 2; each held to
+               the one-process decode within limits from a spread of
+               ulp-nudged one-process decodes, a planted zero-halo fault
+               above them, collectives and packed-kernel launches a rank as
+               derived from the model, `edit_batch --partition spatial` on
+               2 ranks and under a one-rank NCCL group (bit for bit);
   6c. int8  — the int8 serving decode at the same widths, 512²: (a) the
                four kernels of `csrc/conv_s8.cu` (channel absmax, the weight
                fold, s8 quantize, the s8×s8→s32 convolution on wgmma)
@@ -90,7 +100,7 @@ and no result line):
   7b. f32_step — the f32 readout of the conv's two f32 instances: the
                lung first stage at its config's widths in float32, 256²,
                batch 8, one k-means-initialised state forked four times:
-               1 + 3 steps on each of {ieee, tf32} × {packed, xla} (step
+               1 + 2 steps on each of {ieee, tf32} × {packed, xla} (step
                times, a profiled warm step with each instance's device
                time, launches by instance held to the derived counts, the
                first step's loss gap packed − xla in each precision); the
@@ -111,7 +121,7 @@ and no result line):
   8b. second_stage — the second (adversarial) stage at the widths of
                `configs/lung_second_stage.json` (bf16 encoder and decoder,
                the f32 U-Net discriminator at D_ch 64, packed conv, 256²,
-               batch 8): (a) 5 bare steps of `make_second_stage_step`
+               batch 8): (a) 3 bare steps of `make_second_stage_step`
                after the codebook k-means, launch counts held to the derived
                ones; a profiled warm step (busy, idle, top kernels), the
                discriminator's work alone under the profiler (its share of
@@ -131,7 +141,7 @@ and no result line):
   8c. multi_window — the multi-window trainer at the widths of
                `configs/lung_multiwindow_joint.json` (bf16 encoder and
                decoder, the f32 U-Net discriminator at D_ch 64, packed conv,
-               256², batch 8): (a) k-means, then 5 bare joint steps (two
+               256², batch 8): (a) k-means, then 2 bare joint steps (two
                views, 6 generator-pass and 18 discriminator-pass forwards
                of the discriminator), launch counts held to the derived
                ones, peak memory, a profiled warm step (busy, idle, top
@@ -151,7 +161,7 @@ and no result line):
                kernel's generic instance; the f32 U-Net discriminator at
                D_ch 64, resolution 512), `MEDIMG_CONV_IMPL=packed` (no
                convolution routes to the conv kernel: 0 launches, held),
-               512², batch 8: (a) 5 bare steps of `make_vqgan_step`,
+               512², batch 8: (a) 2 bare steps of `make_vqgan_step`,
                launches held (one assignment a step, the instance seen by
                the profiler), peak memory, a profiled warm step (busy, idle,
                top kernels, the VQ kernel's share), the discriminator's work
@@ -171,7 +181,7 @@ and no result line):
                path (`configs/lung_first_stage.json` at full widths with
                only the switches on: the VGG19 loss at weight 1.0 on its
                seeded fallback, DropBlock at block_size 30), bf16, packed,
-               256², batch 8: (a) k-means and 5 bare steps at drop_prob
+               256², batch 8: (a) k-means and 3 bare steps at drop_prob
                0.5, launches held to the train phase's derived counts, a
                profiled warm step, the VGG's work alone (device time, share
                of busy, f32 rate against the operations counted on the meta
@@ -188,7 +198,7 @@ and no result line):
                precision the CLIs set by default;
   8f. volumetric — the 3-D volumetric VQ-WNet at BASELINE config #5's
                widths (filters 8,16,32,64, `dict_size` 10, 128³, batch 2, on
-               seeded synthetic volumes): (a) `init_volumetric` and 5 bare
+               seeded synthetic volumes): (a) `init_volumetric` and 3 bare
                steps of `make_volumetric_train_step` in f32 and in bf16 with
                remat (the JAX package's memory plan): warm step, a profiled
                warm step (busy, idle, top kernels), the rate against the
@@ -289,6 +299,7 @@ import argparse
 import contextlib
 import copy
 import csv
+import gc
 import hashlib
 import io
 import json
@@ -1337,6 +1348,582 @@ def serve_watch_part(device, model, painted, workdir, *, poll_seconds=60.0):
                            f"in {elapsed:.1f} s; its log:\n{log.getvalue()}")
 
 
+# --------------------------------------------------------------------------
+# the partitioned 2-D edit decode (`edit_batch --partition data|spatial`):
+# gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+# (name, mesh (data, spatial), partition, mode): the 2 × 2 runs on four
+# ranks, the rest on ranks 0 and 1
+EDIT_PART_RUNS = (
+    ("spatial_2x2_f32", (2, 2), "spatial", "f32"),
+    ("spatial_2x2_bf16_packed", (2, 2), "spatial", "bf16_packed"),
+    ("data_2x1_f32", (2, 1), "data", "f32"),
+    ("data_2x1_bf16_packed", (2, 1), "data", "bf16_packed"),
+    ("spatial_1x2_f32", (1, 2), "spatial", "f32"),
+    ("spatial_1x2_bf16_packed", (1, 2), "spatial", "bf16_packed"),
+    ("spatial_1x2_int8", (1, 2), "spatial", "int8"),
+)
+# mode: (compute dtype, MEDIMG_CONV_IMPL, quantize)
+EDIT_PART_MODES = {"f32": (None, "xla", None), "bf16_packed": ("bfloat16", "packed", None),
+                   "int8": (None, "xla", "int8")}
+# Each mode's limits on a run's largest and mean gaps to the one-process
+# card decode of the same maps are EDIT_PART_LIMIT_FACTOR × the largest of
+# the one-process decode's perturbed at the rounding level (the decoder's
+# input and every instance norm's output, where the sharded decode's sums
+# differ, moved by one ulp of their dtype, `edit_part_nudged`, at each seed
+# of EDIT_PART_SPREAD), at least EDIT_PART_LIMIT_MIN. int8 is held by its
+# mean gap only: a rounding-level change turns an int8 code at a near-tie
+# here and there, and the instance norms carry it on, so its largest gap is
+# a heavy tail that three readings do not bound. Those limits are loose in
+# bf16 and int8, so each convolution of those decodes that the kernels run
+# (every one in int8, the packed ones in bf16) is held bit for bit besides,
+# on the halo'd row blocks the sharded decode gives it
+# (`edit_part_conv_check`). The planted fault (every halo exchange
+# returning zeros) must land EDIT_PART_FAULT_MARGIN × above the f32 limit
+# of the largest gap. Rank 0 times its decodes of EDIT_PART_PROFILED under
+# the profiler (their times, and the other ranks' waiting for it, include
+# it).
+EDIT_PART_SPREAD = (1, 2, 3)
+EDIT_PART_LIMIT_FACTOR = 5.0
+EDIT_PART_LIMIT_MIN = 1e-6
+EDIT_PART_FAULT_MARGIN = 10.0
+EDIT_PART_GO_TIMEOUT_S = 600
+EDIT_PART_PROFILED = ("spatial_2x2_f32", "spatial_2x2_bf16_packed")
+
+
+@contextlib.contextmanager
+def cli_lung_widths(model):
+    """`run_recon.LungConfig` (the config `edit_batch.main` builds) at
+    `model`'s widths inside the block, restored after."""
+    from medical_image_editing_tpu_torch.cli import run_recon
+
+    cfg = lung_config(model)
+    keys = ("in_channels", "enc_filters", "dec_filters", "dict_size", "knn_backend",
+            "use_pixel_shuffle", "dropped_skip_layers")
+    prev = {k: getattr(run_recon.LungConfig, k) for k in keys}
+    for k in keys:
+        setattr(run_recon.LungConfig, k, getattr(cfg, k))
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            setattr(run_recon.LungConfig, k, v)
+
+
+def edit_part_models(model, device, seed):
+    """The lung decoder at `model` widths in each mode's compute dtype (one
+    module for the f32 and int8 modes), with the serve phase's seeded
+    weights, and the codebook → ({mode: decoder}, vq_state, dataset
+    window)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli.run_recon import load_model
+    from medical_image_editing_tpu_torch.models.blocks import set_compute_dtype
+
+    cfg = lung_config(model)
+    _, dec, vq = load_model(cfg, device=device, seed=seed)
+    decoders = {}
+    for mode, (dtype, _, _) in EDIT_PART_MODES.items():
+        if dtype is None:
+            decoders[mode] = dec
+        else:
+            decoders[mode] = copy.deepcopy(dec)
+            decoders[mode].compute_dtype = getattr(torch, dtype)
+            set_compute_dtype(decoders[mode], getattr(torch, dtype))
+    window = (cfg.window_width, cfg.window_center, cfg.window_scale)
+    return decoders, vq, window
+
+
+def decoder_layers(decoder, shape):
+    """Each convolution of an unsharded forward of `decoder` on `shape`
+    (NCHW): (kernel rows, row reach, input shape), and the instance norms'
+    input shapes, in call order (meta tensors)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models import blocks
+
+    meta = copy.deepcopy(decoder).to("meta").eval()
+    convs, norms = [], []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: convs.append((m.kernel_size[0], m.padding[0], tuple(a[0].shape))))
+        for m in meta.modules() if isinstance(m, blocks.Conv)]
+    real = blocks.instance_norm
+
+    def norm(x, eps=1e-5, mesh=None):
+        norms.append(tuple(x.shape))
+        return real(x, eps, mesh)
+
+    blocks.instance_norm = norm
+    try:
+        with torch.no_grad():
+            meta(torch.zeros(shape, device="meta"))
+    finally:
+        blocks.instance_norm = real
+        for h in hooks:
+            h.remove()
+    return convs, norms
+
+
+def edit_part_expected(decoder, channels, mesh, coords, batch, size, mode):
+    """Collectives and bytes one rank issues for one decode of `batch`
+    global maps of `size`² on a `mesh` (data, spatial) at `coords`,
+    derived from the decoder's layers: the label check (one all-reduce of
+    two int64 over the mesh); under "spatial" the mask count (one
+    all-reduce of the rank's per-map f32 counts), two all-reduces an
+    instance norm ((B, C) f32 sums each) and one halo exchange a
+    convolution taller than one row, a message each way to each rank
+    within its reach (`hop_rows`) that exists, in the compute dtype (f32
+    under int8); under int8 one MAX all-reduce of each convolution's (Cin,)
+    f32 maxima."""
+    import collections
+
+    from medical_image_editing_tpu_torch.parallel.spatial import hop_rows
+
+    d, s = mesh
+    b = batch // d
+    out = collections.Counter({"all_reduce": 1, "all_reduce_bytes": 16})
+    if s == 1:
+        return dict(out)
+    convs, norms = decoder_layers(decoder, (b, channels, size, size))
+    elem = 2 if EDIT_PART_MODES[mode][0] == "bfloat16" else 4
+    out["all_reduce"] += 1 + 2 * len(norms)
+    out["all_reduce_bytes"] += 4 * b + sum(2 * 4 * n * c for n, c, *_ in norms)
+    for k_rows, reach, (n, c, h, w) in convs:
+        if mode == "int8":
+            out["all_reduce"] += 1
+            out["all_reduce_bytes"] += 4 * c
+        if k_rows == 1:
+            continue
+        for k, rows in enumerate(hop_rows(h // s, reach), 1):
+            for peer in (coords[1] - k, coords[1] + k):
+                if 0 <= peer < s:
+                    for kind in ("send", "recv"):
+                        out[kind] += 1
+                        out[kind + "_bytes"] += elem * n * c * rows * w
+    return dict(out)
+
+
+@contextlib.contextmanager
+def edit_part_nudged(seed, decoder):
+    """Inside the block `decoder`'s forward is perturbed at the rounding
+    level: its input moves by one ulp of its compute dtype and each
+    instance norm's output by one ulp of its dtype, each element up or
+    down at random (a generator seeded with `seed`)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models import blocks
+
+    real, gens = blocks.instance_norm, {}
+
+    def gen(device):
+        return gens.setdefault(device, torch.Generator(device=device).manual_seed(seed))
+
+    def nudged(x, eps=1e-5, mesh=None):
+        y = real(x, eps, mesh)
+        return ulp_nudge(y, gen(y.device))
+
+    hook = decoder.register_forward_pre_hook(
+        lambda m, args: (ulp_nudge(args[0], gen(args[0].device), m.compute_dtype),))
+    blocks.instance_norm = nudged
+    try:
+        yield
+    finally:
+        blocks.instance_norm = real
+        hook.remove()
+
+
+def edit_part_decode(decoders, vq, ids, window, mode, device, *, mesh=None, partition="data",
+                     nudge=None, timed=False, profiled=False):
+    """`mode`'s decode of `ids` (this rank's block under `mesh`), perturbed at
+    the rounding level with `nudge` (a seed): the output on the host (f32),
+    the collectives and kernel launches of that decode, its time on the host
+    clock (synchronised) and the peak memory. `timed`: the time is a second
+    decode's (the first at a mesh's shapes takes cuDNN's and the
+    allocator's first calls), `profiled` that one under torch.profiler, with
+    the device's busy and idle share."""
+    import collections
+
+    import torch
+
+    from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.parallel import mesh as pmesh
+
+    cuda = torch.device(device).type == "cuda"
+    dtype, impl, quantize = EDIT_PART_MODES[mode]
+    dec = decoders[mode]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    with contextlib.nullcontext() if nudge is None else edit_part_nudged(nudge, dec):
+        with conv_route(impl):
+            edit = make_batched_edit_fn(dec, is_lung=True, dataset_window=window, mesh=mesh,
+                                        partition=partition, quantize=quantize, device=device)
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            coll, kern = collections.Counter(pmesh.collectives), collections.Counter(
+                _build.launches)
+            t0 = time.perf_counter()
+            out = edit(vq, ids)
+            sync()
+            rec = {"decode_s": time.perf_counter() - t0,
+                   "collectives": dict(collections.Counter(pmesh.collectives) - coll),
+                   "launches": dict(collections.Counter(_build.launches) - kern)}
+            rec["out"] = out.float().cpu().numpy()
+            if profiled:
+                rec["decode_s"], kernels = profile_window(lambda: edit(vq, ids))
+                rec["profile"] = kernel_breakdown(rec["decode_s"], kernels)
+            elif timed:
+                t0 = time.perf_counter()
+                edit(vq, ids)
+                sync()
+                rec["decode_s"] = time.perf_counter() - t0
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    return rec
+
+
+def edit_part_conv_check(decoders, vq, ids, window, mode, device, mesh):
+    """One decode of `ids` (this rank's block) in `mode` on the spatial
+    `mesh`, each convolution held where it runs (bf16 on the packed route:
+    each one the packed kernel takes; int8: every one): its input block
+    gathered over this rank's row of the mesh, the same module unsharded on
+    it (the packed kernel at the whole map's height; the s8 kernels with the
+    whole maps' scales), and this rank's rows of that against the sharded
+    output. Off the counted launches. → {"convs": how many were held,
+    "max_abs": their largest gap (0: bit for bit), "within_ulp": whether
+    every gap is within one ulp of the output (2^-7·|unsharded| + 1e-4,
+    bf16's; on the CPU the packed route runs PyTorch's convolution, whose
+    sums are not those of another height), "heights": the rows of the
+    halo'd blocks the sharded calls ran on}."""
+    from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
+    from medical_image_editing_tpu_torch.models.blocks import Conv
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.parallel.mesh import VolumetricMesh
+
+    _, impl, quantize = EDIT_PART_MODES[mode]
+    dec = decoders[mode]
+    row = VolumetricMesh(1, mesh.spatial, mesh.coords[1], world_group=mesh.spatial_group)
+    held = {"convs": 0, "max_abs": 0.0, "within_ulp": True, "heights": set()}
+
+    def hold(m, args, y):
+        x = args[0]
+        if quantize is None and not m.routes_to_kernel(x):
+            return
+        whole = row.gather(x, depth_axis=2)
+        m.mesh = None
+        try:
+            want = row.block(m.forward(whole), depth_axis=2)
+        finally:
+            m.mesh = mesh
+        held["convs"] += 1
+        gap, want = (y.float() - want.float()).abs(), want.float()
+        held["max_abs"] = max(held["max_abs"], float(gap.max()))
+        held["within_ulp"] &= bool((gap <= 2.0**-7 * want.abs() + 1e-4).all())
+        held["heights"].add(x.shape[2] + (2 * m.padding[0] if m.kernel_size[0] > 1 else 0))
+
+    counted = _build.launches.copy()
+    hooks = [m.register_forward_hook(hold) for m in dec.modules() if isinstance(m, Conv)]
+    try:
+        with conv_route(impl):
+            make_batched_edit_fn(dec, is_lung=True, dataset_window=window, mesh=mesh,
+                                 partition="spatial", quantize=quantize, device=device)(vq, ids)
+    finally:
+        for h in hooks:
+            h.remove()
+        _build.launches.clear()
+        _build.launches.update(counted)
+    held["heights"] = sorted(held["heights"])
+    return held
+
+
+def edit_part_rank(rank, world, init_file, workdir, model, seed, device, cli_argv):
+    """One rank of the partitioned decode, in a process of its own: a gloo
+    group (NCCL refuses several ranks on one card) through `init_file`;
+    once the parent writes `workdir/go`, the 2 × 2 runs of EDIT_PART_RUNS on
+    all four ranks, then ranks 0 and 1 in a group of their own take the
+    other runs (each decoded twice: counted, then timed; rank 0 times its
+    decodes of EDIT_PART_PROFILED under the profiler: the device's idle
+    share), the planted fault (zero halos, 1 × 2, f32) and
+    `edit_batch --partition spatial`. After each spatial run in bf16 or int8
+    a decode of one map a data block holds its convolutions
+    (`edit_part_conv_check`). Saves its records to
+    `workdir/edit-part-RANK.pt`."""
+    import torch
+    import torch.distributed as dist
+
+    from medical_image_editing_tpu_torch.cli import edit_batch
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.parallel import mesh as pmesh
+    from medical_image_editing_tpu_torch.utils.device import apply_conv_precision
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        # a share of the card each, the parent's the same: cuDNN's f32
+        # convolutions then take algorithms whose workspace fits it
+        torch.cuda.set_per_process_memory_fraction(1.0 / (world + 1))
+    else:  # several ranks' OpenMP pools on one host spin against each other
+        torch.set_num_threads(1)
+    os.environ["MEDIMG_CONV_PRECISION"] = "ieee"
+    apply_conv_precision()
+    work = Path(workdir)
+    painted = np.load(work / "painted.npy")
+    decoders, vq, window = edit_part_models(model, device, seed)
+    # each mode's first decode (the libraries' and cuDNN's first calls; on
+    # rank 0 the profiler's start-up) on a corner of one map, while the
+    # parent holds the card: off the measured decodes and the counted launches
+    for mode in EDIT_PART_MODES:
+        edit_part_decode(decoders, vq, painted[:1, :64, :64], window, mode, device,
+                         profiled=cuda and rank == 0)
+    _build.launches.clear()
+    out = {"runs": {}, "conv_checks": {}, "rank": rank}
+
+    def runs(meshes):
+        for name, shape, partition, mode in EDIT_PART_RUNS:
+            if shape in meshes:
+                mesh = meshes[shape]
+                out["runs"][name] = edit_part_decode(
+                    decoders, vq, mesh.block(painted), window, mode, device, mesh=mesh,
+                    partition=partition, timed=True,
+                    profiled=cuda and rank == 0 and name in EDIT_PART_PROFILED)
+                if partition == "spatial" and mode != "f32":
+                    out["conv_checks"][name] = edit_part_conv_check(
+                        decoders, vq, mesh.block(painted[:mesh.data]), window, mode, device,
+                        mesh)
+                if cuda:
+                    torch.cuda.empty_cache()
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        go, t0 = work / "go", time.monotonic()
+        while not go.exists():  # the card is the parent's until it writes `go`
+            if time.monotonic() - t0 > EDIT_PART_GO_TIMEOUT_S:
+                raise RuntimeError(f"no {go} after {EDIT_PART_GO_TIMEOUT_S} s")
+            time.sleep(0.05)
+        runs({(2, 2): pmesh.create_volumetric_mesh(2, 2)})
+    finally:
+        dist.destroy_process_group()
+    if rank < 2:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}.two", rank=rank,
+                                world_size=2)
+        try:
+            rows = pmesh.create_volumetric_mesh(1, 2)
+            runs({(2, 1): pmesh.create_volumetric_mesh(2, 1), (1, 2): rows})
+            with zero_halos():
+                out["fault"] = edit_part_decode(decoders, vq, rows.block(painted), window, "f32",
+                                                device, mesh=rows, partition="spatial")["out"]
+            t0 = time.perf_counter()
+            with cli_lung_widths(model), contextlib.redirect_stdout(io.StringIO()):
+                rc = edit_batch.main(cli_argv + ["--partition", "spatial", "--out-dir",
+                                                 str(work / "cli_spatial")])
+            if rc != 0:
+                raise RuntimeError(f"edit_batch --partition spatial: rc {rc}")
+            out["cli_s"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    out["launches"] = dict(_build.launches)
+    torch.save(out, work / f"edit-part-{rank}.pt")
+
+
+def assemble(blocks, mesh):
+    """The global (B, H, W) array from the ranks' blocks of a (data, spatial)
+    mesh, in rank order."""
+    d, s = mesh
+    return np.concatenate([np.concatenate(blocks[i * s:(i + 1) * s], 1) for i in range(d)], 0)
+
+
+def edit_partition_part(device, model, painted, workdir, *, seed=0, timeout=600):
+    """The partitioned edit decode (`make_batched_edit_fn(mesh=,
+    partition=)`, `edit_batch --partition`) at `model` widths on the serve
+    phase's painted maps, on gloo ranks sharing the card: the runs of
+    EDIT_PART_RUNS (data on 2 ranks; spatial on 1 × 2 and 2 × 2; f32 on the
+    xla route, bf16 on the packed route, int8 on 1 × 2), each held to the
+    one-process card decode of the same maps within its mode's limit from
+    a spread of ulp-nudged one-process decodes (EDIT_PART_SPREAD); the
+    zero-halo fault above the f32 limit by EDIT_PART_FAULT_MARGIN; every
+    rank's collectives and bytes a decode equal to `edit_part_expected`;
+    the packed kernel's launches a rank a decode equal to the convolutions
+    the model routes (> 0 in bf16, 0 in f32), and under int8 each s8
+    kernel's to the convolutions; in the bf16 and int8 spatial runs each
+    convolution the kernels run bit for bit the unsharded one on the
+    gathered input (`edit_part_conv_check`, one map a data block);
+    `edit_batch --partition spatial` on two
+    ranks against `--partition none`, and under a one-rank group that the
+    CLI makes from a torchrun environment (NCCL on the card) bit for bit
+    none. Readouts: a rank's decode time and peak memory beside the
+    one-process decode's, rank 0's device idle share. Returns the ranks'
+    launches (the partitioned decodes')."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli import edit_batch
+    from medical_image_editing_tpu_torch.parallel import mesh as pmesh
+    from medical_image_editing_tpu_torch.utils import nifti
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir) / "edit_partition"
+    labels = work / "labels"
+    labels.mkdir(parents=True)
+    np.save(work / "painted.npy", painted)
+    for i, m in enumerate(painted):
+        nifti.save(nifti.to_nifti_array(m), str(labels / f"label_{i:04d}.nii.gz"),
+                   dtype=np.int32)
+    batch, size = int(painted.shape[0]), int(painted.shape[-1])
+    cli_argv = ["--label-dir", str(labels), "--batch-size", str(batch),
+                *([] if cuda else ["--device", "cpu"])]
+    # the ranks start (imports, CUDA, the seeded models) while this process
+    # takes the one-process decodes, the spread and the CLI runs on the
+    # card; they decode once it writes `go`
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=edit_part_rank, args=(r, 4, str(work / "init"), str(work), model,
+                                                      seed, device, cli_argv))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    try:
+        with conv_precision("ieee"):
+            decoders, vq, window = edit_part_models(model, device, seed)
+            nudged = {mode: [edit_part_decode(decoders, vq, painted, window, mode, device,
+                                              nudge=s)["out"] for s in EDIT_PART_SPREAD]
+                      for mode in EDIT_PART_MODES}
+            # after the nudged decodes, so that their times are warm, as the ranks' are
+            refs = {mode: edit_part_decode(decoders, vq, painted, window, mode, device)
+                    for mode in EDIT_PART_MODES}
+            spread = {mode: [decode_gap(o, refs[mode]["out"]) for o in nudged[mode]]
+                      for mode in EDIT_PART_MODES}
+            emb = int(model["enc_filters"][0])
+            with conv_route("packed"):
+                routed = routed_convs(decoders["bf16_packed"], torch.zeros(1, emb, size, size))
+            n_convs = len(decoder_layers(decoders["f32"], (1, emb, size, size))[0])
+            expected = {name: [edit_part_expected(decoders[mode], emb, shape,
+                                                  (r // shape[1], r % shape[1]), batch, size,
+                                                  mode)
+                               for r in range(shape[0] * shape[1])]
+                        for name, shape, _, mode in EDIT_PART_RUNS}
+            del decoders
+            env = dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR="localhost",
+                       MASTER_PORT=free_port())
+            cli_s = {}
+            with cli_lung_widths(model), contextlib.redirect_stdout(io.StringIO()):
+                for name, extra, ctx_env in (("none", [], {}),
+                                             ("one_rank", ["--partition", "spatial"], env)):
+                    t0 = time.perf_counter()
+                    with torchrun_env(**ctx_env):
+                        rc = edit_batch.main(cli_argv + extra + ["--out-dir",
+                                                                 str(work / f"cli_{name}")])
+                    cli_s[name] = time.perf_counter() - t0
+                    if rc != 0 or pmesh.is_active():
+                        raise RuntimeError(f"edit_batch {name}: rc {rc}, group left "
+                                           f"{pmesh.is_active()}")
+            tf32_off()
+        if cuda:  # the card's memory the ranks' (this process's cache included)
+            gc.collect()
+            torch.cuda.empty_cache()
+        (work / "go").touch()
+        t0 = time.perf_counter()
+    finally:
+        ranks = join_ranks(work, procs, timeout, "edit partition", "edit-part")
+    ranks_s = time.perf_counter() - t0
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    held = ("max_abs_err", "mean_abs_err")
+    limits = {mode: {k: max(EDIT_PART_LIMIT_MIN,
+                            EDIT_PART_LIMIT_FACTOR * max(g[k] for g in spread[mode]))
+                     for k in held} for mode in EDIT_PART_MODES}
+    runs, checks = {}, {}
+    for name, shape, partition, mode in EDIT_PART_RUNS:
+        parts = [r["runs"][name] for r in ranks[:shape[0] * shape[1]]]
+        out = assemble([p["out"] for p in parts], shape)
+        per_decode = {"conv3x3_packed": routed if mode == "bf16_packed" else 0,
+                      **{k: n_convs if mode == "int8" else 0 for k in S8_KERNELS}}
+        if not cuda:
+            per_decode = {k: 0 for k in per_decode}
+        got_launches = [{k: p["launches"].get(k, 0) for k in per_decode} for p in parts]
+        runs[name] = {"mesh": list(shape), "partition": partition, "mode": mode,
+                      "gap": decode_gap(out, refs[mode]["out"]), "limit": limits[mode],
+                      "collectives": parts[0]["collectives"],
+                      "collectives_expected": expected[name][0],
+                      "launches_per_decode": got_launches[0],
+                      "decode_s": [p["decode_s"] for p in parts],
+                      "profiled_on_rank0": "profile" in parts[0],
+                      "peak_bytes": [p["peak_bytes"] for p in parts]}
+        checks[name] = {
+            "within": bool(np.isfinite(out).all())
+            and all(runs[name]["gap"][k] <= limits[mode][k]
+                    for k in (held[1:] if mode == "int8" else held)),
+            "collectives": all(p["collectives"] == e for p, e in zip(parts, expected[name])),
+            "launches": all(g == per_decode for g in got_launches)
+            and (mode != "bf16_packed" or not cuda or routed > 0)}
+    fault = assemble([r["fault"] for r in ranks[:2]], (1, 2))
+    fault_gap = decode_gap(fault, refs["f32"]["out"])
+    fault_margin = {k: fault_gap[k] / limits["f32"][k] for k in held}
+    cli_gap = {}
+    for name in ("spatial", "one_rank"):
+        files = sorted(os.listdir(work / "cli_none"))
+        got = [nifti.load(str(work / f"cli_{name}" / f)) for f in files]
+        want = [nifti.load(str(work / "cli_none" / f)) for f in files]
+        cli_gap[name] = {"files": len(files), "max_abs": max(
+            float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(got, want))}
+    conv_checks = {}
+    for name, shape, _, mode in EDIT_PART_RUNS:
+        if name in ranks[0]["conv_checks"]:
+            parts = [r["conv_checks"][name] for r in ranks[:shape[0] * shape[1]]]
+            conv_checks[name] = {"convs": [p["convs"] for p in parts],
+                                 "max_abs": max(p["max_abs"] for p in parts),
+                                 "within_ulp": all(p["within_ulp"] for p in parts),
+                                 "heights": parts[0]["heights"]}
+            exact = cuda or mode == "int8"  # the kernels' sums: the same at any height
+            checks[name]["convs_held"] = (
+                (conv_checks[name]["max_abs"] == 0.0 if exact
+                 else conv_checks[name]["within_ulp"])
+                and all(p["convs"] == (routed if mode == "bf16_packed" else n_convs)
+                        for p in parts))
+    r0 = ranks[0]
+    rec = {"phase": "serve_runtime", "part": "edit_partition", "device": str(device),
+           "size": size, "batch": batch, "dec_filters": list(model["dec_filters"]),
+           "backend": "gloo", "routed_convs_per_decode": routed, "convs_per_decode": n_convs,
+           "ranks_s": ranks_s, "launches": launches, "runs": runs, "limits": limits,
+           "spread": spread, "halo_fault_gap": fault_gap, "halo_fault_margin": fault_margin,
+           "conv_checks": conv_checks,
+           "cli_gap": cli_gap,
+           "cli_s": {"rank0_spatial": r0["cli_s"], **cli_s},
+           "one_process": {mode: {"decode_s": refs[mode]["decode_s"],
+                                  "peak_bytes": refs[mode]["peak_bytes"]}
+                           for mode in EDIT_PART_MODES},
+           "rank0_profile": {name: {k: v for k, v in r0["runs"][name]["profile"].items()
+                                    if k != "top"}
+                             for name in EDIT_PART_PROFILED if "profile" in r0["runs"][name]},
+           "checks": checks,
+           "tolerance": "each run's largest gap to the one-process card decode within "
+                        "EDIT_PART_LIMIT_FACTOR x the largest of its mode's ulp-nudged "
+                        "one-process decodes (EDIT_PART_SPREAD), at least EDIT_PART_LIMIT_MIN, "
+                        "the largest and the mean gap each (int8: the mean); in bf16 and int8 "
+                        "each kernel-run convolution bit for bit the unsharded one on the "
+                        "gathered input (bf16 on the CPU: within one ulp); the zero-halo "
+                        "fault's largest gap "
+                        "at least EDIT_PART_FAULT_MARGIN x the f32 limit; "
+                        "the 2-rank CLI within the f32 limit; the one-rank NCCL CLI bit for bit"}
+    if cuda:
+        rec["card"] = nvidia_smi()
+    emit(rec)
+    ok = (all(all(c.values()) for c in checks.values())
+          and fault_margin["max_abs_err"] >= EDIT_PART_FAULT_MARGIN
+          and cli_gap["spatial"]["files"] == batch
+          and cli_gap["spatial"]["max_abs"] <= limits["f32"]["max_abs_err"]
+          and cli_gap["one_rank"]["max_abs"] == 0.0)
+    if not ok:
+        raise RuntimeError(f"edit partition: checks {checks}, fault margin {fault_margin}, "
+                           f"cli {cli_gap}, limits {limits}")
+    return launches
+
+
 def kernel_breakdown(wall, kernels, top=8):
     """Busy and idle share of a profiled window, the hand-written kernels'
     device time, and the top kernels by device time."""
@@ -1505,7 +2092,7 @@ def train_profile_phase(trained):
     emit(rec)
 
 
-def f32_step_phase(device, cfg, *, size=256, batch=8, steps=3, seed=0):
+def f32_step_phase(device, cfg, *, size=256, batch=8, steps=2, seed=0):
     """The f32 readout of the packed conv's two f32 instances: the lung
     first stage at its config's widths (`configs/lung_first_stage.json`)
     with `compute_dtype` float32, 256², batch 8. One state, its codebook
@@ -2053,7 +2640,7 @@ def dis_step_flops(dis, batch, size, n_inner):
     return total, fc.get_total_flops()
 
 
-def second_stage_phase(device, workdir, *, size=256, batch=8, steps=5, seed=0, overrides=None,
+def second_stage_phase(device, workdir, *, size=256, batch=8, steps=3, seed=0, overrides=None,
                        ref_size=64, defer=None):
     """The second (adversarial) stage at the lung second-stage config's
     widths (`overrides` shrinks it for a CPU rehearsal): (a) the bare step,
@@ -2761,7 +3348,7 @@ def joint_draws(trainer, generator, batch, size):
     return (*views, sample_cutmix_draws(generator, 3, size, size))
 
 
-def multi_window_phase(device, workdir, *, size=256, batch=8, steps=3, mode_steps=2, seed=0,
+def multi_window_phase(device, workdir, *, size=256, batch=8, steps=2, mode_steps=2, seed=0,
                        overrides=None, ref_size=64, defer=None):
     """The multi-window trainer at the widths of
     `configs/lung_multiwindow_joint.json` (`overrides` shrinks it for a CPU
@@ -3286,7 +3873,7 @@ def vqgan_flops(vqgan, batch, size):
     return fc.get_total_flops(), fwd
 
 
-def vqgan_phase(device, workdir, *, size=512, batch=8, steps=3, seed=0, overrides=None,
+def vqgan_phase(device, workdir, *, size=512, batch=8, steps=2, seed=0, overrides=None,
                 ref_size=128, patients=2, slices=20, defer=None):
     """The VQGAN trainer at the widths of `configs/crc_vqgan.json`
     (`overrides` shrinks it for a CPU rehearsal): (a) the bare step and a
@@ -3941,7 +4528,7 @@ def vgg_work_flops(vgg, batch, size):
     return total, fc.get_total_flops()
 
 
-def losses_phase(device, workdir, *, size=256, batch=8, steps=5, seed=0, overrides=None,
+def losses_phase(device, workdir, *, size=256, batch=8, steps=3, seed=0, overrides=None,
                  vqgan_overrides=None, vqgan_size=512, ref_size=64, patients=2, slices=20):
     """The perceptual loss and DropBlock on the first stage's path (the
     lung first-stage config at full widths with the switches on;
@@ -5145,9 +5732,9 @@ def vol_shard_start(work, args, world):
     return procs
 
 
-def vol_shard_join(work, procs, timeout):
+def join_ranks(work, procs, timeout, what="volumetric sharded", stem="vol-shard"):
     """The ranks joined within `timeout` seconds, any still alive killed →
-    each rank's record."""
+    each rank's record (`work/STEM-RANK.pt`)."""
     import torch
 
     deadline = time.monotonic() + timeout
@@ -5162,9 +5749,8 @@ def vol_shard_join(work, procs, timeout):
             p.join()
     codes = [p.exitcode for p in procs]
     if hung or codes != [0] * len(procs):
-        raise RuntimeError(f"volumetric sharded ranks: hung {hung}, exit codes {codes}")
-    return [torch.load(work / f"vol-shard-{r}.pt", weights_only=False)
-            for r in range(len(procs))]
+        raise RuntimeError(f"{what} ranks: hung {hung}, exit codes {codes}")
+    return [torch.load(work / f"{stem}-{r}.pt", weights_only=False) for r in range(len(procs))]
 
 
 @contextlib.contextmanager
@@ -5300,7 +5886,7 @@ def volumetric_sharded_part(device, workdir, *, size, batch, steps, filters, dic
         (work / "go").touch()
         t0 = time.perf_counter()
     finally:
-        ranks = vol_shard_join(work, procs, timeout)
+        ranks = join_ranks(work, procs, timeout)
     ranks_s = time.perf_counter() - t0
     launches = {}
     for r in ranks:
@@ -7203,11 +7789,11 @@ S8_REPLACES = {
 }
 
 
-def s8_kernel_lines(int8, int8_launches, others):
+def s8_kernel_lines(int8, int8_launches, others, partitioned):
     """The `kernels` line's entries of the four int8 kernels: the numbers
     of the full-resolution 3×3 convolution (the yardsticks' shape), every
-    shape of the decode as points, launches on the int8 path and 0
-    elsewhere."""
+    shape of the decode as points, launches on the int8 path and the
+    partitioned decode's int8 runs (`partitioned`, by path), 0 elsewhere."""
     yard = int8["yardsticks"]
     main = next(r for r in int8["kernels"] if (r["cin"], r["cout"], r["kernel"], r["dilation"],
                                                r["h"]) == (yard["cin"], yard["cout"], 3, 1,
@@ -7216,8 +7802,11 @@ def s8_kernel_lines(int8, int8_launches, others):
     for name in S8_KERNELS:
         rec = main[name]
         line = {"name": name, "route": "cuda", "source": S8_SOURCE,
-                "replaces": S8_REPLACES[name], "launches": int8_launches.get(name, 0),
+                "replaces": S8_REPLACES[name],
+                "launches": int8_launches.get(name, 0) + sum(n.get(name, 0)
+                                                             for n in partitioned.values()),
                 "launches_by_path": {"int8": int8_launches.get(name, 0),
+                                     **{p: n.get(name, 0) for p, n in partitioned.items()},
                                      **{p: n.get(name, 0) for p, n in others.items()}},
                 "max_abs_err": (main["weights_max_abs_err"] if name == "conv_s8_weights"
                                 else main["max_abs_err"]),
@@ -7303,6 +7892,8 @@ def main(argv=None):
     del served
     with timed("serve_runtime"), tempfile.TemporaryDirectory() as tmp:
         runtime_launches = serve_runtime_phase("cuda", model, painted, tmp, seed=args.seed)
+    with timed("edit_partition"), tempfile.TemporaryDirectory() as tmp:
+        partition_launches = edit_partition_part("cuda", model, painted, tmp, seed=args.seed)
     with timed("int8"), tempfile.TemporaryDirectory() as tmp:
         int8_launches, int8 = int8_phase("cuda", model, painted, tmp, seed=args.seed)
     with timed("export"), tempfile.TemporaryDirectory() as tmp:
@@ -7373,7 +7964,7 @@ def main(argv=None):
                  for inst in ("bf16", "f32", "tf32")}
     # each conv instance's launches on the main paths that launched it, from
     # each path's own counts (zeroed just before it, read just after)
-    paths = {**others, "int8": int8_launches}
+    paths = {**others, "int8": int8_launches, "edit_partition": partition_launches}
     instance_paths = {inst: {name: n[key] for name, n in paths.items() if n.get(key)}
                       for inst, key in LAUNCH_KEYS.items()}
     missing = [inst for inst, by_path in instance_paths.items() if not by_path]
@@ -7449,7 +8040,8 @@ def main(argv=None):
                                                 "kernel")}}
                    for r in conv if "forward" in r and r["instance"] == inst
                    for d in ("forward", "dx")],
-    } for inst in ("f32", "tf32")], *s8_kernel_lines(int8, int8_launches, others)]})
+    } for inst in ("f32", "tf32")], *s8_kernel_lines(int8, int8_launches, others,
+                                                      {"edit_partition": partition_launches})]})
     timing["total"] = time.perf_counter() - t_start
     emit({"phase": "timing", "seconds": timing})
     print(info["nvidia_smi"], flush=True)

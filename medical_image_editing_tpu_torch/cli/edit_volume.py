@@ -43,25 +43,7 @@ from ..models.unet_encoder import get_embed_from_ids
 from ..ops.vq import VQState
 from ..parallel.mesh import VolumetricMesh
 from ..utils.device import resolve_device
-from ..utils.labels import check_labels
-from .edit_batch import to_checked_ids
-
-
-def checked_block(id_vols, k, mesh, dev):
-    """`to_checked_ids` of this rank's block (numpy or tensor) → int32 on
-    `dev`, the check made on every rank of the mesh's row together: the
-    blocks' label ranges all-reduced first, so that all ranks raise or none
-    does (the rank whose block holds the labels names them)."""
-    if mesh.world_group is None:
-        return to_checked_ids(id_vols, k, dev)
-    ids = torch.as_tensor(id_vols)
-    lo, hi = (int(v) for v in torch.stack(torch.aminmax(ids)).tolist()) if ids.numel() else (1, 1)
-    (outside,) = mesh.psum([torch.tensor([max(1 - k - lo, 0), max(hi - k, 0)],
-                                         dtype=torch.int64, device=dev)], "spatial")
-    if bool(outside.any()):
-        check_labels(ids, k)  # raises where this rank's block holds them
-        raise ValueError(f"painted labels outside [{1 - k}, {k}] in another rank's depth block")
-    return ids.to(dev, torch.int32)
+from .edit_batch import checked_block
 
 
 def make_volumetric_edit_fn(decoder, *, mesh=None, output_dtype=None, device="cuda"):

@@ -30,6 +30,20 @@ JAX package's `utils/torch_export.py` writes.
 * InstanceNorm is the two-pass form `F.instance_norm` computes (biased
   variance, eps 1e-5, no affine). The JAX package's five `MEDIMG_IN_IMPL`
   variants are TPU layout forms of this one function.
+* Row sharding (the partitioned edit decode, JAX's GSPMD rows over
+  'spatial'): with `mesh` set (a `parallel.mesh.VolumetricMesh` of more
+  than one rank on its spatial axis; `UNetDecoder.set_mesh`) each input
+  is this rank's block of rows. A `Conv` taller than one row runs on its
+  input with a halo of `padding[0]` rows from the neighbours
+  (`parallel/spatial.py::halo`, past the neighbour where the halo is wider
+  than a block) and row padding 0; a packed convolution runs the kernel
+  SAME on the halo'd block and keeps the block's rows (the kernel's zero
+  rows fall only on the dropped halo rows), and it is routed as the
+  unsharded convolution of the whole map would be (the gate on the global
+  height), so the sharded decode launches the kernel on the same
+  convolutions; under int8 the activation maxima are taken over all the
+  mesh's ranks (`VolumetricMesh.pmax`, GSPMD's global scales). Instance
+  norms take the whole map's statistics (`instance_norm_sharded`).
 * `StyledDenorm`'s parameter-free BatchNorm (and, with scale and bias, the
   PatchGAN discriminator's) is flax's `nn.BatchNorm(momentum=0.9)`: in
   train mode it normalises with the batch statistics (fast variance
@@ -55,6 +69,7 @@ from ..ops.conv_pack import conv3x3_packed_op, conv3x3_packed_trainable_nchw, pa
 from ..ops.quantized_conv import int8_conv, quantize_mode
 from ..ops.vq import VQModule
 from ..parallel.mesh import pmean_differentiable
+from ..parallel.spatial import halo, instance_norm_sharded
 
 
 def conv_impl() -> str:
@@ -92,6 +107,7 @@ class Conv(nn.Conv2d):
         super().__init__(*args, **kw)
         self.packable = packable
         self.compute_dtype = None
+        self.mesh = None
 
     def _cast(self, x):
         """x, weight and bias in the compute dtype."""
@@ -100,6 +116,8 @@ class Conv(nn.Conv2d):
 
     def _eligible(self, x: torch.Tensor, w: torch.Tensor) -> bool:
         b, c, h, wd = x.shape
+        if self.mesh is not None:
+            h *= self.mesh.spatial  # the whole map's rows: the unsharded route
         return (self.packable and conv_impl() == "packed"
                 and self.padding_mode == "zeros" and tuple(self.padding) == (1, 1)
                 and x.dtype == w.dtype
@@ -111,24 +129,45 @@ class Conv(nn.Conv2d):
         `_conv_dispatch` would send it to its Pallas kernel."""
         return self._eligible(*self._cast(x)[:2])
 
+    def _halo_rows(self) -> int:
+        """Rows of halo a call takes under a mesh: the kernel's reach up and
+        down, `padding[0]` (SAME, stride 1); 0 without a mesh or for a
+        kernel one row tall."""
+        if self.mesh is None or self.kernel_size[0] == 1:
+            return 0
+        reach = self.dilation[0] * (self.kernel_size[0] - 1) // 2
+        if self.padding[0] != reach or self.stride[0] != 1 or self.padding_mode != "zeros":
+            raise ValueError(f"a row-sharded convolution needs SAME zero padding at stride "
+                             f"1: kernel {self.kernel_size}, dilation {self.dilation}, padding "
+                             f"{self.padding} {self.padding_mode!r}, stride {self.stride}")
+        return reach
+
     def forward(self, x):
+        h = self._halo_rows()
+        padding = (0, self.padding[1]) if h else self.padding
         if quantize_mode() == "int8":
             if torch.compiler.is_exporting():
                 raise NotImplementedError("the int8 decode is not exported (neither is the "
                                           "JAX package's)")
             if self.padding_mode != "zeros":
                 raise ValueError(f"int8_conv pads with zeros, not {self.padding_mode!r}")
-            return int8_conv(x, self.weight, self.bias, stride=self.stride,
-                             padding=self.padding, dilation=self.dilation, groups=self.groups,
-                             out_dtype=self.compute_dtype or torch.float32)
+            return int8_conv(halo(x, self.mesh, h) if h else x, self.weight, self.bias,
+                             stride=self.stride, padding=padding, dilation=self.dilation,
+                             groups=self.groups, out_dtype=self.compute_dtype or torch.float32,
+                             amax_reduce=None if self.mesh is None else self.mesh.pmax)
         x, w, b = self._cast(x)
-        if self._eligible(x, w):
+        routed = self._eligible(x, w)
+        if h:
+            x = halo(x, self.mesh, h)
+        if routed:
             if torch.compiler.is_exporting():
                 y = conv3x3_packed_op(x, w)
             else:
                 y = conv3x3_packed_trainable_nchw(x, w)
+            if h:
+                y = y[:, :, h:-h]
             return y if b is None else y + b[:, None, None]
-        return F.conv2d(x, w, b, self.stride, self.padding, self.dilation, self.groups)
+        return F.conv2d(x, w, b, self.stride, padding, self.dilation, self.groups)
 
 
 def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:
@@ -143,17 +182,24 @@ def conv3x3(cin: int, cout: int, bias: bool = True, packable: bool = True) -> Co
     return Conv(cin, cout, 3, padding=1, bias=bias, packable=packable)
 
 
-def instance_norm(x, eps: float = 1e-5):
+def instance_norm(x, eps: float = 1e-5, mesh=None):
     """Per-sample, per-channel normalization over H,W (NCHW); no affine;
-    statistics in float32, result in x.dtype."""
+    statistics in float32, result in x.dtype. With a row-sharding `mesh`
+    the statistics are the whole map's (`instance_norm_sharded`)."""
+    if mesh is not None:
+        return instance_norm_sharded(x, mesh, eps)
     return F.instance_norm(x.float(), eps=eps).to(x.dtype)
 
 
 class InstanceNorm(nn.Module):
     """`instance_norm` as a module (no parameters, no state-dict keys)."""
 
+    def __init__(self):
+        super().__init__()
+        self.mesh = None
+
     def forward(self, x):
-        return instance_norm(x)
+        return instance_norm(x, mesh=self.mesh)
 
 
 class FlaxBatchNorm(nn.BatchNorm2d):
@@ -310,13 +356,14 @@ class _ASPPStage(nn.Module):
 
     def __init__(self, cin: int, features: int, rate: int):
         super().__init__()
+        self.mesh = None
         if rate == 0:
             self.conv = Conv(cin, features, 1, bias=False)
         else:
             self.conv = Conv(cin, features, 3, padding=rate, dilation=rate, bias=False)
 
     def forward(self, x):
-        return F.relu(instance_norm(self.conv(x)))
+        return F.relu(instance_norm(self.conv(x), mesh=self.mesh))
 
 
 class ASPP(nn.Module):

@@ -21,8 +21,20 @@ module draws from its 'dropblock' RNG stream. In eval mode it is the
 identity and takes no draws. `axis_name` (`parallel.DATA_AXIS`, as the
 JAX module's) syncs the `StyledDenorm` BatchNorms' statistics over the
 ranks.
+
+`set_mesh(mesh)` shards the rows of every activation over the spatial axis
+of a `parallel.mesh.VolumetricMesh` (the partitioned edit decode; JAX:
+GSPMD with the id maps' rows over 'spatial'): the input is then this
+rank's block of rows, every convolution taller than one row takes a row
+halo from its neighbours and every instance norm the whole map's
+statistics (`blocks.py`); max-pools, up-sampling, pixel shuffles,
+concatenations, the 1×1 convolutions and the `StyledDenorm` BatchNorms (in
+eval mode on their running statistics) stay local. Each rank's block of
+rows must then be divisible by 2^levels (GSPMD would reshard one that is
+not; here it is refused).
 """
 
+import contextlib
 from typing import List, Optional, Sequence
 
 import torch
@@ -33,8 +45,10 @@ from .blocks import (
     ASPP,
     Conv,
     DoubleConv,
+    InstanceNorm,
     ResBlock,
     StyledResUpBlock,
+    _ASPPStage,
     conv3x3,
     set_compute_dtype,
 )
@@ -51,6 +65,8 @@ class UNetDecoder(nn.Module):
                  use_last_pixel_shuffle: bool = False, dtype=None, axis_name=None):
         super().__init__()
         self.compute_dtype = dtype
+        self.filters = tuple(filters)
+        self.mesh = None
         f = list(filters)
         n = len(f) - 1
         self.n_levels = n
@@ -79,6 +95,28 @@ class UNetDecoder(nn.Module):
             self.conv1x1 = Conv(f[0], out_channels, 1)
         set_compute_dtype(self, dtype)
 
+    def set_mesh(self, mesh) -> None:
+        """Shard rows over `mesh`'s spatial axis (a `VolumetricMesh`), or stop
+        sharding (None, or a mesh of one rank on that axis, where every
+        layer is the unsharded one). The mesh is set on every convolution
+        and instance norm; the state dict does not change."""
+        mesh = mesh if mesh is not None and mesh.spatial > 1 else None
+        self.mesh = mesh
+        for m in self.modules():
+            if isinstance(m, (Conv, InstanceNorm, _ASPPStage)):
+                m.mesh = mesh
+
+    @contextlib.contextmanager
+    def sharded(self, mesh):
+        """`set_mesh(mesh)` inside the block, the mesh set before restored
+        after it (also when the block raises)."""
+        prev = self.mesh
+        self.set_mesh(mesh)
+        try:
+            yield self
+        finally:
+            self.set_mesh(prev)
+
     def dropblock_levels(self) -> List[int]:
         """The up levels i (0 = deepest skip) whose skip DropBlock acts on."""
         return [i for i in range(self.n_levels) if i not in self.dropped_skip_layers]
@@ -93,8 +131,14 @@ class UNetDecoder(nn.Module):
                 raise ValueError("use_dropblock in training needs dropblock_draws "
                                  "(sample_dropblock_draws)")
             draws = dict(zip(self.dropblock_levels(), dropblock_draws))
-        x = x.to(self.compute_dtype or x.dtype)
         n = self.n_levels
+        if self.mesh is not None and x.shape[2] % 2**n:
+            spatial = self.mesh.spatial
+            raise ValueError(
+                f"{x.shape[2] * spatial} rows over spatial={spatial} ranks is {x.shape[2]} "
+                f"rows a rank, not divisible by 2^{n} = {2**n} ({n} pooling levels of "
+                f"filters {self.filters}): each rank's block of rows must be")
+        x = x.to(self.compute_dtype or x.dtype)
         skips = []
         for i in range(n):
             x, skip = getattr(self, f"down_conv2_{i + 1}")(x)

@@ -48,7 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.vq import VQState, vq_apply
-from ..parallel.spatial import depth_halo, instance_norm_sharded
+from ..parallel.spatial import halo, instance_norm_sharded
 from .blocks import instance_norm
 
 
@@ -78,7 +78,7 @@ class Conv3d(nn.Conv3d):
         b = None if self.bias is None else self.bias.to(dt)
         x, padding = x.to(dt), self.padding
         if self.mesh is not None and self.kernel_size[0] == 3:
-            x, padding = depth_halo(x, self.mesh), (0,) + tuple(self.padding[1:])
+            x, padding = halo(x, self.mesh), (0,) + tuple(self.padding[1:])
         return F.conv3d(x, self.weight.to(dt), b, self.stride, padding)
 
 

@@ -386,22 +386,33 @@ def _conv_args(weight, stride, padding, dilation, groups):
 
 def int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
               stride=1, padding=0, dilation=1, groups: int = 1,
-              out_dtype=torch.float32) -> torch.Tensor:
+              out_dtype=torch.float32, amax_reduce=None) -> torch.Tensor:
     """The int8 convolution of NCHW x with an OIHW f32 weight (and bias), in
     the module note's arithmetic → NCHW in `out_dtype`. CUDA tensors go
-    through the kernels (or raise); CPU tensors through the plain versions."""
+    through the kernels (or raise); CPU tensors through the plain versions.
+    `amax_reduce`, where given, maps the activation maxima (Cin,) before the
+    scales are taken from them: a sharded decode's maximum over its ranks
+    (`VolumetricMesh.pmax`), so that the scales are the whole array's, as
+    GSPMD takes them."""
     args = _conv_args(weight, stride, padding, dilation, groups)
-    wq, k_scale, x_scale = conv_s8_weights(weight, channel_absmax(x))
+    amax = channel_absmax(x)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    wq, k_scale, x_scale = conv_s8_weights(weight, amax)
     xq = quantize_s8(x, x_scale)
     return conv_s8(xq, wq, k_scale, bias, out_dtype=out_dtype, **args)
 
 
 def int8_conv_reference(x: torch.Tensor, weight: torch.Tensor,
                         bias: Optional[torch.Tensor] = None, *, stride=1, padding=0,
-                        dilation=1, groups: int = 1, out_dtype=torch.float32) -> torch.Tensor:
+                        dilation=1, groups: int = 1, out_dtype=torch.float32,
+                        amax_reduce=None) -> torch.Tensor:
     """Plain version of `int8_conv`, on any device."""
     args = _conv_args(weight, stride, padding, dilation, groups)
-    x_scale = symmetric_scale(channel_absmax_reference(x))
+    amax = channel_absmax_reference(x)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    x_scale = symmetric_scale(amax)
     xq = quantize_s8_reference(x, x_scale)
     wq, k_scale = weight_codes(weight, x_scale)
     return conv_s8_reference(xq, wq, k_scale, bias, out_dtype=out_dtype, **args)

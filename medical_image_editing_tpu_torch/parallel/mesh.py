@@ -17,6 +17,7 @@ over the default process group:
 | `shard_batch(mesh, batch)`                  | `shard_batch`: this rank's row block   |
 | `jax.distributed.initialize`                | `initialize_distributed` (torchrun's environment) |
 | `create_volumetric_mesh(devices, d, s)`     | `create_volumetric_mesh(d, s)`: a grid of process groups |
+| GSPMD's max over a sharded array (int8 scales) | `VolumetricMesh.pmax`             |
 | GSPMD's sums over a sharded volume          | `psum`, `psum_differentiable` over a mesh's group |
 
 As in JAX, a module or step built with `axis_name=DATA_AXIS` averages over
@@ -302,6 +303,12 @@ class VolumetricMesh:
     where the mesh is 1 × 1 and every collective the identity, even under a
     process group made for something else).
 
+    The same mesh splits 2-D maps (the partitioned edit decode,
+    `cli/edit_batch.py`): a (B, H, W) map's rows take the depth's place, so
+    `block` and `gather` with their defaults split and join the batch over
+    `data` and the rows over `spatial` (JAX's `P('data', 'spatial')` on the
+    id maps). A mesh of `data × 1` splits the batch only.
+
     The mesh is shared, never copied: `copy.deepcopy` of a module that
     holds it keeps the same mesh."""
 
@@ -340,11 +347,23 @@ class VolumetricMesh:
                  DATA_AXIS: self.data_group}[axis]
         return psum(tensors, group)
 
+    def pmax(self, t: torch.Tensor, axis: str = "world") -> torch.Tensor:
+        """`t`'s elementwise maximum over all the mesh's ranks ("world"), this
+        rank's row or its column: one all-reduce (MAX) of a copy; `t` as
+        given on a mesh made without a process group."""
+        if self.world_group is None:
+            return t
+        group = {"world": self.world_group, SPATIAL_AXIS: self.spatial_group,
+                 DATA_AXIS: self.data_group}[axis]
+        out = t.clone()
+        _all_reduce(out, dist.ReduceOp.MAX, group)
+        return out
+
     def block(self, x, batch_axis: int = 0, depth_axis: int = 1):
-        """This rank's block of a global (B, D, ...) array or tensor: rows
-        [d·B/data, (d+1)·B/data) and slabs [s·D/spatial, (s+1)·D/spatial)
-        (JAX's `P('data', 'spatial')`). Both divide evenly (ValueError
-        where they do not)."""
+        """This rank's block of a global (B, D, ...) array or tensor (D a
+        volume's depth or a map's rows): samples [d·B/data, (d+1)·B/data)
+        and slabs [s·D/spatial, (s+1)·D/spatial) (JAX's `P('data',
+        'spatial')`). Both divide evenly (ValueError where they do not)."""
         d, s = self.coords
         for axis, parts, what in ((batch_axis, self.data, "batch"),
                                   (depth_axis, self.spatial, "depth")):
@@ -403,14 +422,16 @@ def create_volumetric_mesh(data: int, spatial: int) -> VolumetricMesh:
 
 
 @contextlib.contextmanager
-def torchrun_mesh(data: int, spatial: Optional[int], device="cuda"):
+def torchrun_mesh(data: Optional[int], spatial: Optional[int], device="cuda"):
     """`create_volumetric_mesh(data, spatial)` over torchrun's process group,
     made here from its environment (`initialize_distributed`) and destroyed
     on exit unless it existed before; `spatial` None puts every rank on the
-    spatial axis."""
+    spatial axis, `data` None every rank on the data axis."""
     owned = initialize_distributed(device)
     try:
-        yield create_volumetric_mesh(data, world()[1] if spatial is None else spatial)
+        size = world()[1]
+        yield create_volumetric_mesh(size if data is None else data,
+                                     size if spatial is None else spatial)
     finally:
         if owned:
             destroy_distributed()

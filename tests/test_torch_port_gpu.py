@@ -1297,7 +1297,7 @@ def test_volumetric_sharded_step_on_card_matches_one_process(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_halo_exchange_on_cuda_tensors(cuda, tmp_path):
-    """`parallel/spatial.py::depth_halo` on CUDA tensors under gloo (staged
+    """`parallel/spatial.py::halo` on CUDA tensors under gloo (staged
     through host memory) on three ranks: each rank's output holds its
     neighbours' boundary slabs (zeros at the volume's ends) and its own
     block bit for bit, on the card; its input gradient is its cotangent
@@ -1341,6 +1341,95 @@ def test_halo_exchange_on_cuda_tensors(cuda, tmp_path):
         if r < world - 1:
             dx[:, :, -1] += r + 2
         assert torch.equal(o["dx"], dx)
+
+
+def _spawn_edit_partition(task, world, tmp_path, timeout=180):
+    """`world` ranks of `tests/torch_edit_partition_worker.py`'s `task` →
+    each rank's record."""
+    import os
+    import sys
+    import time
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_edit_partition_worker as worker
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=worker.run, args=(r, world, str(tmp_path / "init"), task,
+                                                  str(tmp_path))) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    assert not any(alive) and [p.exitcode for p in procs] == [0] * world
+    return [torch.load(tmp_path / f"{task}-{r}.pt") for r in range(world)]
+
+
+@pytest.mark.gpu
+def test_row_halo_wider_than_a_block_on_cuda_tensors(cuda, tmp_path):
+    """`parallel/spatial.py::halo` of 6 rows on blocks of 4 rows, CUDA
+    tensors under gloo, three ranks: each rank's output holds the rows of
+    the ranks up to two away (zeros past the map), its own block bit for
+    bit; its input gradient is its cotangent plus, for each of its rows,
+    the cotangent of every rank whose halo holds that row."""
+    world, width = 3, 6
+    outs = _spawn_edit_partition("row_halo_cuda", world, tmp_path)
+    x = torch.arange(2 * 3 * 4 * world * 6, dtype=torch.float32).reshape(2, 3, 4 * world, 6)
+    padded = torch.cat([torch.zeros(2, 3, width, 6), x, torch.zeros(2, 3, width, 6)], 2)
+    grad = torch.zeros(4 * world + 2 * width)
+    for q in range(world):
+        grad[4 * q:4 * q + 4 + 2 * width] += q + 1.0
+    grad = grad[width:-width]
+    for r, o in enumerate(outs):
+        assert o["device"].startswith("cuda")
+        # peers within 6 rows: ranks r ± 1 and r ± 2 that exist, forward and back
+        assert o["sent"] == 2 * sum(0 <= r + k < world for k in (-2, -1, 1, 2))
+        assert torch.equal(o["y"], padded[:, :, 4 * r:4 * r + 4 + 2 * width])
+        want = grad[4 * r:4 * r + 4][None, None, :, None].expand(2, 3, 4, 6)
+        assert torch.equal(o["dx"], want)
+
+
+@pytest.mark.gpu
+def test_bf16_packed_spatial_decode_on_two_ranks(cuda, tmp_path, monkeypatch):
+    """The bf16 decode on the packed route with each map's rows over two
+    gloo ranks sharing the card (filters 4-64, 64²: 32 rows a rank): each
+    rank launches the packed kernel on the convolutions the one-process
+    decode of the whole map launches it on (> 0), and the gathered decode
+    sits no further from the one-process bf16 decode (mean) than that one
+    sits from the f32 decode."""
+    from medical_image_editing_tpu_torch.cli import edit_batch as teb
+    from medical_image_editing_tpu_torch.models.blocks import seeded_init
+    from medical_image_editing_tpu_torch.models.unet_decoder import UNetDecoder
+    from medical_image_editing_tpu_torch.ops.vq import VQState
+
+    kw = dict(in_channels=4, out_channels=1, filters=(4, 8, 16, 32, 64),
+              dropped_skip_layers=(), use_pixel_shuffle=True)
+    dec = seeded_init(UNetDecoder(**kw), torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    vq = [torch.randn(6, 4, generator=gen), torch.ones(6), torch.randn(6, 4, generator=gen)]
+    ids = np.random.default_rng(2).integers(0, 7, (2, 64, 64)).astype(np.int32)
+    torch.save({"decoder": kw, "weights": dec.state_dict(), "vq": vq, "ids": ids},
+               tmp_path / "inputs.pt")
+    outs = _spawn_edit_partition("packed_cuda", 2, tmp_path)
+    got = torch.cat([o["out"] for o in outs], 1).numpy()
+    decodes = {}
+    monkeypatch.setenv("MEDIMG_CONV_IMPL", "packed")
+    for dtype in (None, torch.bfloat16):
+        one = UNetDecoder(**kw, dtype=dtype)
+        one.load_state_dict(dec.state_dict())
+        _build.launches.clear()
+        decodes[dtype] = teb.make_batched_edit_fn(one, is_lung=True, device="cuda")(
+            VQState(*vq), ids).cpu().numpy()
+    routed = _build.launches["conv3x3_packed"]
+    assert routed > 0
+    assert [o["launches"].get("conv3x3_packed", 0) for o in outs] == [routed, routed]
+    own = np.abs(decodes[torch.bfloat16] - decodes[None]).mean()
+    assert np.isfinite(got).all() and np.abs(got - decodes[torch.bfloat16]).mean() <= own
 
 
 # (b, cin, cout, h, w, kernel, dilation, bias, compute dtype): the lung

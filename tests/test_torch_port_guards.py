@@ -70,7 +70,8 @@ def test_port_imports_no_jax():
             f"{PKG}.utils.torch_import", f"{PKG}.cli.import_ckpt",
             f"{PKG}.cli.export_ckpt", f"{PKG}.parallel", f"{PKG}.parallel.mesh",
             f"{PKG}.cli.export_model", f"{PKG}.cli.doctor", f"{PKG}.utils.witness",
-            f"{PKG}.utils.labels", f"{PKG}.parallel.spatial"} <= set(modules)
+            f"{PKG}.utils.labels", f"{PKG}.parallel.spatial", f"{PKG}.cli.edit_batch",
+            f"{PKG}.models.blocks", f"{PKG}.models.unet_decoder"} <= set(modules)
 
 
 def test_spatial_module_imports_torch_and_the_port_only():
@@ -212,6 +213,10 @@ def test_entry_points_refuse_missing_card():
                  lambda: make_batched_edit_fn(torch.nn.Identity(), quantize="int8"),
                  lambda: edit_batch.main(["--label-dir", ".", "--out-dir", ".",
                                           "--dtype", "int8"]),
+                 lambda: edit_batch.main(["--label-dir", ".", "--out-dir", ".",
+                                          "--partition", "spatial"]),
+                 lambda: edit_batch.main(["--label-dir", ".", "--out-dir", ".",
+                                          "--partition", "data"]),
                  lambda: import_ckpt.main(["-c", str(ROOT / "configs" / "lung_first_stage.json"),
                                            "--ckpt", "missing.ckpt", "--out", "."]),
                  lambda: export_ckpt.main(["-c", str(ROOT / "configs" / "lung_first_stage.json"),
@@ -292,6 +297,60 @@ def test_chip_smoke_serve_runtime_phase_on_cpu(tmp_path, capsys):
     watch = next(r for r in recs if r.get("part") == "watch")
     assert watch["recon_pngs"] == watch["label_pngs"] == watch["processed"] == 3
     assert watch["elapsed_s"] < 30 and watch["inotify_active"]
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+
+
+def test_chip_smoke_edit_partition_part_on_cpu(tmp_path, capsys, monkeypatch):
+    """The serve runtime's partitioned-decode part end to end at tiny size
+    on the CPU (64², batch 4): four spawned gloo ranks take the 2 × 2
+    spatial runs, two of them the data and 1 × 2 spatial runs (f32, bf16 on
+    the packed route, int8), the zero-halo fault and `edit_batch
+    --partition spatial`; each run within its limit from the spread, every
+    rank's collectives as derived from the model, each convolution of the
+    bf16 and int8 spatial decodes held to the unsharded one on the gathered
+    input, the CLI under a one-rank group bit for bit; no kernel launch,
+    and TF32 left off."""
+    import numpy as np
+
+    monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
+    smoke = _chip_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # the ranks import it by name
+    rng = np.random.default_rng(0)
+    painted = smoke.paint(rng.integers(1, 7, (4, 64, 64)), rng, TINY_MODEL["dict_size"])
+    # the lung decoder's first width: at 8 channels the random-init int8
+    # decode's code turns are a heavy tail (the sharded decode's mean gap
+    # read 7× its own nudged spread there, and under it at 32 and wider)
+    model = dict(TINY_MODEL, dec_filters=[32, 32, 64, 64, 128])
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        launches = smoke.edit_partition_part("cpu", model, painted, tmp_path, timeout=240)
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert launches == {}
+    rec = next(json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith('{"phase": "serve_runtime", "part": "edit_partition"'))
+    assert sorted(rec["runs"]) == sorted(name for name, *_ in smoke.EDIT_PART_RUNS)
+    assert all(all(c.values()) for c in rec["checks"].values()), rec["checks"]
+    assert rec["halo_fault_margin"]["max_abs_err"] >= smoke.EDIT_PART_FAULT_MARGIN
+    assert rec["cli_gap"]["one_rank"]["max_abs"] == 0.0 and rec["cli_gap"]["spatial"]["files"] == 4
+    assert rec["routed_convs_per_decode"] > 0 and rec["convs_per_decode"] == 58
+    spatial = rec["runs"]["spatial_1x2_f32"]["collectives"]
+    assert spatial["send"] == spatial["recv"] == 52 and spatial["all_reduce"] == 52
+    assert rec["runs"]["spatial_1x2_int8"]["collectives"]["all_reduce"] == 52 + 58
+    assert rec["runs"]["data_2x1_f32"]["collectives"] == {"all_reduce": 1,
+                                                          "all_reduce_bytes": 16}
+    # every convolution the kernels run, held on its halo'd row blocks: the
+    # packed ones of the 64², 32² and 16² levels over two ranks of rows
+    held = rec["conv_checks"]
+    assert sorted(held) == ["spatial_1x2_bf16_packed", "spatial_1x2_int8",
+                            "spatial_2x2_bf16_packed"]
+    assert held["spatial_1x2_int8"]["convs"] == [58, 58]
+    assert held["spatial_1x2_int8"]["max_abs"] == 0.0
+    for name in ("spatial_1x2_bf16_packed", "spatial_2x2_bf16_packed"):
+        assert set(held[name]["convs"]) == {rec["routed_convs_per_decode"]}
+        assert held[name]["heights"] == [10, 18, 34] and held[name]["within_ulp"]
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
 
 

@@ -195,16 +195,16 @@ def task_four(rank, world, workdir):
 
 
 def task_halo_cuda(rank, world, workdir):
-    """`depth_halo` on CUDA tensors of a 1 × `world` mesh: this rank's
+    """`halo` on CUDA tensors of a 1 × `world` mesh: this rank's
     block of a global (2, 3, 4·world, 5, 6) arange, forward, and the
     backward of a cotangent of the rank's number plus one in every slab."""
-    from medical_image_editing_tpu_torch.parallel.spatial import depth_halo
+    from medical_image_editing_tpu_torch.parallel.spatial import halo
 
     torch.cuda.set_device(0)
     mesh = pmesh.create_volumetric_mesh(1, world)
     x = torch.arange(2 * 3 * 4 * world * 5 * 6, dtype=torch.float32, device="cuda")
     x = mesh.block(x.reshape(2, 3, 4 * world, 5, 6), depth_axis=2).clone().requires_grad_(True)
-    y = depth_halo(x, mesh)
+    y = halo(x, mesh)
     y.backward(torch.full_like(y, rank + 1.0))
     return {"y": y.detach().cpu(), "dx": x.grad.cpu(), "device": str(y.device),
             "sent": pmesh.collectives["send"]}

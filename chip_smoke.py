@@ -65,7 +65,17 @@ and no result line):
                ulp-nudged one-process decodes, a planted zero-halo fault
                above them, collectives and packed-kernel launches a rank as
                derived from the model, `edit_batch --partition spatial` on
-               2 ranks and under a one-rank NCCL group (bit for bit);
+               2 ranks and under a one-rank NCCL group (bit for bit); then
+               on two of the ranks the partitioned services: `serve_http`
+               on 1 × 2 "spatial" (bf16, packed) and 2 × 1 "data" (f32)
+               behind a local port (the batch, one map, three maps padded
+               under "data", a PNG, a label past the codebook answered 400
+               and the next request 200, warm repeats; each answer held to
+               the one-process decode within the mode's limits; rank 1
+               following, decoding each request and ending at stop; packed
+               launches 10 a rank a decode in bf16, 0 in f32, VQ 0), and
+               `run_recon.serve` on 1 × 2 (one Processing, one Skip, PNGs
+               from rank 0 only, its recon within the f32 limits);
   6c. int8  — the int8 serving decode at the same widths, 512²: (a) the
                four kernels of `csrc/conv_s8.cu` (channel absmax, the weight
                fold, s8 quantize, the s8×s8→s32 convolution on wgmma)
@@ -236,8 +246,10 @@ and no result line):
                launches per rank held to the derived
                counts, collectives and bytes a step; (b) `run_vqwnet -m
                train --max-steps 3` under a one-rank NCCL group made from
-               a torchrun environment, bit for bit the run without one,
-               and the bare step timed with and without that group; then
+               a torchrun environment, bit for bit the run without one
+               (both run while the ranks of (a) run, as do the GAN
+               trainers' (b) runs), and the bare step timed with and
+               without that group (after the ranks are joined); then
                the GAN trainers (ROADMAP 15(ii)) at their configs' full
                widths in f32: (a) on the same two ranks the second stage
                and the joint step (4 rows of 256² a rank) and the VQGAN (2
@@ -276,8 +288,9 @@ The serve, serve_runtime (its packed route), int8 (b) and (c), train,
 f32_step (each variant), trainer, second_stage (a) and (b), multi_window (a) (each mode) and (b),
 vqgan (a) and (b), losses (a), (b), (c) and (e), volumetric (a) (each
 mode) and (b), ddp (a) (each rank and trainer, counted in its process) and
-(b) (each run), ckpt_crossing and export (in the process that serves the
-artifacts) phases are the main paths: each zeroes the launch counts just
+(b) (each run), ckpt_crossing, export (in the process that serves the
+artifacts) and the partitioned services of serve_runtime (d) (each rank,
+`serve_partition`) phases are the main paths: each zeroes the launch counts just
 before it and reads them just after.
 `--only KERNEL` builds one source and runs the device phase and that
 kernel's phase alone, with no result line, for holding two checkouts'
@@ -1640,6 +1653,174 @@ def edit_part_conv_check(decoders, vq, ids, window, mode, device, mesh):
     return held
 
 
+# the partitioned services on ranks 0 and 1 (`serve_part_rank`): (name, mesh
+# (data, spatial), partition, mode of EDIT_PART_MODES) of each HTTP service
+SERVE_PART_RUNS = (
+    ("spatial_1x2_bf16_packed", (1, 2), "spatial", "bf16_packed"),
+    ("data_2x1_f32", (2, 1), "data", "f32"),
+)
+SERVE_PART_STOP_S = 10.0  # a follower returns within this of rank 0's stop
+
+
+def serve_part_http(rank, mesh, partition, mode, model, seed, device, painted):
+    """One partitioned HTTP service of `serve_part_rank`, through
+    `serve_http.serve` on both ranks: rank 0 serves a local port from a
+    thread, to a client of its own (the painted batch, one map, under
+    "data" three maps, a PNG, a label past the codebook, a map 8 columns
+    short (which the decoder's poolings do not divide), a good request,
+    the batch and the map again), then shuts the server down (`serve` sends
+    stop); rank 1 follows. Rank 0 → each request's status, answer, client
+    wall time and X-Edit-Ms; both → the time (wall clock) rank 0 shut the
+    server down or rank 1 returned, and the kernel launches."""
+    import queue
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from medical_image_editing_tpu_torch.cli.serve_http import serve
+    from medical_image_editing_tpu_torch.ops import _build
+
+    dtype, impl, _ = EDIT_PART_MODES[mode]
+    cfg = lung_config(model)
+    cfg.compute_dtype = dtype
+    out = {}
+    kw = dict(port=0, warm_shapes=(), partition=partition, device=device, mesh=mesh, seed=seed)
+    with conv_route(impl), contextlib.redirect_stdout(io.StringIO()):
+        _build.launches.clear()
+        if rank > 0:
+            out["followed"] = dict(serve(cfg, **kw))
+            out["ended_at"] = time.time()
+            out["launches"] = dict(_build.launches)
+            return out
+        started, failed = queue.Queue(), []
+
+        def run():
+            try:
+                serve(cfg, started=started.put, **kw)
+            except BaseException as e:
+                failed.append(e)
+                started.put(None)
+
+        thread = threading.Thread(target=run, daemon=True, name="serve-http")
+        thread.start()
+        httpd = started.get(timeout=600)
+        if httpd is None:
+            raise RuntimeError("serve_http.serve ended before it served") from failed[0]
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        bad = painted[0].copy()
+        bad[0, 0] = cfg.dict_size + 1
+        requests = [("healthz", "/healthz", None), ("batch", "/edit", painted),
+                    ("one", "/edit", painted[0])]
+        if partition == "data":
+            requests.append(("three", "/edit", painted[:3]))
+        # then the batch and the map again: warm readouts (the first calls at
+        # a shape build cuDNN's plans on the dispatch thread)
+        requests += [("png", "/edit?format=png", painted[0]), ("bad_label", "/edit", bad),
+                     ("bad_shape", "/edit", painted[0][:, :-8]),
+                     ("after_bad", "/edit", painted[0]), ("batch_warm", "/edit", painted),
+                     ("one_warm", "/edit", painted[0])]
+        out["requests"] = []
+        try:
+            for name, path, maps in requests:
+                body = None
+                if maps is not None:
+                    buf = io.BytesIO()
+                    np.save(buf, maps)
+                    body = buf.getvalue()
+                req = urllib.request.Request(url + path, data=body,
+                                             method="GET" if body is None else "POST")
+                t0 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(req, timeout=300) as r:
+                        code, data, edit_ms = r.status, r.read(), r.headers.get("X-Edit-Ms")
+                except urllib.error.HTTPError as e:
+                    code, data, edit_ms = e.code, e.read(), None
+                host_ms = (time.perf_counter() - t0) * 1e3
+                if path == "/healthz":
+                    answer = json.loads(data)
+                elif code == 200 and "png" not in path:
+                    answer = np.load(io.BytesIO(data))
+                else:
+                    answer = data
+                out["requests"].append({"name": name, "path": path, "status": code,
+                                        "maps": None if maps is None else list(maps.shape),
+                                        "host_ms": host_ms,
+                                        "x_edit_ms": None if edit_ms is None else float(edit_ms),
+                                        "answer": answer})
+        finally:
+            out["ended_at"] = time.time()  # then `serve` closes the server and sends stop
+            httpd.shutdown()
+            thread.join(timeout=60)
+        if failed:
+            raise failed[0]
+        if thread.is_alive():
+            raise RuntimeError("serve_http.serve still running 60 s after its server's shutdown")
+        out["launches"] = dict(_build.launches)
+    return out
+
+
+def serve_part_recon(rank, rows, model, seed, device, painted, work):
+    """`run_recon.serve` with `config.partition = "spatial"` (f32, the xla
+    route) on the 1 × 2 mesh `rows`: rank 0 watches a NIfTI of the first
+    painted map for two passes (one Processing, one Skip), rank 1 follows.
+    → rank 0's stdout and recon (caught from `process_edit`), the files
+    each rank wrote, the launches, the time the loop ended."""
+    from medical_image_editing_tpu_torch.cli import run_recon
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.utils import nifti
+
+    cfg = lung_config(model)
+    cfg.compute_dtype = None
+    cfg.partition = "spatial"
+    here = work / f"watch-{rank}"
+    here.mkdir()
+    cfg.edited_file_path = str(work / "watch_label.nii.gz")
+    cfg.save_dir_path = str(here / "inference")
+    if rank == 0:
+        nifti.save(nifti.to_nifti_array(painted[0]), cfg.edited_file_path, dtype=np.int32)
+    real, recons = run_recon.process_edit, []
+
+    def caught(*args, **kw):
+        edited = real(*args, **kw)
+        recons.append(edited[0])
+        return edited
+
+    log = io.StringIO()
+    run_recon.process_edit = caught
+    _build.launches.clear()
+    try:
+        with conv_route("xla"), contextlib.redirect_stdout(log):
+            run_recon.serve(cfg, poll_seconds=0.2, max_iters=2, watch="poll", device=device,
+                            mesh=rows)
+    finally:
+        run_recon.process_edit = real
+    return {"stdout": log.getvalue(), "recons": recons, "ended_at": time.time(),
+            "written": sorted(str(f.relative_to(here)) for f in here.rglob("*") if f.is_file()),
+            "launches": dict(_build.launches)}
+
+
+def serve_part_rank(rank, model, seed, device, painted, work):
+    """Ranks 0 and 1 of the edit partition part, after its decodes: the
+    partitioned HTTP services of SERVE_PART_RUNS, then the partitioned
+    file-watching loop (`serve_part_recon`) → their records, the launches
+    of all of them and the seconds they took."""
+    from medical_image_editing_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    for name, shape, partition, mode in SERVE_PART_RUNS:
+        out[name] = serve_part_http(rank, pmesh.create_volumetric_mesh(*shape), partition, mode,
+                                    model, seed, device, painted)
+    out["recon"] = serve_part_recon(rank, pmesh.create_volumetric_mesh(1, 2), model, seed,
+                                    device, painted, work)
+    for rec in out.values():
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def edit_part_rank(rank, world, init_file, workdir, model, seed, device, cli_argv):
     """One rank of the partitioned decode, in a process of its own: a gloo
     group (NCCL refuses several ranks on one card) through `init_file`;
@@ -1648,9 +1829,10 @@ def edit_part_rank(rank, world, init_file, workdir, model, seed, device, cli_arg
     other runs (each decoded twice: counted, then timed; rank 0 times its
     decodes of EDIT_PART_PROFILED under the profiler: the device's idle
     share), the planted fault (zero halos, 1 × 2, f32) and
-    `edit_batch --partition spatial`. After each spatial run in bf16 or int8
-    a decode of one map a data block holds its convolutions
-    (`edit_part_conv_check`). Saves its records to
+    `edit_batch --partition spatial`, then the partitioned services
+    (`serve_part_rank`, their launches counted apart). After each spatial
+    run in bf16 or int8 a decode of one map a data block holds its
+    convolutions (`edit_part_conv_check`). Saves its records to
     `workdir/edit-part-RANK.pt`."""
     import torch
     import torch.distributed as dist
@@ -1709,8 +1891,8 @@ def edit_part_rank(rank, world, init_file, workdir, model, seed, device, cli_arg
     finally:
         dist.destroy_process_group()
     if rank < 2:
-        dist.init_process_group("gloo", init_method=f"file://{init_file}.two", rank=rank,
-                                world_size=2)
+        # made by the port: its services read the group's timeout
+        pmesh.init_process_group("gloo", f"file://{init_file}.two", rank, 2)
         try:
             rows = pmesh.create_volumetric_mesh(1, 2)
             runs({(2, 1): pmesh.create_volumetric_mesh(2, 1), (1, 2): rows})
@@ -1724,9 +1906,12 @@ def edit_part_rank(rank, world, init_file, workdir, model, seed, device, cli_arg
             if rc != 0:
                 raise RuntimeError(f"edit_batch --partition spatial: rc {rc}")
             out["cli_s"] = time.perf_counter() - t0
+            out["launches"] = dict(_build.launches)
+            out["services"] = serve_part_rank(rank, model, seed, device, painted, work)
         finally:
             dist.destroy_process_group()
-    out["launches"] = dict(_build.launches)
+    else:
+        out["launches"] = dict(_build.launches)
     torch.save(out, work / f"edit-part-{rank}.pt")
 
 
@@ -1735,6 +1920,104 @@ def assemble(blocks, mesh):
     mesh, in rank order."""
     d, s = mesh
     return np.concatenate([np.concatenate(blocks[i * s:(i + 1) * s], 1) for i in range(d)], 0)
+
+
+def serve_part_checks(ranks, refs, serve_refs, limits, routed, painted, cuda):
+    """The record of the partitioned services (`serve_part_rank` on ranks 0
+    and 1): each answer held to the one-process card decode of the same
+    maps (`refs` for the painted batch, `serve_refs` for one and three
+    maps) within its mode's limits (the largest and the mean gap), the
+    statuses (the label past the codebook and the map 8 columns short 400,
+    the next request 200), the
+    3-map request padded under "data" and answered with 3, the PNG's
+    signature and size, every rank's decodes of the same requests, rank
+    1's return within SERVE_PART_STOP_S of rank 0's stop, the packed
+    kernel's launches `routed` a rank a decode in bf16 (0 in f32) and the
+    VQ kernel's 0; the file-watching loop's one Processing and one Skip,
+    its recon within the f32 limits, PNGs from rank 0 only."""
+    from medical_image_editing_tpu_torch.utils.imaging import PNG_SIGNATURE
+
+    size = int(painted.shape[-1])
+    svc = [r["services"] for r in ranks[:2]]
+    held = ("max_abs_err", "mean_abs_err")
+    rec = {"phase": "serve_runtime", "part": "serve_partition", "backend": "gloo",
+           "ranks": 2, "size": size, "batch": int(painted.shape[0]), "runs": {}, "checks": {},
+           "seconds": [s["seconds"] for s in svc],
+           "readout_note": "gloo ranks sharing one card; no figure for cards joined by NVLink"}
+    want = {"batch": lambda mode: refs[mode]["out"],
+            "one": lambda mode: serve_refs[(mode, 1)][0],
+            "after_bad": lambda mode: serve_refs[(mode, 1)][0],
+            "three": lambda mode: serve_refs[(mode, 3)],
+            "batch_warm": lambda mode: refs[mode]["out"],
+            "one_warm": lambda mode: serve_refs[(mode, 1)][0]}
+    for name, shape, partition, mode in SERVE_PART_RUNS:
+        r0, r1 = svc[0][name], svc[1][name]
+        by_name = {q["name"]: q for q in r0["requests"]}
+        gaps = {q: decode_gap(by_name[q]["answer"], want[q](mode)) for q in want
+                if q in by_name}
+        decodes = r1["followed"].get("edit", 0)
+        per_rank = {"conv3x3_packed": routed * decodes if mode == "bf16_packed" and cuda else 0,
+                    "vq_fused": 0}
+        png = by_name["png"]["answer"]
+        statuses = {q["name"]: q["status"] for q in r0["requests"]}
+        rec["runs"][name] = {
+            "mesh": list(shape), "partition": partition, "mode": mode, "gap": gaps,
+            "limit": limits[mode], "statuses": statuses,
+            "shapes": {q: list(np.shape(by_name[q]["answer"])) for q in gaps},
+            "decodes_per_rank": decodes, "followed": r1["followed"],
+            "launches_per_rank": [s[name]["launches"] for s in svc],
+            "launches_expected_per_rank": per_rank,
+            "stop_to_return_s": r1["ended_at"] - r0["ended_at"],
+            "healthz": by_name["healthz"]["answer"],
+            "readouts": [{k: q[k] for k in ("name", "maps", "status", "host_ms", "x_edit_ms")}
+                         for q in r0["requests"]]}
+        want_shapes = {"batch": list(painted.shape), "one": [size, size],
+                       "after_bad": [size, size], "three": [3, size, size],
+                       "batch_warm": list(painted.shape), "one_warm": [size, size]}
+        rec["checks"][name] = {
+            "within": all(np.isfinite(by_name[q]["answer"]).all()
+                          and g[k] <= limits[mode][k] for q, g in gaps.items() for k in held),
+            "shapes": all(rec["runs"][name]["shapes"][q] == want_shapes[q] for q in gaps),
+            # 3 maps split over 2 ranks only once padded to 4
+            "three_padded": partition != "data"
+            or rec["runs"][name]["shapes"].get("three") == [3, size, size],
+            "statuses": statuses["bad_label"] == statuses["bad_shape"] == 400
+            and statuses["after_bad"] == 200
+            and all(v == 200 for q, v in statuses.items() if q not in ("bad_label", "bad_shape")),
+            "png": png[:8] == PNG_SIGNATURE
+            and int.from_bytes(png[16:20], "big") == int.from_bytes(png[20:24], "big") == size,
+            "healthz": by_name["healthz"]["answer"].get("partition") == partition,
+            "followers_decoded_each": decodes == sum(
+                1 for q in r0["requests"] if q["path"] != "/healthz" and q["status"] == 200)
+            and r1["followed"].get("stop") == 1,
+            "followers_ended": 0 <= rec["runs"][name]["stop_to_return_s"] < SERVE_PART_STOP_S,
+            "launches": all({k: s[name]["launches"].get(k, 0) for k in per_rank} == per_rank
+                            for s in svc)
+            and (mode != "bf16_packed" or not cuda or routed > 0)}
+    r0, r1 = svc[0]["recon"], svc[1]["recon"]
+    gap = decode_gap(np.stack(r0["recons"]), serve_refs[("f32", 1)]) if r0["recons"] else None
+    rec["runs"]["recon_serve"] = {"mesh": [1, 2], "partition": "spatial", "mode": "f32",
+                                  "gap": gap, "limit": limits["f32"], "written": [
+                                      r0["written"], r1["written"]],
+                                  "launches_per_rank": [r0["launches"], r1["launches"]],
+                                  "stop_to_return_s": r1["ended_at"] - r0["ended_at"]}
+    rec["checks"]["recon_serve"] = {
+        "processing_skip": (r0["stdout"].count("Processing..."), r0["stdout"].count("Skip..."))
+        == (1, 1),
+        "within": gap is not None and all(gap[k] <= limits["f32"][k] for k in held),
+        "rank0_pngs_only": len(r0["written"]) == 2 and not r1["written"]
+        and all(f.endswith(".png") for f in r0["written"]),
+        # rank 0's time is taken once its loop has sent stop and returned
+        "followers_ended": abs(rec["runs"]["recon_serve"]["stop_to_return_s"])
+        < SERVE_PART_STOP_S,
+        "launches": all(not n.get("conv3x3_packed") and not n.get("vq_fused")
+                        for n in (r0["launches"], r1["launches"]))}
+    launches = {}
+    for s in svc:
+        for k, v in s["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    rec["launches"] = launches
+    return rec
 
 
 def edit_partition_part(device, model, painted, workdir, *, seed=0, timeout=600):
@@ -1755,9 +2038,14 @@ def edit_partition_part(device, model, painted, workdir, *, seed=0, timeout=600)
     `edit_batch --partition spatial` on two
     ranks against `--partition none`, and under a one-rank group that the
     CLI makes from a torchrun environment (NCCL on the card) bit for bit
-    none. Readouts: a rank's decode time and peak memory beside the
-    one-process decode's, rank 0's device idle share. Returns the ranks'
-    launches (the partitioned decodes')."""
+    none. Then on ranks 0 and 1 the partitioned services
+    (`serve_part_rank`, checked by `serve_part_checks`: `serve_http` on
+    1 × 2 "spatial" in bf16 on the packed route and 2 × 1 "data" in f32,
+    `run_recon.serve` on 1 × 2 "spatial" in f32). Readouts: a rank's decode
+    time and peak memory beside the one-process decode's, rank 0's device
+    idle share, the services' X-Edit-Ms and client wall times. Returns the
+    ranks' launches of the partitioned decodes and, apart, of the
+    services."""
     import torch
 
     from medical_image_editing_tpu_torch.cli import edit_batch
@@ -1795,6 +2083,10 @@ def edit_partition_part(device, model, painted, workdir, *, seed=0, timeout=600)
                     for mode in EDIT_PART_MODES}
             spread = {mode: [decode_gap(o, refs[mode]["out"]) for o in nudged[mode]]
                       for mode in EDIT_PART_MODES}
+            # the services' other requests: one map (both modes), three (f32)
+            serve_refs = {(mode, n): edit_part_decode(decoders, vq, painted[:n], window, mode,
+                                                      device)["out"]
+                          for mode, n in (("f32", 1), ("bf16_packed", 1), ("f32", 3))}
             emb = int(model["enc_filters"][0])
             with conv_route("packed"):
                 routed = routed_convs(decoders["bf16_packed"], torch.zeros(1, emb, size, size))
@@ -1886,6 +2178,7 @@ def edit_partition_part(device, model, painted, workdir, *, seed=0, timeout=600)
                 and all(p["convs"] == (routed if mode == "bf16_packed" else n_convs)
                         for p in parts))
     r0 = ranks[0]
+    services = serve_part_checks(ranks, refs, serve_refs, limits, routed, painted, cuda)
     rec = {"phase": "serve_runtime", "part": "edit_partition", "device": str(device),
            "size": size, "batch": batch, "dec_filters": list(model["dec_filters"]),
            "backend": "gloo", "routed_convs_per_decode": routed, "convs_per_decode": n_convs,
@@ -1921,7 +2214,12 @@ def edit_partition_part(device, model, painted, workdir, *, seed=0, timeout=600)
     if not ok:
         raise RuntimeError(f"edit partition: checks {checks}, fault margin {fault_margin}, "
                            f"cli {cli_gap}, limits {limits}")
-    return launches
+    if cuda:
+        services["card"] = nvidia_smi()
+    emit(services)
+    if not all(all(c.values()) for c in services["checks"].values()):
+        raise RuntimeError(f"partitioned services: {services['checks']}")
+    return launches, services["launches"]
 
 
 def kernel_breakdown(wall, kernels, top=8):
@@ -6672,11 +6970,10 @@ def ddp_rank(rank, world, init_file, workdir, base, size, rows, steps, seed, dev
     torch.save(out, Path(workdir) / f"ddp-{rank}.pt")
 
 
-def ddp_run_ranks(work, base, *, size, rows, steps, seed, device, dtypes, gan_args, world=2,
-                  timeout=600):
-    """`ddp_rank` on `world` spawned processes in `work` (made here), joined
-    within `timeout` seconds, any still alive killed → each rank's record
-    (rank order)."""
+def ddp_start_ranks(work, base, *, size, rows, steps, seed, device, dtypes, gan_args,
+                    world=2):
+    """`ddp_rank` on `world` spawned processes in `work` (made here),
+    started → the processes."""
     import torch
 
     work.mkdir(parents=True)
@@ -6687,6 +6984,14 @@ def ddp_run_ranks(work, base, *, size, rows, steps, seed, device, dtypes, gan_ar
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs
+
+
+def ddp_join_ranks(work, procs, timeout=600):
+    """The ranks of `ddp_start_ranks` joined within `timeout` seconds, any
+    still alive killed → each rank's record (rank order)."""
+    import torch
+
     try:
         for p in procs:
             p.join(timeout)
@@ -6697,9 +7002,17 @@ def ddp_run_ranks(work, base, *, size, rows, steps, seed, device, dtypes, gan_ar
                 p.kill()
             p.join()
     codes = [p.exitcode for p in procs]
-    if hung or codes != [0] * world:
+    if hung or codes != [0] * len(procs):
         raise RuntimeError(f"ddp ranks: hung {hung}, exit codes {codes}")
-    return [torch.load(work / f"ddp-{r}.pt", weights_only=True) for r in range(world)]
+    return [torch.load(work / f"ddp-{r}.pt", weights_only=True) for r in range(len(procs))]
+
+
+def ddp_run_ranks(work, base, *, size, rows, steps, seed, device, dtypes, gan_args, world=2,
+                  timeout=600):
+    """`ddp_start_ranks`, then `ddp_join_ranks` → each rank's record."""
+    procs = ddp_start_ranks(work, base, size=size, rows=rows, steps=steps, seed=seed,
+                            device=device, dtypes=dtypes, gan_args=gan_args, world=world)
+    return ddp_join_ranks(work, procs, timeout)
 
 
 def with_dtype(base, dtype):
@@ -6862,24 +7175,21 @@ def fault_margin(fault_gaps, limit, keys):
     return {k: max(g[k] for g in fault_gaps) / limit[k] for k in keys}
 
 
-def ddp_nccl_part(device, workdir, base, *, size, seed, steps, timed_steps):
+def ddp_nccl_part(device, workdir, base, *, size, seed, steps):
     """(b): `run_vqwnet -m train --max-steps steps` alone and under a
     one-rank group made by the CLI from a torchrun environment (NCCL on the
-    card, gloo on the CPU), held bit for bit; then bare steps of the
-    Trainer's step timed under that group and without one, at the config's
-    batch. Returns the record and the grouped run's launches."""
+    card, gloo on the CPU), held bit for bit (both runs in one process, on
+    the same side of the ranks' join: nothing here picks cuDNN's algorithms
+    by timing them). Returns the record and the grouped run's launches."""
     import torch
 
     from medical_image_editing_tpu_torch.ops import _build
     from medical_image_editing_tpu_torch.parallel import mesh
-    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
-    from medical_image_editing_tpu_torch.train.state import replicate_state
-    from medical_image_editing_tpu_torch.train.trainer import Trainer
     from medical_image_editing_tpu_torch.utils.checkpoint import load_state_file
-    from medical_image_editing_tpu_torch.utils.config import to_config
 
-    import torch.distributed as dist
-
+    if torch.backends.cudnn.benchmark:
+        raise RuntimeError("cudnn.benchmark is on: the runs held bit for bit would pick "
+                           "their algorithms by timing them on a shared card")
     cuda = torch.device(device).type == "cuda"
     work = Path(workdir)
     batch = int(base["dataset"]["batch_size"])
@@ -6911,7 +7221,29 @@ def ddp_nccl_part(device, workdir, base, *, size, seed, steps, timed_steps):
     same_state = all(torch.equal(sds[0][p][k], sds[1][p][k])
                      for p in ("encoder", "decoder") for k in sds[0][p])
     same_state = same_state and torch.equal(sds[0]["generator"], sds[1]["generator"])
+    rec = {"final_ckpt": final,
+           "cli_bit_identical": {"log_csv": same_logs, "state": same_state},
+           "cli_collectives": collectives, "launches": launches}
+    return rec, launches["group"]
 
+
+def ddp_bare_steps(device, base, *, size, seed, timed_steps):
+    """(b)'s readout: bare steps of the Trainer's step timed under a
+    one-rank group (NCCL on the card, gloo on the CPU) and without one, at
+    the config's batch, with the card to itself."""
+    import torch
+
+    from medical_image_editing_tpu_torch.parallel import mesh
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+    from medical_image_editing_tpu_torch.train.state import replicate_state
+    from medical_image_editing_tpu_torch.train.trainer import Trainer
+    from medical_image_editing_tpu_torch.utils.config import to_config
+
+    import torch.distributed as dist
+
+    cuda = torch.device(device).type == "cuda"
+    batch = int(base["dataset"]["batch_size"])
+    env = dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR="localhost")
     images = make_slices(np.random.default_rng(seed + 1), batch, size)
     timed = {}
     for name in ("group", "alone"):
@@ -6939,11 +7271,7 @@ def ddp_nccl_part(device, workdir, base, *, size, seed, steps, timed_steps):
                                                     for k, v in mesh.collectives.items()}}
             if name == "group":
                 timed[name]["backend"] = dist.get_backend()
-    rec = {"final_ckpt": final,
-           "cli_bit_identical": {"log_csv": same_logs, "state": same_state},
-           "cli_collectives": collectives, "launches": launches,
-           "bare_step": timed}
-    return rec, launches["group"]
+    return timed
 
 
 # The data-parallel GAN trainers' gaps to the serial reference after the
@@ -7276,9 +7604,10 @@ def ddp_gan_launches_expected(kind, base, size, steps, seed):
     return {"conv3x3_packed": enc + steps * 4 * (enc + dec), "vq_fused": 2 * steps}
 
 
-def ddp_gan_compare(kind, ranks, base, *, world, size, rows, steps, seed, device, limit):
+def ddp_gan_compare(kind, ranks, base, *, world, size, rows, steps, seed, device, limit, want):
     """(a) for the GAN trainer `kind`: the ranks' records (healthy and with
-    the planted fault) held together and to the serial reference."""
+    the planted fault) held together and to the serial reference, their
+    launches to `want` (`ddp_gan_launches_expected`; {} on the CPU)."""
     import torch
 
     healthy = [r["gan"][kind][False] for r in ranks]
@@ -7292,8 +7621,6 @@ def ddp_gan_compare(kind, ranks, base, *, world, size, rows, steps, seed, device
     gaps = [ddp_gan_gaps(kind, run, ref) for run in healthy]
     fault_gaps = [ddp_gan_gaps(kind, run, ref) for run in faulty]
     margin = fault_margin(fault_gaps, limit, DDP_FAULT_KEYS[kind])
-    want = (ddp_gan_launches_expected(kind, base, size, steps, seed)
-            if torch.device(device).type == "cuda" else {})
     return {
         "rows_per_rank": rows, "size": size, "steps": steps,
         "ranks_bit_identical_each_step": [a == b for a, b in zip(healthy[0]["digests"],
@@ -7324,26 +7651,22 @@ def ddp_gan_compare(kind, ranks, base, *, world, size, rows, steps, seed, device
                       for v in m.values())}
 
 
-def ddp_gan_nccl_part(device, workdir, bases, *, seed, steps, timed_steps):
+def ddp_gan_nccl_part(device, workdir, bases, *, seed, steps):
     """(b) for the GAN trainers: `run_vqwnet -m train --max-steps steps`
     (`-w`, `-v`) under a one-rank group made by the CLI from a torchrun
     environment (NCCL on the card, gloo on the CPU), each over a seeded
-    tree of 2 patients × rows slices; then the bare step of one Trainer
-    built under that group timed there and again with the group destroyed.
-    Returns the record and the grouped runs' launches."""
+    tree of 2 patients × rows slices. Returns the record, the grouped runs'
+    launches and the configs the runs took ({kind: (config, rows, side)},
+    for `ddp_gan_bare_steps`)."""
     import torch
 
     from medical_image_editing_tpu_torch.ops import _build
     from medical_image_editing_tpu_torch.parallel import mesh
-    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
-    from medical_image_editing_tpu_torch.train.state import replicate_state
-
-    import torch.distributed as dist
 
     cuda = torch.device(device).type == "cuda"
     work = Path(workdir)
     rng = np.random.default_rng(seed)
-    rec, launches = {}, {}
+    rec, launches, clis = {}, {}, {}
     for kind, (base, rows, size) in bases.items():
         data = work / f"{kind}_data"
         if kind == "vqgan":
@@ -7366,6 +7689,33 @@ def ddp_gan_nccl_part(device, workdir, bases, *, seed, steps, timed_steps):
             raise RuntimeError("run_vqwnet left its process group behind")
         with open(run / "log.csv") as f:
             logged = [float(r["total"]) for r in csv.DictReader(f)]
+        clis[kind] = (cli, rows, size)
+        if cuda:
+            torch.cuda.empty_cache()
+        rec[kind] = {"rows": rows, "size": size, "logged_total": logged,
+                     "ckpts": sorted(os.listdir(run / "ckpt")), "cli_collectives": collectives,
+                     "launches": launches[kind]}
+    return rec, launches, clis
+
+
+def ddp_gan_bare_steps(device, clis, *, seed, timed_steps):
+    """(b)'s readout for the GAN trainers: the bare step of one Trainer
+    built under a one-rank group (NCCL on the card, gloo on the CPU) from
+    each config of `clis` ({kind: (config, rows, side)}), timed there and
+    again with the group destroyed, with the card to itself → {kind:
+    {"group": ..., "alone": ...}}."""
+    import torch
+
+    from medical_image_editing_tpu_torch.parallel import mesh
+    from medical_image_editing_tpu_torch.train.first_stage import init_codebook_step
+    from medical_image_editing_tpu_torch.train.state import replicate_state
+
+    import torch.distributed as dist
+
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for kind, (cli, rows, size) in clis.items():
+        env = dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR="localhost")
         images = make_slices(np.random.default_rng(seed + 1), rows, size)
 
         def timed_steps_s(trainer, state):
@@ -7399,10 +7749,8 @@ def ddp_gan_nccl_part(device, workdir, bases, *, seed, steps, timed_steps):
         del trainer, state
         if cuda:
             torch.cuda.empty_cache()
-        rec[kind] = {"rows": rows, "size": size, "logged_total": logged,
-                     "ckpts": sorted(os.listdir(run / "ckpt")), "cli_collectives": collectives,
-                     "launches": launches[kind], "bare_step": timed}
-    return rec, launches
+        out[kind] = timed
+    return out
 
 
 def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=None,
@@ -7428,7 +7776,16 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
     the counts derived from the model; collectives and bytes all-reduced a
     step, step times.
     (b) `ddp_nccl_part`: a one-rank group through `run_vqwnet` bit for bit
-    the run without one; step time with and without the group.
+    the run without one; step time with and without the group
+    (`ddp_bare_steps`).
+    The `run_vqwnet` runs of (b) (`ddp_nccl_part`, `ddp_gan_nccl_part`)
+    take the card in this process while the ranks run (their `step_s`
+    readouts then read a card shared with them: `ranks_share_card_with`);
+    the launches the ranks must count are derived on the CPU meanwhile;
+    the serial references (they replay the ranks' VQ ids) and the timed
+    bare steps of (b) come after the join, with the card to this process.
+    `overlap` gives when each started and ended, seconds from the phase's
+    start.
     The GAN trainers (ROADMAP 15(ii)), in f32 at their configs' full
     widths (`gan`: {kind: {rows, size}}; `gan_overrides` shrinks them for a
     CPU rehearsal): (a) on the same two ranks, the second stage, the joint
@@ -7441,7 +7798,7 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
     bytes a step held to the count derived from the models, launches to
     the derived counts, each rank's peak memory; (b) `ddp_gan_nccl_part`: each through `run_vqwnet`
     under a one-rank NCCL group, 2 steps, and its bare step timed with and
-    without the group.
+    without the group (`ddp_gan_bare_steps`).
     Returns the launches of (a)'s bf16 first stage and its GAN runs on
     both ranks, and (b)'s grouped runs."""
     import torch
@@ -7457,9 +7814,48 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
     work = Path(workdir) / "ddp"
     t_phase = time.perf_counter()
     gan_args = {kind: (cfg, n, side, gan_steps) for kind, (cfg, n, side) in gan_bases.items()}
-    ranks = ddp_run_ranks(work, base, size=size, rows=rows, steps=steps, seed=seed,
-                          device=device, dtypes=list(limits), gan_args=gan_args, world=world)
-    ranks_s = time.perf_counter() - t_phase
+    if cuda:  # the card's memory for the ranks and this process's one-rank runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    procs = ddp_start_ranks(work, base, size=size, rows=rows, steps=steps, seed=seed,
+                            device=device, dtypes=list(limits), gan_args=gan_args, world=world)
+    overlap = {}
+    threads = torch.get_num_threads()
+    try:
+        if not cuda:  # the ranks' one thread each, and this process's
+            torch.set_num_threads(1)
+        overlap["one_rank_started_s"] = time.perf_counter() - t_phase
+        nccl, nccl_launches = ddp_nccl_part(device, work / "one_rank", base, size=size,
+                                            seed=seed, steps=steps)
+        gan_nccl, gan_nccl_launches, gan_clis = ddp_gan_nccl_part(
+            device, work / "gan_one_rank", gan_bases, seed=seed, steps=2)
+        overlap["one_rank_ended_s"] = time.perf_counter() - t_phase
+        # the launches the ranks' runs must count, derived from the models on
+        # the CPU while the ranks run
+        model = to_config(base).model.vqmodel
+        enc_convs = dec_convs = 0
+        if cuda:
+            probe = Trainer(to_config(base), device="cpu", seed=seed).init_state(
+                load_staged=False)
+            enc_convs = routed_convs(probe.encoder,
+                                     torch.zeros(1, int(model.in_channels), size, size))
+            dec_convs = routed_convs(probe.decoder,
+                                     torch.zeros(1, probe.encoder.emb_dim, size, size))
+            del probe
+        want = {"conv3x3_packed": enc_convs + steps * 4 * (enc_convs + dec_convs),
+                "vq_fused": 2 * steps} if cuda else {}
+        gan_want = {kind: ddp_gan_launches_expected(kind, cfg, side, gan_steps, seed)
+                    if cuda else {} for kind, (cfg, _, side) in gan_bases.items()}
+        overlap["derived_s"] = time.perf_counter() - t_phase
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.join()
+        raise
+    finally:
+        torch.set_num_threads(threads)
+    ranks = ddp_join_ranks(work, procs)
+    ranks_s = overlap["ranks_joined_s"] = time.perf_counter() - t_phase
 
     compare = {}
     for dtype, limit in limits.items():
@@ -7492,20 +7888,13 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
                           for v in m.values())}
     main = [r[str(base["model"]["vqmodel"]["compute_dtype"])][False] for r in ranks]
 
-    model = to_config(base).model.vqmodel
-    enc_convs = dec_convs = 0
-    if cuda:
-        probe = Trainer(to_config(base), device="cpu", seed=seed).init_state(load_staged=False)
-        enc_convs = routed_convs(probe.encoder, torch.zeros(1, int(model.in_channels), size, size))
-        dec_convs = routed_convs(probe.decoder, torch.zeros(1, probe.encoder.emb_dim, size, size))
-        del probe
-    want = {"conv3x3_packed": enc_convs + steps * 4 * (enc_convs + dec_convs),
-            "vq_fused": 2 * steps} if cuda else {}
     launches = [run["launches"] for run in main]
     counted = all({k: n.get(k, 0) for k in want} == want for n in launches)
 
-    nccl, nccl_launches = ddp_nccl_part(device, work / "one_rank", base, size=size,
-                                        seed=seed, steps=steps, timed_steps=timed_steps)
+    t0 = time.perf_counter() - t_phase
+    nccl["bare_step"] = ddp_bare_steps(device, base, size=size, seed=seed,
+                                       timed_steps=timed_steps)
+    overlap["bare_steps_s"] = [t0, time.perf_counter() - t_phase]
     rec = {"phase": "ddp", "part": "two_ranks_one_card", "backend": "gloo", "world": world,
            "rows_per_rank": rows, "size": size, "steps": steps,
            "compute_dtype": str(model.compute_dtype),
@@ -7513,6 +7902,7 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
            "param_tensors": len(main[0]["moments"][0]), "by_dtype": compare,
            "collectives_per_step": main[0]["collectives"][-1],
            "launches_per_rank": launches, "launches_expected_per_rank": want,
+           "ranks_share_card_with": "one_rank_parts", "overlap": overlap,
            "ranks_seconds": ranks_s, **nccl, "phase_seconds": time.perf_counter() - t_phase,
            "card": nvidia_smi() if cuda else None}
     emit(rec)
@@ -7531,16 +7921,19 @@ def ddp_phase(device, workdir, *, size=256, rows=4, steps=3, seed=0, overrides=N
     t_gan = time.perf_counter()
     gan_compare = {kind: ddp_gan_compare(kind, ranks, cfg, world=world, size=side, rows=n,
                                          steps=gan_steps, seed=seed, device=device,
-                                         limit=gan_limits[kind])
+                                         limit=gan_limits[kind], want=gan_want[kind])
                    for kind, (cfg, n, side) in gan_bases.items()}
     for kind, c in gan_compare.items():
         emit({"phase": "ddp", "part": "gan_two_ranks_one_card", "trainer": kind,
-              "backend": "gloo", "world": world, **c})
-    gan_nccl, gan_nccl_launches = ddp_gan_nccl_part(device, work / "gan_one_rank", gan_bases,
-                                                    seed=seed, steps=2,
-                                                    timed_steps=gan_timed_steps)
+              "backend": "gloo", "world": world, "ranks_share_card_with": "one_rank_parts",
+              **c})
+    t0 = time.perf_counter() - t_phase
+    for kind, timed in ddp_gan_bare_steps(device, gan_clis, seed=seed,
+                                          timed_steps=gan_timed_steps).items():
+        gan_nccl[kind]["bare_step"] = timed
+    overlap["gan_bare_steps_s"] = [t0, time.perf_counter() - t_phase]
     emit({"phase": "ddp", "part": "gan_one_rank_group", "trainers": gan_nccl,
-          "gan_seconds": time.perf_counter() - t_gan,
+          "overlap": overlap, "gan_seconds": time.perf_counter() - t_gan,
           "phase_seconds": time.perf_counter() - t_phase,
           "card": nvidia_smi() if cuda else None})
     want_kernels = ("conv3x3_packed", "vq_fused") if cuda else ()
@@ -7893,7 +8286,8 @@ def main(argv=None):
     with timed("serve_runtime"), tempfile.TemporaryDirectory() as tmp:
         runtime_launches = serve_runtime_phase("cuda", model, painted, tmp, seed=args.seed)
     with timed("edit_partition"), tempfile.TemporaryDirectory() as tmp:
-        partition_launches = edit_partition_part("cuda", model, painted, tmp, seed=args.seed)
+        partition_launches, serve_partition_launches = edit_partition_part(
+            "cuda", model, painted, tmp, seed=args.seed)
     with timed("int8"), tempfile.TemporaryDirectory() as tmp:
         int8_launches, int8 = int8_phase("cuda", model, painted, tmp, seed=args.seed)
     with timed("export"), tempfile.TemporaryDirectory() as tmp:
@@ -7947,7 +8341,7 @@ def main(argv=None):
             doctor[0].communicate()
     # (d) no other path launches an int8 kernel
     others = {"serve": serve_launches, "serve_bf16_packed": runtime_launches,
-              "export": export_launches,
+              "serve_partition": serve_partition_launches, "export": export_launches,
               "train": train_launches, "f32_step": f32_launches["ieee_packed"],
               "f32_step_tf32": f32_launches["tf32_packed"], "trainer": trainer_launches,
               "second_stage": second_launches, "multi_window": mw_launches,
@@ -7988,6 +8382,7 @@ def main(argv=None):
                              "losses": losses_launches.get("vq_fused", 0),
                              "volumetric": vol_launches.get("vq_fused", 0),
                              "int8": int8_launches.get("vq_fused", 0),
+                             "serve_partition": serve_partition_launches.get("vq_fused", 0),
                              "ckpt_crossing": crossing_launches.get("vq_fused", 0),
                              "ddp": ddp_launches.get("vq_fused", 0)},
         "max_abs_err": vq["sums_max_abs_err"],

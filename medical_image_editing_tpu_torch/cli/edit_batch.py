@@ -107,6 +107,23 @@ def row_mesh(mesh, partition: str):
     return None
 
 
+def check_request(id_maps, dict_size: int, decoder, mesh=None, partition: str = "data"):
+    """What every rank of a partitioned service would raise inside the
+    decode, checked on rank 0's host before the request goes out, so that
+    a bad request is refused (`ValueError`) without reaching the others:
+    the painted labels (`check_labels`), and that the decoder's 2^levels
+    divides the (B, H, W) maps' width and each rank's rows (H over the
+    spatial axis of a row-sharding mesh, else all H)."""
+    check_labels(id_maps, dict_size)
+    rows = row_mesh(mesh, partition)
+    parts = 1 if rows is None else rows.spatial
+    h, w, step = int(id_maps.shape[-2]), int(id_maps.shape[-1]), 2**decoder.n_levels
+    if h % parts or (h // parts) % step or w % step:
+        raise ValueError(f"maps of {h} x {w} over spatial={parts} ranks: each rank's rows "
+                         f"and the width must be whole and divisible by 2^{decoder.n_levels} "
+                         f"= {step}")
+
+
 def decode_painted(decoder, vq_state: VQState, id_maps: torch.Tensor, *,
                    is_lung: bool, dataset_window, per_slice: bool = True):
     """id maps (B,H,W), 0 = background → (recon (B,H,W) f32, mask (B,H,W)).
@@ -122,16 +139,18 @@ def decode_painted(decoder, vq_state: VQState, id_maps: torch.Tensor, *,
 
 def _decode(decoder, vq_state, id_maps, *, is_lung, dataset_window, per_slice, rows=None):
     """`decode_painted` on labels already checked; with a row-sharding mesh
-    `rows` (per slice only), `id_maps` are this rank's rows and the mask
-    count is summed over the mesh's row."""
+    `rows`, `id_maps` are this rank's rows and the mask count (per slice,
+    or of the whole block) is summed over the mesh's row."""
     ids = id_maps.to(torch.int32)
     bg = ids == 0
     mask = 1.0 - bg.float()
     embed = get_embed_from_ids(vq_state, torch.where(bg, 1, ids) - 1)
     embed = embed * mask[..., None]
     if rows is not None:
-        (counts,) = rows.psum([mask.sum((1, 2))], "spatial")
-        scale = mask[0].numel() * rows.spatial / counts.clamp_min(1.0)
+        counts = mask.sum((1, 2)) if per_slice else mask.sum().reshape(1)
+        (counts,) = rows.psum([counts], "spatial")
+        numel = mask[0].numel() if per_slice else mask.numel()
+        scale = numel * rows.spatial / counts.clamp_min(1.0)
         embed = embed * scale[:, None, None, None]
     elif per_slice:
         scale = mask[0].numel() / mask.sum((1, 2)).clamp_min(1.0)

@@ -32,11 +32,28 @@ messages issued and the bytes they carried, as `ops._build.launches`
 counts kernel launches. `collective_log`, when a list, also records each
 collective as (kind, group size, shape) in issue order, so that ranks can
 be held to issuing the same ones in the same order.
+
+The partitioned services (`cli/serve_http.py`, `cli/run_recon.py`) are one
+process a rank where the JAX package is one process: rank 0 takes the
+requests and sends each to the other ranks (`broadcast_request`), which
+follow it (`follow_requests`) until it sends "stop". A follower waits
+inside that broadcast for as long as no request comes, and a collective
+left waiting past its group's timeout ends the rank (gloo's timeout,
+NCCL's watchdog), so an idle rank 0 sends a "tick" once a quarter of the
+timeout has passed since its last collective. A collective that fails once
+a request is out leaves the ranks in different collectives: the service
+then ends on every rank (`RankFailure`). `Leader` is rank 0's side of that
+protocol; the timeout is the one the group was made with here
+(`init_process_group`).
 """
 
 import collections
 import contextlib
+import datetime
 import os
+import threading
+import time
+import weakref
 import zlib
 from typing import Iterable, List, Optional, Sequence, Tuple
 
@@ -89,8 +106,41 @@ def initialize_distributed(device="cuda") -> bool:
         backend = "gloo"
     else:
         raise ValueError(f"no process-group backend for device {device!r}")
-    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=size)
+    init_process_group(backend, "env://", rank, size)
     return True
+
+
+# (a weak reference to the default group, its timeout in seconds) of the
+# last `init_process_group`
+_made = None
+
+
+def init_process_group(backend: str, init_method: str, rank: int, world_size: int,
+                       timeout_s: Optional[float] = None) -> None:
+    """`dist.init_process_group` with the timeout `timeout_s` (None:
+    PyTorch's default for `backend`), recorded for `group_timeout`."""
+    global _made
+    from torch.distributed import constants
+
+    if timeout_s is None:
+        default = constants.default_pg_timeout
+        if backend == "nccl":
+            default = getattr(constants, "default_pg_nccl_timeout", None) or default
+        timeout_s = default.total_seconds()
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=float(timeout_s)))
+    _made = (weakref.ref(dist.group.WORLD), float(timeout_s))
+
+
+def group_timeout() -> float:
+    """Seconds a collective of the default group may wait for its peers
+    before the backend ends it. RuntimeError unless the group was made by
+    `init_process_group`, which records it."""
+    if _made is None or _made[0]() is None or _made[0]() is not dist.group.WORLD:
+        raise RuntimeError("the default process group's timeout is unknown: make the group "
+                           "with parallel/mesh.py::init_process_group")
+    return _made[1]
 
 
 def destroy_distributed() -> None:
@@ -435,3 +485,139 @@ def torchrun_mesh(data: Optional[int], spatial: Optional[int], device="cuda"):
     finally:
         if owned:
             destroy_distributed()
+
+
+# the requests rank 0 of a partitioned service sends to the other ranks
+REQUEST_OPS = ("edit", "stop", "tick")
+
+
+class RankFailure(RuntimeError):
+    """A partitioned service's collective failed after rank 0 sent its
+    request: the ranks may be left inside different collectives, so the
+    service ends on every rank (a follower with the error, or when rank 0's
+    process is gone) instead of serving on."""
+
+
+def broadcast_request(op: Optional[str] = None, ids=None, flag: int = 0):
+    """Rank 0 sends one request of a partitioned service to every rank of
+    the default group; the other ranks call it without arguments and
+    receive it. A header of five int64 (the op's index in REQUEST_OPS, the
+    flag, B, H, W), then for "edit" the (B, H, W) int32 maps, each one
+    counted broadcast, on the current card under NCCL (which moves device
+    memory only), on the host under gloo. → (op, flag, maps: an int32
+    tensor for "edit", else None) on every rank. RuntimeError without a
+    process group."""
+    if not is_active():
+        raise RuntimeError("broadcast_request needs a process group")
+    dev = (torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl"
+           else torch.device("cpu"))
+    leader = dist.get_rank() == 0
+    if leader:
+        if op not in REQUEST_OPS:
+            raise ValueError(f"request op {op!r}: one of {REQUEST_OPS}")
+        shape = tuple(ids.shape) if op == "edit" else (0, 0, 0)
+        if len(shape) != 3:
+            raise ValueError(f"a request's maps are (B, H, W), got {shape}")
+        header = torch.tensor([REQUEST_OPS.index(op), int(flag), *shape], dtype=torch.int64,
+                              device=dev)
+    else:
+        header = torch.empty(5, dtype=torch.int64, device=dev)
+    count("broadcast", header)
+    dist.broadcast(header, src=0)
+    code, flag, *shape = header.tolist()
+    op = REQUEST_OPS[code]
+    if op != "edit":
+        return op, flag, None
+    if leader:
+        maps = torch.as_tensor(ids).to(dev, torch.int32).contiguous()
+    else:
+        maps = torch.empty(shape, dtype=torch.int32, device=dev)
+    count("broadcast", maps)
+    dist.broadcast(maps, src=0)
+    return op, flag, maps
+
+
+def follow_requests(handle) -> collections.Counter:
+    """A follower (rank > 0) of a partitioned service: receive rank 0's
+    requests (`broadcast_request`), run `handle(flag, maps)` for each
+    "edit", pass over each "tick", and return at "stop" with the count of
+    each op received. An error of `handle` or of a collective propagates:
+    it ends the follower."""
+    seen = collections.Counter()
+    while True:
+        op, flag, maps = broadcast_request()
+        seen[op] += 1
+        if op == "stop":
+            return seen
+        if op == "edit":
+            handle(flag, maps)
+
+
+class Leader:
+    """Rank 0 of a partitioned service: sends each request to the other
+    ranks and runs its own part of it (`send`), one request at a time; a
+    thread of its own sends a "tick" once a quarter of the default group's
+    timeout (`tick_seconds`) has passed since its last collective; `close`
+    sends "stop". Once a request failed (`failed`: its error) the service
+    has ended: every later `send` raises `RankFailure`, and `close` sends
+    nothing, since the other ranks may be inside another collective and end
+    with the failure. `device`: the card of an NCCL group's header (None:
+    the current one), whichever thread sends."""
+
+    def __init__(self, device=None):
+        self.tick_seconds = group_timeout() / 4
+        self.failed = None
+        self._closed = False
+        dev = torch.device(device) if device is not None else None
+        if dev is not None and dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._card = dev if dev is not None and dev.type == "cuda" else None
+        self._lock = threading.Lock()
+        self._last = time.monotonic()
+        self._closing = threading.Event()
+        self._ticker = threading.Thread(target=self._tick_loop, daemon=True, name="leader-tick")
+        self._ticker.start()
+
+    def send(self, op: str, ids=None, flag: int = 0, work=None):
+        """Send request `op` (for "edit" the (B, H, W) maps `ids` and
+        `flag`), then run `work(maps)`, this rank's part, which joins the
+        other ranks' collectives → what `work` returns. An error of either
+        ends the service: `RankFailure`."""
+        with self._lock:
+            return self._send(op, ids, flag, work)
+
+    def _send(self, op, ids, flag, work):
+        if self._closed:
+            raise RuntimeError("the partitioned service is closed")
+        if self.failed is not None:
+            raise RankFailure("the partitioned service has ended") from self.failed
+        try:
+            with (torch.cuda.device(self._card) if self._card is not None
+                  else contextlib.nullcontext()):
+                maps = broadcast_request(op, ids, flag)[2]
+                return None if work is None else work(maps)
+        except Exception as e:
+            self.failed = e
+            raise RankFailure(f"the partitioned {op} failed ({type(e).__name__}: {e}); the "
+                              "service ends on every rank") from e
+        finally:
+            self._last = time.monotonic()
+
+    def _tick_loop(self):
+        while not self._closing.wait(self.tick_seconds / 4):
+            with self._lock:
+                if (self.failed is None and not self._closed
+                        and time.monotonic() - self._last >= self.tick_seconds):
+                    with contextlib.suppress(RankFailure):
+                        self._send("tick", None, 0, None)
+
+    def close(self) -> None:
+        """Stop ticking and send "stop", unless a request failed."""
+        self._closing.set()
+        self._ticker.join()
+        with self._lock:
+            try:
+                if self.failed is None and not self._closed:
+                    self._send("stop", None, 0, None)
+            finally:
+                self._closed = True

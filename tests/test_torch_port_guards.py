@@ -308,8 +308,14 @@ def test_chip_smoke_edit_partition_part_on_cpu(tmp_path, capsys, monkeypatch):
     --partition spatial`; each run within its limit from the spread, every
     rank's collectives as derived from the model, each convolution of the
     bf16 and int8 spatial decodes held to the unsharded one on the gathered
-    input, the CLI under a one-rank group bit for bit; no kernel launch,
-    and TF32 left off."""
+    input, the CLI under a one-rank group bit for bit; then on two ranks
+    the partitioned services: `serve_http` on 1 × 2 "spatial" (bf16, the
+    packed route) and 2 × 1 "data" (f32), each answer within its mode's
+    limits, the 3-map request padded and answered with 3, the label past
+    the codebook and a map the poolings do not divide 400 and the next
+    request 200, the followers ended; and
+    `run_recon.serve` on 1 × 2 with one Processing and one Skip, PNGs from
+    rank 0 only; no kernel launch, and TF32 left off."""
     import numpy as np
 
     monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
@@ -324,13 +330,33 @@ def test_chip_smoke_edit_partition_part_on_cpu(tmp_path, capsys, monkeypatch):
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        launches = smoke.edit_partition_part("cpu", model, painted, tmp_path, timeout=240)
+        launches, serve_launches = smoke.edit_partition_part("cpu", model, painted, tmp_path,
+                                                             timeout=240)
         assert not torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-    assert launches == {}
-    rec = next(json.loads(line) for line in capsys.readouterr().out.splitlines()
+    assert launches == {} and serve_launches == {}
+    out = capsys.readouterr().out.splitlines()
+    rec = next(json.loads(line) for line in out
                if line.startswith('{"phase": "serve_runtime", "part": "edit_partition"'))
+    services = next(json.loads(line) for line in out
+                    if line.startswith('{"phase": "serve_runtime", "part": "serve_partition"'))
+    assert sorted(services["checks"]) == ["data_2x1_f32", "recon_serve",
+                                          "spatial_1x2_bf16_packed"]
+    assert all(all(c.values()) for c in services["checks"].values()), services["checks"]
+    for name in ("data_2x1_f32", "spatial_1x2_bf16_packed"):
+        run = services["runs"][name]
+        assert run["statuses"]["bad_label"] == run["statuses"]["bad_shape"] == 400
+        assert run["statuses"]["after_bad"] == 200
+        assert all(run["gap"][q][k] <= run["limit"][k] for q in run["gap"]
+                   for k in ("max_abs_err", "mean_abs_err"))
+        assert run["followed"]["stop"] == 1 and 0 <= run["stop_to_return_s"] < 10
+        assert run["healthz"]["partition"] == run["partition"]
+    assert services["runs"]["data_2x1_f32"]["shapes"]["three"] == [3, 64, 64]
+    assert services["runs"]["data_2x1_f32"]["decodes_per_rank"] == 7
+    assert services["runs"]["spatial_1x2_bf16_packed"]["decodes_per_rank"] == 6
+    recon = services["runs"]["recon_serve"]
+    assert len(recon["written"][0]) == 2 and recon["written"][1] == []
     assert sorted(rec["runs"]) == sorted(name for name, *_ in smoke.EDIT_PART_RUNS)
     assert all(all(c.values()) for c in rec["checks"].values()), rec["checks"]
     assert rec["halo_fault_margin"]["max_abs_err"] >= smoke.EDIT_PART_FAULT_MARGIN
@@ -720,7 +746,9 @@ def test_chip_smoke_ddp_phase_on_cpu(tmp_path, capsys, monkeypatch):
     card's limits of the serial reference, the planted fault (rank 1's
     discriminator gradients unaveraged) above them, the collectives a step
     as derived, and each through `run_vqwnet` under a one-rank group; no
-    kernel launch."""
+    kernel launch. The one-rank `run_vqwnet` runs start before the ranks
+    are joined (they share the card with them), the timed bare steps after
+    it."""
     smoke = _chip_smoke()
     monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # the ranks import it by name
     overrides = {"model.vqmodel": {"enc_filters": [4, 8, 8, 16, 16],
@@ -778,6 +806,14 @@ def test_chip_smoke_ddp_phase_on_cpu(tmp_path, capsys, monkeypatch):
     assert group["backend"] == "gloo" and group["axis_name"] == "data"
     assert group["collectives_per_step"]["all_reduce"] == 2 * 2 * n_bn + 2 + 2 + 1
     assert rec["bare_step"]["alone"]["collectives_per_step"] == {}
+    overlap = next(r for r in recs if r["part"] == "gan_one_rank_group")["overlap"]
+    assert rec["ranks_share_card_with"] == "one_rank_parts"
+    assert all(c["ranks_share_card_with"] == "one_rank_parts" for c in gan.values())
+    assert rec["overlap"].items() <= overlap.items()
+    assert 0 <= overlap["one_rank_started_s"] < overlap["one_rank_ended_s"]
+    assert overlap["one_rank_started_s"] < overlap["ranks_joined_s"] == rec["ranks_seconds"]
+    assert overlap["ranks_joined_s"] <= overlap["bare_steps_s"][0]
+    assert overlap["bare_steps_s"][1] <= overlap["gan_bare_steps_s"][0]
     assert os.environ.get("WORLD_SIZE") is None
 
 

@@ -525,13 +525,6 @@ def test_service_decodes_on_one_thread(world, tmp_path):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("partition", ["data", "spatial"])
-def test_service_partitions_are_item_15(world, tmp_path, partition):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tsh.EditService(_tiny(trr, tmp_path, ckpt=world["ckpt"]), partition=partition,
-                        device="cpu")
-
-
 def test_serve_http_main_parses_its_options(monkeypatch):
     got = {}
     monkeypatch.setattr(tsh, "serve", lambda config, **kw: got.update(config=config, **kw))

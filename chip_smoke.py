@@ -128,6 +128,28 @@ and no result line):
                both kernels held to the derived ones; fit-loop step time
                beside the train phase's bare step, loader and save times,
                idle share, peak memory;
+  8a. prior — the autoregressive prior (`cli/train_prior.py` →
+               `train/prior.py` → `models/mingpt.py`) at the CLI's width (8
+               layers, 8 heads, n_embed 256, dropout 0.1) over 64² id grids
+               (T = 4,096 tokens, batch 2): (a) 3 bare steps (warm step,
+               peak memory beside the derived T × T bytes, a profiled warm
+               step: busy, idle share), one sampler call of 2 grids
+               (seconds, tokens/s; the token step a CUDA graph, held bit for
+               bit to `sample_token_step` run eagerly), the cached
+               decode's logits over the first 256 positions held to the
+               full forward's within 5× the spread of rounding-level full
+               forwards; (c) one step and
+               a 16-position cached decode at 8², full width, on the card
+               held to the CPU path, the gradients to a float64 CPU witness;
+               (b) `train_prior.main` over a seeded 64² lung tree, freezing
+               the trainer phase's run-A checkpoint at the lung widths
+               (`--steps 3 --batch 2 --sample 2`): files, shapes, ranges,
+               step lines, the packed kernel's `ieee` launches held to 3
+               encoder forwards and 1 decoder forward of routed convs, 0 VQ
+               launches (the CLI's encoder takes the plain assignment, as
+               JAX's does); then, off the counted path, the kernel's f32
+               instance at each of those convs' (B, Cin, Cout, H, W) held
+               to its plain version;
   8b. second_stage — the second (adversarial) stage at the widths of
                `configs/lung_second_stage.json` (bf16 encoder and decoder,
                the f32 U-Net discriminator at D_ch 64, packed conv, 256²,
@@ -181,12 +203,15 @@ and no result line):
                `generate_image_from_ids`; (c) one step at 128², batch 2, f32,
                on the card held to the CPU path, its gradients to a float64
                CPU witness (C.6); (b) `run_vqwnet.main -v`
-               over a seeded CRC tree of 2 × 20 slices of 512²: run A 6
+               over a seeded CRC tree of 2 × 20 slices of 256²
+               (VQGAN_RUN_SIZE; the config's 512² in (a)): run A 6
                steps, run B 3 and a resume to 6 held to A within
                VQGAN_RESUME_GAP_LIMIT, `-m test` (result.csv), the
                "inference" export of the 0-based label maps, launches held,
-               and a planted faulty resume (the codebook's EMA buffers
-               dropped) whose gap is printed;
+               and two planted faulty resumes whose gaps are printed: the
+               codebook's EMA buffers dropped (caught by the limits), the
+               discriminator's Adam moments dropped (caught by the
+               discriminator's limits);
   8e. losses — the perceptual loss and DropBlock on the lung first stage's
                path (`configs/lung_first_stage.json` at full widths with
                only the switches on: the VGG19 loss at weight 1.0 on its
@@ -285,13 +310,14 @@ and no result line):
                `conv3x3_packed_tf32`, each with its launches by main path,
                counted under `conv_pack.LAUNCH_KEYS`).
 The serve, serve_runtime (its packed route), int8 (b) and (c), train,
-f32_step (each variant), trainer, second_stage (a) and (b), multi_window (a) (each mode) and (b),
-vqgan (a) and (b), losses (a), (b), (c) and (e), volumetric (a) (each
-mode) and (b), ddp (a) (each rank and trainer, counted in its process) and
-(b) (each run), ckpt_crossing, export (in the process that serves the
-artifacts) and the partitioned services of serve_runtime (d) (each rank,
-`serve_partition`) phases are the main paths: each zeroes the launch counts just
-before it and reads them just after.
+f32_step (each variant), trainer, prior (b), second_stage (a) and (b),
+multi_window (a) (each mode) and (b), vqgan (a) and (b), losses (a),
+(b), (c) and (e), volumetric (a) (each mode) and (b), ddp (a) (each rank
+and trainer, counted in its process) and (b) (each run), ckpt_crossing,
+export (in the process that serves the artifacts) and the partitioned
+services of serve_runtime (d) (each rank, `serve_partition`) phases are
+the main paths: each zeroes the launch counts just before it and reads
+them just after.
 `--only KERNEL` builds one source and runs the device phase and that
 kernel's phase alone, with no result line, for holding two checkouts'
 versions of a kernel to each other in one call (this script copied into
@@ -303,7 +329,8 @@ timed at the decoder's 25 shapes; a checkout without the weight kernel
 folds with its plain version). A
 `timing` line after the kernels line gives each phase's seconds; the
 card-vs-CPU parts of second_stage, multi_window and vqgan run their CPU
-side in a background process and are joined after ckpt_crossing.
+side in a background process and are joined after ckpt_crossing, as is
+the prior's.
 The last line is `{"ok": true, "device": {...}}`. There is no CPU fallback:
 without a CUDA device the script fails at once.
 """
@@ -367,19 +394,30 @@ MW_RESUME_GAP_LIMIT = {
     "discriminator": {"params_rms_lr": 0.1, "moments_rel": 0.05, "sn_max": 0.03},
     "codebook": {"rel": 0.1},
 }
+# the VQGAN run's (b) side: the config's 512² in (a), 256² in (b), where
+# fifteen fit steps and the test and export passes over 40 slices run
+VQGAN_RUN_SIZE = 256
 # the resumed VQGAN run against the uninterrupted one
-# (`vqgan_run_part.state_gap`), each limit between the gaps measured on an
-# H100 (resume; planted fault, the codebook's EMA buffers dropped): the
-# VQGAN's parameters RMS 0.015 lr; 0.159 lr, its Adam moments 0.014; 0.133,
-# the discriminator's parameters 0.0034 lr; 0.023 lr, its moments 0.024;
-# 0.155, its spectral-norm vectors 1.0e-4; 3.4e-3, the codebook's embed
-# 4e-10; 1e5, counts 0; 0.46, sums 8.3e-4; 1.8e4 (relative). The card's f32
+# (`vqgan_run_part.state_gap`) at VQGAN_RUN_SIZE: each limit 5× the largest
+# gap of a spread of healthy resumes, rounded up to two digits, at most the
+# limit the 512² run held (and that limit where the spread reads 0). The
+# spread: three seeds at 256² on an H100 (`tools/vqgan_resume_spread.py`;
+# resume; planted fault, the codebook's EMA buffers dropped, smallest): the
+# VQGAN's parameters RMS 0.0042-0.0058 lr; 0.053 lr, its Adam moments
+# 0.0031-0.0054; 0.058, the discriminator's parameters 0.0021-0.0056 lr;
+# 0.012 lr, its moments 0.0033-0.024; 0.029, its spectral-norm vectors
+# 5.5e-5-2.0e-4; 2.0e-4, the codebook's embed 2.4e-10-5.0e-10; 1e5, counts
+# 0; 0.43, sums 3.4e-4-7.7e-4; 5.4e4 (relative). At 256² the planted fault
+# lands above the VQGAN's and the codebook's limits and not always above the
+# discriminator's (at 512² it did: 0.023 lr, 0.155, 3.4e-3), so a second
+# planted fault drops the discriminator's Adam moments: its parameters 1.256
+# lr, moments 3.74, spectral-norm vectors 0.577 (seed 0, H100). The card's f32
 # weight gradients are not reproducible run to run, so the resume is not
 # held to 0
 VQGAN_RESUME_GAP_LIMIT = {
-    "decoder": {"params_rms_lr": 0.08, "moments_rel": 0.08},
-    "discriminator": {"params_rms_lr": 0.015, "moments_rel": 0.1, "sn_max": 0.001},
-    "codebook": {"embed": 0.01, "cluster_size": 0.01, "embed_avg": 0.01},
+    "decoder": {"params_rms_lr": 0.029, "moments_rel": 0.027},
+    "discriminator": {"params_rms_lr": 0.015, "moments_rel": 0.1, "sn_max": 0.00098},
+    "codebook": {"embed": 2.5e-9, "cluster_size": 0.01, "embed_avg": 0.0039},
 }
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
@@ -2238,10 +2276,12 @@ def kernel_breakdown(wall, kernels, top=8):
     }
 
 
-def routed_convs(module, x):
+def routed_convs(module, x, shapes=None):
     """How many convolutions a forward of `module` on x sends to the packed
     kernel (`Conv.routes_to_kernel`), counted on the meta device in eval
-    mode (which routes as training does, and takes no DropBlock draws)."""
+    mode (which routes as training does, and takes no DropBlock draws).
+    Each routed call's (B, Cin, Cout, H, W) is appended to the list
+    `shapes` when one is given."""
     import torch
 
     from medical_image_editing_tpu_torch.models.blocks import Conv
@@ -2249,7 +2289,11 @@ def routed_convs(module, x):
     count = [0]
 
     def hook(m, args):
-        count[0] += int(m.routes_to_kernel(args[0]))
+        routed = m.routes_to_kernel(args[0])
+        count[0] += int(routed)
+        if routed and shapes is not None:
+            b, c, h, w = args[0].shape
+            shapes.append((b, c, m.out_channels, h, w))
 
     meta = copy.deepcopy(module).to("meta").eval()
     handles = [m.register_forward_pre_hook(hook) for m in meta.modules()
@@ -2597,6 +2641,52 @@ def run_cli(work, base, name, argv, cuda, **changes):
     return work / name / str(base["save"]["study_name"])
 
 
+def planted_run(run, name, argv, source, plant, final):
+    """A planted faulty resume that writes no checkpoint: `run(name, argv,
+    run={"resume_checkpoint": source})`, the CLI as `run_cli` runs it, with
+    the state dict it restores from `source` changed in place by `plant`
+    after loading, and its saves kept on the host, not written (every
+    phase's resume check writes its own checkpoints; the planted runs'
+    added ~2 × 2.2 GB a VQGAN run). Returns the state dict of the run's
+    save named `final` (a `ckpt-epoch=...` name), on the CPU."""
+    import torch
+
+    from medical_image_editing_tpu_torch.train import trainer as trainer_module
+    from medical_image_editing_tpu_torch.utils import checkpoint as ckpt
+
+    restore, save, kept = trainer_module.restore_state, ckpt.CheckpointManager.save, {}
+
+    def on_host_copy(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.detach().cpu().clone()
+        if isinstance(obj, dict):
+            return {k: on_host_copy(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(on_host_copy(v) for v in obj)
+        return copy.deepcopy(obj)
+
+    def planted_restore(path, target, epoch=None):
+        state = ckpt.load_state_file(ckpt.resolve(path, epoch), target.device)
+        plant(state)
+        target.load_state_dict(state)
+        return target
+
+    def kept_save(self, state, epoch, step=None):
+        path = os.path.join(self.directory, ckpt._ckpt_name(epoch, step))
+        if os.path.basename(path) == final:
+            kept[final] = on_host_copy(state.state_dict())
+        return path
+
+    trainer_module.restore_state, ckpt.CheckpointManager.save = planted_restore, kept_save
+    try:
+        run(name, argv, run={"resume_checkpoint": str(source)})
+    finally:
+        trainer_module.restore_state, ckpt.CheckpointManager.save = restore, save
+    if final not in kept:
+        raise RuntimeError(f"planted run {name} saved no {final}")
+    return kept[final]
+
+
 def trace_idle_share(path):
     """Device busy time and idle share of a Chrome trace written by
     torch.profiler: kernel, copy and memset time over the span of all its
@@ -2776,14 +2866,12 @@ def trainer_phase(device, workdir, *, size=256, patients=2, slices=20, seed=0,
     n_ok = len(list(run_i.rglob("label_*.nii.gz"))) == patients * slices
 
     # -- the planted fault, off the counted path
-    faulty = load_state_file(str(run_b / "version_0" / "ckpt" / "ckpt-epoch=0001-step=00000007"))
-    faulty["enc_opt"]["state"], faulty["dec_opt"]["state"] = {}, {}
-    planted = work / "planted" / "ckpt-epoch=0001-step=00000007"
-    planted.mkdir(parents=True)
-    torch.save(faulty, planted / "state.pt")
-    run_c = run("C", ["-m", "train"], run={"resume_checkpoint": str(planted)})
-    planted_gap = state_gap(final_a, load_state_file(
-        str(run_c / "version_0" / "ckpt" / "ckpt-epoch=0001")))
+    def drop_moments(state):
+        state["enc_opt"]["state"], state["dec_opt"]["state"] = {}, {}
+
+    planted_gap = state_gap(final_a, planted_run(
+        run, "C", ["-m", "train"], run_b / "version_0" / "ckpt" / "ckpt-epoch=0001-step=00000007",
+        drop_moments, "ckpt-epoch=0001"))
     lr = float(base["enc_optim"]["lr"])
     rec = {
         "phase": "trainer", "device": str(device), "size": size, "batch": batch,
@@ -2824,6 +2912,440 @@ def trainer_phase(device, workdir, *, size=256, patients=2, slices=20, seed=0,
     if not all(checks.values()):
         raise RuntimeError(f"trainer phase: {checks}")
     return launches
+
+
+def trainer_checkpoint(workdir):
+    """The checkpoint directory of `trainer_phase`'s run A in `workdir`."""
+    study = json.loads(MODEL_CONFIG.read_text())["save"]["study_name"]
+    return Path(workdir) / "A" / study / "version_0" / "ckpt"
+
+
+# --------------------------------------------------------------------------
+# the autoregressive prior (ROADMAP A item 20)
+# --------------------------------------------------------------------------
+
+# 64² images: the id grid has the image's resolution, so T = block_size =
+# 4,096 tokens; at the lung config's 256² (65,536 tokens) one T × T f32
+# attention tensor of one sample and one layer alone is 8 · 65,536² · 4 B
+PRIOR_SIZE = 64
+PRIOR_WIDTH = {"n_layer": 8, "n_head": 8, "n_embed": 256}  # the CLI's defaults
+PRIOR_DROPOUT = 0.1  # the CLI's default
+PRIOR_DECODE_POSITIONS = 256
+# the cached decode against the full forward: 5× the largest gap of a
+# spread of full forwards that differ at the rounding level (the sequence
+# cut to the decoded positions, the batch reversed, float64), or a minimum
+PRIOR_LIMIT_FACTOR = 5.0
+PRIOR_LIMIT_MIN = 1e-6
+PRIOR_REF_SIZE = 8  # (c): an 8² grid, 64 tokens, at full width
+
+
+def prior_config(width, size, dict_size, dropout):
+    from medical_image_editing_tpu_torch.models.mingpt import GPTConfig
+
+    return GPTConfig(vocab_size=dict_size + 1, block_size=size * size, **width,
+                     emb_pdrop=dropout, res_pdrop=dropout, att_pdrop=dropout)
+
+
+def prior_phase(device, workdir, first_stage_ckpt, *, size=PRIOR_SIZE, batch=2, steps=3,
+                width=None, seed=0, overrides=None, ref_size=PRIOR_REF_SIZE, defer=None):
+    """The autoregressive prior at the CLI's width (`width` and `overrides`
+    shrink it and the first stage for a CPU rehearsal): (a) the bare step,
+    sampler and cached decode at `size`², (c) one step and a short cached
+    decode held to the CPU path at `ref_size`² (its CPU side in a process of
+    its own, joined as `second_stage_phase` says), (b) `train_prior.main` as
+    a user runs it, freezing the first-stage checkpoint `first_stage_ckpt`.
+    Returns the launches of (b), the main path."""
+    model = json.loads(MODEL_CONFIG.read_text())["model"]["vqmodel"]
+    dict_size = int((overrides or {}).get("model.vqmodel", {}).get("dict_size",
+                                                                   model["dict_size"]))
+    width = dict(width or PRIOR_WIDTH)
+    prior_bare_part(device, size=size, batch=batch, steps=steps, width=width,
+                    dict_size=dict_size, seed=seed)
+    ref = start_reference("prior", {"width": width, "dict_size": dict_size}, size=ref_size,
+                          batch=2, seed=seed + 1, card=device)
+    launches = prior_cli_part(device, workdir, first_stage_ckpt, size=size, batch=batch,
+                              steps=steps, width=width, overrides=overrides, seed=seed)
+    finish_or_defer(ref, defer)
+    return launches
+
+
+def prior_bare_part(device, *, size, batch, steps, width, dict_size, seed):
+    """(a) The prior's parts at `size`² (T = size² tokens) and `width`,
+    dropout 0.1, on seeded id grids: `steps` train steps (the warm step's
+    time, peak memory beside the derivation, one warm step under the
+    profiler: busy and idle share), one sampler call of `batch` grids
+    (seconds, tokens/s; its token step a CUDA graph, held bit for bit to the
+    same step, `sample_token_step`, run eagerly on an 8 × 8 grid), and the
+    cached decode's logits over the first PRIOR_DECODE_POSITIONS positions
+    held to the full forward's within a limit from a spread."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models.mingpt import forward_with_past
+    from medical_image_editing_tpu_torch.train.prior import (
+        create_prior_state,
+        ids_to_sequence,
+        make_prior_sampler,
+        make_prior_train_step,
+        sample_token_step,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    tf32_off()
+    cfg = prior_config(width, size, dict_size, PRIOR_DROPOUT)
+    t = size * size
+    state = create_prior_state(seed, cfg, device=device)
+    step = make_prior_train_step(sos_token=dict_size)
+    ids = torch.as_tensor(np.random.default_rng(seed).integers(0, dict_size, (batch, size, size)),
+                          device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, ids)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    warm = float(np.median(step_s[1:] or step_s))
+    # what the backward keeps of each layer's T × T attention: the softmax
+    # output (f32), the dropout's keep mask (bool) and the dropped weights
+    # (f32); at most two more f32 T × T tensors live at once (the scores and
+    # the uniform draws)
+    tt = batch * cfg.n_head * t * t
+    derived = {"kept_bytes": cfg.n_layer * tt * (4 + 1 + 4), "transient_bytes": 2 * tt * 4}
+    derived["peak_bytes"] = derived["kept_bytes"] + derived["transient_bytes"]
+    rec = {"phase": "prior", "part": "step", "device": str(device), "size": size,
+           "tokens": t, "batch": batch, "steps": steps, "config": cfg._asdict(),
+           "parameters": sum(p.numel() for p in state.gpt.parameters()),
+           "step_s": step_s, "warm_step_s_median": warm, "losses": losses,
+           "max_memory_allocated_bytes": peak, "derived_memory": derived}
+    if cuda:
+        wall, kernels, union = profile_union(lambda: step(state, ids))
+        rec["profile"] = kernel_breakdown(wall, kernels, 8)
+        rec["device_busy_union_s"] = union
+        rec["device_idle_share_of_warm_step"] = 1.0 - union / warm
+
+    # the sampler: one call of `batch` grids
+    sample = make_prior_sampler(state.gpt, sos_token=dict_size, grid_hw=(size, size))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    sync()
+    t0 = time.perf_counter()
+    grids = sample(batch, generator=gen)
+    sync()
+    sample_s = time.perf_counter() - t0
+    # the captured token step against the same step (`sample_token_step`)
+    # run eagerly, on the same draws, over an 8 × 8 grid
+    noise = -torch.log(-torch.log(torch.rand((64, batch, dict_size + 1), generator=gen,
+                                             device=device).clamp_min_(1e-38)))
+    replayed = make_prior_sampler(state.gpt, sos_token=dict_size, grid_hw=(8, 8))(
+        batch, gumbel=noise)
+    caches = state.gpt.init_cache(batch)
+    tok = torch.full((batch, 1), dict_size, dtype=torch.long, device=device)
+    pos = torch.zeros(1, dtype=torch.long, device=device)
+    toks = torch.empty((64, batch), dtype=torch.long, device=device)
+    for _ in range(64):
+        sample_token_step(state.gpt, tok, caches, pos, toks, noise, sos_token=dict_size)
+    eager = toks.t().reshape(batch, 8, 8).to(torch.int32)
+    del caches
+    rec.update({"sample_s": sample_s, "sample_tokens_per_s": batch * t / sample_s,
+                "sample_ms_per_token_step": 1e3 * sample_s / t,
+                "sample_shape": list(grids.shape),
+                "sample_range": [int(grids.min()), int(grids.max())],
+                "sample_graph_equals_eager": bool(torch.equal(replayed, eager))})
+
+    # the cached decode against the full forward, and the spread of full
+    # forwards that sets its limit
+    n = min(PRIOR_DECODE_POSITIONS, t)
+    gpt = state.gpt.eval()
+    seq = ids_to_sequence(ids, dict_size)[:, :t]
+    with torch.no_grad():
+        full = gpt(seq)[:, :n].float()
+        caches = gpt.init_cache(batch)
+        decode = []
+        for i in range(n):
+            logits, caches = forward_with_past(gpt, seq[:, i:i + 1], caches, i)
+            decode.append(logits[:, 0])
+        decode = torch.stack(decode, 1)
+        short = gpt(seq[:, :n])
+        flipped = gpt(seq.flip(0))[:, :n].flip(0)
+        full64 = copy.deepcopy(gpt).double()(seq[:, :n])
+    del caches, gpt, state
+    if cuda:
+        torch.cuda.empty_cache()
+
+    def gap(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    spread = {"sequence_cut": gap(short, full), "batch_reversed": gap(flipped, full),
+              "float64": gap(full64, full)}
+    limit = max(PRIOR_LIMIT_FACTOR * max(spread.values()), PRIOR_LIMIT_MIN)
+    decode_gap = gap(decode, full)
+    rec.update({"decode_positions": n, "decode_gap": decode_gap,
+                "decode_gap_float64": gap(decode, full64), "decode_spread": spread,
+                "decode_limit": limit, "logits_max_abs": float(full.abs().max()),
+                "card": nvidia_smi() if cuda else None})
+    emit(rec)
+    checks = {
+        "finite": all(np.isfinite(v) for m in losses for v in m.values()),
+        "samples": tuple(grids.shape) == (batch, size, size) and grids.dtype == torch.int32
+        and 0 <= int(grids.min()) and int(grids.max()) < dict_size,
+        "graph_equals_eager": rec["sample_graph_equals_eager"],
+        "decode": decode_gap <= limit,
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"prior step: {checks}")
+
+
+def prior_cli_part(device, workdir, first_stage_ckpt, *, size, batch, steps, width, overrides,
+                   seed):
+    """(b) `train_prior.main` in-process as a user runs it, on the lung
+    config (`overrides` shrinks its first stage for a CPU rehearsal) at
+    `image_size` [size, size] over a seeded lung tree of one patient's
+    `batch × steps` slices, `--ckpt` the first-stage checkpoint, `--steps
+    steps --batch batch --sample batch --log-every 1`, the CLI's default
+    width (`width`'s flags when it is not PRIOR_WIDTH). Held: the files,
+    their shapes and ranges, the step lines, the packed kernel's launches
+    (its f32 `ieee` instance: every step extracts one batch's ids through
+    the encoder, and the samples take one decoder forward) at the counts
+    derived from the model, the VQ kernel's at 0 (the CLI's encoder takes
+    the plain assignment, as JAX's `build_first_stage` does). Then, off the
+    counted path, the kernel at each shape those launches take
+    (`prior_conv_check`)."""
+    import torch
+
+    from medical_image_editing_tpu_torch.cli import train_prior
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.ops.conv_pack import LAUNCH_KEYS
+    from medical_image_editing_tpu_torch.utils.checkpoint import load_state_file
+
+    cuda = torch.device(device).type == "cuda"
+    work = Path(workdir) / "prior"
+    write_lung_tree(work / "data", np.random.default_rng(seed + 3), patients=1,
+                    slices=batch * steps, size=size)
+    cfg = json.loads(MODEL_CONFIG.read_text())
+    for section, values in (overrides or {}).items():
+        node = cfg
+        for key in section.split("."):
+            node = node[key]
+        node.update(values)
+    cfg["dataset"].update(root_dir_path=str(work / "data"), image_size=[size, size])
+    cfg_path = work / "prior.json"
+    cfg_path.write_text(json.dumps(cfg))
+    model = cfg["model"]["vqmodel"]
+    dict_size = int(model["dict_size"])
+
+    enc, dec, grid = train_prior.build_first_stage(cfg, device="cpu")
+    shapes = []  # the extraction's and the decode's, both at `batch`
+    n_enc = routed_convs(enc, torch.zeros(batch, int(model.get("in_channels", 1)), size, size),
+                         shapes)
+    n_dec = routed_convs(dec, torch.zeros(batch, enc.emb_dim, *grid), shapes)
+    del enc, dec
+    n = steps * n_enc + n_dec
+    want = {"conv3x3_packed": n, LAUNCH_KEYS["f32"]: n, "vq_fused": 0,
+            **{k: 0 for k in S8_KERNELS}} if cuda else {}
+
+    out = work / "out"
+    argv = ["-c", str(cfg_path), "--ckpt", str(first_stage_ckpt), "--steps", str(steps),
+            "--batch", str(batch), "--sample", str(batch), "--log-every", "1",
+            "--seed", str(seed), "--out", str(out)]
+    if width != PRIOR_WIDTH:
+        argv += ["--n-layer", str(width["n_layer"]), "--n-head", str(width["n_head"]),
+                 "--n-embd", str(width["n_embed"])]
+    if not cuda:
+        argv += ["--device", "cpu"]
+    log = io.StringIO()
+    _build.launches.clear()
+    # -- main path: the CLI
+    t0 = time.perf_counter()
+    with conv_precision("ieee"), contextlib.redirect_stdout(log):
+        rc = train_prior.main(argv)
+        if cuda:
+            torch.cuda.synchronize()
+        tf32_off()
+    path_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    print(log.getvalue(), end="", flush=True)
+
+    lines = re.findall(r"step (\d+): loss=([-\w.]+) acc=([-\w.]+)", log.getvalue())
+    ids = np.load(out / "sample_ids.npy")
+    stored = load_state_file(str(out / "prior_ckpt"))
+    rec = {"phase": "prior", "part": "cli", "device": str(device), "size": size,
+           "batch": batch, "steps": steps, "config": stored["config"],
+           "first_stage": {"enc_filters": model["enc_filters"],
+                           "dec_filters": model["dec_filters"], "dict_size": dict_size},
+           "routed_convs": {"encoder": n_enc, "decoder": n_dec},
+           "launches": launches, "launches_expected": want, "path_s": path_s,
+           "step_lines": [[int(s), float(loss), float(acc)] for s, loss, acc in lines],
+           "sample_ids_shape": list(ids.shape), "sample_ids_dtype": str(ids.dtype),
+           "sample_ids_range": [int(ids.min()), int(ids.max())],
+           "samples_png_bytes": os.path.getsize(out / "samples.png"),
+           "card": nvidia_smi() if cuda else None}
+    emit(rec)
+    # off the counted path: the kernel at each of the path's shapes
+    prior_conv_check(device, sorted(set(shapes)), seed)
+    checks = {
+        "rc": rc == 0,
+        "restored": f"first stage restored from {first_stage_ckpt}" in log.getvalue(),
+        "step_lines": [int(s) for s, _, _ in lines] == list(range(1, steps + 1))
+        and all(np.isfinite(float(v)) for _, v, _ in lines),
+        "prior_ckpt": stored["config"]["block_size"] == size * size
+        and all(stored["config"][k] == v for k, v in width.items()),
+        "samples_png": (out / "samples.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n",
+        "sample_ids": ids.shape == (batch, size, size) and ids.dtype == np.int32
+        and 0 <= ids.min() and ids.max() < dict_size,
+        "launches": ({k: launches.get(k, 0) for k in want} == want) if cuda else launches == {},
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"prior CLI: {checks}")
+    return launches
+
+
+def prior_conv_check(device, shapes, seed):
+    """The packed conv kernel's f32 (ieee) instance, forward, at each (B,
+    Cin, Cout, H, W) of `shapes` (the prior CLI's extraction and decode)
+    against its plain version on seeded inputs scaled as the conv phase's,
+    within the conv phase's f32 tolerance (|err| <= 1e-4: sums in another
+    order). On the card each call must launch the f32 instance once, and
+    `shapes` must not be empty."""
+    import torch
+
+    from medical_image_editing_tpu_torch.ops import _build
+    from medical_image_editing_tpu_torch.ops import conv_pack as tcp
+
+    cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    errs, launched = {}, {}
+    with conv_precision("ieee"):
+        tf32_off()
+        for b, cin, cout, h, w in shapes:
+            x = torch.randn(b, cin, h, w, generator=gen, device=device)
+            wt = ((torch.rand(cout, cin, 3, 3, generator=gen, device=device) * 2 - 1)
+                  / (9 * cin) ** 0.5)
+            before = _build.launches.copy()
+            got = tcp.conv3x3_packed_nchw(x, wt)
+            ref = tcp.conv3x3_packed_reference_nchw(x, wt)
+            key = f"{b}x{cin}x{cout}x{h}x{w}"
+            errs[key] = float((got - ref).abs().max())
+            launched[key] = dict(_build.launches - before)
+    want = {tcp.KERNEL: 1, tcp.LAUNCH_KEYS["f32"]: 1} if cuda else {}
+    emit({"phase": "prior", "part": "conv", "device": str(device), "instance": "f32",
+          "shapes": len(shapes), "max_abs_err": errs, "tolerance": "|err| <= 1e-4"})
+    bad = {k: (e, launched[k]) for k, e in errs.items()
+           if not e <= 1e-4 or launched[k] != want}
+    if bad or (cuda and not shapes):
+        raise RuntimeError(f"conv3x3_packed (f32) at the prior's shapes: {bad or 'no shapes'}")
+
+
+def prior_reference_context(spec, size, batch, seed, setup=None):
+    """The card-vs-CPU part of the prior phase: one train step (dropout 0)
+    and a cached decode of the first 16 positions after it, at the width
+    of `spec` on a `size`² id grid, from the same weights (`pos_embed`
+    drawn non-zero) and ids on both (`setup`, made here when None). Held
+    (`prior_reference_check`): the loss rtol 1e-5, the accuracy within one
+    token, the decode's logits atol 1e-4, and the gradients against a
+    witness that does not depend on the card (fault C.6's rule): the same
+    step in float64 on the CPU; the card's distance from it (relative
+    Frobenius norm over every parameter) within 5× the larger of the two
+    CPU float32 steps' (oneDNN on and off), or 1e-5, at most 1e-3. A card
+    of "cpu" rehearses the comparison."""
+    import torch
+
+    from medical_image_editing_tpu_torch.models.mingpt import GPT, forward_with_past
+    from medical_image_editing_tpu_torch.train.prior import (
+        PriorTrainState,
+        ids_to_sequence,
+        make_prior_optimizer,
+        make_prior_train_step,
+        prior_loss,
+    )
+    from medical_image_editing_tpu_torch.utils.witness import float64_step
+
+    dict_size = int(spec["dict_size"])
+    cfg = prior_config(spec["width"], size, dict_size, 0.0)
+    ids = np.random.default_rng(seed).integers(0, dict_size, (batch, size, size))
+    if setup is None:
+        gen = torch.Generator().manual_seed(seed)
+        gpt = GPT(cfg).init_weights(gen)
+        with torch.no_grad():
+            gpt.pos_embed.copy_(0.3 * torch.randn(gpt.pos_embed.shape, generator=gen))
+        setup = {"start": gpt.state_dict()}
+    parts = (("gpt", None),)
+    positions = min(16, size * size)
+
+    def fresh(device):
+        gpt = GPT(cfg)
+        gpt.load_state_dict(setup["start"])
+        return gpt.to(device)
+
+    def grads(gpt):
+        return {"gpt": torch.cat([p.grad.detach().flatten().cpu() for p in gpt.parameters()])}
+
+    def witness(_vq_ids):
+        gpt = fresh("cpu").double()
+        with float64_step([]):
+            loss, _ = prior_loss(gpt, torch.as_tensor(ids), dict_size)
+        loss.backward()
+        return grads(gpt)
+
+    def run(name, device, use_mkldnn):
+        gpt = fresh(device)
+        state = PriorTrainState(gpt, make_prior_optimizer(gpt.parameters(), 3e-4),
+                                torch.Generator(device=device))
+        x = torch.as_tensor(ids, device=device)
+        with torch.backends.mkldnn.flags(enabled=use_mkldnn):
+            state, m = make_prior_train_step(sos_token=dict_size)(state, x)
+            g = grads(gpt)
+            gpt.eval()
+            seq = ids_to_sequence(x, dict_size)
+            caches = gpt.init_cache(batch)
+            logits = []
+            with torch.no_grad():
+                for i in range(positions):
+                    out, caches = forward_with_past(gpt, seq[:, i:i + 1], caches, i)
+                    logits.append(out[:, 0].cpu())
+        return SimpleNamespace(vq_ids=[], m={k: float(v) for k, v in m.items()}, grads=g,
+                               decode=torch.stack(logits, 1))
+
+    return SimpleNamespace(setup=setup, start=setup["start"], parts=parts, witness=witness,
+                           run=run, cpu_runs=[("cpu", (True,)), ("cpu_native", (False,))],
+                           card_runs=lambda card: [("card", (True,))])
+
+
+def prior_reference_check(handle, witnesses):
+    """The prior part's checks and record (see `prior_reference_context`)."""
+    from medical_image_editing_tpu_torch.utils.witness import witness_gaps, witness_limits
+
+    out, parts = handle.out, handle.ctx.parts
+    cpu, c = out["cpu"], out["card"]
+    gaps, n_witness = witness_gaps(out, handle.ctx.witness, parts, witnesses)
+    floor, grad_limit = witness_limits(gaps, WITNESS_MINIMUM["prior"], WITNESS_CAP["prior"])
+    loss_err = abs(c.m["loss"] - cpu.m["loss"]) / abs(cpu.m["loss"])
+    acc_err = abs(c.m["acc"] - cpu.m["acc"])
+    one_token = 1.0 / (handle.batch * handle.size * handle.size)
+    decode_err = float((c.decode - cpu.decode).abs().max())
+    rec = {"phase": "prior", "part": "reference", "card": handle.card, "size": handle.size,
+           "batch": handle.batch, "loss_rel_err": loss_err, "acc_err": acc_err,
+           "decode_max_abs_err": decode_err, "grad_rel_err_vs_f64": gaps,
+           "grad_floor": floor, "grad_limit": grad_limit, "witnesses": n_witness,
+           "readout_grad_rel_err_vs_cpu": float((c.grads["gpt"] - cpu.grads["gpt"]).norm()
+                                                / cpu.grads["gpt"].norm()),
+           "losses_cpu": cpu.m, "losses_card": c.m, **handle.timing,
+           "tolerance": "loss rtol 1e-5; accuracy within one token; the decode's logits "
+                        "atol 1e-4; gradients: the card's distance from a float64 CPU step "
+                        "within 5x the larger of the CPU's two float32 steps' (oneDNN on, "
+                        "off) or 1e-5, at most WITNESS_CAP (relative Frobenius)"}
+    emit(rec)
+    if loss_err > 1e-5 or acc_err > one_token + 1e-12 or decode_err > 1e-4 or any(
+            gaps["card"][m] > grad_limit[m] for m in grad_limit):
+        raise RuntimeError(f"card vs CPU prior step: loss {loss_err}, acc {acc_err}, decode "
+                           f"{decode_err}, gradients against float64 {gaps} "
+                           f"(limits {grad_limit})")
 
 
 def second_config(overrides=None, path=SECOND_CONFIG, **sections):
@@ -3202,11 +3724,12 @@ def finish_reference(handle):
 # mediastinal window multiplies the reconstruction's rounding by 10.24 before
 # the discriminator sees it (on an H100 the card's discriminator gradient
 # sat 1.6e-4 from float64, the CPU's 1.4e-5; through cuDNN 4.4e-5).
-WITNESS_MINIMUM = {"second_stage": 1e-4, "multi_window": 5e-4, "vqgan": 1e-4}
+WITNESS_MINIMUM = {"second_stage": 1e-4, "multi_window": 5e-4, "vqgan": 1e-4, "prior": 1e-5}
 WITNESS_CAP = {
     "second_stage": {"decoder": 8.67e-3, "discriminator": 2.43e-4},
     "multi_window": {"encoder": 1.409, "decoder": 3.42e-2, "discriminator": 7.83e-4},
     "vqgan": {"decoder": 1.66e-4, "discriminator": 6.26e-4},
+    "prior": {"gpt": 1e-3},  # no card floor before it: a fixed bound of its own
 }
 
 
@@ -3523,20 +4046,18 @@ def second_stage_run_part(device, workdir, overrides, *, seed=0):
     n_ok = len(list(run_i.rglob("label_*.nii.gz"))) == n_slices
 
     # -- the planted fault, off the counted path
-    faulty = load_state_file(str(run_b / "version_0" / "ckpt" / "ckpt-epoch=0000-step=00000003"))
-    faulty["dis_opt"]["state"] = {}
-    gen = torch.Generator().manual_seed(seed)
-    for k, v in faulty["discriminator"].items():
-        if k.endswith("u0"):
-            faulty["discriminator"][k] = torch.randn(v.shape, generator=gen)
-        elif k.endswith("sv0"):
-            faulty["discriminator"][k] = torch.ones_like(v)
-    planted = work / "2planted" / "ckpt-epoch=0000-step=00000003"
-    planted.mkdir(parents=True)
-    torch.save(faulty, planted / "state.pt")
-    run_c = run("2C", ["-m", "train", "--max-steps", str(total)],
-                run={"resume_checkpoint": str(planted)})
-    planted_gap = state_gap(final_a, load_state_file(str(run_c / "version_0" / "ckpt" / last)))
+    def drop_dis_state(state):
+        state["dis_opt"]["state"] = {}
+        gen = torch.Generator().manual_seed(seed)
+        for k, v in state["discriminator"].items():
+            if k.endswith("u0"):
+                state["discriminator"][k] = torch.randn(v.shape, generator=gen)
+            elif k.endswith("sv0"):
+                state["discriminator"][k] = torch.ones_like(v)
+
+    planted_gap = state_gap(final_a, planted_run(
+        run, "2C", ["-m", "train", "--max-steps", str(total)],
+        run_b / "version_0" / "ckpt" / "ckpt-epoch=0000-step=00000003", drop_dis_state, last))
     rec = {
         "phase": "second_stage", "part": "run", "device": str(device), "size": size,
         "batch": batch, "steps": total, "steps_per_epoch": steps_per_epoch,
@@ -4082,20 +4603,18 @@ def multi_window_run_part(device, workdir, overrides, *, seed=0):
     out = nifti.load(str(edited_dir / edited[0]))
 
     # -- the planted fault, off the counted path
-    faulty = load_state_file(str(run_b / "version_0" / "ckpt" / "ckpt-epoch=0000-step=00000003"))
-    faulty["dis_opt"]["state"] = {}
-    gen = torch.Generator().manual_seed(seed)
-    for k, v in faulty["discriminator"].items():
-        if k.endswith("u0"):
-            faulty["discriminator"][k] = torch.randn(v.shape, generator=gen)
-        elif k.endswith("sv0"):
-            faulty["discriminator"][k] = torch.ones_like(v)
-    planted = work / "wplanted" / "ckpt-epoch=0000-step=00000003"
-    planted.mkdir(parents=True)
-    torch.save(faulty, planted / "state.pt")
-    run_c = run("wC", ["-m", "train", "--max-steps", str(total)],
-                run={"resume_checkpoint": str(planted)})
-    planted_gap = state_gap(final_a, load_state_file(str(run_c / "version_0" / "ckpt" / last)))
+    def drop_dis_state(state):
+        state["dis_opt"]["state"] = {}
+        gen = torch.Generator().manual_seed(seed)
+        for k, v in state["discriminator"].items():
+            if k.endswith("u0"):
+                state["discriminator"][k] = torch.randn(v.shape, generator=gen)
+            elif k.endswith("sv0"):
+                state["discriminator"][k] = torch.ones_like(v)
+
+    planted_gap = state_gap(final_a, planted_run(
+        run, "wC", ["-m", "train", "--max-steps", str(total)],
+        run_b / "version_0" / "ckpt" / "ckpt-epoch=0000-step=00000003", drop_dis_state, last))
     rec = {
         "phase": "multi_window", "part": "run", "device": str(device), "size": size,
         "batch": batch, "steps": total, "steps_per_epoch": steps_per_epoch,
@@ -4172,19 +4691,20 @@ def vqgan_flops(vqgan, batch, size):
 
 
 def vqgan_phase(device, workdir, *, size=512, batch=8, steps=2, seed=0, overrides=None,
-                ref_size=128, patients=2, slices=20, defer=None):
+                ref_size=128, patients=2, slices=20, defer=None, run_size=None):
     """The VQGAN trainer at the widths of `configs/crc_vqgan.json`
     (`overrides` shrinks it for a CPU rehearsal): (a) the bare step and a
-    painted decode, (c) one step held to the CPU path on a small input (its
-    CPU side in a process of its own, joined as `second_stage_phase`
-    says), (b) the run through `run_vqwnet.main -v` over a seeded CRC tree
-    in `workdir`. Returns the launches of (a) and (b)."""
+    painted decode at `size`², (c) one step held to the CPU path on a small
+    input (its CPU side in a process of its own, joined as
+    `second_stage_phase` says), (b) the run through `run_vqwnet.main -v`
+    over a seeded CRC tree in `workdir` at `run_size`² (None: the smaller of
+    `size` and VQGAN_RUN_SIZE). Returns the launches of (a) and (b)."""
     launches = vqgan_step_part(device, overrides, size=size, batch=batch, steps=steps,
                                seed=seed)
     ref = start_reference("vqgan", overrides, size=ref_size, batch=2, seed=seed + 1,
                           card=device)
-    run = vqgan_run_part(device, workdir, overrides, size=size, patients=patients,
-                         slices=slices, seed=seed)
+    run = vqgan_run_part(device, workdir, overrides, size=run_size or min(size, VQGAN_RUN_SIZE),
+                         patients=patients, slices=slices, seed=seed)
     finish_or_defer(ref, defer)
     return {k: launches.get(k, 0) + run.get(k, 0) for k in set(launches) | set(run)}
 
@@ -4483,10 +5003,10 @@ def vqgan_reference_check(handle, witnesses):
 
 REFERENCE_KINDS = {"second_stage": second_stage_reference_context,
                    "multi_window": multi_window_reference_context,
-                   "vqgan": vqgan_reference_context}
+                   "vqgan": vqgan_reference_context, "prior": prior_reference_context}
 REFERENCE_CHECKS = {"second_stage": second_stage_reference_check,
                     "multi_window": multi_window_reference_check,
-                    "vqgan": vqgan_reference_check}
+                    "vqgan": vqgan_reference_check, "prior": prior_reference_check}
 
 
 def finish_or_defer(handle, defer):
@@ -4545,9 +5065,11 @@ def vqgan_run_part(device, workdir, overrides, *, size, patients, slices, seed=0
     the VQGAN and the discriminator, the spectral-norm vectors and the
     codebook's EMA buffers within VQGAN_RESUME_GAP_LIMIT). `-m test` writes
     result.csv, the "inference" export writes the 0-based bottleneck label
-    maps. Launches are held to the derived counts. Off the counted path, a
-    planted fault: B's step-3 save with the codebook's EMA buffers dropped
-    (counts 0, sums = the codebook), resumed to 6; its gap is printed
+    maps. Launches are held to the derived counts. Off the counted path, two
+    planted faults, each B's step-3 save resumed to 6: the codebook's EMA
+    buffers dropped (counts 0, sums = the codebook), which the limits as a
+    whole must catch, and the discriminator's Adam moments dropped, which
+    the discriminator's limits alone must catch; their gaps are printed
     beside the resume's."""
     import torch
 
@@ -4656,17 +5178,24 @@ def vqgan_run_part(device, workdir, overrides, *, size, patients, slices, seed=0
     label_ids = nifti.load(str(labels[0])) if labels else np.zeros(0)
     bottleneck = size // 2 ** (len(base["model"]["vqgan"]["enc_ch_multiplier"]) - 1)
 
-    # -- the planted fault, off the counted path
-    faulty = load_state_file(str(run_b / "version_0" / "ckpt" / "ckpt-epoch=0000-step=00000003"))
-    faulty["decoder"]["vq.cluster_size"] = torch.zeros_like(faulty["decoder"]["vq.cluster_size"])
-    faulty["decoder"]["vq.embed_avg"] = faulty["decoder"]["vq.embed"].t().clone()
-    planted = work / "vplanted" / "ckpt-epoch=0000-step=00000003"
-    planted.mkdir(parents=True)
-    torch.save(faulty, planted / "state.pt")
-    del faulty
-    run_c = run("vC", ["-m", "train", "--max-steps", str(total)],
-                run={"resume_checkpoint": str(planted)})
-    planted_gap = state_gap(final_a, load_state_file(str(run_c / "version_0" / "ckpt" / last)))
+    # -- the planted faults, off the counted path: B's step-3 save with the
+    # codebook's EMA buffers dropped, and with the discriminator's Adam
+    # moments dropped, each resumed to 6
+    def planted_gap_of(name, plant):
+        return state_gap(final_a, planted_run(
+            run, name, ["-m", "train", "--max-steps", str(total)],
+            run_b / "version_0" / "ckpt" / "ckpt-epoch=0000-step=00000003", plant, last))
+
+    def drop_codebook_ema(state):
+        vq = state["decoder"]
+        vq["vq.cluster_size"] = torch.zeros_like(vq["vq.cluster_size"])
+        vq["vq.embed_avg"] = vq["vq.embed"].t().clone()
+
+    def drop_dis_moments(state):
+        state["dis_opt"]["state"] = {}
+
+    planted_gap = planted_gap_of("vC", drop_codebook_ema)
+    planted_dis_gap = planted_gap_of("vD", drop_dis_moments)
     rec = {
         "phase": "vqgan", "part": "run", "device": str(device), "size": size, "batch": batch,
         "steps": total, "steps_per_epoch": steps_per_epoch, "slices": n_slices,
@@ -4674,22 +5203,24 @@ def vqgan_run_part(device, workdir, overrides, *, size, patients, slices, seed=0
         "fit_step_s": warm, "fit_step_s_median": float(np.median(warm)) if warm else None,
         "same_batch_stream": same_stream, "counters": counters, "resume_gap": gap,
         "resume_gap_limit": VQGAN_RESUME_GAP_LIMIT, "planted_fault_gap": planted_gap,
+        "planted_dis_fault_gap": planted_dis_gap,
         "validation_grids": len(grids), "result_csv": result,
         "label_maps": len(labels), "label_shape": list(np.shape(label_ids)),
         "label_range": [int(label_ids.min()), int(label_ids.max())] if labels else None,
-        "checkpoint_bytes": os.path.getsize(planted / "state.pt"),
+        "checkpoint_bytes": os.path.getsize(run_a / "version_0" / "ckpt" / last / "state.pt"),
         "max_memory_allocated_bytes": peak, "card": nvidia_smi() if cuda else None,
     }
     emit(rec)
 
-    def within(g):
-        return all(g[part][k] <= limit for part, limits in VQGAN_RESUME_GAP_LIMIT.items()
-                   for k, limit in limits.items())
+    def within(g, parts=tuple(VQGAN_RESUME_GAP_LIMIT)):
+        return all(g[part][k] <= limit for part in parts
+                   for k, limit in VQGAN_RESUME_GAP_LIMIT[part].items())
 
     checks = {
         "same_batch_stream": same_stream,
         "counters": counters["A"] == counters["B"] == (total, 1),
         "resume_gap": within(gap), "planted_fault_caught": not within(planted_gap),
+        "planted_dis_fault_caught": not within(planted_dis_gap, ("discriminator",)),
         "validation_grids": len(grids) == 4 and all(g is None for g in grids),
         "result_csv": result_finite, "label_maps": len(labels) == n_slices,
         "labels_0_based": bool(labels) and label_ids.shape == (bottleneck, bottleneck)
@@ -8309,6 +8840,9 @@ def main(argv=None):
                 with timed("trainer"):
                     trainer_launches = trainer_phase("cuda", tmp, seed=args.seed,
                                                      bare_step_s=bare_step_s)
+                with timed("prior"):
+                    prior_launches = prior_phase("cuda", tmp, trainer_checkpoint(tmp),
+                                                 seed=args.seed, defer=pending)
                 with timed("second_stage"):
                     second_launches = second_stage_phase("cuda", tmp, seed=args.seed,
                                                          defer=pending)
@@ -8344,6 +8878,7 @@ def main(argv=None):
               "serve_partition": serve_partition_launches, "export": export_launches,
               "train": train_launches, "f32_step": f32_launches["ieee_packed"],
               "f32_step_tf32": f32_launches["tf32_packed"], "trainer": trainer_launches,
+              "prior": prior_launches,
               "second_stage": second_launches, "multi_window": mw_launches,
               "vqgan": vqgan_launches, "losses": losses_launches, "volumetric": vol_launches,
               "ddp": ddp_launches, "ckpt_crossing": crossing_launches}
@@ -8368,7 +8903,7 @@ def main(argv=None):
         "name": "vq_fused", "route": "cuda", "source": VQ_SOURCE,
         "replaces": VQ_REPLACES,
         "launches": (serve_launches.get("vq_fused", 0) + train_launches.get("vq_fused", 0)
-                     + trainer_launches.get("vq_fused", 0)
+                     + trainer_launches.get("vq_fused", 0) + prior_launches.get("vq_fused", 0)
                      + second_launches.get("vq_fused", 0) + mw_launches.get("vq_fused", 0)
                      + vqgan_launches.get("vq_fused", 0) + losses_launches.get("vq_fused", 0)
                      + vol_launches.get("vq_fused", 0) + crossing_launches.get("vq_fused", 0)
@@ -8376,6 +8911,7 @@ def main(argv=None):
         "launches_by_path": {"serve": serve_launches.get("vq_fused", 0),
                              "train": train_launches.get("vq_fused", 0),
                              "trainer": trainer_launches.get("vq_fused", 0),
+                             "prior": prior_launches.get("vq_fused", 0),
                              "second_stage": second_launches.get("vq_fused", 0),
                              "multi_window": mw_launches.get("vq_fused", 0),
                              "vqgan": vqgan_launches.get("vq_fused", 0),

@@ -115,7 +115,10 @@ def load_model(config, *, device="cuda", seed: int = 0):
     `load_model` restores ("enc_vars", "dec_vars", "vq"). A directory
     without `state.pt` (an Orbax checkpoint of the JAX package) is refused
     with the way across (`utils/checkpoint.py::load_state_file`). Both
-    models compute in `compute_dtype(config)`; parameters stay f32."""
+    models compute in `compute_dtype(config)`; parameters stay f32. The
+    encoder has no styled up block unless `config.enc_use_styled_up_block`
+    (JAX `load_model` passes False; `train_prior.build_first_stage` the
+    config's value)."""
     dev = resolve_device(device)
     dtype = compute_dtype(config)
     with torch.device("meta"):
@@ -124,7 +127,7 @@ def load_model(config, *, device="cuda", seed: int = 0):
             filters=tuple(config.enc_filters),
             dict_size=config.dict_size,
             momentum=config.momentum,
-            use_styled_up_block=False,
+            use_styled_up_block=bool(getattr(config, "enc_use_styled_up_block", False)),
             knn_backend=config.knn_backend,
             dtype=dtype,
         )

@@ -188,6 +188,11 @@ def instance_norm(x, eps: float = 1e-5, mesh=None):
     the statistics are the whole map's (`instance_norm_sharded`)."""
     if mesh is not None:
         return instance_norm_sharded(x, mesh, eps)
+    if x.shape[2] * x.shape[3] == 1:
+        # F.instance_norm refuses one element; JAX's mean and variance give
+        # x − mean = 0 (a 16² image at the 4-level U-Nets' bottleneck)
+        xf = x.float()
+        return ((xf - xf.mean((2, 3), keepdim=True)) * eps ** -0.5).to(x.dtype)
     return F.instance_norm(x.float(), eps=eps).to(x.dtype)
 
 

@@ -13,7 +13,8 @@ export derives it), its ActNorms (`loc`, `scale`, `initialized`, and the
 'actnorm' collection's `data_loc`, `data_scale`); and the VQGAN
 (`from_jax_vqgan`: the taming layout, GroupNorm scale/bias, the attention's
 1×1 convs and its codebook), the perceptual networks' frozen weights
-(`from_jax_perceptual`), and the volumetric VQ-WNet (`from_jax_volumetric`:
+(`from_jax_perceptual`), the minGPT prior (`from_jax_gpt`: Dense kernels
+(in, out) → (out, in)), and the volumetric VQ-WNet (`from_jax_volumetric`:
 3-D kernels to (O, I, kd, kh, kw) under the flax paths; its inverse,
 `to_jax_volumetric`, gives back the flax-shaped numpy tree, with numpy
 only). Inputs are nested dicts of arrays (numpy, or anything `np.asarray`
@@ -391,6 +392,39 @@ def from_jax_perceptual(params) -> StateDict:
         out[f"convs.{k}.weight"], out[f"convs.{k}.bias"] = _k(w), _t(b)
     for k, lin in enumerate(lins):
         out[f"lin{k}"] = _t(lin)
+    return out
+
+
+def _dense(out: StateDict, p: str, dp: dict):
+    """flax Dense (kernel (in, out), optional bias) → nn.Linear (out, in)."""
+    out[f"{p}.weight"] = _t(np.asarray(dp["kernel"], dtype=np.float32).T)
+    if "bias" in dp:
+        out[f"{p}.bias"] = _t(dp["bias"])
+
+
+def _layer_norm(out: StateDict, p: str, lp: dict):
+    out[f"{p}.weight"], out[f"{p}.bias"] = _t(lp["scale"]), _t(lp["bias"])
+
+
+def from_jax_gpt(params: dict) -> StateDict:
+    """The JAX minGPT's `params` (`models/mingpt.py`: `tok_emb`, `pos_emb`,
+    `block_{i}` with `LayerNorm_0`, `LayerNorm_1`, `attn/{q,k,v,proj}`,
+    `Dense_0`, `Dense_1`, then `ln_f` and `head`) → the port's `GPT` keys
+    (`tok_embed`, `pos_embed`, `blocks.{i}.ln1`, `.ln2`, `.att.*`,
+    `.mlp.0`, `.mlp.2`, `ln_f`, `head`), Dense kernels transposed."""
+    out = {"tok_embed.weight": _t(params["tok_emb"]["embedding"]),
+           "pos_embed": _t(params["pos_emb"])}
+    n_layer = sum(1 for k in params if k.startswith("block_"))
+    for i in range(n_layer):
+        bp, p = params[f"block_{i}"], f"blocks.{i}"
+        _layer_norm(out, f"{p}.ln1", bp["LayerNorm_0"])
+        _layer_norm(out, f"{p}.ln2", bp["LayerNorm_1"])
+        for name in ("q", "k", "v", "proj"):
+            _dense(out, f"{p}.att.{name}", bp["attn"][name])
+        _dense(out, f"{p}.mlp.0", bp["Dense_0"])
+        _dense(out, f"{p}.mlp.2", bp["Dense_1"])
+    _layer_norm(out, "ln_f", params["ln_f"])
+    _dense(out, "head", params["head"])
     return out
 
 

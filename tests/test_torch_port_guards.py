@@ -1,6 +1,6 @@
 """Guards of the PyTorch port: it imports neither JAX, flax, orbax nor the
 JAX package, its entry points refuse to fall back to the CPU, `chip_smoke.py`
-fails without a card, and its serve, train, serve_runtime, trainer,
+fails without a card, and its serve, train, serve_runtime, trainer, prior,
 second_stage, multi_window, vqgan, losses, volumetric, int8 and
 ckpt_crossing phases run end to end at tiny size on the CPU.
 """
@@ -71,7 +71,8 @@ def test_port_imports_no_jax():
             f"{PKG}.cli.export_ckpt", f"{PKG}.parallel", f"{PKG}.parallel.mesh",
             f"{PKG}.cli.export_model", f"{PKG}.cli.doctor", f"{PKG}.utils.witness",
             f"{PKG}.utils.labels", f"{PKG}.parallel.spatial", f"{PKG}.cli.edit_batch",
-            f"{PKG}.models.blocks", f"{PKG}.models.unet_decoder"} <= set(modules)
+            f"{PKG}.models.blocks", f"{PKG}.models.unet_decoder", f"{PKG}.models.mingpt",
+            f"{PKG}.train.prior", f"{PKG}.cli.train_prior"} <= set(modules)
 
 
 def test_spatial_module_imports_torch_and_the_port_only():
@@ -104,6 +105,7 @@ def _cli_calls():
         run_recon,
         run_vqwnet,
         serve_http,
+        train_prior,
         train_volumetric,
     )
 
@@ -115,13 +117,15 @@ def _cli_calls():
         "edit_batch": lambda: edit_batch.main(["--label-dir", ".", "--out-dir", "."]),
         "train_volumetric": lambda: train_volumetric.main(["--steps", "1"]),
         "edit_volume": lambda: edit_volume.main(["--ckpt", ".", "--labels", ".", "--out", "."]),
+        "train_prior": lambda: train_prior.main(
+            ["-c", str(ROOT / "configs" / "lung_first_stage.json")]),
     }
 
 
 @pytest.mark.parametrize("value", [None, "tf32", "ieee", "bf16"],
                          ids=["unset", "tf32", "ieee", "unknown"])
 @pytest.mark.parametrize("cli", ["run_vqwnet", "run_recon", "serve_http", "edit_batch",
-                                 "train_volumetric", "edit_volume"])
+                                 "train_volumetric", "edit_volume", "train_prior"])
 def test_cli_applies_conv_precision(cli, value, monkeypatch, tf32_flags):
     """Each CLI sets cuDNN's f32 convolution precision from
     MEDIMG_CONV_PRECISION first (unset: the default, tf32) and keeps
@@ -175,6 +179,7 @@ def test_entry_points_refuse_missing_card():
         run_recon,
         run_vqwnet,
         serve_http,
+        train_prior,
         train_volumetric,
     )
     from medical_image_editing_tpu_torch.cli.edit_batch import make_batched_edit_fn
@@ -183,6 +188,8 @@ def test_entry_points_refuse_missing_card():
         make_eval_forward,
         make_vqgan_eval_forward,
     )
+    from medical_image_editing_tpu_torch.models.mingpt import GPTConfig
+    from medical_image_editing_tpu_torch.train.prior import create_prior_state
     from medical_image_editing_tpu_torch.train.volumetric import init_volumetric
 
     def lung():
@@ -221,7 +228,10 @@ def test_entry_points_refuse_missing_card():
                                            "--ckpt", "missing.ckpt", "--out", "."]),
                  lambda: export_ckpt.main(["-c", str(ROOT / "configs" / "lung_first_stage.json"),
                                            "--ckpt", "missing", "--out", "out.ckpt"]),
-                 lambda: export_model.main(["--out", "edit.pt2", "--allow-random-init"])):
+                 lambda: export_model.main(["--out", "edit.pt2", "--allow-random-init"]),
+                 lambda: train_prior.main(["-c", str(ROOT / "configs" / "lung_first_stage.json")]),
+                 lambda: create_prior_state(0, GPTConfig(vocab_size=11, block_size=16,
+                                                         n_layer=1, n_head=2, n_embed=8))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -433,6 +443,67 @@ def test_chip_smoke_trainer_phase_on_cpu(tmp_path, capsys):
     assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
 
 
+def test_chip_smoke_prior_phase_on_cpu(tmp_path, capsys, monkeypatch):
+    """The prior phase end to end at tiny size on the CPU (a 16² grid, 256
+    tokens, one layer of 2 heads at n_embed 16; the first stage at
+    TINY_MODEL's widths, frozen from a checkpoint written by
+    `utils/checkpoint.py`, as the trainer phase's on the card): (a) the
+    steps, the sampler, the cached decode within its limit; (c) the
+    card-vs-CPU comparison (here CPU against CPU: exact); (b)
+    `train_prior.main` restoring the checkpoint, its files and step lines;
+    no kernel launch, under the packed conv route too; TF32 left off; the
+    conv check at the kernel's shapes."""
+    from medical_image_editing_tpu_torch.cli import train_prior
+    from medical_image_editing_tpu_torch.train.state import create_train_state, make_optimizer
+    from medical_image_editing_tpu_torch.utils.checkpoint import CheckpointManager
+
+    monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
+    smoke = _chip_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # its CPU side imports it
+    model = {k: TINY_MODEL[k] for k in ("enc_filters", "dec_filters", "dict_size")}
+    cfg = json.loads((ROOT / "configs" / "lung_first_stage.json").read_text())
+    cfg["model"]["vqmodel"].update(model)
+    cfg["dataset"]["image_size"] = [16, 16]
+    enc, dec, _ = train_prior.build_first_stage(cfg, device="cpu", seed=5)
+    state = create_train_state(enc, dec, make_optimizer(enc.parameters(), 1e-4),
+                               make_optimizer(dec.parameters(), 1e-4), device="cpu")
+    CheckpointManager(str(tmp_path / "ckpt")).save(state, 0)
+    width = {"n_layer": 1, "n_head": 2, "n_embed": 16}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    pending = []
+    try:
+        with smoke.conv_route("packed"):
+            launches = smoke.prior_phase("cpu", tmp_path, tmp_path / "ckpt", size=16,
+                                         width=width, overrides={"model.vqmodel": model},
+                                         ref_size=4, defer=pending)
+            smoke.finish_reference(pending.pop())
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert launches == {} and not pending
+    recs = {r["part"]: r for r in (json.loads(line) for line in capsys.readouterr().out
+                                   .splitlines() if line.startswith('{"phase": "prior"'))}
+    step, cli, ref = recs["step"], recs["cli"], recs["reference"]
+    assert step["tokens"] == 256 and len(step["step_s"]) == 3
+    assert step["sample_shape"] == [2, 16, 16] and step["sample_range"][1] < 6
+    assert step["decode_positions"] == 256 and step["decode_gap"] <= step["decode_limit"]
+    assert step["decode_spread"]["float64"] > 0
+    assert [s for s, _, _ in cli["step_lines"]] == [1, 2, 3]
+    assert cli["sample_ids_shape"] == [2, 16, 16] and cli["sample_ids_dtype"] == "int32"
+    assert cli["config"]["block_size"] == 256 and cli["config"]["n_layer"] == 1
+    assert ref["loss_rel_err"] == 0.0 and ref["decode_max_abs_err"] == 0.0
+    assert ref["grad_rel_err_vs_f64"]["card"]["gpt"] <= ref["grad_limit"]["gpt"]
+    assert os.environ.get("MEDIMG_CONV_IMPL") != "packed"
+    # TINY_MODEL's widths route no conv to the kernel: the conv check at two
+    # shapes of the kind the lung widths route
+    assert recs["conv"]["shapes"] == 0
+    smoke.prior_conv_check("cpu", [(2, 32, 32, 16, 16), (2, 32, 64, 4, 4)], 0)
+    conv = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert conv["part"] == "conv" and conv["max_abs_err"] == {"2x32x32x16x16": 0.0,
+                                                              "2x32x64x4x4": 0.0}
+
+
 def test_chip_smoke_second_stage_phase_on_cpu(tmp_path, capsys, monkeypatch):
     """The second_stage phase end to end at tiny size on the CPU, staged
     from the trainer phase's run-A first stage: (a) the bare steps, the
@@ -525,9 +596,10 @@ def test_chip_smoke_vqgan_phase_on_cpu(tmp_path, capsys, monkeypatch):
     card at batch 8): (a) the bare steps, the operations counted on the
     meta device, the painted decode; (c) the card-vs-CPU comparison (here
     CPU against CPU: exact); (b) runs A and B, the resume held, test, the
-    0-based label maps, the planted faulty resume (the codebook's EMA
-    buffers dropped) that the check catches; no kernel launch, under the
-    packed conv route too; TF32 left off."""
+    0-based label maps, the planted faulty resumes (the codebook's EMA
+    buffers dropped; the discriminator's Adam moments dropped) that the
+    checks catch; no kernel launch, under the packed conv route too; TF32
+    left off."""
     monkeypatch.setenv("MEDIMG_CONV_PRECISION", "ieee")
     smoke = _chip_smoke()
     monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # its CPU side imports it
@@ -559,6 +631,8 @@ def test_chip_smoke_vqgan_phase_on_cpu(tmp_path, capsys, monkeypatch):
                for v in run["resume_gap"][part].values())
     limit = smoke.VQGAN_RESUME_GAP_LIMIT["codebook"]["cluster_size"]
     assert run["planted_fault_gap"]["codebook"]["cluster_size"] > limit
+    assert any(run["planted_dis_fault_gap"]["discriminator"][k] > v
+               for k, v in smoke.VQGAN_RESUME_GAP_LIMIT["discriminator"].items())
     assert run["validation_grids"] == 4 and run["label_maps"] == 10
     assert run["label_shape"] == [8, 8] and run["label_range"][1] < 6
     assert run["result_csv"][0][1:] == ["Entropy_avg", "Entropy_std", "NMSE_avg", "NMSE_std",
